@@ -1,0 +1,46 @@
+"""NN→ISA compiler toolchain, with executors on the card.
+
+Pipeline::
+
+    core/workloads                         (what to run)
+        └─ networks.network_layers          → GEMM layer list
+            └─ lower.lower_network          → Program (streams + DDR map)
+                └─ passes.PassPipeline      → optimized Program (-O1)
+                    ├─ core.scheduler.simulate_program → Fig. 5 latency
+                    └─ runtime.CudaExecutor → functional outputs on the
+                                              card (split-GEMM kernels)
+
+``program``, ``lower`` and ``passes`` are copies of the reference's
+modules; ``networks``, ``cli`` and ``runtime`` are ports.
+"""
+from repro_torch.compiler.cli import compile_network, execute_report, \
+    summarize
+from repro_torch.compiler.lower import lower_network
+from repro_torch.compiler.networks import list_networks, network_layers
+from repro_torch.compiler.passes import OPT_LEVELS, optimize_program
+from repro_torch.compiler.program import (
+    ConvGeometry,
+    CoreProgram,
+    GemmLayer,
+    LayerProgram,
+    Program,
+)
+from repro_torch.compiler.runtime import (
+    BACKENDS,
+    CudaExecutor,
+    ExecutionError,
+    ExecutorBackend,
+    bind_numpy_weights,
+    bind_synthetic,
+    get_backend,
+    synthetic_weights,
+)
+
+__all__ = [
+    "compile_network", "execute_report", "summarize", "lower_network",
+    "list_networks", "network_layers", "OPT_LEVELS", "optimize_program",
+    "ConvGeometry", "CoreProgram", "GemmLayer", "LayerProgram", "Program",
+    "BACKENDS", "CudaExecutor", "ExecutionError", "ExecutorBackend",
+    "bind_numpy_weights", "bind_synthetic", "get_backend",
+    "synthetic_weights",
+]

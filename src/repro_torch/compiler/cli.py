@@ -1,0 +1,193 @@
+"""``python -m repro_torch.compiler`` — compile CNNs to ISA programs and
+execute them on the card.
+
+Examples::
+
+    python -m repro_torch.compiler resnet18                   # summary
+    python -m repro_torch.compiler resnet18 -O 1 --simulate   # + Fig.5 decomposition
+    python -m repro_torch.compiler resnet18 --execute --backend cuda
+    python -m repro_torch.compiler resnet18 --in-hw 32 --width 0.25 \\
+        --execute --torch-device cpu                          # plain versions
+    python -m repro_torch.compiler --list
+
+The counterpart of ``repro.compiler.cli`` for CNN programs on one
+device. Multi-device bundles, decode programs, the LM registry and the
+asm/bin formats are ported in later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from repro_torch.core.scheduler import (
+    DEVICES,
+    DspCoreConfig,
+    LutCoreConfig,
+    simulate_program,
+)
+from repro_torch.quant.uniform import qrange
+from repro_torch.compiler.lower import lower_network
+from repro_torch.compiler.networks import list_networks, network_layers
+from repro_torch.compiler.passes import OPT_LEVELS
+from repro_torch.compiler.runtime import BACKENDS, bind_synthetic, get_backend
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.compiler",
+        description="Compile a CNN to unified-ISA instruction streams and "
+                    "execute it with PyTorch/CUDA.")
+    p.add_argument("network", nargs="?", help="resnet18 | mobilenet_v2")
+    p.add_argument("--list", action="store_true",
+                   help="list compilable networks and exit")
+    p.add_argument("--device", default="XC7Z020", choices=sorted(DEVICES),
+                   help="modelled FPGA device the program is compiled for")
+    p.add_argument("--bits-w", type=int, default=4,
+                   help="LUT-core weight bit-width (2-8)")
+    p.add_argument("--bits-a", type=int, default=4,
+                   help="activation bit-width (2-8)")
+    p.add_argument("--ratio", type=float, default=None,
+                   help="fixed LUT filter ratio; default solves Eq. 12")
+    p.add_argument("--in-hw", type=int, default=None,
+                   help="CNN input size (default 224); reduced variants "
+                        "stay geometry-consistent end to end")
+    p.add_argument("--width", type=float, default=None,
+                   help="CNN channel-width multiplier (default 1.0)")
+    p.add_argument("--lut-m", type=int, default=8)
+    p.add_argument("--lut-n", type=int, default=16)
+    p.add_argument("--lut-k", type=int, default=128)
+    p.add_argument("-O", "--opt", type=int, default=0, choices=OPT_LEVELS,
+                   help="optimization level: 0 = canonical Fig.-3 schedule, "
+                        "1 = passes.py pipeline")
+    p.add_argument("--backend", default="cuda", choices=sorted(BACKENDS),
+                   help="executor backend for --execute")
+    p.add_argument("--torch-device", default="cuda",
+                   help="torch device --execute runs on (cpu runs the "
+                        "kernels' plain versions)")
+    p.add_argument("--simulate", action="store_true",
+                   help="also run the event-driven simulator")
+    p.add_argument("--execute", action="store_true",
+                   help="also execute the program end to end with "
+                        "synthetic weights via --backend")
+    return p
+
+
+def compile_network(name: str, *, device: str = "XC7Z020", bits_w: int = 4,
+                    bits_a: int = 4, ratio: float | None = None,
+                    lut_m: int = 8, lut_n: int = 16, lut_k: int = 128,
+                    opt_level: int = 0, in_hw: int | None = None,
+                    width: float | None = None):
+    """Programmatic entry point: one single-device ``Program``.
+    ``in_hw``/``width`` scale the CNN workloads to their reduced
+    geometry-consistent variants."""
+    dev = DEVICES[device]
+    lut_cfg = LutCoreConfig(m=lut_m, n=lut_n, k=lut_k)
+    dsp_cfg = DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev))
+    layers = network_layers(name, in_hw=in_hw, width=width)
+    n_luts = None
+    if ratio is not None:
+        n_luts = [int(round(ratio * gl.dims.n)) for gl in layers]
+    return lower_network(name, layers, lut_cfg, dsp_cfg, dev,
+                         bits_w_lut=bits_w, bits_a=bits_a,
+                         n_luts=n_luts, opt_level=opt_level)
+
+
+def summarize(prog, simulate: bool = False) -> str:
+    s = prog.stats()
+    lines = [
+        f"program   {prog.name}  (device {prog.device.name})",
+        f"layers    {len(prog.layers)}",
+        f"instrs    {s.n_instructions}  "
+        + "  ".join(f"{k.lower()}={v}" for k, v in s.by_opcode.items()),
+        f"image     {s.image_bytes} B ({s.n_instructions} x 128-bit words)",
+        f"ddr map   {len(prog.memory.segments)} segments, "
+        f"{s.ddr_footprint} B footprint",
+        f"traffic   {s.bytes_fetched / 1e6:.3f} MB fetched, "
+        f"{s.bytes_written / 1e6:.3f} MB written back",
+    ]
+    split = [lp.n_lut / max(lp.dims.n, 1) for lp in prog.layers]
+    lines.append(f"lut ratio mean={sum(split) / max(len(split), 1):.3f} "
+                 f"min={min(split):.3f} max={max(split):.3f}")
+    if prog.opt_stats:
+        total_before = prog.opt_stats[0].instrs_before
+        total_after = prog.opt_stats[-1].instrs_after
+        lines.append(f"passes    {len(prog.opt_stats)} passes, "
+                     f"{total_before} -> {total_after} instrs "
+                     f"(-{total_before - total_after})")
+        for ps in prog.opt_stats:
+            lines.append(f"  {ps.render()}")
+    if simulate:
+        t0 = time.time()
+        ps = simulate_program(prog)
+        dt = time.time() - t0
+        lines.append(f"simulated {ps.total_cycles} cycles "
+                     f"({prog.device.cycles_to_ms(ps.total_cycles):.3f} ms "
+                     f"@ {prog.device.freq_mhz:.0f} MHz; sim wall {dt:.2f}s)")
+        for core in ("lut", "dsp"):
+            d = ps.decomposition(core)
+            lines.append(f"  {core}: wait={d['l_wait']} run={d['l_run']} "
+                         f"sig={d['l_sig']} rst={d['l_rst']}")
+    return "\n".join(lines)
+
+
+def execute_report(prog, backend: str = "cuda", seed: int = 0,
+                   device="cuda") -> str:
+    """Execute a CNN program end to end with synthetic weights.
+
+    A synthetic input image is quantized to the first layer's
+    activation bits and chained through the whole network (im2col
+    staging, pooling glue, shortcut sources, inter-layer
+    requantization). The weights and the image come from the same
+    numpy generators as the reference's report, so the ``|out| sum``
+    checksum is comparable between the two packages.
+    """
+    layers = prog.layers
+    if not layers or any(lp.geometry is None for lp in layers):
+        raise ValueError("execute_report runs CNN programs (every layer "
+                         "carries an im2col geometry)")
+    ex = get_backend(backend)(prog, device=device)
+    rng = np.random.default_rng(seed)
+    for lp in layers:
+        bind_synthetic(ex, lp, seed=seed + lp.index)
+    lp0 = layers[0]
+    lo_a, hi_a = qrange(lp0.bits_a)
+    x_q = rng.integers(lo_a, hi_a + 1, lp0.geometry.in_shape).astype(np.int8)
+    t0 = time.time()
+    logits = ex.run(x_q).cpu().numpy()
+    dt = time.time() - t0
+    return (f"executed  {len(layers)}/{len(layers)} layers end to "
+            f"end via {backend} backend in {dt:.3f}s "
+            f"(logits [{logits.shape[0]},{logits.shape[1]}], "
+            f"|out| sum {float(np.abs(logits).sum()):.6e})")
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.list:
+        print("\n".join(list_networks()))
+        return 0
+    if not args.network:
+        build_parser().print_usage()
+        return 2
+    if args.ratio is not None and not 0.0 <= args.ratio <= 1.0:
+        print(f"error: --ratio must be in [0, 1], got {args.ratio}",
+              file=sys.stderr)
+        return 2
+    try:
+        prog = compile_network(
+            args.network, device=args.device, bits_w=args.bits_w,
+            bits_a=args.bits_a, ratio=args.ratio, lut_m=args.lut_m,
+            lut_n=args.lut_n, lut_k=args.lut_k, opt_level=args.opt,
+            in_hw=args.in_hw, width=args.width)
+    except (KeyError, ValueError) as e:
+        msg = e.args[0] if e.args else e
+        print(f"error: {msg}", file=sys.stderr)
+        return 2
+    print(summarize(prog, simulate=args.simulate))
+    if args.execute:
+        print(execute_report(prog, backend=args.backend,
+                             device=args.torch_device))
+    return 0

@@ -1,0 +1,47 @@
+"""Pluggable executor backends for compiled Programs.
+
+  base.py    — :class:`ExecutorBackend` interface + shared binding,
+               validation, chaining; error taxonomy.
+  cuda.py    — :class:`CudaExecutor`: one fused split-GEMM kernel
+               launch per *layer* on the card (im2col-free convs;
+               ``fused=False`` for the per-partition path).
+
+Select by name via :func:`get_backend` (the CLI's ``--backend`` flag
+resolves here).
+"""
+from repro_torch.compiler.runtime.base import (
+    ExecutionError,
+    ExecutorBackend,
+    LayerWeights,
+    apply_pool,
+    bind_numpy_weights,
+    bind_synthetic,
+    chain_layers,
+    im2col_patches,
+    requantize,
+    spatialize,
+    synthetic_weights,
+)
+from repro_torch.compiler.runtime.cuda import CudaExecutor
+
+BACKENDS: dict[str, type[ExecutorBackend]] = {
+    CudaExecutor.name: CudaExecutor,
+}
+
+
+def get_backend(name: str) -> type[ExecutorBackend]:
+    """Resolve an executor backend class by registry name."""
+    try:
+        return BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown executor backend {name!r}; available: "
+            f"{sorted(BACKENDS)}") from None
+
+
+__all__ = [
+    "BACKENDS", "CudaExecutor", "ExecutionError", "ExecutorBackend",
+    "LayerWeights", "apply_pool", "bind_numpy_weights", "bind_synthetic",
+    "chain_layers", "get_backend", "im2col_patches", "requantize",
+    "spatialize", "synthetic_weights",
+]

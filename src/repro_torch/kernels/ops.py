@@ -1,0 +1,229 @@
+"""Public wrappers around the split-GEMM kernels.
+
+Two layers of entry points:
+
+  * on *prepared* split weights (:class:`SplitWeights`, made once by
+    :func:`prepare_split`): :func:`split_matmul`,
+    :func:`split_conv_matmul`, :func:`lut_matmul`, :func:`dsp_matmul` —
+    what the executor calls on every layer;
+  * on weight *codes*, the counterparts of ``repro.kernels.ops``:
+    :func:`bitserial_matmul`, :func:`int4_matmul`, :func:`fused_matmul`,
+    :func:`fused_conv_matmul`, :func:`hetero_matmul` — these prepare
+    the weights on every call, as the reference's wrappers do.
+
+``mode`` is ``"auto"`` (the kernel wrapper: the CUDA kernel on CUDA
+tensors, its plain version on CPU tensors) or ``"ref"`` (plain PyTorch
+on any device: the plain versions on prepared weights, the ported
+oracles of ``ref.py`` on codes). Unlike the reference there is no
+padding to block multiples and no splicing: the kernels mask ragged
+extents and write the DSP columns at offset ``n_lut`` themselves.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
+    bitserial_gemm_plain
+from repro_torch.kernels.fused_hetero_gemm import fused_conv_gemm, \
+    fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain
+from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
+
+MODES = ("auto", "ref")
+
+
+def _plain(mode: str) -> bool:
+    """Whether ``mode`` asks for plain PyTorch rather than the kernel."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return mode == "ref"
+
+
+def _pick(kernel, plain, mode: str):
+    return plain if _plain(mode) else kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitWeights:
+    """One layer's split weights in the kernels' layout, on one device.
+
+    planes: [bits, K, n_lut] int8 bit planes of the LUT columns;
+    packed: [K, ceil(n_dsp/2)] int8 int4 pairs of the DSP columns;
+    scale: [n_lut + n_dsp] fp32 per-column scales in split order.
+    """
+    planes: torch.Tensor
+    packed: torch.Tensor
+    scale: torch.Tensor
+    bits: int
+    n_lut: int
+    n_dsp: int
+
+    @property
+    def s_lut(self) -> torch.Tensor:
+        return self.scale[:self.n_lut]
+
+    @property
+    def s_dsp(self) -> torch.Tensor:
+        return self.scale[self.n_lut:]
+
+
+def prepare_split(k: int, w_lut: torch.Tensor | None,
+                  s_lut: torch.Tensor | None, bits: int,
+                  w_dsp: torch.Tensor | None, s_dsp: torch.Tensor | None,
+                  device: torch.device) -> SplitWeights:
+    """Bit planes, packed bytes and split-order scales from [K, n] weight
+    codes (an absent side is None or has 0 columns)."""
+    n_lut = 0 if w_lut is None else w_lut.shape[1]
+    n_dsp = 0 if w_dsp is None else w_dsp.shape[1]
+    if n_lut + n_dsp == 0:
+        raise ValueError("both split sides are empty")
+    if n_lut:
+        planes = ref.bitplane_decompose(w_lut.to(device), bits)
+    else:
+        planes = torch.zeros((bits, k, 0), dtype=torch.int8, device=device)
+    if n_dsp:
+        packed = ref.pack_int4(F.pad(w_dsp.to(device, torch.int32),
+                                     (0, n_dsp % 2)))
+    else:
+        packed = torch.zeros((k, 0), dtype=torch.int8, device=device)
+    scales = [s.to(device, torch.float32).reshape(-1)
+              for s, n in ((s_lut, n_lut), (s_dsp, n_dsp)) if n]
+    return SplitWeights(planes.contiguous(), packed.contiguous(),
+                        torch.cat(scales).contiguous(), bits, n_lut, n_dsp)
+
+
+# ---------------------------------------------------------------------------
+# On prepared weights
+# ---------------------------------------------------------------------------
+
+
+def lut_matmul(x_q: torch.Tensor, sw: SplitWeights, *,
+               mode: str = "auto") -> torch.Tensor:
+    """The LUT partition alone: [M, K] int8 -> fp32 [M, n_lut]."""
+    fn = _pick(bitserial_gemm, bitserial_gemm_plain, mode)
+    return fn(x_q, sw.planes, sw.s_lut, sw.bits)
+
+
+def dsp_matmul(x_q: torch.Tensor, sw: SplitWeights, *,
+               mode: str = "auto") -> torch.Tensor:
+    """The DSP partition alone: [M, K] int8 -> fp32 [M, n_dsp]."""
+    fn = _pick(int4_gemm, int4_gemm_plain, mode)
+    return fn(x_q, sw.packed, sw.s_dsp, sw.n_dsp)
+
+
+def split_matmul(x_q: torch.Tensor, sw: SplitWeights, *,
+                 mode: str = "auto") -> torch.Tensor:
+    """Both sides of the split in one launch: [M, K] int8 -> fp32
+    [M, n_lut + n_dsp] in split column order. A one-sided split takes
+    the matching single-path kernel, as the reference does."""
+    if sw.n_lut == 0:
+        return dsp_matmul(x_q, sw, mode=mode)
+    if sw.n_dsp == 0:
+        return lut_matmul(x_q, sw, mode=mode)
+    fn = _pick(fused_hetero_gemm, fused_hetero_gemm_plain, mode)
+    return fn(x_q, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut,
+              sw.n_dsp)
+
+
+def split_conv_matmul(x_sp: torch.Tensor, kernel: int, stride: int, pad: int,
+                      out_hw: int, sw: SplitWeights, *,
+                      mode: str = "auto") -> torch.Tensor:
+    """Im2col-free conv GEMM from the unpadded [H, W, C] int8 block in
+    one launch, one-sided splits included: fp32 [out_hw**2, n]."""
+    fn = _pick(fused_conv_gemm, fused_conv_gemm_plain, mode)
+    return fn(x_sp, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut,
+              sw.n_dsp, kernel, stride, pad, out_hw)
+
+
+# ---------------------------------------------------------------------------
+# On weight codes (the reference's public surface)
+# ---------------------------------------------------------------------------
+
+
+def bitserial_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor, bits: int, *,
+                     mode: str = "auto") -> torch.Tensor:
+    """Bitplane-path GEMM: x_q [M, K] int8; w_q [K, N] codes within
+    ``bits`` bits; w_scale [N] fp32."""
+    if _plain(mode):
+        return ref.bitserial_gemm_ref(x_q, w_q, w_scale, bits)
+    sw = prepare_split(w_q.shape[0], w_q, w_scale, bits, None, None,
+                       x_q.device)
+    return lut_matmul(x_q, sw)
+
+
+def int4_matmul(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                *, mode: str = "auto") -> torch.Tensor:
+    """Packed-int4-path GEMM: x_q [M, K] int8; w_q [K, N] codes in
+    [-8, 7]; w_scale [N] fp32."""
+    if _plain(mode):
+        n = w_q.shape[1]
+        packed = ref.pack_int4(F.pad(w_q.to(torch.int32), (0, n % 2)))
+        return ref.int4_gemm_ref(x_q, packed,
+                                 F.pad(w_scale, (0, n % 2)))[:, :n]
+    sw = prepare_split(w_q.shape[0], None, None, 0, w_q, w_scale, x_q.device)
+    return dsp_matmul(x_q, sw)
+
+
+def _norm_side(w_q, w_scale):
+    """An absent split side may arrive as None or as a 0-column array."""
+    if w_q is None or w_q.shape[-1] == 0:
+        return None, None
+    return w_q, w_scale
+
+
+def fused_matmul(x_q: torch.Tensor, w_lut: torch.Tensor | None,
+                 s_lut: torch.Tensor | None, bits: int,
+                 w_dsp: torch.Tensor | None, s_dsp: torch.Tensor | None, *,
+                 mode: str = "auto") -> torch.Tensor:
+    """Fused split GEMM — both sides of the Eq.-12 split in ONE launch.
+    Returns fp32 [M, n_lut + n_dsp] in split column order."""
+    w_lut, s_lut = _norm_side(w_lut, s_lut)
+    w_dsp, s_dsp = _norm_side(w_dsp, s_dsp)
+    if w_lut is None and w_dsp is None:
+        raise ValueError("fused_matmul: both split sides are empty")
+    if _plain(mode):
+        return ref.fused_hetero_gemm_ref(x_q, w_lut, s_lut, bits, w_dsp,
+                                         s_dsp)
+    sw = prepare_split(x_q.shape[1], w_lut, s_lut, bits, w_dsp, s_dsp,
+                       x_q.device)
+    return split_matmul(x_q, sw)
+
+
+def fused_conv_matmul(x_sp: torch.Tensor, kernel: int, stride: int, pad: int,
+                      out_hw: int, w_lut: torch.Tensor | None,
+                      s_lut: torch.Tensor | None, bits: int,
+                      w_dsp: torch.Tensor | None, s_dsp: torch.Tensor | None,
+                      *, mode: str = "auto") -> torch.Tensor:
+    """Fused im2col-free conv GEMM from the *unpadded* [H, W, C] int8
+    block; weights as :func:`fused_matmul` with K = ``kernel**2 * C``
+    rows in (kh, kw, c) order."""
+    w_lut, s_lut = _norm_side(w_lut, s_lut)
+    w_dsp, s_dsp = _norm_side(w_dsp, s_dsp)
+    if w_lut is None and w_dsp is None:
+        raise ValueError("fused_conv_matmul: both split sides are empty")
+    k = kernel * kernel * x_sp.shape[2]
+    if _plain(mode):
+        x_col = ref.conv_patches_ref(x_sp, kernel, stride, pad, out_hw)
+        return ref.fused_hetero_gemm_ref(x_col.reshape(out_hw * out_hw, k),
+                                         w_lut, s_lut, bits, w_dsp, s_dsp)
+    sw = prepare_split(k, w_lut, s_lut, bits, w_dsp, s_dsp, x_sp.device)
+    return split_conv_matmul(x_sp, kernel, stride, pad, out_hw, sw)
+
+
+def hetero_matmul(x_q: torch.Tensor, w_q_serial: torch.Tensor,
+                  s_serial: torch.Tensor, bits_serial: int,
+                  w_q_parallel: torch.Tensor, s_parallel: torch.Tensor, *,
+                  mode: str = "auto") -> torch.Tensor:
+    """The paper's split GEMM: serial-path columns then int4 columns,
+    one launch per side."""
+    outs = []
+    if w_q_serial.shape[1]:
+        outs.append(bitserial_matmul(x_q, w_q_serial, s_serial, bits_serial,
+                                     mode=mode))
+    if w_q_parallel.shape[1]:
+        outs.append(int4_matmul(x_q, w_q_parallel, s_parallel, mode=mode))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)

@@ -1,0 +1,169 @@
+"""Plain PyTorch versions of the split-GEMM kernels.
+
+The counterparts of ``repro.kernels.ref``'s oracles, bit for bit. They
+run on any device: the CPU tests call them, and on the card they are
+what each CUDA kernel is held against.
+
+Integer products contract in float64 and are cast back to int32. That
+is exact here: activations are int8 (|x| <= 128), a weight is a bit
+plane in {0, 1} or an int4 code (|w| <= 8) or at most an 8-bit code
+(|w| <= 128), and K <= 4608, so every partial sum is an integer below
+2^27, far inside float64's 2^53. CUDA has no int32 matmul, and DGEMM is
+exact on these inputs, so the same code is right on the CPU and on the
+card. The fp32 dequant is then one elementwise multiply, the same op
+the kernels and the reference apply.
+
+Also hosts the representation helpers shared by the plain versions and
+the kernels' weight preparation:
+
+  * ``bitplane_decompose`` — paper Eq. (1): a ``bits``-bit signed
+    integer tensor becomes ``bits`` binary planes with per-plane signed
+    weights (two's complement: MSB plane weight is -2^(bits-1)).
+  * ``pack_int4`` / ``unpack_int4`` — two int4 codes per int8 byte
+    along the last axis, even index in the low nibble.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Representation helpers
+# ---------------------------------------------------------------------------
+
+
+def plane_scales(bits: int) -> list[int]:
+    """Signed per-plane weights of a two's-complement decomposition."""
+    return [2 ** b for b in range(bits - 1)] + [-(2 ** (bits - 1))]
+
+
+def bitplane_decompose(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Signed integer codes -> ``[bits, ...]`` binary planes (int8 0/1).
+
+    Reconstruction: ``q == sum_b plane_scales(bits)[b] * planes[b]``.
+    """
+    u = q.to(torch.int32) & ((1 << bits) - 1)  # two's complement bits
+    shifts = torch.arange(bits, dtype=torch.int32, device=q.device)
+    shifts = shifts.reshape((bits,) + (1,) * q.ndim)
+    return ((u.unsqueeze(0) >> shifts) & 1).to(torch.int8)
+
+
+def bitplane_reconstruct(planes: torch.Tensor) -> torch.Tensor:
+    bits = planes.shape[0]
+    s = torch.tensor(plane_scales(bits), dtype=torch.int32,
+                     device=planes.device)
+    s = s.reshape((bits,) + (1,) * (planes.ndim - 1))
+    return torch.sum(planes.to(torch.int32) * s, dim=0, dtype=torch.int32)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack signed int4 codes pairwise along the last axis: [..., N] ->
+    [..., N//2] int8 with even index in the low nibble."""
+    if q.shape[-1] % 2 != 0:
+        raise ValueError("last axis must be even to pack int4 pairs")
+    lo = q[..., 0::2].to(torch.int32) & 0xF
+    hi = q[..., 1::2].to(torch.int32) & 0xF
+    return ((hi << 4) | lo).to(torch.int8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4`` (sign-extended in int32)."""
+    b = p.to(torch.int32)
+    lo = (b << 28) >> 28                    # arithmetic shift sign-extends
+    hi = b >> 4
+    out = torch.stack([lo, hi], dim=-1)
+    return out.reshape(*p.shape[:-1], p.shape[-1] * 2).to(torch.int8)
+
+
+def exact_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8 [M, K] and small-integer [K, N]
+    through float64 (see the module docstring), as int32."""
+    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels
+# ---------------------------------------------------------------------------
+
+
+def bitserial_gemm_ref(x: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bitplane GEMM.
+
+    x: [M, K] int8 activations; w_q: [K, N] signed integer codes within
+    ``bits`` bits; w_scale: [N] fp32 per-column scales. Returns fp32
+    [M, N] = (x @ w_q) * w_scale through the bitplane decomposition.
+    """
+    planes = bitplane_decompose(w_q, bits)                # [B, K, N]
+    acc = torch.zeros((x.shape[0], w_q.shape[1]), dtype=torch.int32,
+                      device=x.device)
+    for b, s in enumerate(plane_scales(bits)):
+        acc = acc + s * exact_dot(x, planes[b])
+    return acc.to(torch.float32) * w_scale[None, :]
+
+
+def int4_gemm_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                  w_scale: torch.Tensor) -> torch.Tensor:
+    """Packed-int4 GEMM.
+
+    x: [M, K] int8; w_packed: [K, N//2] int8 (pack_int4 layout);
+    w_scale: [N] fp32. Returns fp32 [M, N].
+    """
+    acc = exact_dot(x, unpack_int4(w_packed))
+    return acc.to(torch.float32) * w_scale[None, :]
+
+
+def conv_patches_ref(x_sp: torch.Tensor, kernel: int, stride: int, pad: int,
+                     out_hw: int) -> torch.Tensor:
+    """Im2col patch generation from a spatial [H, W, C] tensor:
+    returns [out_hw*out_hw, kernel*kernel, C] (output positions
+    row-major, taps in (kh, kw) order). Zero padding — code 0 is real
+    0.0 under the symmetric quantizer. The (kh, kw, c) column order
+    matches the HWIO weight flattening ``w.reshape(k, n)``.
+    """
+    x = F.pad(x_sp, (0, 0, pad, pad, pad, pad))
+    span = stride * (out_hw - 1) + 1
+    taps = [x[dh:dh + span:stride, dw:dw + span:stride, :]
+            for dh in range(kernel) for dw in range(kernel)]
+    pat = torch.stack(taps, dim=2)             # [oh, oh, kk*kk, C]
+    return pat.reshape(out_hw * out_hw, kernel * kernel, x_sp.shape[2])
+
+
+def fused_hetero_gemm_ref(x: torch.Tensor, w_lut: torch.Tensor | None,
+                          s_lut: torch.Tensor | None, bits: int,
+                          w_dsp: torch.Tensor | None,
+                          s_dsp: torch.Tensor | None) -> torch.Tensor:
+    """Fused split GEMM: one int32 accumulation over both sides of the
+    Eq.-12 split, one per-column dequant.
+
+    x: [M, K] int8; w_lut: [K, n_lut] codes within ``bits`` bits (or
+    None); w_dsp: [K, n_dsp] codes in [-8, 7] (or None); s_*: per-column
+    fp32 scales. Returns fp32 [M, n_lut + n_dsp] in split column order.
+    """
+    accs, scales = [], []
+    if w_lut is not None and w_lut.shape[1]:
+        planes = bitplane_decompose(w_lut, bits)
+        acc = torch.zeros((x.shape[0], w_lut.shape[1]), dtype=torch.int32,
+                          device=x.device)
+        for b, s in enumerate(plane_scales(bits)):
+            acc = acc + s * exact_dot(x, planes[b])
+        accs.append(acc)
+        scales.append(s_lut)
+    if w_dsp is not None and w_dsp.shape[1]:
+        accs.append(exact_dot(x, w_dsp))
+        scales.append(s_dsp)
+    acc = torch.cat(accs, dim=1)
+    sc = torch.cat(scales)
+    return acc.to(torch.float32) * sc[None, :]
+
+
+def hetero_gemm_ref(x: torch.Tensor, w_q_serial: torch.Tensor,
+                    s_serial: torch.Tensor, bits_serial: int,
+                    w_packed_parallel: torch.Tensor,
+                    s_parallel: torch.Tensor) -> torch.Tensor:
+    """The paper's heterogeneous split GEMM: first columns via the
+    bitplane path, remaining via the packed-int4 path, concatenated."""
+    lo = bitserial_gemm_ref(x, w_q_serial, s_serial, bits_serial)
+    hi = int4_gemm_ref(x, w_packed_parallel, s_parallel)
+    return torch.cat([lo, hi], dim=-1)

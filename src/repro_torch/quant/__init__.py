@@ -1,0 +1,11 @@
+"""Quantization substrate: the uniform symmetric quantizer (Eq. 2)."""
+from repro_torch.quant.uniform import (
+    dequantize,
+    fit_scale,
+    fit_scale_per_channel,
+    qrange,
+    quantize,
+)
+
+__all__ = ["dequantize", "fit_scale", "fit_scale_per_channel", "qrange",
+           "quantize"]

@@ -1,0 +1,123 @@
+"""The port's compiler is the reference's compiler.
+
+``repro_torch`` keeps its own copies of the reference's pure-Python
+modules (it imports nothing of ``repro``). These tests hold the copies
+to the originals: the copied files equal the originals with only their
+imports rewritten, and the compiled programs have the same
+fingerprints, splits, bit widths, geometries and elementwise tails. They
+also guard the import boundary: nothing in ``src/repro_torch`` or
+``chip_smoke.py`` imports JAX or the reference package.
+"""
+import ast
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro.compiler import compile_network as compile_jax
+from repro_torch.compiler import compile_network as compile_torch
+from repro_torch.compiler import cli, list_networks, network_layers
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+#: modules copied verbatim from ``src/repro``, imports rewritten
+COPIED = [
+    "core/isa.py", "core/scheduler.py", "core/workloads.py",
+    "core/latency_model.py", "core/split.py",
+    "compiler/program.py", "compiler/lower.py", "compiler/passes.py",
+    "obs/counters.py", "obs/trace.py", "obs/metrics.py",
+]
+
+PROGRAMS = [
+    ("resnet18", {}),
+    ("resnet18", {"in_hw": 32, "width": 0.25}),
+    ("mobilenet_v2", {}),
+]
+
+
+@pytest.mark.parametrize("path", COPIED)
+def test_copied_module_equals_original(path):
+    original = (ROOT / "src" / "repro" / path).read_text()
+    rewritten = re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.",
+                       original, flags=re.M)
+    assert (PORT / path).read_text() == rewritten
+
+
+def _layer_view(lp):
+    return (lp.index, lp.name, lp.dims.m, lp.dims.k, lp.dims.n, lp.n_lut,
+            lp.bits_w_lut, lp.bits_a, lp.depthwise,
+            dataclasses.astuple(lp.geometry),
+            tuple(dataclasses.astuple(op) for op in lp.elementwise))
+
+
+@pytest.mark.parametrize("opt_level", [0, 1])
+@pytest.mark.parametrize("name,kw", PROGRAMS,
+                         ids=["resnet18", "resnet18-reduced", "mobilenet_v2"])
+def test_compiled_program_matches_reference(name, kw, opt_level):
+    want = compile_jax(name, opt_level=opt_level, **kw)
+    got = compile_torch(name, opt_level=opt_level, **kw)
+    assert got.fingerprint() == want.fingerprint()
+    assert [_layer_view(lp) for lp in got.layers] == \
+        [_layer_view(lp) for lp in want.layers]
+    assert got.stats().n_instructions == want.stats().n_instructions
+
+
+def test_resnet18_full_width_program_identity():
+    prog = compile_torch("resnet18")
+    assert len(prog.layers) == 21
+    assert prog.fingerprint().startswith("7e19135d4d75")
+    # every layer is split on both sides and carries a conv geometry
+    assert all(0 < lp.n_lut < lp.dims.n and lp.geometry is not None
+               for lp in prog.layers)
+
+
+def test_networks_are_the_cnn_workloads():
+    assert list_networks() == ["mobilenet_v2", "resnet18"]
+    assert len(network_layers("resnet18")) == 21
+    with pytest.raises(ValueError, match="later slice"):
+        network_layers("llama3.2-1b")
+
+
+def test_cli_summary_and_errors(capsys):
+    assert cli.main(["resnet18", "--in-hw", "32", "--width", "0.25",
+                     "--simulate"]) == 0
+    out = capsys.readouterr().out
+    assert "layers    21" in out and "simulated" in out
+    assert cli.main(["llama3.2-1b"]) == 2
+    assert "later slice" in capsys.readouterr().err
+    assert cli.main(["resnet18", "--ratio", "2"]) == 2
+    assert cli.main(["--list"]) == 0
+    assert capsys.readouterr().out.split() == ["mobilenet_v2", "resnet18"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
+           for mod in _imports(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_executor_import_pulls_in_no_jax():
+    code = ("import sys, repro_torch.compiler.runtime.cuda; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

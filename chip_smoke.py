@@ -6,21 +6,28 @@
 Phases, each printing its lines before the last:
 
 1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with nvcc and time the build.
+   from ``src/repro_torch/kernels/csrc`` with nvcc, time the build and
+   print ptxas's register, shared-memory and spill report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
    splits. Required: bitwise equality. Times: the kernel and the plain
    version (CUDA events after a warm-up), ``torch._int_mm`` on the
    reconstructed int8 weights as the library yardstick, and the bound
-   (bytes over 3.35 TB/s vs plane-expanded int8 ops over 1,979 TOP/s).
+   (bytes at the weights' code width over 3.35 TB/s vs 2·m·k·n int8
+   operations over 1,979 TOP/s).
 3. slice: compile resnet18 (224, width 1.0, -O 0) with
    ``repro_torch.compiler``, bind synthetic weights, and drive four
-   images through ``CudaExecutor`` with the launch counts at 0.
-   Required: logits bitwise equal to the plain versions on the card
-   (``mode="ref"``), to ``fused=False``, to the staged ``run_layer``
-   path, and to the CPU run of the same image; ``fused_conv_gemm``
-   launched exactly 21 times per image; every kernel launched.
+   images through ``CudaExecutor``'s fused path, four through
+   ``fused=False`` and image 0's per-layer inputs through the staged
+   ``run_layer`` path, with the launch counts set to 0 just before each
+   path and read just after it. Required: each path's counts exactly
+   what its layers launch (``fused_conv_gemm`` 21 per image on the
+   fused path; ``bitserial_gemm`` and ``int4_gemm`` one per split side
+   on ``fused=False``; ``fused_hetero_gemm`` one per two-sided layer
+   when staged; none in ``mode="ref"``), and logits bitwise equal to
+   the plain versions on the card (``mode="ref"``), to ``fused=False``,
+   to the staged path, and to the CPU run of the same image.
 
 The line before the last is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
@@ -30,6 +37,7 @@ CUDA is unavailable or the package is not beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -48,6 +56,13 @@ REPLACES = {
     "fused_hetero_gemm": "src/repro/kernels/fused_hetero_gemm.py:106",
     "bitserial_gemm": "src/repro/kernels/bitserial_gemm.py:62",
     "int4_gemm": "src/repro/kernels/int4_gemm.py:55",
+}
+#: the executor path whose counted run each kernel's launches come from
+KERNEL_PATH = {
+    "fused_conv_gemm": "fused",
+    "fused_hetero_gemm": "staged",
+    "bitserial_gemm": "fused=False",
+    "int4_gemm": "fused=False",
 }
 N_IMAGES = 4
 
@@ -83,11 +98,15 @@ def require_equal(torch, name: str, got, want) -> float:
 
 def bound_ms(x_bytes: int, m: int, k: int, bits: int, n_lut: int,
              n_dsp: int) -> tuple[float, str]:
-    """Least time for one split GEMM: every input byte read once and the
-    fp32 output written once, vs the plane-expanded int8 operations."""
-    nbytes = (x_bytes + bits * k * n_lut + k * ((n_dsp + 1) // 2)
-              + 4 * (n_lut + n_dsp) + 4 * m * (n_lut + n_dsp))
-    ops = 2 * m * k * (bits * n_lut + n_dsp)
+    """Least time for one split GEMM: the activations, each weight at its
+    code width (``bits`` per LUT weight, 4 per DSP weight) and the fp32
+    scales read once and the fp32 output written once, vs the 2·m·k·n
+    operations of the integer product at the int8 rate. The int8 bit
+    planes the kernels read hold each LUT weight in 8x its bits."""
+    n = n_lut + n_dsp
+    nbytes = (x_bytes + -(-(bits * n_lut + 4 * n_dsp) * k // 8) + 4 * n
+              + 4 * m * n)
+    ops = 2 * m * k * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
@@ -117,14 +136,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def phase_card(torch):
+def phase_card(torch, details: dict):
     from repro_torch.kernels import build
-    print(f"card: {nvidia_smi()}")
+    details["card"] = nvidia_smi()
+    print(f"card: {details['card']}")
+    built = build.library_path().exists() and build.report_path().exists()
     t0 = time.time()
-    build.build(verbose=True)
+    build.build()
     build.load_library()
-    print(f"build: nvcc + load {time.time() - t0:.2f} s "
-          f"({build.library_path().name})")
+    details["build_s"] = time.time() - t0
+    details["ptxas"] = build.report_path().read_text()
+    usage = [ln.split(":", 1)[-1].strip() for ln in
+             details["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
+    print(f"build: {'cached library, load' if built else 'nvcc + load'} "
+          f"{details['build_s']:.2f} s ({build.library_path().name}); "
+          f"ptxas: {'; '.join(usage)}")
 
 
 def layer_inputs(torch, prog, seed: int = 1):
@@ -257,8 +283,38 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
     return tot
 
 
+def expected_launches(prog, ex) -> dict:
+    """Per path, the launches of one image: the fused path launches
+    ``fused_conv_gemm`` once per layer; ``fused=False`` one single-path
+    kernel per non-empty split side; staged ``run_layer`` one
+    ``fused_hetero_gemm`` per two-sided layer, else the side's kernel."""
+    want = {p: collections.Counter() for p in ("fused", "fused=False",
+                                               "staged")}
+    for lp in prog.layers:
+        sw = ex._split[lp.index]
+        sides = [name for name, n in (("bitserial_gemm", sw.n_lut),
+                                      ("int4_gemm", sw.n_dsp)) if n]
+        want["fused"]["fused_conv_gemm"] += 1
+        want["fused=False"].update(sides)
+        want["staged"][sides[0] if len(sides) == 1
+                       else "fused_hetero_gemm"] += 1
+    return want
+
+
+def read_launches(launches, per_image: dict, n_images: int,
+                  path: str) -> dict:
+    """The counts of one path's run; raise unless they are exactly
+    ``per_image`` times ``n_images``."""
+    got = {name: count for name, count in launches.items() if count}
+    want = {name: count * n_images for name, count in per_image.items()}
+    if got != want:
+        raise AssertionError(f"{path} path launches {got} != {want}")
+    return got
+
+
 def phase_slice(torch, prog, ex, details: dict) -> dict:
-    """Four images through CudaExecutor with the counts at 0."""
+    """Each CudaExecutor path on full-width resnet18, its launches
+    counted in a window of its own; returns each kernel's count."""
     import numpy as np
     from repro_torch.compiler import CudaExecutor, bind_synthetic, \
         compile_network, execute_report
@@ -280,7 +336,10 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
               .astype(np.int8) for _ in range(N_IMAGES)]
     ex.run(images[0])
     torch.cuda.synchronize()
+    want = expected_launches(prog, ex)
 
+    # each path runs with the counts set to 0 just before it and read
+    # just after it; its counts must be exactly what its layers launch
     LAUNCHES.clear()
     logits, lat = [], []
     for x in images:
@@ -289,14 +348,18 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
         torch.cuda.synchronize()
         lat.append(1e3 * (time.perf_counter() - t0))
         logits.append(y)
-    fused_counts = dict(LAUNCHES)
-    want = {"fused_conv_gemm": len(prog.layers) * N_IMAGES}
-    if fused_counts != want:
-        raise AssertionError(f"fused path launches {fused_counts} != {want}")
-    for i, x in enumerate(images):
-        require_equal(torch, f"image {i} fused vs fused=False",
-                      logits[i], ex_split.run(x))
-    # the staged run_layer path on image 0's per-layer inputs
+    paths = {"fused": read_launches(LAUNCHES, want["fused"], N_IMAGES,
+                                    "fused")}
+
+    LAUNCHES.clear()
+    split_logits = [ex_split.run(x) for x in images]
+    paths["fused=False"] = read_launches(LAUNCHES, want["fused=False"],
+                                         N_IMAGES, "fused=False")
+    for i, y in enumerate(split_logits):
+        require_equal(torch, f"image {i} fused vs fused=False", logits[i], y)
+
+    # the staged run_layer path on image 0's per-layer inputs, recorded
+    # by one more fused run outside the counted window
     inputs, outs = {}, {}
 
     def record(index, x_sp):
@@ -304,20 +367,23 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
         outs[index] = ex.run_layer(index, x_sp)
         return outs[index]
     chain_layers(prog.layers, record, ex._as_codes(images[0]))
+    staged = {lp.index: im2col_patches(inputs[lp.index], lp.geometry)
+              .reshape(lp.dims.m, lp.dims.k) for lp in prog.layers}
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    staged_outs = {i: ex.run_layer(i, x) for i, x in staged.items()}
+    paths["staged"] = read_launches(LAUNCHES, want["staged"], 1, "staged")
     for lp in prog.layers:
-        staged = im2col_patches(inputs[lp.index], lp.geometry).reshape(
-            lp.dims.m, lp.dims.k)
         require_equal(torch, f"{lp.name} staged vs spatial",
-                      ex.run_layer(lp.index, staged), outs[lp.index])
-    counts = dict(LAUNCHES)
-    missing = [n for n in REPLACES if not counts.get(n)]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing} ({counts})")
-    # plain versions on the card, and the CPU run of image 0
+                      staged_outs[lp.index], outs[lp.index])
+
+    # plain versions on the card (they launch no kernel), and the CPU
+    # run of image 0
+    LAUNCHES.clear()
     for i, x in enumerate(images):
         require_equal(torch, f"image {i} kernels vs plain",
                       logits[i], ex_ref.run(x))
+    read_launches(LAUNCHES, {}, N_IMAGES, "mode=ref")
     ex_cpu = CudaExecutor(prog, device="cpu")
     for lp in prog.layers:
         bind_synthetic(ex_cpu, lp, seed=lp.index)
@@ -342,17 +408,27 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
           f"per-image latency median {med:.3f} ms ({', '.join(f'{v:.3f}' for v in lat)}); "
           f"|out| sum image 0 {float(np.abs(y0).sum()):.6e}; bitwise equal "
           f"to plain, fused=False, staged and CPU")
-    print(f"slice: launches {counts} (fused_conv_gemm "
-          f"{fused_counts['fused_conv_gemm'] // N_IMAGES}/image)")
+    for path, counts in paths.items():
+        print(f"slice: {path} path launches {counts} "
+              f"({'1 image' if path == 'staged' else f'{N_IMAGES} images'})")
     details["latency_ms"] = lat
-    details["launches"] = counts
-    return counts
+    details["launches"] = paths
+    # each kernel's launches, read from the run of the path that uses it
+    launches = {name: paths[path].get(name, 0)
+                for name, path in KERNEL_PATH.items()}
+    missing = [name for name, count in launches.items() if not count]
+    if missing:
+        raise AssertionError(f"kernels not launched on their path: "
+                             f"{missing} ({paths})")
+    return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
-                    help="also write per-layer timings as JSON here")
+                    help="also write the card, build time, ptxas report, "
+                         "per-layer timings, per-image latencies and "
+                         "per-path launches as JSON here")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -365,7 +441,8 @@ def main(argv=None) -> int:
     from repro_torch.compiler import CudaExecutor, bind_synthetic, \
         compile_network
 
-    phase_card(torch)
+    details: dict = {}
+    phase_card(torch, details)
     t0 = time.time()
     prog = compile_network("resnet18")
     print(f"compile: resnet18 224 -O 0, {len(prog.layers)} layers, "
@@ -373,7 +450,6 @@ def main(argv=None) -> int:
     ex = CudaExecutor(prog)
     for lp in prog.layers:
         bind_synthetic(ex, lp, seed=lp.index)
-    details: dict = {"card": nvidia_smi()}
     tot = phase_kernels(torch, prog, ex, details)
     counts = phase_slice(torch, prog, ex, details)
     kernels = []

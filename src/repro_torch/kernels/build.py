@@ -27,7 +27,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "split_gemm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signature of each entry point: pointers and the stream as void*,
@@ -63,22 +63,25 @@ def library_path() -> Path:
     return BUILD_DIR / f"split_gemm-{digest}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def report_path() -> Path:
+    """nvcc's ``-Xptxas -v`` report (registers, shared memory, spills),
+    kept beside the library it describes."""
+    return library_path().with_suffix(".log")
+
+
+def build() -> Path:
     """Compile the kernels if this source has no library yet; return
-    the library's path. ``verbose`` adds ``-Xptxas -v`` and prints
-    nvcc's report (registers, shared memory, spills)."""
+    the library's path. nvcc's report goes to :func:`report_path`."""
     out = library_path()
-    if out.exists() and not verbose:
+    if out.exists() and report_path().exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
+    report_path().write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

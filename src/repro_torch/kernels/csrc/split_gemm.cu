@@ -25,11 +25,13 @@
 // the same two IEEE operations as the plain version, so the outputs
 // are bitwise equal to it.
 //
-// What bounds it on an H100. At batch 1 resnet18's split GEMMs read
-// about 39 MB of planes and packed weights and write about 10 MB of
-// fp32 per image: ~15 us at 3.35 TB/s. The plane-expanded int8 work is
-// ~12 G ops: ~6 us at the 1,979 TOP/s int8 tensor-core peak. So the
-// batch-1 floor is set by bytes.
+// What bounds it on an H100. At batch 1 resnet18's split GEMMs need
+// about 5.8 MB of weights at their code width (4 bits each), 2.2 MB of
+// activations and 9.9 MB of fp32 output per image: ~5.4 us at
+// 3.35 TB/s. The integer product is ~3.6 G ops: ~1.8 us at the
+// 1,979 TOP/s int8 tensor-core peak. So the batch-1 floor is set by
+// bytes. The int8 bit planes read here hold each LUT weight in 8x its
+// bits (~39 MB per image), which a bit-packed layout would avoid.
 //
 // Design (simple and right first; wgmma/TMA is later work):
 //   * one block of 256 threads per (64-row tile x 64-column tile); each

@@ -6,8 +6,9 @@
 Phases, each printing its lines before the last:
 
 1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with nvcc, time the build and
-   print ptxas's register, shared-memory and spill report.
+   from ``src/repro_torch/kernels/csrc`` (``split_gemm.cu`` and
+   ``flash_attention.cu``, one nvcc each, started together), time the
+   build and print ptxas's register, shared-memory and spill report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
@@ -28,6 +29,31 @@ Phases, each printing its lines before the last:
    when staged; none in ``mode="ref"``), and logits bitwise equal to
    the plain versions on the card (``mode="ref"``), to ``fused=False``,
    to the staged path, and to the CPU run of the same image.
+4. flash: the flash-attention kernel against its plain version in bf16
+   at six shapes: the serving prefill (B=8, S=64, 32 query heads over
+   8 KV heads, D=64, causal), S=2048 causal, S=1000 causal (ragged),
+   S=333 non-causal, 64 queries at offset 960 of 1024 keys, and one
+   query at offset 1023 (the decode form). Required: max |err| within
+   :func:`flash_tol`. Times of the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` on the KV heads repeated (the
+   library yardstick): device time per call from a ``torch.profiler``
+   trace (:func:`device_ms`; the kernels' row reports these), and CUDA
+   events over back-to-back calls, which at small shapes measure the
+   host's launch rate. The bound: q, k, v and out once over 3.35 TB/s
+   vs 4·B·Hq·D·(unmasked pairs) over 989 TFLOP/s bf16.
+5. serve: full-width llama3.2-1b (16 layers, bf16, weights from
+   ``torch.Generator`` seed 0 on the card) through the port's launcher
+   ``repro_torch.launch.serve.main`` (batch 8, prompt 64, 32 new
+   tokens), then through ``repro_torch.serve.engine``'s prefill and
+   decode with each in a launch window of its own. Required: exactly
+   16 ``flash_attention`` launches per prefill (the launcher's run
+   included) and none in decode or with ``mode="ref"``; finite
+   [8, 64, 128256] logits; prefill logits within :data:`LOGIT_TOL` of
+   the ``mode="ref"`` run; the first generated token equal to the
+   ``mode="ref"`` run's in every row whose top-2 logit gap exceeds the
+   tolerance. Times: prefill (median of 7 after a warm-up), decode per
+   step over 31 steps, tokens/s, and the device's busy share of each
+   (device time from a profiler trace over the host-clock time).
 
 The line before the last is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
@@ -50,12 +76,21 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 INT8_OPS_PER_S = 1.979e15          # H100 SXM dense int8 tensor cores
-SOURCE = "src/repro_torch/kernels/csrc/split_gemm.cu"
+BF16_FLOP_PER_S = 9.89e14          # H100 SXM dense bf16 tensor cores
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCE = {
+    "fused_conv_gemm": f"{CSRC}/split_gemm.cu",
+    "fused_hetero_gemm": f"{CSRC}/split_gemm.cu",
+    "bitserial_gemm": f"{CSRC}/split_gemm.cu",
+    "int4_gemm": f"{CSRC}/split_gemm.cu",
+    "flash_attention": f"{CSRC}/flash_attention.cu",
+}
 REPLACES = {
     "fused_conv_gemm": "src/repro/kernels/fused_hetero_gemm.py:232",
     "fused_hetero_gemm": "src/repro/kernels/fused_hetero_gemm.py:106",
     "bitserial_gemm": "src/repro/kernels/bitserial_gemm.py:62",
     "int4_gemm": "src/repro/kernels/int4_gemm.py:55",
+    "flash_attention": "src/repro/kernels/flash_attention.py:78",
 }
 #: the executor path whose counted run each kernel's launches come from
 KERNEL_PATH = {
@@ -65,6 +100,24 @@ KERNEL_PATH = {
     "int4_gemm": "fused=False",
 }
 N_IMAGES = 4
+#: (name, B, Sq, Skv, Hq, Hkv, D, causal, kv_offset); the first is the
+#: serving prefill's shape, the one the kernel's row reports
+FLASH_SHAPES = [
+    ("prefill", 8, 64, 64, 32, 8, 64, True, 0),
+    ("s2048", 1, 2048, 2048, 32, 8, 64, True, 0),
+    ("ragged", 2, 1000, 1000, 32, 8, 64, True, 0),
+    ("noncausal", 2, 333, 333, 32, 8, 64, False, 0),
+    ("offset", 8, 64, 1024, 32, 8, 64, True, 960),
+    ("decode", 8, 1, 1024, 32, 8, 64, True, 1023),
+]
+#: the serving run: llama3.2-1b at batch 8, prompt 64, 32 new tokens
+SERVE = dict(arch="llama3.2-1b", batch=8, prompt=64, new=32, seed=0)
+#: prefill logits of the kernel run vs the mode="ref" run: within 8 bf16
+#: steps (2^-8 relative each) of the largest |logit|. The two runs differ
+#: only in attention's fp32 summation order, which flips an occasional
+#: bf16 rounding; 16 layers of bf16 matmuls carry such flips to the
+#: logits, which are themselves bf16 products (x @ embed.T) cast to fp32.
+LOGIT_TOL = 8 * 2 ** -8
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -79,6 +132,28 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time per call of ``fn``: the summed durations of the device
+    activities (kernels, copies) in a ``torch.profiler`` trace of
+    ``iters`` calls, so the host's cost of issuing them is left out.
+    Raises where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / iters
 
 
 def require_equal(torch, name: str, got, want) -> float:
@@ -140,17 +215,23 @@ def phase_card(torch, details: dict):
     from repro_torch.kernels import build
     details["card"] = nvidia_smi()
     print(f"card: {details['card']}")
-    built = build.library_path().exists() and build.report_path().exists()
+    built = {src: build.is_built(src) for src in build.SOURCES}
     t0 = time.time()
-    build.build()
-    build.load_library()
+    build.build_all()
+    for src in build.SOURCES:
+        build.load_library(src)
     details["build_s"] = time.time() - t0
-    details["ptxas"] = build.report_path().read_text()
-    usage = [ln.split(":", 1)[-1].strip() for ln in
-             details["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
-    print(f"build: {'cached library, load' if built else 'nvcc + load'} "
-          f"{details['build_s']:.2f} s ({build.library_path().name}); "
-          f"ptxas: {'; '.join(usage)}")
+    details["ptxas"] = {}
+    for src in build.SOURCES:
+        report = build.report_path(src).read_text()
+        details["ptxas"][src] = report
+        usage = [ln.split(":", 1)[-1].strip() for ln in report.splitlines()
+                 if "Used" in ln or "spill" in ln]
+        print(f"build: {src}: {'cached library' if built[src] else 'nvcc'} "
+              f"({build.library_path(src).name}); ptxas: "
+              f"{'; '.join(usage)}")
+    print(f"build: all sources built and loaded in "
+          f"{details['build_s']:.2f} s")
 
 
 def layer_inputs(torch, prog, seed: int = 1):
@@ -423,12 +504,250 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
     return launches
 
 
+def flash_tol(v) -> float:
+    """Kernel vs plain, bf16: two steps of bf16's 2^-8 relative spacing on
+    max |v|. Each output is a convex combination of v rows; p is rounded
+    to bf16 (half a step) in both versions, at running maxima taken over
+    other tiles, and the output is rounded to bf16 (a step where the two
+    fp32 values straddle a rounding boundary)."""
+    return 2 * 2 ** -8 * float(v.abs().max())
+
+
+def flash_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset):
+    """Least time for one attention call: q, k, v (at the KV heads) and
+    out in bf16 read / written once over the HBM rate, vs 4·B·Hq·D FLOP
+    per unmasked (query, key) pair over the bf16 tensor-core rate."""
+    nbytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    if causal:
+        pairs = sum(min(skv, r + kv_offset + 1) for r in range(sq))
+    else:
+        pairs = sq * skv
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * b * hq * d * pairs / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def sdpa_fn(torch, q, k, v, causal, kv_offset):
+    """``F.scaled_dot_product_attention`` on [B, H, S, D] views with the
+    KV heads repeated outside the timed call, its output viewed back as
+    [B, S, H, D]; the causal mask is aligned to the lower right (query i
+    at key position i + Skv - Sq), which is what every causal shape here
+    uses."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    sq, skv = q.shape[1], k.shape[1]
+    if causal and kv_offset != skv - sq:
+        raise ValueError(f"causal offset {kv_offset} is not lower-right")
+    mask = causal_lower_right(sq, skv) if causal and sq != skv else None
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and sq == skv
+    ).transpose(1, 2)
+
+
+def phase_flash(torch, details: dict) -> dict:
+    """The flash-attention kernel against its plain version at the six
+    shapes, timed beside SDPA and the bound; returns the serving prefill
+    shape's row and the largest error over all shapes."""
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = details.setdefault("flash", [])
+    for name, b, sq, skv, hq, hkv, d, causal, off in FLASH_SHAPES:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+                   for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+        kw = dict(causal=causal, kv_offset=off)
+        kern = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: flash_attention_plain(q, k, v, **kw)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"flash {name}: {tuple(got.shape)} output "
+                                 f"not finite or not {tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        tol = flash_tol(v)
+        if not err <= tol:
+            raise AssertionError(f"flash {name}: kernel vs plain max |err| "
+                                 f"{err} > {tol}")
+        lib = sdpa_fn(torch, q, k, v, causal, off)
+        lib_err = float((lib().float() - want.float()).abs().max())
+        b_ms, b_by = flash_bound_ms(b, sq, skv, hq, hkv, d, causal, off)
+        row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
+               "hkv": hkv, "d": d, "causal": causal, "kv_offset": off,
+               "max_abs_err": err, "tol": tol, "sdpa_err": lib_err,
+               "ms": device_ms(torch, kern),
+               "plain_ms": device_ms(torch, plain, iters=5),
+               "library_ms": device_ms(torch, lib), "bound_ms": b_ms,
+               "bound_by": b_by, "events_ms": cuda_ms(torch, kern),
+               "events_plain_ms": cuda_ms(torch, plain, iters=5),
+               "events_library_ms": cuda_ms(torch, lib)}
+        rows.append(row)
+        print(f"flash {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
+              f"D={d} causal={causal} kv_offset={off}: max |err| {err:.3g} "
+              f"(tol {tol:.3g}; sdpa {lib_err:.3g}); device {row['ms']:.4f} "
+              f"ms (plain {row['plain_ms']:.4f}, sdpa "
+              f"{row['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); "
+              f"events {row['events_ms']:.4f} ms (plain "
+              f"{row['events_plain_ms']:.4f}, sdpa "
+              f"{row['events_library_ms']:.4f})")
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def read_window(launches, want: dict, what: str) -> dict:
+    """The counts of one launch window; raise unless exactly ``want``."""
+    got = {name: count for name, count in launches.items() if count}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return got
+
+
+def phase_serve(torch, details: dict) -> int:
+    """Full-width llama3.2-1b through the launcher, then through the
+    engine with prefill and decode counted in windows of their own and
+    held against the mode="ref" run; returns the flash launches of one
+    prefill."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import serve
+    from repro_torch.obs import METRICS
+    from repro_torch.serve import engine
+
+    b, s0, n_new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    arch = registry.get(SERVE["arch"])
+    cfg, dev = arch.model, torch.device("cuda")
+    per_prefill = {"flash_attention": cfg.n_layers}
+
+    # the user's entry point: one batch of requests, one prefill
+    LAUNCHES.clear()
+    summary = serve.main(["--arch", SERVE["arch"], "--batch", str(b),
+                          "--prompt-len", str(s0), "--new-tokens",
+                          str(n_new), "--seed", str(SERVE["seed"])])
+    torch.cuda.synchronize()
+    read_window(LAUNCHES, per_prefill, "launcher (1 prefill + decode)")
+    details["serve_metrics"] = METRICS.snapshot()
+
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+        params = arch.model_module().init(cfg, gen)
+        prompts = SyntheticTokens(cfg.vocab, b, s0, seed=SERVE["seed"]
+                                  ).next_batch()["tokens"].to(dev)
+        if not torch.equal(prompts.cpu(), summary["prompts"]):
+            raise AssertionError("engine prompts != the launcher's")
+        prefill = engine.make_prefill_fn(arch)
+        prefill_ref = engine.make_prefill_fn(arch, attn_mode="ref")
+        decode = engine.make_decode_fn(arch)
+
+        def run_prefill(fn):
+            cache = engine.make_cache(arch, b, s0 + n_new, cfg.param_dtype,
+                                      dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(params, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+            return logits, cache, 1e3 * (time.perf_counter() - t0)
+
+        def run_decode(logits, cache):
+            tok = engine.greedy_token(logits[:, -1])
+            toks = [tok]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n_new - 1):
+                step, cache = decode(params, tok, cache, s0 + i)
+                tok = engine.greedy_token(step)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            return torch.cat(toks, 1), 1e3 * (time.perf_counter() - t0)
+
+        run_prefill(prefill)                                    # warm-up
+        LAUNCHES.clear()
+        logits, cache, _ = run_prefill(prefill)
+        windows = {"prefill": read_window(LAUNCHES, per_prefill, "prefill")}
+        LAUNCHES.clear()
+        tokens, t_decode = run_decode(logits, cache)
+        windows["decode"] = read_window(LAUNCHES, {}, f"{n_new - 1} decode "
+                                        f"steps")
+        LAUNCHES.clear()
+        ref_logits, ref_cache, _ = run_prefill(prefill_ref)
+        ref_tokens, _ = run_decode(ref_logits, ref_cache)
+        windows["mode=ref"] = read_window(LAUNCHES, {}, "mode=ref prefill "
+                                          "+ decode")
+        prefill_ms = [run_prefill(prefill)[2] for _ in range(7)]
+        # device time of one prefill and of one decode step
+        cache_d = run_prefill(prefill)[1]
+        tok_d = tokens[:, :1]
+        prefill_dev = device_ms(torch, lambda: run_prefill(prefill), iters=3)
+        decode_dev = device_ms(torch, lambda: decode(params, tok_d, cache_d,
+                                                     s0), iters=5)
+
+    want_shape = (b, s0, cfg.vocab)
+    if tuple(logits.shape) != want_shape or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite {want_shape}")
+    err = float((logits - ref_logits).abs().max())
+    tol = LOGIT_TOL * float(ref_logits.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"prefill logits kernel vs mode=ref: max |err| "
+                             f"{err} > {tol}")
+    top2 = ref_logits[:, -1].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    first_same = tokens[:, 0] == ref_tokens[:, 0]
+    if not bool(first_same[clear].all()):
+        raise AssertionError(f"first token differs from mode=ref in a row "
+                             f"whose top-2 gap exceeds {tol}: "
+                             f"{tokens[:, 0].tolist()} vs "
+                             f"{ref_tokens[:, 0].tolist()}")
+    agree = int((tokens == ref_tokens).sum())
+    logits_equal = float((logits == ref_logits).float().mean())
+    same_as_launcher = bool(torch.equal(tokens.cpu(), summary["tokens"]))
+    med = statistics.median(prefill_ms)
+    per_step = t_decode / (n_new - 1)
+    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.param_dtype}, batch {b} prompt {s0} new {n_new}: "
+          f"launches per window {windows}")
+    print(f"serve: prefill logits vs mode=ref max |err| {err:.4g} (tol "
+          f"{tol:.4g}), {100 * logits_equal:.3f}% bitwise equal; first "
+          f"tokens equal in {int(first_same.sum())}/{b} "
+          f"rows ({int(clear.sum())} with a top-2 gap above tol); greedy "
+          f"tokens equal {agree}/{tokens.numel()}; engine tokens "
+          f"{'equal' if same_as_launcher else 'differ from'} the launcher's")
+    print(f"serve: prefill median {med:.3f} ms over 7 "
+          f"({', '.join(f'{t:.3f}' for t in prefill_ms)}), "
+          f"{b * s0 / med * 1e3:.0f} tok/s; decode {per_step:.3f} ms/step "
+          f"over {n_new - 1} steps, {b * (n_new - 1) / t_decode * 1e3:.0f} "
+          f"tok/s; launcher prefill {summary['prefill_ms']:.3f} ms, decode "
+          f"{summary['decode_ms_per_step']:.3f} ms/step")
+    print(f"serve: device time per prefill {prefill_dev:.3f} ms (busy "
+          f"{100 * prefill_dev / med:.1f}% of the median), per decode step "
+          f"{decode_dev:.3f} ms (busy {100 * decode_dev / per_step:.1f}%)")
+    details["serve"] = {
+        "windows": windows, "logit_err": err, "logit_tol": tol,
+        "first_tokens_equal": int(first_same.sum()),
+        "rows_above_tol": int(clear.sum()), "tokens_equal": agree,
+        "tokens": tokens.cpu().tolist(), "ref_tokens":
+        ref_tokens.cpu().tolist(), "prefill_ms": prefill_ms,
+        "decode_ms_per_step": per_step, "logits_bitwise_equal":
+        logits_equal, "prefill_device_ms": prefill_dev,
+        "decode_step_device_ms": decode_dev, "launcher": {
+            k: summary[k] for k in ("prefill_ms", "decode_ms",
+                                    "decode_ms_per_step")},
+        "logits_abs_sum": float(np.abs(logits.float().cpu().numpy()).sum())}
+    return windows["prefill"]["flash_attention"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
-                    help="also write the card, build time, ptxas report, "
-                         "per-layer timings, per-image latencies and "
-                         "per-path launches as JSON here")
+                    help="also write the card, build time, ptxas reports, "
+                         "per-layer timings, per-image latencies, per-path "
+                         "launches, the flash shape sweep and the serving "
+                         "run's windows, tokens and times as JSON here")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -441,6 +760,7 @@ def main(argv=None) -> int:
     from repro_torch.compiler import CudaExecutor, bind_synthetic, \
         compile_network
 
+    t_start = time.time()
     details: dict = {}
     phase_card(torch, details)
     t0 = time.time()
@@ -452,17 +772,22 @@ def main(argv=None) -> int:
         bind_synthetic(ex, lp, seed=lp.index)
     tot = phase_kernels(torch, prog, ex, details)
     counts = phase_slice(torch, prog, ex, details)
+    for t in tot.values():
+        t["bound_by"] = "bytes" if t["bytes"] >= t["operations"] \
+            else "operations"
+    tot["flash_attention"] = phase_flash(torch, details)
+    counts["flash_attention"] = phase_serve(torch, details)
     kernels = []
     for name, replaces in REPLACES.items():
         t = tot[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes" if t["bytes"] >= t["operations"]
-            else "operations",
-            "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    details["total_s"] = time.time() - t_start
+    print(f"total: {details['total_s']:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(details, indent=1))

@@ -1,0 +1,66 @@
+"""Architecture registry of the port: each arch binds its published
+model config, and a reduced same-family smoke config for CPU tests, to
+one model module of ``repro_torch.models``.
+
+The counterpart of ``repro.configs.registry`` for the archs the port
+has. Sharding-rule overrides and the dry-run shape sets belong to the
+``parallel`` slice and are not here. Modules are named as strings and
+imported on first use, only from ``repro_torch``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                        # dense | moe | ssm | hybrid | audio | vlm
+    model: Any                         # LMConfig
+    module: str                        # repro_torch.models.{lm}
+    smoke: Any = None                  # reduced same-family config
+    notes: str = ""
+
+    def model_module(self):
+        return importlib.import_module(f"repro_torch.models.{self.module}")
+
+
+_REGISTRY: dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    if cfg.arch_id in _REGISTRY:
+        raise ValueError(f"duplicate arch {cfg.arch_id}")
+    _REGISTRY[cfg.arch_id] = cfg
+    return cfg
+
+
+def get(arch_id: str) -> ArchConfig:
+    _load_all()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has "
+                       f"{sorted(_REGISTRY)} (the other archs are later "
+                       f"slices)")
+    return _REGISTRY[arch_id]
+
+
+def list_archs() -> list[str]:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
+#: config modules under ``repro_torch.configs``: the archs ported so far
+_ARCH_MODULES = ["llama32_1b"]
+
+_loaded = False
+
+
+def _load_all():
+    global _loaded
+    if _loaded:
+        return
+    _loaded = True
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")

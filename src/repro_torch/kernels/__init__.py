@@ -1,10 +1,11 @@
-"""Hand-written CUDA kernels for Hopper (``csrc/``) on the split-GEMM
-path, each with its plain PyTorch version beside it.
+"""Hand-written CUDA kernels for Hopper (``csrc/``), each with its
+plain PyTorch version beside it.
 
   fused_hetero_gemm — both sides of the Eq.-12 split in ONE launch
                       (dense + im2col-free conv variants)
   bitserial_gemm    — bitplane GEMM (the LUT-core side; cost ∝ bits)
   int4_gemm         — packed-int4 GEMM (the DSP-core side)
+  flash_attention   — online-softmax attention (the LM's prefill)
   build             — nvcc build, ctypes loader, launch counters
   ref               — plain versions of the reference's oracles
   ops               — public wrappers (weight preparation, dispatch)
@@ -14,6 +15,7 @@ it computes the plain version. Nothing is built at import time.
 """
 from repro_torch.kernels.ops import (
     SplitWeights,
+    attention,
     bitserial_matmul,
     dsp_matmul,
     fused_conv_matmul,
@@ -29,15 +31,16 @@ from repro_torch.kernels.ref import (
     bitplane_decompose,
     bitplane_reconstruct,
     conv_patches_ref,
+    flash_attention_ref,
     pack_int4,
     plane_scales,
     unpack_int4,
 )
 
 __all__ = [
-    "SplitWeights", "bitserial_matmul", "dsp_matmul", "fused_conv_matmul",
-    "fused_matmul", "hetero_matmul", "int4_matmul", "lut_matmul",
-    "prepare_split", "split_conv_matmul", "split_matmul",
+    "SplitWeights", "attention", "bitserial_matmul", "dsp_matmul",
+    "fused_conv_matmul", "fused_matmul", "hetero_matmul", "int4_matmul",
+    "lut_matmul", "prepare_split", "split_conv_matmul", "split_matmul",
     "bitplane_decompose", "bitplane_reconstruct", "conv_patches_ref",
-    "pack_int4", "plane_scales", "unpack_int4",
+    "flash_attention_ref", "pack_int4", "plane_scales", "unpack_int4",
 ]

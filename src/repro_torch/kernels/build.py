@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``load_library()`` compiles ``csrc/split_gemm.cu`` with ``nvcc`` for
-``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root
-on first use, and loads it with ``ctypes``: a plain C interface, so the
-build takes seconds and links nothing of PyTorch. The library's file
-name carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is built when this module is
-imported.
+Each source ``csrc/<name>.cu`` is compiled on its own with ``nvcc`` for
+``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root on
+first use, and loaded with ``ctypes``: a plain C interface, so a build
+takes seconds and links nothing of PyTorch. A library's file name
+carries a hash of its source, so an edited source is rebuilt and a
+stale library is never loaded; nvcc's ``-Xptxas -v`` report is kept
+beside each library. :func:`build_all` starts one nvcc per source, all
+at once. Nothing is built when this module is imported.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds
 one where it launches its kernel, and nowhere else, so a run can show
@@ -24,26 +25,36 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCE = _CSRC / "split_gemm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signature of each entry point: pointers and the stream as void*,
-#: extents as int; every entry point returns cudaGetLastError().
-SIGNATURES = {
-    "fused_hetero_gemm": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P],
-    "fused_conv_gemm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I,
-                        _P, _P, _P],
-    "bitserial_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
-    "int4_gemm": [_P, _I, _I, _P, _I, _P, _P, _P],
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: Per source, the C signature of each entry point it defines: pointers
+#: and the stream as void*, extents as int, strides as long long; every
+#: entry point returns cudaGetLastError().
+SOURCES = {
+    "split_gemm": {
+        "fused_hetero_gemm": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P],
+        "fused_conv_gemm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                            _I, _P, _P, _P],
+        "bitserial_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
+        "int4_gemm": [_P, _I, _I, _P, _I, _P, _P, _P],
+    },
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            *[_L] * 12, _F, _I, _I, _P],
+    },
 }
+#: the source that defines each entry point
+SOURCE_OF = {name: src for src, entries in SOURCES.items()
+             for name in entries}
 
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -58,46 +69,67 @@ def _nvcc() -> str:
                        "the repro_torch kernels")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"split_gemm-{digest}.so"
+def source_path(source: str) -> Path:
+    if source not in SOURCES:
+        raise KeyError(f"unknown kernel source {source!r}; have "
+                       f"{sorted(SOURCES)}")
+    return _CSRC / f"{source}.cu"
 
 
-def report_path() -> Path:
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256(source_path(source).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{source}-{digest}.so"
+
+
+def report_path(source: str) -> Path:
     """nvcc's ``-Xptxas -v`` report (registers, shared memory, spills),
     kept beside the library it describes."""
-    return library_path().with_suffix(".log")
+    return library_path(source).with_suffix(".log")
 
 
-def build() -> Path:
-    """Compile the kernels if this source has no library yet; return
-    the library's path. nvcc's report goes to :func:`report_path`."""
-    out = library_path()
-    if out.exists() and report_path().exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    report_path().write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+def is_built(source: str) -> bool:
+    return library_path(source).exists() and report_path(source).exists()
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+def build_all(sources=tuple(SOURCES)) -> dict[str, Path]:
+    """Compile every source in ``sources`` that has no library yet, one
+    nvcc each, all started together; return each source's library path.
+    nvcc's report goes to :func:`report_path`."""
+    todo = [s for s in sources if not is_built(s)]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+    procs = {}
+    for s in todo:
+        tmp = library_path(s).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(s))]
+        procs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+    failed = []
+    for s, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{source_path(s).name}: nvcc failed "
+                          f"({proc.returncode}):\n{err}")
+            continue
+        report_path(s).write_text(out + err)
+        os.replace(tmp, library_path(s))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {s: library_path(s) for s in sources}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built on first use."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build_all((source,))[source]))
+            for name, argtypes in SOURCES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[source] = lib
+        return _libs[source]
 
 
 def check_operand(kernel: str, what: str, t, dtype, shape: tuple,
@@ -120,7 +152,7 @@ def launch(name: str, x, *args) -> None:
     stream, count it, and raise if the launch was refused (the entry
     point's ``cudaGetLastError()`` was not ``cudaSuccess``)."""
     import torch
-    lib = load_library()
+    lib = load_library(SOURCE_OF[name])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, name)(*args, stream)

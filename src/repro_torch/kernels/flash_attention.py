@@ -1,0 +1,143 @@
+"""Flash attention (forward): the serving path's prefill attention.
+
+The CUDA kernel (``csrc/flash_attention.cu``, entry ``flash_attention``)
+stands in for the JAX package's Pallas kernel ``kernels/flash_attention.py
+::flash_attention`` and computes what ``models/layers.py::
+blockwise_attention`` computes there: online-softmax attention with fp32
+running statistics, a causal mask offset by ``kv_offset``, ragged
+sequence lengths masked in the kernel, and grouped-query attention by
+mapping query head ``h`` to KV head ``h // (Hq // Hkv)`` (no repeated
+K or V). One block per (64-row query tile, head, batch) walks the KV
+tiles in a loop and skips those wholly above the causal diagonal.
+
+:func:`flash_attention` launches the kernel on CUDA tensors and counts
+the launch, or raises; on CPU tensors, or with ``mode="ref"``, it
+computes :func:`flash_attention_plain`, the chunked online softmax of
+``blockwise_attention`` in plain PyTorch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import launch
+
+NEG_INF = -1e30
+MODES = ("auto", "ref")
+#: the head sizes the kernel is instantiated for (it takes bf16)
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, kv_offset: int = 0,
+                          scale: float | None = None, q_chunk: int = 512,
+                          kv_chunk: int = 1024) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`: ``blockwise_attention``'s
+    schedule, an online softmax over ``kv_chunk`` keys for each
+    ``q_chunk`` of queries.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], Hq % Hkv == 0. Scores,
+    statistics and the accumulator are fp32 (bf16 operands are widened
+    before each product, which is exact); p is rounded to the value
+    type before ``p . v``, as the reference does. A ragged last chunk
+    is sliced rather than padded: padded keys would be masked to
+    -1e30 and add exactly 0.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    out = torch.empty((b, sq, hq, v.shape[-1]), dtype=v.dtype,
+                      device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        qi = q[:, q0:q0 + q_chunk].float()
+        rows = qi.shape[1]
+        qpos = q0 + torch.arange(rows, device=q.device) + kv_offset
+        m = torch.full((b, hq, rows), NEG_INF, device=q.device)
+        l = torch.zeros((b, hq, rows), device=q.device)
+        acc = torch.zeros((b, hq, rows, v.shape[-1]), device=q.device)
+        for k0 in range(0, skv, kv_chunk):
+            kj = k[:, k0:k0 + kv_chunk].repeat_interleave(rep, dim=2)
+            vj = v[:, k0:k0 + kv_chunk].repeat_interleave(rep, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", qi, kj.float()) * scale
+            if causal:
+                kpos = k0 + torch.arange(kj.shape[1], device=q.device)
+                s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vj.float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + rows] = o.permute(0, 2, 1, 3).to(v.dtype)
+    return out
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_offset: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, S, H, D]")
+    b, _, hq, d = q.shape
+    if k.shape[0] != b or k.shape[-1] != d or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if hq % k.shape[2]:
+        raise ValueError(f"flash_attention: {hq} query heads are not a "
+                         f"multiple of {k.shape[2]} KV heads")
+    if kv_offset < 0:
+        raise ValueError(f"flash_attention: kv_offset {kv_offset} < 0")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("flash_attention: q, k, v of different dtypes")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_offset: int = 0,
+                    scale: float | None = None, q_chunk: int = 512,
+                    kv_chunk: int = 1024, mode: str = "auto"
+                    ) -> torch.Tensor:
+    """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D].
+
+    Any strides with the last dimension contiguous (``[B, H, S, D]``
+    tensors transposed to ``[B, S, H, D]`` views need no copy). The
+    kernel takes bf16 with D in :data:`KERNEL_HEAD_DIMS` and ``v``'s
+    head size equal to D; ``q_chunk`` / ``kv_chunk`` set only the plain
+    version's schedule.
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _check(q, k, v, kv_offset)
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    scale = scale if scale is not None else d ** -0.5
+    if mode == "ref" or not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     kv_offset=kv_offset, scale=scale,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if v.shape[-1] != d:
+        raise NotImplementedError(
+            "flash_attention: a value head size other than the key's "
+            "(MLA) is for the later slice that ports deepseek-v2")
+    if d not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: head size {d} is not instantiated "
+            f"({KERNEL_HEAD_DIMS}); other sizes are for a later slice")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: the kernel takes bf16, got "
+                         f"{q.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dimension must be "
+                         "contiguous")
+    if skv == 0:
+        raise ValueError("flash_attention: no keys")
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), b, sq, skv, hq, hkv, d, *q.stride()[:3],
+           *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+           float(scale), int(causal), int(kv_offset))
+    return out

@@ -1,4 +1,4 @@
-"""Public wrappers around the split-GEMM kernels.
+"""Public wrappers around the split-GEMM kernels and flash attention.
 
 Two layers of entry points:
 
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref
 from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
     bitserial_gemm_plain
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_hetero_gemm import fused_conv_gemm, \
     fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain
 from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
@@ -227,3 +228,29 @@ def hetero_matmul(x_q: torch.Tensor, w_q_serial: torch.Tensor,
     if w_q_parallel.shape[1]:
         outs.append(int4_matmul(x_q, w_q_parallel, s_parallel, mode=mode))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, kv_offset: int = 0,
+              mode: str = "auto") -> torch.Tensor:
+    """Flash attention with grouped-query heads.
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] with Hq % Hkv == 0.
+    ``"auto"`` is the flash kernel (its plain version on CPU tensors),
+    which maps query head h to KV head h // (Hq // Hkv) and reads the
+    [B, H, S, D] tensors through strides; ``"ref"`` is the plain softmax
+    oracle on the KV heads repeated, as the reference computes it.
+    """
+    if _plain(mode):
+        rep = q.shape[1] // k.shape[1]
+        return ref.flash_attention_ref(q, k.repeat_interleave(rep, dim=1),
+                                       v.repeat_interleave(rep, dim=1),
+                                       causal=causal, kv_offset=kv_offset)
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal,
+                           kv_offset=kv_offset).transpose(1, 2)

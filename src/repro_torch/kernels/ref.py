@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the split-GEMM kernels.
+"""Plain PyTorch versions of the split-GEMM kernels, and the plain
+softmax attention oracle.
 
 The counterparts of ``repro.kernels.ref``'s oracles, bit for bit. They
 run on any device: the CPU tests call them, and on the card they are
@@ -167,3 +168,28 @@ def hetero_gemm_ref(x: torch.Tensor, w_q_serial: torch.Tensor,
     lo = bitserial_gemm_ref(x, w_q_serial, s_serial, bits_serial)
     hi = int4_gemm_ref(x, w_packed_parallel, s_parallel)
     return torch.cat([lo, hi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: float | None = None,
+                        kv_offset: int = 0) -> torch.Tensor:
+    """Plain softmax attention oracle, in fp32.
+
+    q: [B, H, Sq, D]; k, v: [B, H, Skv, D]. ``kv_offset`` positions the
+    query block inside the KV sequence (decode: Sq=1, offset=Skv-1).
+    """
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, skv = q.shape[2], k.shape[2]
+        qpos = torch.arange(sq, device=q.device)[:, None] + kv_offset
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

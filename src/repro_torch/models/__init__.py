@@ -1,2 +1,3 @@
-"""Model configurations: ``cnn`` holds the ResNet-18 / MobileNet-V2
-configs the compiler scales (the fp32 networks come with the model zoo)."""
+"""Models: ``cnn`` holds the ResNet-18 / MobileNet-V2 configs the
+compiler scales (the fp32 networks come with a later slice); ``layers``
+and ``lm`` are the dense decoder-only LM the serving path runs."""

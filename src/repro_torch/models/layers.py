@@ -1,0 +1,233 @@
+"""Model building blocks of the dense LM's serving path, in PyTorch.
+
+The counterpart of ``repro.models.layers`` for what the dense llama
+family serves with: parameter declarations and their initialisation,
+RMSNorm, rotary embeddings, the gated MLP, the KV-cache write, and the
+three attention forms. There is one device, so the reference's logical
+sharding annotations have no counterpart. Parameters are nested dicts
+of tensors; a layer-stacked leaf carries a leading "layers" axis, which
+the model walks with a Python loop where the reference scans.
+
+Numerics follow the reference: norms and softmax statistics in fp32,
+attention scores as fp32 products of widened operands (exact for bf16,
+where JAX's ``preferred_element_type=float32`` keeps them unrounded),
+and probabilities rounded to the value type before ``p . v``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+
+
+# ---------------------------------------------------------------------------
+# ParamSpec machinery
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declaration of one parameter leaf."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"          # normal | zeros | ones | embed
+    fan_in: int | None = None     # for "normal": std = 1/sqrt(fan_in)
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of nested dicts / lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_params(spec_tree: Any, gen: torch.Generator) -> Any:
+    """Materialize a ParamSpec tree on ``gen``'s device.
+
+    The laws are the reference's: ``normal`` draws N(0, 1/fan_in) with
+    fan_in the second-to-last extent, ``embed`` N(0, 1), in fp32 and
+    then cast; ``zeros`` / ``ones`` are constant. The bits differ from
+    ``jax.random``'s; :func:`repro_torch.models.lm.params_from_jax`
+    carries the reference's own weights across where bits matter.
+    """
+    device = gen.device
+
+    def make(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        x = torch.randn(spec.shape, generator=gen, device=device)
+        if spec.init == "embed":
+            return x.to(spec.dtype)
+        fan = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
+                              else spec.shape[-1])
+        return x.mul_(1.0 / math.sqrt(max(fan, 1))).to(spec.dtype)
+
+    return tree_map(make, spec_tree)
+
+
+def stack_specs(spec_tree: Any, n: int) -> Any:
+    """Prefix every leaf with a stacked layer dimension."""
+    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
+                    spec_tree)
+
+
+def param_count(spec_tree: Any) -> int:
+    specs: list[ParamSpec] = []
+    tree_map(specs.append, spec_tree)
+    return sum(math.prod(s.shape) for s in specs)
+
+
+# ---------------------------------------------------------------------------
+# Norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(dim: int, dtype=torch.bfloat16) -> ParamSpec:
+    return ParamSpec((dim,), dtype, "ones")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)                       # [head_dim//2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] int. Split-half rotation: the
+    halves [x1, x2] rotate together, angles in fp32."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs           # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, q_chunk: int = 512,
+                        kv_chunk: int = 1024, kv_offset: int = 0,
+                        softmax_scale: float | None = None,
+                        mode: str = "auto") -> torch.Tensor:
+    """Online-softmax attention. q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv,
+    D], Hq % Hkv == 0.
+
+    On the card this is the flash-attention CUDA kernel (one launch);
+    on CPU tensors, or with ``mode="ref"``, its plain version with the
+    reference's ``q_chunk`` x ``kv_chunk`` schedule.
+    """
+    return flash_attention(q, k, v, causal=causal, kv_offset=kv_offset,
+                           scale=softmax_scale, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk, mode=mode)
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor,
+                idx: int) -> torch.Tensor:
+    """Write ``new`` [B, S, H, D] into ``cache`` [B, S_cache, H, D] at
+    sequence position ``idx``, **in place**, and return ``cache``.
+
+    Unlike the reference, which returns a new array, the cache tensor is
+    updated where it lies. The semantics are the reference's: a write as
+    long as the cache replaces it; a longer write (a prompt into a
+    longer cache) fills positions [0, S) and zeroes the rest; a single
+    position is written at ``idx``.
+    """
+    s_cache, s_new = cache.shape[1], new.shape[1]
+    if s_new == s_cache:
+        return cache.copy_(new)
+    if s_new > 1:
+        cache[:, :s_new] = new
+        cache[:, s_new:] = 0
+        return cache
+    cache[:, idx:idx + 1] = new
+    return cache
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_offset: int = 0,
+                    softmax_scale: float | None = None) -> torch.Tensor:
+    """Full-softmax attention in one einsum pair, plain torch."""
+    _, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    rep = hq // hkv
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + kv_offset
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: int, *,
+                     softmax_scale: float | None = None) -> torch.Tensor:
+    """Single-token attention over a partly filled cache, plain torch.
+
+    q: [B, 1, Hq, D]; caches: [B, Skv, Hkv, D]; keys at positions
+    ``>= kv_len`` are masked (a prefix mask, not a causal one).
+    """
+    b, _, hq, d = q.shape
+    _, skv, hkv, _ = k_cache.shape
+    rep = hq // hkv
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    qr = q.reshape(b, hkv, rep, d)
+    s = torch.einsum("bhrd,bkhd->bhrk", qr.float(), k_cache.float()) * scale
+    mask = torch.arange(skv, device=q.device) >= kv_len
+    s = s.masked_fill(mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhrk,bkhd->bhrd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+
+
+ACTIVATIONS: dict[str, Callable] = {
+    "silu": F.silu,
+}
+
+
+def mlp_specs(d_model: int, d_ff: int, dtype=torch.bfloat16) -> dict:
+    return {
+        "gate": ParamSpec((d_model, d_ff), dtype),
+        "up": ParamSpec((d_model, d_ff), dtype),
+        "down": ParamSpec((d_ff, d_model), dtype),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h = ACTIVATIONS[act](x @ p["gate"]) * (x @ p["up"])
+    return h @ p["down"]

@@ -1,0 +1,311 @@
+"""Decoder-only LM of the dense llama family, in PyTorch.
+
+The counterpart of ``repro.models.lm`` for a dense config: no MoE, no
+MLA, no M-RoPE, no qk-norm, no hybrid quantization and no int8 KV
+cache (each of those raises ``NotImplementedError`` naming its later
+slice). Layers are stacked as in the reference (a leading "layers" axis
+on every leaf) and walked by a Python loop where the reference scans.
+Prefill attention runs on the flash-attention kernel; decode attention
+is plain torch over the cache.
+
+Entry points:
+  param_specs / init / params_from_jax  — parameters
+  forward(params, tokens, cfg)          — causal logits over a prompt
+  init_cache / prefill / decode_step    — KV-cache serving
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """The reference's ``LMConfig`` fields, dtypes as torch dtypes.
+
+    ``remat``, ``scan_unroll``, ``dense_attn_max`` and the sharding-era
+    fields are kept so configs read the same; ``remat`` and
+    ``scan_unroll`` mean nothing at inference and are ignored.
+    """
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    vocab_pad_multiple: int = 256
+    rope_theta: float = 10000.0
+    qk_norm: bool = False                 # qwen3
+    act: str = "silu"                     # gemma: "gelu" (GeGLU)
+    moe: Any = None
+    n_dense_prefix: int = 0               # deepseek: 1 dense layer first
+    d_ff_dense: int | None = None
+    mla: Any = None
+    mrope_sections: tuple[int, ...] | None = None   # qwen2-vl
+    tie_embeddings: bool = False          # gemma / llama3.2 / qwen2-vl
+    hetero_quant: Any = None
+    param_dtype: torch.dtype = torch.bfloat16
+    norm_eps: float = 1e-6
+    remat: str = "none"
+    scan_unroll: bool = False
+    kv_cache_quant: bool = False
+    dense_attn_max: int = 8192            # dense softmax below, blockwise above
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab + m - 1) // m) * m
+
+
+#: config features of the reference the port does not have yet, and
+#: the slice each waits for
+_LATER = {
+    "moe": "the MoE slice (qwen3-moe, deepseek-v2)",
+    "mla": "the MLA slice (deepseek-v2)",
+    "mrope_sections": "the VLM slice (qwen2-vl)",
+    "qk_norm": "the qwen3 slice",
+    "hetero_quant": "the HeteroLinear / --quantize slice",
+    "kv_cache_quant": "the int8 KV-cache slice",
+    "n_dense_prefix": "the MoE slice (deepseek-v2)",
+}
+
+
+def check_supported(cfg: LMConfig) -> None:
+    """Raise ``NotImplementedError`` for a config this slice lacks."""
+    for field, later in _LATER.items():
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{cfg.name}: LMConfig.{field} is not ported yet; it "
+                f"comes with {later}")
+    if cfg.act not in L.ACTIVATIONS:
+        raise NotImplementedError(
+            f"{cfg.name}: activation {cfg.act!r} is not ported yet; it "
+            f"comes with the gemma slice")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _layer_specs(cfg: LMConfig) -> dict:
+    d, dt = cfg.d_model, cfg.param_dtype
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "ln_attn": L.rmsnorm_spec(d, dt),
+        "attn": {
+            "wq": ParamSpec((d, hq * hd), dt),
+            "wk": ParamSpec((d, hkv * hd), dt),
+            "wv": ParamSpec((d, hkv * hd), dt),
+            "wo": ParamSpec((hq * hd, d), dt),
+        },
+        "ln_mlp": L.rmsnorm_spec(d, dt),
+        "mlp": L.mlp_specs(d, cfg.d_ff, dt),
+    }
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    check_supported(cfg)
+    dt = cfg.param_dtype
+    specs: dict[str, Any] = {
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
+        "layers": L.stack_specs(_layer_specs(cfg), cfg.n_layers),
+        "ln_f": L.rmsnorm_spec(cfg.d_model, dt),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab), dt)
+    return specs
+
+
+def init(cfg: LMConfig, gen: torch.Generator) -> dict:
+    """Random weights by the reference's laws, made on ``gen``'s device
+    (no host copy of the 1.24 B numbers of llama3.2-1b)."""
+    return L.init_params(param_specs(cfg), gen)
+
+
+def param_count(cfg: LMConfig) -> int:
+    return L.param_count(param_specs(cfg))
+
+
+def _to_torch(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree: Any, device=torch.device("cuda"),
+                    dtype: torch.dtype | None = None) -> dict:
+    """The reference's ``lm.init`` pytree (nested dicts of numpy or JAX
+    arrays, the layer axis stacked) as the port's parameters on
+    ``device``: the same structure and, unless ``dtype`` casts the
+    floating leaves, the same bits."""
+    return L.tree_map(lambda a: _to_torch(a, device, dtype), tree)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The plain projection (hybrid fake-quant is a later slice)."""
+    return x @ w
+
+
+def _layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s parameters (views into the stacked leaves)."""
+    return L.tree_map(lambda t: t[i], params)
+
+
+def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: LMConfig, cache: dict | None = None,
+               cache_len: int | None = None, attn_mode: str = "auto"
+               ) -> torch.Tensor:
+    """Self-attention: full causal when ``cache`` is None, else a
+    prefill (S > 1) or one decode step writing at ``cache_len``; the
+    cache is updated in place."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = _proj(x, p["wq"], cfg).reshape(b, s, hq, hd)
+    k = _proj(x, p["wk"], cfg).reshape(b, s, hkv, hd)
+    v = _proj(x, p["wv"], cfg).reshape(b, s, hkv, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        if s <= cfg.dense_attn_max:
+            out = L.dense_attention(q, k, v, causal=True)
+        else:
+            out = L.blockwise_attention(q, k, v, causal=True,
+                                        q_chunk=cfg.q_chunk,
+                                        kv_chunk=cfg.kv_chunk)
+    else:
+        idx = int(cache_len)
+        L.cache_write(cache["k"], k, idx)
+        L.cache_write(cache["v"], v, idx)
+        if s == 1:
+            out = L.decode_attention(q, cache["k"], cache["v"],
+                                     kv_len=idx + s)
+        else:
+            # prefill: attend within the freshly written prompt
+            out = L.blockwise_attention(q, k, v, causal=True,
+                                        q_chunk=cfg.q_chunk,
+                                        kv_chunk=cfg.kv_chunk, kv_offset=0,
+                                        mode=attn_mode)
+    return _proj(out.reshape(b, s, hq * hd), p["wo"], cfg)
+
+
+def _layer_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: LMConfig, cache: dict | None = None, cache_len=None,
+                 attn_mode: str = "auto") -> torch.Tensor:
+    """Pre-norm block; the layer's cache, if any, is updated in place."""
+    h_attn = _attention(p["attn"], L.rmsnorm(x, p["ln_attn"], cfg.norm_eps),
+                        positions, cfg, cache, cache_len, attn_mode)
+    x = x + h_attn
+    h_norm = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h_norm, cfg.act)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """Final norm and (tied) unembedding in the model dtype, then fp32,
+    sliced from the padded vocab to ``vocab``."""
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    unembed = (params["embed"].T if cfg.tie_embeddings
+               else params["unembed"])
+    return (x @ unembed).float()[..., :cfg.vocab]
+
+
+def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
+    return (start + torch.arange(s, dtype=torch.int32, device=device)
+            ).expand(b, s)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal logits over a prompt, no cache. tokens: [B, S] int.
+    Returns (logits [B, S, vocab] fp32, aux loss 0)."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    positions = _positions(b, s, 0, tokens.device)
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        x = _layer_apply(_layer(params["layers"], i), x, positions, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return _logits(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16) -> dict:
+    check_supported(cfg)
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    layer = {"k": ParamSpec(shape, dtype, "zeros"),
+             "v": ParamSpec(shape, dtype, "zeros")}
+    return {"layers": L.stack_specs(layer, cfg.n_layers)}
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=torch.device("cuda")) -> dict:
+    return L.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+        cache_specs(cfg, batch, max_seq, dtype))
+
+
+def prefill(params: dict, tokens: torch.Tensor, cache: dict, cfg: LMConfig,
+            attn_mode: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Score the prompt AND fill the KV cache (positions [0, S)).
+
+    Returns (logits [B, S, vocab], cache); the cache is written in
+    place. Subsequent ``decode_step`` calls continue from cache_len = S.
+    Each layer's attention is one flash-attention launch on the card.
+    """
+    check_supported(cfg)
+    b, s = tokens.shape
+    positions = _positions(b, s, 0, tokens.device)
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        x = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
+                         cache=_layer(cache["layers"], i), cache_len=0,
+                         attn_mode=attn_mode)
+    return _logits(params, x, cfg), cache
+
+
+def decode_step(params: dict, token: torch.Tensor, cache: dict,
+                cache_len: int, cfg: LMConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step. token: [B, 1] int; returns (logits [B, vocab],
+    cache), the cache written in place at ``cache_len`` (the number of
+    valid positions before this token)."""
+    check_supported(cfg)
+    b = token.shape[0]
+    idx = int(cache_len)
+    positions = _positions(b, 1, idx, token.device)
+    x = params["embed"][token]
+    for i in range(cfg.n_layers):
+        x = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
+                         cache=_layer(cache["layers"], i), cache_len=idx)
+    return _logits(params, x, cfg)[:, 0], cache

@@ -1,0 +1,224 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+The same numpy inputs go through the reference's Pallas flash kernel
+(interpret mode), its softmax oracle and its three attention forms
+(``blockwise_attention``, ``dense_attention``, ``decode_attention``),
+and through the port's counterparts. On CPU tensors the port's flash
+wrapper computes its plain version, so these tests hold that plain
+version, and the wrappers around it, to the reference.
+
+Tolerance: 3e-5 absolute and relative in fp32, the one
+``tests/test_kernels.py`` holds the Pallas kernel to against its
+oracle. Both sides compute the same fp32 online softmax; they differ
+only in summation order and in the chunk at which each running max is
+taken. The CUDA kernel itself runs only on a card (marker ``cuda``);
+``chip_smoke.py`` holds it to its plain version there in bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.models import layers as jlayers
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.flash_attention import flash_attention, \
+    flash_attention_plain
+from repro_torch.models import layers
+
+TOL = dict(rtol=3e-5, atol=3e-5)
+
+
+def _qkv(seed, b, hq, hkv, sq, skv, d):
+    """q [B, Hq, Sq, D], k / v [B, Hkv, Skv, D] fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, hq, sq, d)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((b, hkv, skv, d)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _bshd(a):
+    """numpy [B, H, S, D] -> torch [B, S, H, D] (contiguous)."""
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's plain version and ops.attention vs the Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+# (b, h, s, d) of tests/test_kernels.py's sweep, plus a ragged s
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s,d", [(1, 2, 128, 32), (2, 3, 192, 64),
+                                     (2, 2, 100, 16)])
+def test_plain_matches_pallas_and_oracle(b, h, s, d, causal):
+    q, k, v = _qkv(s + d, b, h, h, s, s, d)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal)
+    got = flash_attention_plain(_bshd(q), _bshd(k), _bshd(v), causal=causal,
+                                q_chunk=64, kv_chunk=64)
+    _close(got.permute(0, 2, 1, 3), want)
+    if s % 64 == 0:
+        pallas = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, bq=64, bkv=64, interpret=True)
+        _close(got.permute(0, 2, 1, 3), pallas)
+    # the port's oracle and the ops wrapper agree with the reference too
+    _close(ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=causal), want)
+    _close(ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v), causal=causal), want)
+
+
+def test_plain_matches_pallas_decode_offset():
+    b, h, s, d = 2, 2, 128, 32
+    q, k, v = _qkv(5, b, h, h, 1, s, d)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=True, kv_offset=s - 1, bq=1, bkv=64, interpret=True)
+    got = flash_attention_plain(_bshd(q), _bshd(k), _bshd(v), causal=True,
+                                kv_offset=s - 1, kv_chunk=64)
+    _close(got.permute(0, 2, 1, 3), want)
+    _close(ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v), kv_offset=s - 1), want)
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+@pytest.mark.parametrize("s", [96, 75])
+def test_attention_wrapper_gqa(s, mode):
+    b, hq, hkv, d = 2, 8, 2, 32
+    q, k, v = _qkv(s, b, hq, hkv, s, s, d)
+    got = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal=True, mode=mode)
+    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True)
+    _close(got, want)
+    # the kernel maps query head h to KV head h // rep: the same as the
+    # reference's repeat, with no repeat
+    kr = jnp.repeat(jnp.asarray(k), hq // hkv, axis=1)
+    vr = jnp.repeat(jnp.asarray(v), hq // hkv, axis=1)
+    _close(got, jref.flash_attention_ref(jnp.asarray(q), kr, vr))
+
+
+def test_wrapper_on_cpu_launches_nothing_and_checks():
+    q, k, v = (_bshd(a) for a in _qkv(0, 1, 4, 2, 16, 16, 16))
+    before = dict(LAUNCHES)
+    flash_attention(q, k, v)
+    flash_attention(q, k, v, mode="ref")
+    assert dict(LAUNCHES) == before
+    with pytest.raises(ValueError, match="mode"):
+        flash_attention(q, k, v, mode="pallas")
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="kv_offset"):
+        flash_attention(q, k, v, kv_offset=-1)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q, k.double(), v)
+
+
+# ---------------------------------------------------------------------------
+# models/layers.py attention forms vs the reference's
+# ---------------------------------------------------------------------------
+
+
+# (sq, skv, q_chunk, kv_chunk, kv_offset, causal)
+BLOCKWISE = [
+    (64, 64, 512, 1024, 0, True),       # the serving prefill: one chunk
+    (96, 96, 32, 48, 0, True),          # chunks smaller than S
+    (70, 70, 32, 16, 0, True),          # ragged against both chunks
+    (24, 88, 16, 32, 64, True),         # queries at the end of the keys
+    (1, 80, 8, 32, 79, True),           # the decode form
+    (50, 50, 16, 32, 0, False),
+]
+
+
+@pytest.mark.parametrize("sq,skv,qc,kc,off,causal", BLOCKWISE)
+def test_blockwise_attention_matches_reference(sq, skv, qc, kc, off, causal):
+    q, k, v = _qkv(sq + skv, 2, 4, 2, sq, skv, 16)
+    want = jlayers.blockwise_attention(
+        jnp.asarray(q.transpose(0, 2, 1, 3)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), causal=causal, q_chunk=qc,
+        kv_chunk=kc, kv_offset=off)
+    got = layers.blockwise_attention(_bshd(q), _bshd(k), _bshd(v),
+                                     causal=causal, q_chunk=qc, kv_chunk=kc,
+                                     kv_offset=off)
+    _close(got, want)
+    # ... and the wrapper through [B, H, S, D] strided views
+    got_t = flash_attention(torch.from_numpy(q).transpose(1, 2),
+                            torch.from_numpy(k).transpose(1, 2),
+                            torch.from_numpy(v).transpose(1, 2),
+                            causal=causal, q_chunk=qc, kv_chunk=kc,
+                            kv_offset=off)
+    _close(got_t, want)
+
+
+@pytest.mark.parametrize("sq,skv,off,causal", [(40, 40, 0, True),
+                                               (12, 40, 28, True),
+                                               (33, 33, 0, False)])
+def test_dense_attention_matches_reference(sq, skv, off, causal):
+    q, k, v = _qkv(sq, 2, 4, 2, sq, skv, 16)
+    args = [a.transpose(0, 2, 1, 3) for a in (q, k, v)]
+    want = jlayers.dense_attention(*map(jnp.asarray, args), causal=causal,
+                                   kv_offset=off)
+    got = layers.dense_attention(*map(_bshd, (q, k, v)), causal=causal,
+                                 kv_offset=off)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kv_len", [1, 17, 48])
+def test_decode_attention_matches_reference(kv_len):
+    q, k, v = _qkv(kv_len, 3, 8, 2, 1, 48, 16)
+    args = [a.transpose(0, 2, 1, 3) for a in (q, k, v)]
+    want = jlayers.decode_attention(*map(jnp.asarray, args), kv_len=kv_len)
+    got = layers.decode_attention(*map(_bshd, (q, k, v)), kv_len=kv_len)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("s_new,idx", [(20, 0), (8, 0), (1, 5)])
+def test_cache_write_matches_reference(s_new, idx):
+    rng = np.random.default_rng(s_new)
+    cache = rng.standard_normal((2, 20, 3, 4)).astype(np.float32)
+    if s_new > 1:
+        cache[:] = 0.0          # prefill writes into an empty cache
+    new = rng.standard_normal((2, s_new, 3, 4)).astype(np.float32)
+    want = jlayers.cache_write(jnp.asarray(cache), jnp.asarray(new), idx)
+    got = torch.from_numpy(cache.copy())
+    out = layers.cache_write(got, torch.from_numpy(new), idx)
+    assert out is got           # written in place
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# On the card: the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; chip_smoke.py runs the kernel "
+                    "there at the serving shapes")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(cuda):
+    q, k, v = (_bshd(a).to(cuda, torch.bfloat16)
+               for a in _qkv(1, 2, 8, 2, 100, 100, 64))
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=True)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=True)
+    # two steps of bf16's 2^-8 on max|v|: p and the output are rounded
+    # to bf16 at running maxima taken over other tiles
+    tol = 2 * 2 ** -8 * float(v.abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q.float(), k.float(), v.float())

@@ -1,0 +1,228 @@
+"""The port's llama3.2-1b serving path against the JAX package, on the
+CPU.
+
+llama3.2-1b's ``smoke`` config (2 layers, d_model 64, GQA 4 over 2
+heads, fp32) is built once with the reference's ``lm.init`` and carried
+across with ``params_from_jax``, so both packages compute the same
+function on the same weights. The prompts are each package's
+``SyntheticTokens`` from one seed.
+
+Tolerance for logits: 1e-4 absolute and relative. The two sides run
+the same fp32 arithmetic in another order (matmul blocking, the online
+softmax's chunks, exp/rsqrt/sin implementations): a few fp32 ulps per
+op, through 2 layers, on logits of magnitude ~5 (the largest error
+seen was 2e-6). Greedy tokens must be equal.
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.data.synthetic import SyntheticTokens as JSyntheticTokens
+from repro.models import layers as jlayers
+from repro.models import lm as jlm
+from repro.serve import engine as jengine
+from repro_torch.configs import registry
+from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.launch import serve
+from repro_torch.models import layers, lm
+from repro_torch.serve import engine
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = dict(rtol=1e-4, atol=1e-4)
+CPU = torch.device("cpu")
+BATCH, PROMPT, NEW = 2, 12, 8
+
+
+def _smoke(reg):
+    arch = reg.get("llama3.2-1b")
+    return dataclasses.replace(arch, model=arch.smoke)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """(JAX arch, port arch, JAX params, port params, prompts numpy)."""
+    jarch, tarch = _smoke(jregistry), _smoke(registry)
+    jparams = jlm.init(jarch.model, jax.random.key(0))
+    tparams = lm.params_from_jax(jax.tree.map(np.asarray, jparams), CPU)
+    prompts = np.array(JSyntheticTokens(jarch.model.vocab, BATCH, PROMPT,
+                                        seed=0).next_batch()["tokens"])
+    return jarch, tarch, jparams, tparams, prompts
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_registry_and_config():
+    assert registry.list_archs() == ["llama3.2-1b"]
+    arch = registry.get("llama3.2-1b")
+    want = jregistry.get("llama3.2-1b")
+    for cfg, ref_cfg in ((arch.model, want.model), (arch.smoke, want.smoke)):
+        for f in dataclasses.fields(ref_cfg):
+            got, exp = getattr(cfg, f.name), getattr(ref_cfg, f.name)
+            if f.name == "param_dtype":
+                assert str(got).split(".")[-1] == jnp.dtype(exp).name
+            else:
+                assert got == exp, f.name
+        assert cfg.padded_vocab == ref_cfg.padded_vocab
+        assert lm.param_count(cfg) == jlm.param_count(ref_cfg)
+    assert arch.model_module() is lm
+    with pytest.raises(KeyError, match="later slices"):
+        registry.get("qwen3-8b")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("moe", object()), ("mla", object()), ("qk_norm", True),
+    ("mrope_sections", (2, 3, 3)), ("hetero_quant", object()),
+    ("kv_cache_quant", True), ("act", "gelu")])
+def test_other_configs_name_their_slice(field, value):
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
+                              **{field: value})
+    with pytest.raises(NotImplementedError, match="slice"):
+        lm.param_specs(cfg)
+
+
+def test_synthetic_tokens_are_the_references():
+    for vocab, b, s, seed in ((512, 2, 12, 0), (128256, 8, 64, 0),
+                              (1000, 3, 5, 7)):
+        mine = SyntheticTokens(vocab, b, s, seed=seed)
+        theirs = JSyntheticTokens(vocab, b, s, seed=seed)
+        for _ in range(2):
+            got = mine.next_batch()["tokens"]
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(theirs.next_batch()["tokens"]))
+
+
+def test_init_follows_the_param_laws():
+    cfg = registry.get("llama3.2-1b").smoke
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    want = jlm.init(_smoke(jregistry).model, jax.random.key(0))
+    shapes = jax.tree.map(lambda a: tuple(a.shape), want)
+    assert layers.tree_map(lambda t: tuple(t.shape), params) == shapes
+    assert torch.equal(params["ln_f"], torch.ones(cfg.d_model))
+    # embed ~ N(0, 1); wq ~ N(0, 1/d_model)
+    assert abs(float(params["embed"].std()) - 1.0) < 0.05
+    wq = params["layers"]["attn"]["wq"]
+    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    again = lm.init(cfg, torch.Generator().manual_seed(0))
+    assert torch.equal(again["embed"], params["embed"])
+
+
+def test_params_from_jax_keeps_bf16_bits():
+    tree = {"w": jax.random.normal(jax.random.key(1), (3, 5),
+                                   jnp.bfloat16)}
+    got = lm.params_from_jax(jax.tree.map(np.asarray, tree), CPU)["w"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy(),
+        np.asarray(tree["w"]).view(np.int16))
+    wide = lm.params_from_jax(tree, CPU, torch.float32)["w"]
+    np.testing.assert_array_equal(wide.numpy(),
+                                  np.asarray(tree["w"], np.float32))
+
+
+def test_rmsnorm_and_rope_match_reference():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 7, 4, 16)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    pos = np.broadcast_to(np.arange(7, dtype=np.int32) + 100, (2, 7))
+    _close(layers.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale)),
+           jlayers.rmsnorm(jnp.asarray(x), jnp.asarray(scale)))
+    _close(layers.apply_rope(torch.from_numpy(x),
+                             torch.from_numpy(pos.copy()), 500000.0),
+           jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 500000.0))
+
+
+def test_forward_matches_reference(smoke):
+    jarch, tarch, jparams, tparams, prompts = smoke
+    want, _ = jlm.forward(jparams, jnp.asarray(prompts), jarch.model)
+    got, _ = lm.forward(tparams, torch.from_numpy(prompts), tarch.model)
+    _close(got, want)
+
+
+def test_prefill_and_decode_logits_match_reference(smoke):
+    """Prefill logits, then each decode step's logits over the reference's
+    greedy tokens, fed to both packages."""
+    jarch, tarch, jparams, tparams, prompts = smoke
+    max_seq = PROMPT + NEW
+    jcache = jengine.make_cache(jarch, BATCH, max_seq, jnp.float32)
+    tcache = engine.make_cache(tarch, BATCH, max_seq, torch.float32, CPU)
+    jlogits, jcache = jax.jit(jengine.make_prefill_fn(jarch))(
+        jparams, {"tokens": jnp.asarray(prompts)}, jcache)
+    before = dict(LAUNCHES)
+    tlogits, tcache = engine.make_prefill_fn(tarch)(
+        tparams, {"tokens": torch.from_numpy(prompts)}, tcache)
+    assert dict(LAUNCHES) == before       # plain versions on the CPU
+    _close(tlogits, jlogits)
+    _close(tcache["layers"]["k"], jcache["layers"]["k"])
+    _close(tcache["layers"]["v"], jcache["layers"]["v"])
+
+    jdecode = jax.jit(jengine.make_decode_fn(jarch))
+    tdecode = engine.make_decode_fn(tarch)
+    tok = np.array(jnp.argmax(jlogits[:, -1], axis=-1))[:, None]
+    for pos in range(PROMPT, PROMPT + NEW - 1):
+        jlogits, jcache = jdecode(jparams, jnp.asarray(tok, jnp.int32),
+                                  jcache, jnp.int32(pos))
+        tlogits, tcache = tdecode(tparams, torch.from_numpy(tok).int(),
+                                  tcache, pos)
+        _close(tlogits, jlogits)
+        tok = np.array(jnp.argmax(jlogits, axis=-1))[:, None]
+    _close(tcache["layers"]["k"], jcache["layers"]["k"])
+
+
+def test_greedy_tokens_equal_reference(smoke):
+    jarch, tarch, jparams, tparams, prompts = smoke
+    want = jengine.greedy_generate(jarch, jparams, jnp.asarray(prompts), NEW)
+    got = engine.greedy_generate(tarch, tparams, torch.from_numpy(prompts),
+                                 NEW)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the plain-version run of prefill attention gives the same tokens
+    again = engine.greedy_generate(tarch, tparams, torch.from_numpy(prompts),
+                                   NEW, attn_mode="ref")
+    assert torch.equal(again, got)
+
+
+def test_other_families_raise():
+    arch = dataclasses.replace(registry.get("llama3.2-1b"), module="ssm")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        engine.make_prefill_fn(arch)
+
+
+def test_serve_launcher_on_cpu(capsys, tmp_path):
+    metrics = tmp_path / "m.json"
+    out = serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--new-tokens",
+                      "4", "--metrics", str(metrics)])
+    text = capsys.readouterr().out
+    for line in ("prefill:", "decode:", "sample tokens:"):
+        assert line in text
+    assert out["tokens"].shape == (2, 4)
+    assert "serve.request.prefill_ms" in metrics.read_text()
+    # the same prompts as the reference's launcher draws
+    np.testing.assert_array_equal(
+        out["prompts"].numpy(),
+        np.asarray(JSyntheticTokens(512, 2, 8, seed=0).next_batch()["tokens"]))
+
+
+def test_serve_imports_pull_in_no_jax():
+    code = ("import sys, repro_torch.launch.serve, "
+            "repro_torch.configs.registry as r; "
+            "r.get('llama3.2-1b').model_module(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

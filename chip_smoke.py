@@ -6,17 +6,27 @@
 Phases, each printing its lines before the last:
 
 1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` (``split_gemm.cu`` and
-   ``flash_attention.cu``, one nvcc each, started together), time the
-   build and print ptxas's register, shared-memory and spill report.
+   from ``src/repro_torch/kernels/csrc`` (``fused_split_gemm.cu``,
+   ``split_gemm.cu`` and ``flash_attention.cu``, one nvcc each, started
+   together), time the build and print ptxas's register, shared-memory
+   and spill report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
-   splits. Required: bitwise equality. Times: the kernel and the plain
-   version (CUDA events after a warm-up), ``torch._int_mm`` on the
-   reconstructed int8 weights as the library yardstick, and the bound
-   (bytes at the weights' code width over 3.35 TB/s vs 2·m·k·n int8
-   operations over 1,979 TOP/s).
+   splits, with the fused kernels' tile and K split
+   (``fused_hetero_gemm.split_plan``) printed per layer. The fused
+   kernels are also held at corners (M = 1, 13, 49; K not a multiple of
+   S·BK; C = 3, 24, 48, 64; the split boundary inside a tile; one-sided
+   splits) under the chooser's plan and under every compiled tile and
+   cluster size. Required: bitwise equality. Times: the kernel, the
+   plain version and ``torch._int_mm`` on the reconstructed int8
+   weights (the library yardstick), each as device time per call
+   (:func:`device_times`: CUDA events around calls that a spin kernel
+   let the host enqueue in full; the kernels' row reports these) and as
+   CUDA events over back-to-back calls (``events_*``), which at a few µs
+   a call measure the host's launch rate; and the
+   bound (bytes at the weights' code width over 3.35 TB/s vs 2·m·k·n
+   int8 operations over 1,979 TOP/s).
 3. slice: compile resnet18 (224, width 1.0, -O 0) with
    ``repro_torch.compiler``, bind synthetic weights, and drive four
    images through ``CudaExecutor``'s fused path, four through
@@ -28,7 +38,10 @@ Phases, each printing its lines before the last:
    on ``fused=False``; ``fused_hetero_gemm`` one per two-sided layer
    when staged; none in ``mode="ref"``), and logits bitwise equal to
    the plain versions on the card (``mode="ref"``), to ``fused=False``,
-   to the staged path, and to the CPU run of the same image.
+   to the staged path, and to the CPU run of the same image. Times:
+   per-image latency (host clock, median of the four) and the device's
+   busy share of it (device time of one image from a profiler trace,
+   :func:`busy_ms`).
 4. flash: the flash-attention kernel against its plain version in bf16
    at six shapes: the serving prefill (B=8, S=64, 32 query heads over
    8 KV heads, D=64, causal), S=2048 causal, S=1000 causal (ragged),
@@ -36,8 +49,8 @@ Phases, each printing its lines before the last:
    query at offset 1023 (the decode form). Required: max |err| within
    :func:`flash_tol`. Times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` on the KV heads repeated (the
-   library yardstick): device time per call from a ``torch.profiler``
-   trace (:func:`device_ms`; the kernels' row reports these), and CUDA
+   library yardstick): device time per call (:func:`device_times`; the
+   kernels' row reports these), and CUDA
    events over back-to-back calls, which at small shapes measure the
    host's launch rate. The bound: q, k, v and out once over 3.35 TB/s
    vs 4·B·Hq·D·(unmasked pairs) over 989 TFLOP/s bf16.
@@ -53,7 +66,8 @@ Phases, each printing its lines before the last:
    ``mode="ref"`` run's in every row whose top-2 logit gap exceeds the
    tolerance. Times: prefill (median of 7 after a warm-up), decode per
    step over 31 steps, tokens/s, and the device's busy share of each
-   (device time from a profiler trace over the host-clock time).
+   (device time from a profiler trace over the host-clock time, or "not
+   measured" where the profiler records no device time).
 
 The line before the last is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
@@ -64,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import statistics
 import subprocess
@@ -77,10 +92,13 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 INT8_OPS_PER_S = 1.979e15          # H100 SXM dense int8 tensor cores
 BF16_FLOP_PER_S = 9.89e14          # H100 SXM dense bf16 tensor cores
+#: the spin that holds the stream while timed calls are enqueued: ~10 ms
+#: at the H100's 1.98 GHz boost clock (device_times lengthens it if short)
+SPIN_CYCLES = 20_000_000
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = {
-    "fused_conv_gemm": f"{CSRC}/split_gemm.cu",
-    "fused_hetero_gemm": f"{CSRC}/split_gemm.cu",
+    "fused_conv_gemm": f"{CSRC}/fused_split_gemm.cu",
+    "fused_hetero_gemm": f"{CSRC}/fused_split_gemm.cu",
     "bitserial_gemm": f"{CSRC}/split_gemm.cu",
     "int4_gemm": f"{CSRC}/split_gemm.cu",
     "flash_attention": f"{CSRC}/flash_attention.cu",
@@ -100,6 +118,17 @@ KERNEL_PATH = {
     "int4_gemm": "fused=False",
 }
 N_IMAGES = 4
+#: fused-kernel corners, (M, K, bits, n_lut, n_dsp) dense and (H=W, C,
+#: kernel, stride, pad, bits, n_lut, n_dsp) conv: M = 1, 13 and 49, K
+#: not a multiple of S·BK, the split boundary inside a tile, one-sided
+#: splits, and C = 3 (scalar gather), 24 (8-byte copies), 48 and 64
+#: (16-byte copies)
+DENSE_CORNERS = [(1, 512, 4, 680, 320), (13, 72, 3, 2, 62),
+                 (49, 4608, 4, 432, 80), (49, 1000, 8, 100, 0),
+                 (49, 1000, 4, 0, 100)]
+CONV_CORNERS = [(15, 3, 7, 2, 3, 4, 48, 16), (14, 48, 3, 2, 1, 5, 30, 50),
+                (7, 64, 3, 1, 1, 4, 40, 24), (9, 64, 1, 2, 0, 4, 64, 0),
+                (9, 24, 3, 1, 1, 4, 0, 33)]
 #: (name, B, Sq, Skv, Hq, Hkv, D, causal, kv_offset); the first is the
 #: serving prefill's shape, the one the kernel's row reports
 FLASH_SHAPES = [
@@ -134,26 +163,76 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    """Device time per call of ``fn``: the summed durations of the device
-    activities (kernels, copies) in a ``torch.profiler`` trace of
-    ``iters`` calls, so the host's cost of issuing them is left out.
-    Raises where the trace holds no device time."""
+def device_times(torch, fns: dict, warmup: int = 2,
+                 attempts: int = 4) -> dict:
+    """Device time per call of each ``fn`` in ``fns`` (name -> (fn,
+    iters)), without the host's cost of issuing the calls: a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host enqueues the
+    ``iters`` calls between two CUDA events, so the events time the calls
+    back to back on the device (the device's own gaps between launches
+    included). If the device reached the first event before the host had
+    enqueued the last call (the spin was too short), the spin is made 4x
+    longer and the calls timed again; raises after ``attempts``, which is
+    also what a host sync inside ``fn`` does. Keep ``iters`` times the
+    launches of one call to a few hundred, so that the host never waits
+    for room in the launch queue."""
+    for fn, _ in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {}
+    for name, (fn, iters) in fns.items():
+        cycles = SPIN_CYCLES
+        for _ in range(attempts):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            covered = not start.query()
+            torch.cuda.synchronize()
+            if covered:
+                times[name] = start.elapsed_time(end) / iters
+                break
+            cycles *= 4
+        else:
+            raise AssertionError(f"{name}: the host had not issued {iters} "
+                                 f"calls when a spin of {cycles // 4} "
+                                 f"cycles ended")
+    return times
+
+
+def busy_ms(torch, fn, iters: int, attempts: int = 2):
+    """Device time per call of ``fn`` that may synchronise the host (an
+    image, a prefill): the summed durations of the device activities in
+    a ``torch.profiler`` trace of ``iters`` calls. The profiler here now
+    and then returns traces without device activities, and then keeps
+    doing so in that process; after ``attempts`` such traces this returns
+    None, which the caller reports as not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if not us:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us:
+            return us / 1e3 / iters
+    return None
+
+
+def busy_text(dev_ms, host_ms: float) -> str:
+    """``dev_ms`` and its share of ``host_ms``, or "not measured"."""
+    if dev_ms is None:
+        return "not measured (the profiler recorded no device time)"
+    return f"{dev_ms:.4f} ms (busy {100 * dev_ms / host_ms:.1f}%)"
 
 
 def require_equal(torch, name: str, got, want) -> float:
@@ -255,14 +334,17 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
     from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
         bitserial_gemm_plain
     from repro_torch.kernels.fused_hetero_gemm import fused_conv_gemm, \
-        fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain
+        fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain, \
+        split_plan
     from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
 
     names = ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
              "int4_gemm")
-    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": 0.0, "max_abs_err": 0.0, "bytes": 0.0,
-               "operations": 0.0} for n in names}
+    times = ("ms", "plain_ms", "library_ms", "events_ms", "events_plain_ms",
+             "events_library_ms")
+    tot = {n: {**dict.fromkeys(times, 0.0), "bound_ms": 0.0,
+               "max_abs_err": 0.0, "bytes": 0.0, "operations": 0.0}
+           for n in names}
     rows = details.setdefault("layers", [])
     for lp, (x_sp, x_col) in zip(prog.layers, layer_inputs(torch, prog)):
         g, sw = lp.geometry, ex._split[lp.index]
@@ -272,6 +354,7 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
         codes = torch.cat([c for c in (wts.w_lut, wts.w_dsp)
                            if c is not None], dim=1)
         conv = (g.kernel, g.stride, g.pad, g.out_hw)
+        plan = split_plan(m, k, n_lut, n_dsp)
         cases = {
             "fused_conv_gemm": (
                 lambda: fused_conv_gemm(x_sp, sw.planes, sw.packed, sw.scale,
@@ -305,21 +388,35 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
             row = {"kernel": name, "layer": lp.name, "m": m, "k": k,
                    "n_lut": n_lut if name != "int4_gemm" else 0,
                    "n_dsp": n_dsp if name != "bitserial_gemm" else 0,
-                   "ms": cuda_ms(torch, kern),
-                   "plain_ms": cuda_ms(torch, plain, iters=5),
-                   "library_ms": cuda_ms(torch, lib),
+                   **device_times(torch, {"ms": (kern, 10),
+                                          "plain_ms": (plain, 3),
+                                          "library_ms": (lib, 10)}),
+                   "events_ms": cuda_ms(torch, kern),
+                   "events_plain_ms": cuda_ms(torch, plain, iters=5),
+                   "events_library_ms": cuda_ms(torch, lib),
                    "bound_ms": b_ms, "bound_by": b_by}
+            if name.startswith("fused"):
+                row["plan"] = list(plan)
             rows.append(row)
             t = tot[name]
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            for key in (*times, "bound_ms"):
                 t[key] += row[key]
             t[b_by] += b_ms
             t["max_abs_err"] = max(t["max_abs_err"], err)
+        ms = {r["kernel"]: r["ms"] for r in rows[-len(cases):]}
+        print(f"plan {lp.name}: M={m} K={k} n_lut={n_lut} n_dsp={n_dsp} -> "
+              f"BM={plan.bm} BN={plan.bn} S={plan.split} blocks="
+              f"{plan.blocks}; device ms fused_conv_gemm "
+              f"{ms['fused_conv_gemm']:.4f}, fused_hetero_gemm "
+              f"{ms['fused_hetero_gemm']:.4f}")
     for name in names:
         t = tot[name]
         print(f"kernel {name}: 21 resnet18 shapes bitwise equal to plain; "
-              f"per image {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-              f"_int_mm {t['library_ms']:.4f}, bound {t['bound_ms']:.4f})")
+              f"per image device {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f}, _int_mm {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f}); events {t['events_ms']:.4f} ms "
+              f"(plain {t['events_plain_ms']:.4f}, _int_mm "
+              f"{t['events_library_ms']:.4f})")
 
     # extra corners: bit widths 2/4/8 and one-sided splits at the
     # conv1 / conv2 / conv8_ds / conv17 geometries and the staged fc
@@ -361,7 +458,82 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
                 n_checked += 1
     print(f"kernels: {n_checked} extra (layer, bits, split) corners "
           f"bitwise equal to plain")
+    fused_corners(torch, details)
     return tot
+
+
+def launch_planned(torch, name, x, sw, geom, plan):
+    """The fused kernel ``name`` under a given (BM, BN, S) ``plan``
+    rather than the chooser's, into a NaN-filled output (a block that
+    writes nothing shows); ``geom`` is the conv's (kernel, stride, pad,
+    out_hw), None for the dense kernel."""
+    from repro_torch.kernels.build import launch
+    weights = (sw.planes.data_ptr(), sw.bits, sw.n_lut, sw.packed.data_ptr(),
+               sw.n_dsp, sw.scale.data_ptr())
+    lead = tuple(x.shape) if geom is None else (*x.shape, *geom)
+    m = x.shape[0] if geom is None else geom[3] ** 2
+    out = torch.full((m, sw.n_lut + sw.n_dsp), float("nan"),
+                     device=x.device)
+    launch(name, x, x.data_ptr(), *lead, *weights, out.data_ptr(), *plan)
+    return out
+
+
+def fused_corners(torch, details: dict) -> None:
+    """The fused kernels at :data:`DENSE_CORNERS` and
+    :data:`CONV_CORNERS`, under the chooser's plan and under every
+    compiled (BM, BN) tile and cluster size S, each bitwise equal to the
+    plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_hetero_gemm import SPLITS, TILES, \
+        fused_conv_gemm, fused_conv_gemm_plain, fused_hetero_gemm, \
+        fused_hetero_gemm_plain, split_plan
+    gen = torch.Generator(device="cpu").manual_seed(13)
+
+    def weights(k, bits, n_lut, n_dsp):
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+        s = torch.rand(n_lut + n_dsp, generator=gen) + 0.5
+        return ops.prepare_split(
+            k, torch.randint(lo, hi, (k, n_lut), generator=gen), s[:n_lut],
+            bits, torch.randint(-8, 8, (k, n_dsp), generator=gen),
+            s[n_lut:], torch.device("cuda"))
+
+    cases = []
+    for m, k, bits, n_lut, n_dsp in DENSE_CORNERS:
+        x = torch.randint(-128, 128, (m, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        sw = weights(k, bits, n_lut, n_dsp)
+        args = (sw.planes, sw.packed, sw.scale, bits, n_lut, n_dsp)
+        cases.append((f"dense M={m} K={k} bits={bits} {n_lut}/{n_dsp}",
+                      "fused_hetero_gemm", x, sw, None,
+                      split_plan(m, k, n_lut, n_dsp),
+                      fused_hetero_gemm(x, *args),
+                      fused_hetero_gemm_plain(x, *args)))
+    for hw, c, ks, st, pad, bits, n_lut, n_dsp in CONV_CORNERS:
+        out_hw = (hw + 2 * pad - ks) // st + 1
+        k = ks * ks * c
+        x = torch.randint(-128, 128, (hw, hw, c), generator=gen,
+                          dtype=torch.int8).cuda()
+        sw = weights(k, bits, n_lut, n_dsp)
+        geom = (ks, st, pad, out_hw)
+        args = (sw.planes, sw.packed, sw.scale, bits, n_lut, n_dsp, *geom)
+        cases.append((f"conv {hw}x{hw}x{c} k{ks}s{st}p{pad} bits={bits} "
+                      f"{n_lut}/{n_dsp}", "fused_conv_gemm", x, sw, geom,
+                      split_plan(out_hw ** 2, k, n_lut, n_dsp),
+                      fused_conv_gemm(x, *args),
+                      fused_conv_gemm_plain(x, *args)))
+    n_checked = 0
+    for tag, name, x, sw, geom, plan, got, want in cases:
+        require_equal(torch, f"{name} {tag} {tuple(plan)}", got, want)
+        for (bm, bn), split in itertools.product(TILES, SPLITS):
+            require_equal(torch, f"{name} {tag} BM={bm} BN={bn} S={split}",
+                          launch_planned(torch, name, x, sw, geom,
+                                         (bm, bn, split)), want)
+        n_checked += 1 + len(TILES) * len(SPLITS)
+    details["fused_corners"] = [(tag, list(plan))
+                                for tag, _, _, _, _, plan, _, _ in cases]
+    print(f"kernels: fused corners bitwise equal to plain: {len(cases)} "
+          f"shapes x (chooser's plan + {len(TILES)} tiles x {len(SPLITS)} "
+          f"cluster sizes) = {n_checked} launches")
 
 
 def expected_launches(prog, ex) -> dict:
@@ -485,6 +657,10 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
     require_equal(torch, "reduced resnet18 card vs cpu", ys[0], ys[1])
 
     med = statistics.median(lat)
+    image_dev = busy_ms(torch, lambda: ex.run(images[0]), iters=4)
+    print(f"slice: device time per image {busy_text(image_dev, med)} of "
+          f"the median latency")
+    details["image_device_ms"] = image_dev
     print(f"slice: resnet18 224 x{N_IMAGES} images via CudaExecutor: "
           f"per-image latency median {med:.3f} ms ({', '.join(f'{v:.3f}' for v in lat)}); "
           f"|out| sum image 0 {float(np.abs(y0).sum()):.6e}; bitwise equal "
@@ -580,9 +756,10 @@ def phase_flash(torch, details: dict) -> dict:
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
                "hkv": hkv, "d": d, "causal": causal, "kv_offset": off,
                "max_abs_err": err, "tol": tol, "sdpa_err": lib_err,
-               "ms": device_ms(torch, kern),
-               "plain_ms": device_ms(torch, plain, iters=5),
-               "library_ms": device_ms(torch, lib), "bound_ms": b_ms,
+               **device_times(torch, {"ms": (kern, 10),
+                                      "plain_ms": (plain, 2),
+                                      "library_ms": (lib, 10)}),
+               "bound_ms": b_ms,
                "bound_by": b_by, "events_ms": cuda_ms(torch, kern),
                "events_plain_ms": cuda_ms(torch, plain, iters=5),
                "events_library_ms": cuda_ms(torch, lib)}
@@ -682,9 +859,9 @@ def phase_serve(torch, details: dict) -> int:
         # device time of one prefill and of one decode step
         cache_d = run_prefill(prefill)[1]
         tok_d = tokens[:, :1]
-        prefill_dev = device_ms(torch, lambda: run_prefill(prefill), iters=3)
-        decode_dev = device_ms(torch, lambda: decode(params, tok_d, cache_d,
-                                                     s0), iters=5)
+        prefill_dev = busy_ms(torch, lambda: run_prefill(prefill), iters=3)
+        decode_dev = busy_ms(torch, lambda: decode(params, tok_d, cache_d,
+                                                   s0), iters=5)
 
     want_shape = (b, s0, cfg.vocab)
     if tuple(logits.shape) != want_shape or not torch.isfinite(logits).all():
@@ -723,9 +900,9 @@ def phase_serve(torch, details: dict) -> int:
           f"over {n_new - 1} steps, {b * (n_new - 1) / t_decode * 1e3:.0f} "
           f"tok/s; launcher prefill {summary['prefill_ms']:.3f} ms, decode "
           f"{summary['decode_ms_per_step']:.3f} ms/step")
-    print(f"serve: device time per prefill {prefill_dev:.3f} ms (busy "
-          f"{100 * prefill_dev / med:.1f}% of the median), per decode step "
-          f"{decode_dev:.3f} ms (busy {100 * decode_dev / per_step:.1f}%)")
+    print(f"serve: device time per prefill {busy_text(prefill_dev, med)} "
+          f"of the median, per decode step "
+          f"{busy_text(decode_dev, per_step)}")
     details["serve"] = {
         "windows": windows, "logit_err": err, "logit_tol": tol,
         "first_tokens_equal": int(first_same.sum()),

@@ -1,15 +1,10 @@
-// Split GEMM kernels of the N3H-Core heterogeneous layer (paper Eq. 12)
-// for Hopper (sm_90a).
+// Single-path split GEMM kernels of the N3H-Core heterogeneous layer
+// (paper Eq. 12) for Hopper (sm_90a).
 //
-// One templated kernel, four C entry points, one for each TPU kernel of
-// the JAX package:
+// One templated kernel, two C entry points, one for each TPU kernel of
+// the JAX package (both sides of the split in one launch, with and
+// without im2col, are fused_split_gemm.cu's):
 //
-//   fused_hetero_gemm  replaces repro/kernels/fused_hetero_gemm.py
-//                      fused_hetero_gemm (_fused_kernel): [M, K] x both
-//                      sides of the split in one launch.
-//   fused_conv_gemm    replaces repro/kernels/fused_hetero_gemm.py
-//                      fused_conv_gemm (_fused_conv_kernel): the same
-//                      split GEMM with im2col inside the kernel.
 //   bitserial_gemm     replaces repro/kernels/bitserial_gemm.py
 //                      bitserial_gemm (_bitserial_kernel): LUT side only.
 //   int4_gemm          replaces repro/kernels/int4_gemm.py int4_gemm
@@ -43,13 +38,7 @@
 //     adds s_b * partial: its cost grows with the bit width, as the LUT
 //     core's does; a DSP column tile unpacks sign-extended nibbles in
 //     registers while staging;
-//   * the column tiles of the two regions are numbered separately, so
-//     the split boundary need not fall on a tile edge (48 of 64 on
-//     resnet18's conv1); ragged M, K and N edges are masked;
-//   * the conv variant reads the *unpadded* NHWC block and gathers each
-//     (m, k) element of the im2col matrix on the fly, zero where the
-//     window leaves the image: no padded copy, no column matrix, and no
-//     whole image in shared memory. Any C works (conv1 has C=3, K=147).
+//   * ragged M, K and N edges are masked.
 //
 // Launches go on the caller's stream, allocate nothing and do not
 // synchronise; each entry point returns cudaGetLastError().
@@ -66,7 +55,7 @@ constexpr int THREADS = 256;
 constexpr int LDS = BK + 4;  // shared row stride in bytes: 4-byte aligned, conflict-free
 
 struct Params {
-  const int8_t* x;       // dense: [M, K]; conv: [H, W, C], unpadded
+  const int8_t* x;       // [M, K]
   const int8_t* planes;  // [bits, K, n_lut] in {0, 1}
   const int8_t* packed;  // [K, ceil(n_dsp / 2)] int4 pairs
   const float* scale;    // [n_lut + n_dsp]
@@ -74,23 +63,7 @@ struct Params {
   int M, K;
   int bits, n_lut, n_dsp;
   int lut_tiles;         // ceil(n_lut / BN): column tiles before the DSP region
-  int H, W, C, ksize, stride, pad, out_hw;  // conv geometry
 };
-
-template <bool CONV>
-__device__ __forceinline__ int8_t load_act(const Params& p, int m, int k) {
-  if constexpr (!CONV) {
-    return p.x[(size_t)m * p.K + k];
-  } else {
-    const int t = k / p.C, c = k - t * p.C;           // tap, channel
-    const int dh = t / p.ksize, dw = t - dh * p.ksize;
-    const int oh = m / p.out_hw, ow = m - oh * p.out_hw;
-    const int ih = oh * p.stride - p.pad + dh;
-    const int iw = ow * p.stride - p.pad + dw;
-    if (ih < 0 || ih >= p.H || iw < 0 || iw >= p.W) return 0;  // zero padding
-    return p.x[((size_t)ih * p.W + iw) * p.C + c];
-  }
-}
 
 // acc[i][j] += dot(As row (ty + 16 i), Bs column (tx + 16 j)) over one K tile.
 __device__ __forceinline__ void dot_tile(const int8_t* As, const int8_t* Bs,
@@ -111,7 +84,6 @@ __device__ __forceinline__ void dot_tile(const int8_t* As, const int8_t* Bs,
   }
 }
 
-template <bool CONV>
 __global__ void __launch_bounds__(THREADS) split_gemm_kernel(Params p) {
   __shared__ __align__(16) int8_t As[BM * LDS];  // [m][k]
   __shared__ __align__(16) int8_t Bs[BN * LDS];  // [n][k]
@@ -137,7 +109,7 @@ __global__ void __launch_bounds__(THREADS) split_gemm_kernel(Params p) {
     for (int e = tid; e < BM * BK; e += THREADS) {
       const int r = e / BK, c = e % BK;
       const int m = m0 + r, k = k0 + c;
-      As[r * LDS + c] = (m < p.M && k < p.K) ? load_act<CONV>(p, m, k) : 0;
+      As[r * LDS + c] = (m < p.M && k < p.K) ? p.x[(size_t)m * p.K + k] : 0;
     }
     if (lut) {
       for (int b = 0; b < p.bits; ++b) {
@@ -194,12 +166,11 @@ __global__ void __launch_bounds__(THREADS) split_gemm_kernel(Params p) {
   }
 }
 
-template <bool CONV>
 int launch(Params p, void* stream) {
   p.lut_tiles = (p.n_lut + BN - 1) / BN;
   const int dsp_tiles = (p.n_dsp + BN - 1) / BN;
   const dim3 grid(p.lut_tiles + dsp_tiles, (p.M + BM - 1) / BM);
-  split_gemm_kernel<CONV><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+  split_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -224,45 +195,17 @@ Params base_params(const void* x, int M, int K, const void* planes, int bits,
 
 extern "C" {
 
-// x [M, K] int8; planes [bits, K, n_lut]; packed [K, ceil(n_dsp/2)];
-// scale [n_lut + n_dsp] fp32 -> out [M, n_lut + n_dsp] fp32.
-int fused_hetero_gemm(const void* x, int M, int K, const void* planes, int bits,
-                      int n_lut, const void* packed, int n_dsp,
-                      const void* scale, void* out, void* stream) {
-  return launch<false>(
-      base_params(x, M, K, planes, bits, n_lut, packed, n_dsp, scale, out),
-      stream);
-}
-
-// x [H, W, C] int8, unpadded; weights in (kh, kw, c) row order with
-// K = ksize^2 * C; out [out_hw^2, n_lut + n_dsp] fp32.
-int fused_conv_gemm(const void* x, int H, int W, int C, int ksize, int stride,
-                    int pad, int out_hw, const void* planes, int bits,
-                    int n_lut, const void* packed, int n_dsp,
-                    const void* scale, void* out, void* stream) {
-  Params p = base_params(x, out_hw * out_hw, ksize * ksize * C, planes, bits,
-                         n_lut, packed, n_dsp, scale, out);
-  p.H = H;
-  p.W = W;
-  p.C = C;
-  p.ksize = ksize;
-  p.stride = stride;
-  p.pad = pad;
-  p.out_hw = out_hw;
-  return launch<true>(p, stream);
-}
-
 // x [M, K] int8; planes [bits, K, N]; scale [N] -> out [M, N].
 int bitserial_gemm(const void* x, int M, int K, const void* planes, int bits,
                    int N, const void* scale, void* out, void* stream) {
-  return launch<false>(
+  return launch(
       base_params(x, M, K, planes, bits, N, nullptr, 0, scale, out), stream);
 }
 
 // x [M, K] int8; packed [K, ceil(N/2)]; scale [N] -> out [M, N].
 int int4_gemm(const void* x, int M, int K, const void* packed, int N,
               const void* scale, void* out, void* stream) {
-  return launch<false>(
+  return launch(
       base_params(x, M, K, nullptr, 0, 0, packed, N, scale, out), stream);
 }
 

@@ -12,13 +12,17 @@ matrix and no padded copy exist. Its CUDA form needs no VMEM budget and
 no fallback: every resnet18 layer, ``conv1`` and ``fc`` included, takes
 it.
 
-Both wrappers launch the CUDA kernels of ``csrc/split_gemm.cu`` on CUDA
-tensors and compute the plain PyTorch version (``*_plain``) on CPU
-tensors; nothing else chooses between the two. Weights arrive already
-prepared (``ops.prepare_split``), so the executor prepares them once at
-bind time.
+Both wrappers launch the CUDA kernels of ``csrc/fused_split_gemm.cu``
+(int8 tensor cores, a ``cp.async`` pipeline, split-K over a thread-block
+cluster) on CUDA tensors and compute the plain PyTorch version
+(``*_plain``) on CPU tensors; nothing else chooses between the two.
+:func:`split_plan` picks each launch's tile and K split from the shape
+alone. Weights arrive already prepared (``ops.prepare_split``), so the
+executor prepares them once at bind time.
 """
 from __future__ import annotations
+
+import typing
 
 import torch
 
@@ -26,6 +30,63 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bitserial_gemm import bitserial_gemm_plain
 from repro_torch.kernels.build import check_operand, launch
 from repro_torch.kernels.int4_gemm import int4_gemm_plain
+
+
+#: K bytes per pipeline step of the CUDA kernel (``BK`` in the source)
+BK = 64
+#: the compiled (BM, BN) output tiles, in order of preference for M > 16
+TILES = ((64, 64), (64, 32), (16, 64), (16, 32))
+#: the cluster sizes along K (portable: at most 8)
+SPLITS = (1, 2, 4, 8)
+#: the block counts a launch aims for: one to two blocks per SM of an H100
+MIN_BLOCKS, MAX_BLOCKS = 132, 264
+
+
+class SplitPlan(typing.NamedTuple):
+    """One launch's tile (BM x BN), cluster size along K and grid size."""
+    bm: int
+    bn: int
+    split: int
+    blocks: int
+
+
+def _blocks(m: int, n_lut: int, n_dsp: int, bm: int, bn: int) -> int:
+    """Blocks of one K slice: row tiles x (LUT + DSP column tiles)."""
+    return -(-m // bm) * (-(-n_lut // bn) + -(-n_dsp // bn))
+
+
+def split_plan(m: int, k: int, n_lut: int, n_dsp: int) -> SplitPlan:
+    """The tile (BM, BN) and the K split S of one launch, and its block
+    count. For each tile, S is the smallest power of two that brings the
+    grid to :data:`MIN_BLOCKS`, at most 8 and at most the K steps. The
+    first tile whose grid lands in [MIN_BLOCKS, MAX_BLOCKS] wins (the
+    16-row tiles come first when M <= 16); where none does (a large M
+    with few columns, or too few K steps to split), the tile whose grid
+    comes closest to the range."""
+    steps = -(-k // BK)
+    order = TILES if m > 16 else TILES[2:] + TILES[:2]
+    plans = []
+    for bm, bn in order:
+        base = _blocks(m, n_lut, n_dsp, bm, bn)
+        split = 1
+        while base * split < MIN_BLOCKS and 2 * split <= min(SPLITS[-1],
+                                                               steps):
+            split *= 2
+        plans.append(SplitPlan(bm, bn, split, base * split))
+    for plan in plans:
+        if MIN_BLOCKS <= plan.blocks <= MAX_BLOCKS:
+            return plan
+    return min(plans, key=lambda p: max(MIN_BLOCKS / p.blocks,
+                                        p.blocks / MAX_BLOCKS))
+
+
+def k_slices(k: int, split: int) -> list[tuple[int, int]]:
+    """The [begin, end) K range of each block of a cluster of ``split``:
+    block r takes steps [r * steps // S, (r + 1) * steps // S) of
+    :data:`BK`, as the kernel does."""
+    steps = -(-k // BK)
+    return [(r * steps // split * BK, min(k, (r + 1) * steps // split * BK))
+            for r in range(split)]
 
 
 def _check_split(kernel, x, planes, packed, w_scale, bits, n_lut, n_dsp, k):
@@ -75,9 +136,10 @@ def fused_hetero_gemm(x: torch.Tensor, planes: torch.Tensor,
                                        n_lut, n_dsp)
     out = torch.empty((m, n_lut + n_dsp), dtype=torch.float32,
                       device=x.device)
+    plan = split_plan(m, k, n_lut, n_dsp)
     launch("fused_hetero_gemm", x, x.data_ptr(), m, k, planes.data_ptr(),
            bits, n_lut, packed.data_ptr(), n_dsp, w_scale.data_ptr(),
-           out.data_ptr())
+           out.data_ptr(), plan.bm, plan.bn, plan.split)
     return out
 
 
@@ -118,7 +180,9 @@ def fused_conv_gemm(x_sp: torch.Tensor, planes: torch.Tensor,
                                      out_hw)
     out = torch.empty((out_hw * out_hw, n_lut + n_dsp), dtype=torch.float32,
                       device=x_sp.device)
+    plan = split_plan(out_hw * out_hw, k, n_lut, n_dsp)
     launch("fused_conv_gemm", x_sp, x_sp.data_ptr(), h, w, c, kernel, stride,
            pad, out_hw, planes.data_ptr(), bits, n_lut, packed.data_ptr(),
-           n_dsp, w_scale.data_ptr(), out.data_ptr())
+           n_dsp, w_scale.data_ptr(), out.data_ptr(), plan.bm, plan.bn,
+           plan.split)
     return out

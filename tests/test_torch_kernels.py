@@ -18,6 +18,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
     bitserial_gemm_plain
+from repro_torch.kernels import fused_hetero_gemm as fhg
 from repro_torch.kernels.fused_hetero_gemm import fused_conv_gemm, \
     fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain
 from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
@@ -260,6 +261,57 @@ def test_cpu_tensors_launch_nothing():
 
 
 # ---------------------------------------------------------------------------
+# The fused kernels' tile and K-split chooser
+# ---------------------------------------------------------------------------
+
+
+def _dense_layer_shapes(network):
+    """(name, m, k, n_lut, n_dsp) of every dense (not depthwise) layer of
+    the full-width network, its classifier included."""
+    from repro_torch.compiler import compile_network
+    return [(lp.name, lp.dims.m, lp.dims.k, lp.n_lut, lp.dims.n - lp.n_lut)
+            for lp in compile_network(network).layers if not lp.depthwise]
+
+
+@pytest.mark.parametrize("network", ["resnet18", "mobilenet_v2"])
+def test_split_plan_covers_k_and_fills_the_card(network):
+    """Every layer's plan is a compiled tile and cluster size, its K
+    slices cover K exactly with none empty, and its grid holds
+    MIN_BLOCKS..MAX_BLOCKS blocks, unless no compiled tile and split can
+    (then it is the closest)."""
+    shapes = _dense_layer_shapes(network)
+    assert shapes[-1][0] == "fc"
+    for name, m, k, n_lut, n_dsp in shapes:
+        plan = fhg.split_plan(m, k, n_lut, n_dsp)
+        steps = -(-k // fhg.BK)
+        assert (plan.bm, plan.bn) in fhg.TILES and plan.split in fhg.SPLITS
+        assert plan.split <= steps, name
+        assert plan.blocks == plan.split * fhg._blocks(m, n_lut, n_dsp,
+                                                       plan.bm, plan.bn)
+        slices = fhg.k_slices(k, plan.split)
+        assert slices[0][0] == 0 and slices[-1][1] == k, name
+        for (b0, e0), (b1, _) in zip(slices, slices[1:]):
+            assert e0 == b1, name
+        assert all(b < e and b % fhg.BK == 0 for b, e in slices), name
+        if not fhg.MIN_BLOCKS <= plan.blocks <= fhg.MAX_BLOCKS:
+            reachable = [s * fhg._blocks(m, n_lut, n_dsp, bm, bn)
+                         for bm, bn in fhg.TILES for s in fhg.SPLITS
+                         if s <= steps]
+            assert not any(fhg.MIN_BLOCKS <= b <= fhg.MAX_BLOCKS
+                           for b in reachable), (name, plan)
+
+
+def test_split_plan_on_resnet18_extremes():
+    """conv17 (M=49, K=4608) splits K eight ways over 64x32 tiles; the
+    fc layer (M=1) takes 16-row tiles; conv1 (M=12544) needs no split."""
+    assert fhg.split_plan(49, 4608, 432, 80) == (64, 32, 8, 136)
+    assert fhg.split_plan(1, 512, 680, 320).bm == 16
+    assert fhg.split_plan(12544, 147, 48, 16).split == 1
+    assert fhg.k_slices(147, 2) == [(0, 64), (64, 147)]
+    assert fhg.k_slices(4608, 8)[-1] == (4032, 4608)
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -272,12 +324,15 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(13, 72), (49, 4608)])
 @pytest.mark.parametrize("bits,n_lut,n_dsp", SPLIT_CORNERS)
-def test_dense_kernels_match_plain_on_card(cuda, bits, n_lut, n_dsp):
+def test_dense_kernels_match_plain_on_card(cuda, bits, n_lut, n_dsp, m, k):
+    """Ragged 13x72, and conv17's M=49, K=4608, which splits K over a
+    cluster of eight blocks."""
     rng = np.random.default_rng(bits)
-    x = torch.from_numpy(rng.integers(-128, 128, (13, 72)).astype(np.int8))
-    w = _split_weights(rng, 72, n_lut, n_dsp, bits)
-    sw = ops.prepare_split(72, *[_t(a) for a in w[:2]], bits,
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    w = _split_weights(rng, k, n_lut, n_dsp, bits)
+    sw = ops.prepare_split(k, *[_t(a) for a in w[:2]], bits,
                            *[_t(a) for a in w[2:]], cuda)
     xc = x.to(cuda)
     if n_lut and n_dsp:
@@ -294,9 +349,12 @@ def test_dense_kernels_match_plain_on_card(cuda, bits, n_lut, n_dsp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c_in", [3, 48, 64])
 @pytest.mark.parametrize("kernel,stride,pad", CONV_GEOMS)
-def test_conv_kernel_matches_plain_on_card(cuda, kernel, stride, pad):
-    in_hw, c_in, bits = 11, 3, 5
+def test_conv_kernel_matches_plain_on_card(cuda, kernel, stride, pad, c_in):
+    """C=3 takes the kernel's scalar gather; C=48 and C=64 (C % 16 == 0)
+    its 16-byte cp.async gather with zero fill at the padding."""
+    in_hw, bits = 11, 5
     out_hw = (in_hw + 2 * pad - kernel) // stride + 1
     rng = np.random.default_rng(kernel)
     x = torch.from_numpy(rng.integers(-128, 128, (in_hw, in_hw, c_in))

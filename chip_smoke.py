@@ -13,12 +13,16 @@ Phases, each printing its lines before the last:
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
-   splits, with the fused kernels' tile and K split
-   (``fused_hetero_gemm.split_plan``) printed per layer. The fused
-   kernels are also held at corners (M = 1, 13, 49; K not a multiple of
-   S·BK; C = 3, 24, 48, 64; the split boundary inside a tile; one-sided
-   splits) under the chooser's plan and under every compiled tile and
-   cluster size. Required: bitwise equality. Times: the kernel, the
+   splits, with each launch's tile and K split
+   (``fused_hetero_gemm.split_plan``; the single-path kernels on their
+   one-sided shape) printed per layer and kernel. The fused kernels are
+   also held at corners (M = 1, 13, 49; K not a multiple of S·BK; C = 3,
+   24, 48, 64; the split boundary inside a tile; one-sided splits), and
+   the single-path kernels on their K-major words at M = 1, 13, 49 and
+   K = 31, 33, 147, 4608 (``bitserial_gemm`` at bits 1-8, ``int4_gemm``
+   at odd column counts), each under the chooser's plan and under every
+   compiled tile and cluster size into a NaN-filled output. Required:
+   bitwise equality. Times: the kernel, the
    plain version and ``torch._int_mm`` on the reconstructed int8
    weights (the library yardstick), each as device time per call
    (:func:`device_times`: CUDA events around calls that a spin kernel
@@ -38,10 +42,10 @@ Phases, each printing its lines before the last:
    on ``fused=False``; ``fused_hetero_gemm`` one per two-sided layer
    when staged; none in ``mode="ref"``), and logits bitwise equal to
    the plain versions on the card (``mode="ref"``), to ``fused=False``,
-   to the staged path, and to the CPU run of the same image. Times:
-   per-image latency (host clock, median of the four) and the device's
-   busy share of it (device time of one image from a profiler trace,
-   :func:`busy_ms`).
+   to the staged path, and to the CPU run of the same image. Times, for
+   the fused path and for ``fused=False``: per-image latency (host
+   clock, median of the four) and the device's busy share of it (device
+   time of one image from a profiler trace, :func:`busy_ms`).
 4. flash: the flash-attention kernel against its plain version in bf16
    at six shapes: the serving prefill (B=8, S=64, 32 query heads over
    8 KV heads, D=64, causal), S=2048 causal, S=1000 causal (ragged),
@@ -129,6 +133,13 @@ DENSE_CORNERS = [(1, 512, 4, 680, 320), (13, 72, 3, 2, 62),
 CONV_CORNERS = [(15, 3, 7, 2, 3, 4, 48, 16), (14, 48, 3, 2, 1, 5, 30, 50),
                 (7, 64, 3, 1, 1, 4, 40, 24), (9, 64, 1, 2, 0, 4, 64, 0),
                 (9, 24, 3, 1, 1, 4, 0, 33)]
+#: single-path kernel corners (M, K): M = 1, 13 and 49; K = 31 and 33
+#: (a word boundary, K not a multiple of 4), 147 (byte-gathered A, as
+#: conv1) and 4608 (conv17, split eight ways); each at bits 1-8 on the
+#: LUT side and an odd column count on the DSP side, (n_lut, n_dsp) in
+#: turn from SINGLE_COLUMNS
+SINGLE_CORNERS = [(m, k) for m in (1, 13, 49) for k in (31, 33, 147, 4608)]
+SINGLE_COLUMNS = [(33, 23), (100, 77), (680, 5)]
 #: (name, B, Sq, Skv, Hq, Hkv, D, causal, kv_offset); the first is the
 #: serving prefill's shape, the one the kernel's row reports
 FLASH_SHAPES = [
@@ -256,7 +267,8 @@ def bound_ms(x_bytes: int, m: int, k: int, bits: int, n_lut: int,
     code width (``bits`` per LUT weight, 4 per DSP weight) and the fp32
     scales read once and the fp32 output written once, vs the 2·m·k·n
     operations of the integer product at the int8 rate. The int8 bit
-    planes the kernels read hold each LUT weight in 8x its bits."""
+    planes the fused kernels read hold each LUT weight in 8x its bits;
+    the single-path kernels' K-major words hold it at its code width."""
     n = n_lut + n_dsp
     nbytes = (x_bytes + -(-(bits * n_lut + 4 * n_dsp) * k // 8) + 4 * n
               + 4 * m * n)
@@ -372,17 +384,22 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
                 int_mm_fn(torch, x_col, codes, sw.scale),
                 bound_ms(x_col.numel(), m, k, bits, n_lut, n_dsp)),
             "bitserial_gemm": (
-                lambda: bitserial_gemm(x_col, sw.planes, sw.s_lut, bits),
-                lambda: bitserial_gemm_plain(x_col, sw.planes, sw.s_lut,
-                                             bits),
+                lambda: bitserial_gemm(x_col, sw.lut_words, sw.s_lut, bits,
+                                       n_lut),
+                lambda: bitserial_gemm_plain(x_col, sw.lut_words, sw.s_lut,
+                                             bits, n_lut),
                 int_mm_fn(torch, x_col, wts.w_lut, sw.s_lut),
                 bound_ms(x_col.numel(), m, k, bits, n_lut, 0)),
             "int4_gemm": (
-                lambda: int4_gemm(x_col, sw.packed, sw.s_dsp, n_dsp),
-                lambda: int4_gemm_plain(x_col, sw.packed, sw.s_dsp, n_dsp),
+                lambda: int4_gemm(x_col, sw.dsp_words, sw.s_dsp, n_dsp),
+                lambda: int4_gemm_plain(x_col, sw.dsp_words, sw.s_dsp,
+                                        n_dsp),
                 int_mm_fn(torch, x_col, wts.w_dsp, sw.s_dsp),
                 bound_ms(x_col.numel(), m, k, 0, 0, n_dsp)),
         }
+        plans = {"fused_conv_gemm": plan, "fused_hetero_gemm": plan,
+                 "bitserial_gemm": split_plan(m, k, n_lut, 0),
+                 "int4_gemm": split_plan(m, k, 0, n_dsp)}
         for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
             err = require_equal(torch, f"{name} {lp.name}", kern(), plain())
             row = {"kernel": name, "layer": lp.name, "m": m, "k": k,
@@ -394,9 +411,8 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
                    "events_ms": cuda_ms(torch, kern),
                    "events_plain_ms": cuda_ms(torch, plain, iters=5),
                    "events_library_ms": cuda_ms(torch, lib),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            if name.startswith("fused"):
-                row["plan"] = list(plan)
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "plan": list(plans[name])}
             rows.append(row)
             t = tot[name]
             for key in (*times, "bound_ms"):
@@ -404,11 +420,10 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
             t[b_by] += b_ms
             t["max_abs_err"] = max(t["max_abs_err"], err)
         ms = {r["kernel"]: r["ms"] for r in rows[-len(cases):]}
-        print(f"plan {lp.name}: M={m} K={k} n_lut={n_lut} n_dsp={n_dsp} -> "
-              f"BM={plan.bm} BN={plan.bn} S={plan.split} blocks="
-              f"{plan.blocks}; device ms fused_conv_gemm "
-              f"{ms['fused_conv_gemm']:.4f}, fused_hetero_gemm "
-              f"{ms['fused_hetero_gemm']:.4f}")
+        print(f"plan {lp.name}: M={m} K={k} n_lut={n_lut} n_dsp={n_dsp}; "
+              + "; ".join(f"{name} (BM={pl.bm} BN={pl.bn} S={pl.split} "
+                          f"blocks={pl.blocks}) {ms[name]:.4f} ms"
+                          for name, pl in plans.items()))
     for name in names:
         t = tot[name]
         print(f"kernel {name}: 21 resnet18 shapes bitwise equal to plain; "
@@ -459,22 +474,30 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
     print(f"kernels: {n_checked} extra (layer, bits, split) corners "
           f"bitwise equal to plain")
     fused_corners(torch, details)
+    single_corners(torch, details)
     return tot
 
 
 def launch_planned(torch, name, x, sw, geom, plan):
-    """The fused kernel ``name`` under a given (BM, BN, S) ``plan``
+    """The split-GEMM kernel ``name`` under a given (BM, BN, S) ``plan``
     rather than the chooser's, into a NaN-filled output (a block that
     writes nothing shows); ``geom`` is the conv's (kernel, stride, pad,
-    out_hw), None for the dense kernel."""
+    out_hw), None for the dense kernels."""
     from repro_torch.kernels.build import launch
-    weights = (sw.planes.data_ptr(), sw.bits, sw.n_lut, sw.packed.data_ptr(),
-               sw.n_dsp, sw.scale.data_ptr())
-    lead = tuple(x.shape) if geom is None else (*x.shape, *geom)
+    if name == "bitserial_gemm":
+        n, args = sw.n_lut, (*x.shape, sw.lut_words.data_ptr(), sw.bits,
+                             sw.n_lut, sw.s_lut.data_ptr())
+    elif name == "int4_gemm":
+        n, args = sw.n_dsp, (*x.shape, sw.dsp_words.data_ptr(), sw.n_dsp,
+                             sw.s_dsp.data_ptr())
+    else:
+        n = sw.n_lut + sw.n_dsp
+        lead = tuple(x.shape) if geom is None else (*x.shape, *geom)
+        args = (*lead, sw.planes.data_ptr(), sw.bits, sw.n_lut,
+                sw.packed.data_ptr(), sw.n_dsp, sw.scale.data_ptr())
     m = x.shape[0] if geom is None else geom[3] ** 2
-    out = torch.full((m, sw.n_lut + sw.n_dsp), float("nan"),
-                     device=x.device)
-    launch(name, x, x.data_ptr(), *lead, *weights, out.data_ptr(), *plan)
+    out = torch.full((m, n), float("nan"), device=x.device)
+    launch(name, x, x.data_ptr(), *args, out.data_ptr(), *plan)
     return out
 
 
@@ -536,6 +559,60 @@ def fused_corners(torch, details: dict) -> None:
           f"cluster sizes) = {n_checked} launches")
 
 
+def single_corners(torch, details: dict) -> None:
+    """The single-path kernels at :data:`SINGLE_CORNERS`, under the
+    chooser's plan and under every compiled (BM, BN) tile and cluster
+    size S into a NaN-filled output, each bitwise equal to the plain
+    version: ``bitserial_gemm`` at every bit width 1-8, ``int4_gemm`` at
+    odd column counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitserial_gemm import bitserial_gemm_plain
+    from repro_torch.kernels.fused_hetero_gemm import SPLITS, TILES, \
+        split_plan
+    from repro_torch.kernels.int4_gemm import int4_gemm_plain
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    n_launches, n_shapes = 0, 0
+    for i, (m, k) in enumerate(SINGLE_CORNERS):
+        x = torch.randint(-128, 128, (m, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        n_lut, n_dsp = SINGLE_COLUMNS[i % len(SINGLE_COLUMNS)]
+        cases = []
+        for bits in range(1, 9):
+            lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+            s = torch.rand(n_lut, generator=gen) + 0.5
+            sw = ops.prepare_split(
+                k, torch.randint(lo, hi, (k, n_lut), generator=gen), s,
+                bits, None, None, torch.device("cuda"))
+            cases.append((f"bits={bits} n={n_lut}", "bitserial_gemm", sw,
+                          split_plan(m, k, n_lut, 0),
+                          ops.lut_matmul(x, sw),
+                          bitserial_gemm_plain(x, sw.lut_words, sw.s_lut,
+                                               bits, n_lut)))
+        s = torch.rand(n_dsp, generator=gen) + 0.5
+        sw = ops.prepare_split(
+            k, None, None, 0, torch.randint(-8, 8, (k, n_dsp), generator=gen),
+            s, torch.device("cuda"))
+        cases.append((f"n={n_dsp}", "int4_gemm", sw,
+                      split_plan(m, k, 0, n_dsp), ops.dsp_matmul(x, sw),
+                      int4_gemm_plain(x, sw.dsp_words, sw.s_dsp, n_dsp)))
+        for tag, name, sw, plan, got, want in cases:
+            tag = f"{name} M={m} K={k} {tag}"
+            require_equal(torch, f"{tag} {tuple(plan)}", got, want)
+            for (bm, bn), split in itertools.product(TILES, SPLITS):
+                require_equal(torch, f"{tag} BM={bm} BN={bn} S={split}",
+                              launch_planned(torch, name, x, sw, None,
+                                             (bm, bn, split)), want)
+            n_launches += 1 + len(TILES) * len(SPLITS)
+            n_shapes += 1
+    details["single_corners"] = {"shapes": SINGLE_CORNERS,
+                                 "columns": SINGLE_COLUMNS,
+                                 "launches": n_launches}
+    print(f"kernels: single-path corners bitwise equal to plain: "
+          f"{len(SINGLE_CORNERS)} (M, K) x (bitserial_gemm at bits 1-8 + "
+          f"int4_gemm) = {n_shapes} cases x (chooser's plan + {len(TILES)} "
+          f"tiles x {len(SPLITS)} cluster sizes) = {n_launches} launches")
+
+
 def expected_launches(prog, ex) -> dict:
     """Per path, the launches of one image: the fused path launches
     ``fused_conv_gemm`` once per layer; ``fused=False`` one single-path
@@ -588,6 +665,7 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
     images = [rng.integers(lo, hi + 1, prog.layers[0].geometry.in_shape)
               .astype(np.int8) for _ in range(N_IMAGES)]
     ex.run(images[0])
+    ex_split.run(images[0])
     torch.cuda.synchronize()
     want = expected_launches(prog, ex)
 
@@ -605,7 +683,12 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
                                     "fused")}
 
     LAUNCHES.clear()
-    split_logits = [ex_split.run(x) for x in images]
+    split_logits, split_lat = [], []
+    for x in images:
+        t0 = time.perf_counter()
+        split_logits.append(ex_split.run(x))
+        torch.cuda.synchronize()
+        split_lat.append(1e3 * (time.perf_counter() - t0))
     paths["fused=False"] = read_launches(LAUNCHES, want["fused=False"],
                                          N_IMAGES, "fused=False")
     for i, y in enumerate(split_logits):
@@ -661,6 +744,13 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
     print(f"slice: device time per image {busy_text(image_dev, med)} of "
           f"the median latency")
     details["image_device_ms"] = image_dev
+    split_med = statistics.median(split_lat)
+    split_dev = busy_ms(torch, lambda: ex_split.run(images[0]), iters=4)
+    print(f"slice: fused=False per-image latency median {split_med:.3f} ms "
+          f"({', '.join(f'{v:.3f}' for v in split_lat)}); device time per "
+          f"image {busy_text(split_dev, split_med)}")
+    details["split_latency_ms"] = split_lat
+    details["split_image_device_ms"] = split_dev
     print(f"slice: resnet18 224 x{N_IMAGES} images via CudaExecutor: "
           f"per-image latency median {med:.3f} ms ({', '.join(f'{v:.3f}' for v in lat)}); "
           f"|out| sum image 0 {float(np.abs(y0).sum()):.6e}; bitwise equal "
@@ -922,9 +1012,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the card, build time, ptxas reports, "
-                         "per-layer timings, per-image latencies, per-path "
-                         "launches, the flash shape sweep and the serving "
-                         "run's windows, tokens and times as JSON here")
+                         "per-layer timings with each launch's plan, the "
+                         "corners, per-image latencies of the fused and "
+                         "fused=False paths, per-path launches, the flash "
+                         "shape sweep and the serving run's windows, tokens "
+                         "and times as JSON here")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

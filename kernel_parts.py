@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where a fused split-GEMM launch spends its device time, on one NVIDIA
-card.
+"""Where a split-GEMM launch spends its device time, on one NVIDIA card.
 
     python3 kernel_parts.py [--out PATH]
 
-Builds variants of ``src/repro_torch/kernels/csrc/fused_split_gemm.cu``
-into ``build/kernel_parts/``, each with parts of the K loop taken out,
-and times ``fused_hetero_gemm`` of each at resnet18's distinct layer
-shapes under ``fused_hetero_gemm.split_plan``'s tile and K split:
+Builds variants of the split-GEMM sources into ``build/kernel_parts/``,
+each with parts of the K loop taken out, and times them at resnet18's
+distinct layer shapes, each launch under ``fused_hetero_gemm.split_plan``'s
+tile and K split.
+
+``src/repro_torch/kernels/csrc/fused_split_gemm.cu``, its
+``fused_hetero_gemm`` on both sides of the split (:data:`VARIANTS`):
 
     full         the kernel as it is
     no_mma       without the tensor-core passes
@@ -16,11 +18,23 @@ shapes under ``fused_hetero_gemm.split_plan``'s tile and K split:
     empty        no copies either: launch, pipeline skeleton, split-K
                  reduction and stores
 
+``src/repro_torch/kernels/csrc/split_gemm.cu``, its ``bitserial_gemm`` on
+the LUT side and ``int4_gemm`` on the DSP side, each under the plan of
+its one-sided shape (:data:`SPLIT_VARIANTS`):
+
+    full         the kernel as it is
+    no_mma       each mma replaced by one integer add of its operands, so
+                 the fragments are still built
+    no_unpack    the weight words passed to the mma as they are: no
+                 spreading of bits or nibbles to bytes
+    copies_only  only the cp.async copies (no fragments, no mma)
+    empty        no copies either
+
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
 is the difference between two variants; the variants compute wrong
-numbers, only their times mean anything. Exits non-zero without CUDA or when the source no longer has
-the statements a variant takes out.
+numbers, only their times mean anything. Exits non-zero without CUDA or
+when a source no longer has the statements a variant takes out.
 """
 from __future__ import annotations
 
@@ -32,7 +46,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = ROOT / "src/repro_torch/kernels/csrc/fused_split_gemm.cu"
+CSRC = ROOT / "src/repro_torch/kernels/csrc"
 OUT_DIR = ROOT / "build" / "kernel_parts"
 
 _NO_MMA = ("    if (!mma_warp) continue;\n", "    continue;\n")
@@ -43,7 +57,7 @@ _NO_COPIES = [
      "    else if (false)\n      load_raw<BN / 2>("),
     ("    if (p.a_vec == 16)\n      load_a_vec<16>(as, k0);",
      "    if (true) {}")]
-#: variant -> (statement, replacement) edits of the source
+#: fused_split_gemm.cu: variant -> (statement, replacement) edits
 VARIANTS = {
     "full": [],
     "no_mma": [_NO_MMA],
@@ -51,7 +65,31 @@ VARIANTS = {
     "copies_only": [_NO_MMA, _NO_TRANSPOSE],
     "empty": [_NO_MMA, _NO_TRANSPOSE, *_NO_COPIES],
 }
-#: resnet18's distinct fused-GEMM shapes (M, K, n_lut, n_dsp), bits 4
+_SPLIT_NO_MMA = (
+    "for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[kk][i], bf[kk][j][0], "
+    "bf[kk][j][1]);",
+    "for (int j = 0; j < NI; ++j) acc[i][j][0] += (int)(a[kk][i][0] ^ "
+    "bf[kk][j][0] ^ bf[kk][j][1]);")
+_SPLIT_NO_UNPACK = [
+    ("  b0 = (((w >> (4 * q)) & 0xFu) * 0x00204081u & 0x01010101u) * sc;\n"
+     "  b1 = (((w >> (16 + 4 * q)) & 0xFu) * 0x00204081u & 0x01010101u) * "
+     "sc;\n", "  b0 = w;\n  b1 = w ^ sc;\n"),
+    ("  b0 = spread_int4(row[q >> 1] >> sh);\n"
+     "  b1 = spread_int4(row[2 + (q >> 1)] >> sh);\n",
+     "  b0 = row[q >> 1] >> sh;\n  b1 = row[2 + (q >> 1)];\n")]
+_SPLIT_NO_COPIES = [
+    ("    if (p.a_vec == 16)\n      load_a_vec<16>(as, k0);",
+     "    if (true) {}"),
+    ("    load_words(Bs + buf * bstage, step);\n", "")]
+#: split_gemm.cu: variant -> (statement, replacement) edits
+SPLIT_VARIANTS = {
+    "full": [],
+    "no_mma": [_SPLIT_NO_MMA],
+    "no_unpack": _SPLIT_NO_UNPACK,
+    "copies_only": [_NO_MMA],
+    "empty": [_NO_MMA, *_SPLIT_NO_COPIES],
+}
+#: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
     "conv7": (784, 1152, 96, 32), "conv8_ds": (784, 64, 64, 64),
@@ -60,35 +98,40 @@ SHAPES = {
 }
 
 
-def build_variants() -> dict[str, ctypes.CDLL]:
-    """One nvcc per variant, all started together."""
+def build_variants(source: str, variants: dict) -> dict[str, ctypes.CDLL]:
+    """One nvcc per variant of ``csrc/<source>.cu``, all started
+    together; each library's entry points bound as ``build.SOURCES``
+    says."""
     from repro_torch.kernels import build
-    text = SOURCE.read_text()
+    path = CSRC / f"{source}.cu"
+    text = path.read_text()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         src = text
         for old, new in edits:
             if src.count(old) != 1:
                 raise SystemExit(f"error: variant {name}: {old!r} is not "
-                                 f"in {SOURCE.name} exactly once")
+                                 f"in {path.name} exactly once")
             src = src.replace(old, new)
-        (OUT_DIR / f"{name}.cu").write_text(src)
-        lib = OUT_DIR / f"{name}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-               str(OUT_DIR / f"{name}.cu")]
-        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE,
-                                             text=True))
+        stem = OUT_DIR / f"{source}-{name}"
+        stem.with_suffix(".cu").write_text(src)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
+               str(stem.with_suffix(".so")), str(stem.with_suffix(".cu"))]
+        procs[name] = (stem.with_suffix(".so"),
+                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"error: nvcc failed on variant {name}:\n{err}")
+            raise SystemExit(f"error: nvcc failed on {source} variant "
+                             f"{name}:\n{err}")
         libs[name] = ctypes.CDLL(str(lib))
-        fn = libs[name].fused_hetero_gemm
-        fn.argtypes = build.SOURCES["fused_split_gemm"]["fused_hetero_gemm"]
-        fn.restype = ctypes.c_int
+        for entry, argtypes in build.SOURCES[source].items():
+            fn = getattr(libs[name], entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return libs
 
 
@@ -107,11 +150,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.fused_hetero_gemm import split_plan
 
     print(f"card: {nvidia_smi()}")
-    libs = build_variants()
+    fused_libs = build_variants("fused_split_gemm", VARIANTS)
+    split_libs = build_variants("split_gemm", SPLIT_VARIANTS)
     gen = torch.Generator().manual_seed(0)
     rows = []
     for layer, (m, k, n_lut, n_dsp) in SHAPES.items():
-        plan = split_plan(m, k, n_lut, n_dsp)
         x = torch.randint(-128, 128, (m, k), generator=gen,
                           dtype=torch.int8).cuda()
         sw = ops.prepare_split(
@@ -121,22 +164,45 @@ def main(argv=None) -> int:
             torch.ones(n_dsp), torch.device("cuda"))
         out = torch.empty((m, n_lut + n_dsp), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
+        # (kernel, its plan, the call of one variant's library)
+        calls = {
+            "fused_hetero_gemm": (
+                split_plan(m, k, n_lut, n_dsp),
+                lambda lib, pl: lib.fused_hetero_gemm(
+                    x.data_ptr(), m, k, sw.planes.data_ptr(), 4, n_lut,
+                    sw.packed.data_ptr(), n_dsp, sw.scale.data_ptr(),
+                    out.data_ptr(), pl.bm, pl.bn, pl.split, stream)),
+            "bitserial_gemm": (
+                split_plan(m, k, n_lut, 0),
+                lambda lib, pl: lib.bitserial_gemm(
+                    x.data_ptr(), m, k, sw.lut_words.data_ptr(), 4, n_lut,
+                    sw.s_lut.data_ptr(), out.data_ptr(), pl.bm, pl.bn,
+                    pl.split, stream)),
+            "int4_gemm": (
+                split_plan(m, k, 0, n_dsp),
+                lambda lib, pl: lib.int4_gemm(
+                    x.data_ptr(), m, k, sw.dsp_words.data_ptr(), n_dsp,
+                    sw.s_dsp.data_ptr(), out.data_ptr(), pl.bm, pl.bn,
+                    pl.split, stream)),
+        }
+        for kernel, (plan, call) in calls.items():
+            libs = fused_libs if kernel == "fused_hetero_gemm" else \
+                split_libs
 
-        def call(lib):
-            rc = lib.fused_hetero_gemm(
-                x.data_ptr(), m, k, sw.planes.data_ptr(), 4, n_lut,
-                sw.packed.data_ptr(), n_dsp, sw.scale.data_ptr(),
-                out.data_ptr(), plan.bm, plan.bn, plan.split, stream)
-            if rc:
-                raise RuntimeError(f"launch failed with error {rc}")
-        us = {name: 1e3 * t for name, t in device_times(
-            torch, {name: (lambda lib=lib: call(lib), 20)
-                    for name, lib in libs.items()}).items()}
-        rows.append({"layer": layer, "m": m, "k": k, "n_lut": n_lut,
-                     "n_dsp": n_dsp, "plan": list(plan), "us": us})
-        print(f"{layer}: M={m} K={k} {n_lut}/{n_dsp} BM={plan.bm} "
-              f"BN={plan.bn} S={plan.split}: " + "; ".join(
-                  f"{name} {t:.2f} us" for name, t in us.items()))
+            def run(lib, call=call, plan=plan):
+                rc = call(lib, plan)
+                if rc:
+                    raise RuntimeError(f"launch failed with error {rc}")
+            us = {name: 1e3 * t for name, t in device_times(
+                torch, {name: (lambda lib=lib: run(lib), 20)
+                        for name, lib in libs.items()}).items()}
+            rows.append({"kernel": kernel, "layer": layer, "m": m, "k": k,
+                         "n_lut": n_lut, "n_dsp": n_dsp, "plan": list(plan),
+                         "us": us})
+            print(f"{kernel} {layer}: M={m} K={k} {n_lut}/{n_dsp} "
+                  f"BM={plan.bm} BN={plan.bn} S={plan.split} blocks="
+                  f"{plan.blocks}: " + "; ".join(
+                      f"{name} {t:.2f} us" for name, t in us.items()))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))

@@ -15,8 +15,10 @@ the reference:
   * ``fused=False`` stages im2col with torch and sends each partition
     to ``bitserial_gemm`` or ``int4_gemm``.
 
-Weights are prepared once, at bind, on the device: bit planes for the
-LUT columns, packed bytes for the DSP columns, split-order scales.
+Weights are prepared once, at bind, on the device
+(``kernels.ops.prepare_split``): bit planes and packed int4 bytes for
+the fused kernels, the same codes as K-major int32 words for the
+single-path ones, and split-order scales.
 ``mode="ref"`` runs the kernels' plain PyTorch versions on the same
 prepared operands instead — on the card it is what the kernels are held
 against. Every path accumulates exactly in int32 and dequantizes per

@@ -42,8 +42,8 @@ SOURCES = {
                             _I, _P, _P, _I, _I, _I, _P],
     },
     "split_gemm": {
-        "bitserial_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
-        "int4_gemm": [_P, _I, _I, _P, _I, _P, _P, _P],
+        "bitserial_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
+        "int4_gemm": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -17,7 +17,8 @@ Both wrappers launch the CUDA kernels of ``csrc/fused_split_gemm.cu``
 cluster) on CUDA tensors and compute the plain PyTorch version
 (``*_plain``) on CPU tensors; nothing else chooses between the two.
 :func:`split_plan` picks each launch's tile and K split from the shape
-alone. Weights arrive already prepared (``ops.prepare_split``), so the
+alone; the single-path kernels (``csrc/split_gemm.cu``) take it on their
+one-sided shape. Weights arrive already prepared (``ops.prepare_split``), so the
 executor prepares them once at bind time.
 """
 from __future__ import annotations
@@ -27,9 +28,7 @@ import typing
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.bitserial_gemm import bitserial_gemm_plain
 from repro_torch.kernels.build import check_operand, launch
-from repro_torch.kernels.int4_gemm import int4_gemm_plain
 
 
 #: K bytes per pipeline step of the CUDA kernel (``BK`` in the source)
@@ -107,14 +106,14 @@ def fused_hetero_gemm_plain(x: torch.Tensor, planes: torch.Tensor,
                             bits: int, n_lut: int, n_dsp: int
                             ) -> torch.Tensor:
     """Plain version of :func:`fused_hetero_gemm` on the same prepared
-    operands: the two single-path plain versions side by side (the
-    dequant is per output element, so fusing cannot change a bit)."""
-    outs = []
+    operands: the two sides' exact int32 products side by side, then the
+    per-column dequant."""
+    accs = []
     if n_lut:
-        outs.append(bitserial_gemm_plain(x, planes, w_scale[:n_lut], bits))
+        accs.append(ref.bitplane_dot(x, planes))
     if n_dsp:
-        outs.append(int4_gemm_plain(x, packed, w_scale[n_lut:], n_dsp))
-    return torch.cat(outs, dim=1)
+        accs.append(ref.exact_dot(x, ref.unpack_int4(packed)[:, :n_dsp]))
+    return torch.cat(accs, dim=1).to(torch.float32) * w_scale[None, :]
 
 
 def fused_hetero_gemm(x: torch.Tensor, planes: torch.Tensor,

@@ -49,14 +49,24 @@ def _pick(kernel, plain, mode: str):
 
 @dataclasses.dataclass(frozen=True)
 class SplitWeights:
-    """One layer's split weights in the kernels' layout, on one device.
+    """One layer's split weights in the kernels' layouts, on one device.
 
-    planes: [bits, K, n_lut] int8 bit planes of the LUT columns;
-    packed: [K, ceil(n_dsp/2)] int8 int4 pairs of the DSP columns;
+    What the fused kernels read:
+      planes: [bits, K, n_lut] int8 bit planes of the LUT columns;
+      packed: [K, ceil(n_dsp/2)] int8 int4 pairs of the DSP columns.
+    What the single-path kernels read, K-major (``ref.pack_*_kmajor``),
+    each row zero-padded to a multiple of 16 bytes so that it starts
+    16-byte aligned (a zero bit or code adds 0 to every plane):
+      lut_words: [bits, n_lut, ceil(K/128)*4] int32, bit k % 32 of word
+        k // 32 of row (b, n) is plane b's bit of weight (k, n);
+      dsp_words: [n_dsp, ceil(K/32)*4] int32, nibble k % 8 of word k // 8
+        of row n is the two's-complement code (k, n), lowest first.
     scale: [n_lut + n_dsp] fp32 per-column scales in split order.
     """
     planes: torch.Tensor
     packed: torch.Tensor
+    lut_words: torch.Tensor
+    dsp_words: torch.Tensor
     scale: torch.Tensor
     bits: int
     n_lut: int
@@ -75,24 +85,24 @@ def prepare_split(k: int, w_lut: torch.Tensor | None,
                   s_lut: torch.Tensor | None, bits: int,
                   w_dsp: torch.Tensor | None, s_dsp: torch.Tensor | None,
                   device: torch.device) -> SplitWeights:
-    """Bit planes, packed bytes and split-order scales from [K, n] weight
-    codes (an absent side is None or has 0 columns)."""
+    """Bit planes, packed bytes, their K-major words and split-order
+    scales from [K, n] weight codes (an absent side is None or has 0
+    columns), made once, on ``device``."""
     n_lut = 0 if w_lut is None else w_lut.shape[1]
     n_dsp = 0 if w_dsp is None else w_dsp.shape[1]
     if n_lut + n_dsp == 0:
         raise ValueError("both split sides are empty")
-    if n_lut:
-        planes = ref.bitplane_decompose(w_lut.to(device), bits)
-    else:
-        planes = torch.zeros((bits, k, 0), dtype=torch.int8, device=device)
-    if n_dsp:
-        packed = ref.pack_int4(F.pad(w_dsp.to(device, torch.int32),
-                                     (0, n_dsp % 2)))
-    else:
-        packed = torch.zeros((k, 0), dtype=torch.int8, device=device)
+    w_lut = torch.zeros((k, 0), dtype=torch.int32, device=device) \
+        if w_lut is None else w_lut.to(device, torch.int32)
+    w_dsp = torch.zeros((k, 0), dtype=torch.int32, device=device) \
+        if w_dsp is None else w_dsp.to(device, torch.int32)
+    planes = ref.bitplane_decompose(w_lut, bits)
+    packed = ref.pack_int4(F.pad(w_dsp, (0, n_dsp % 2)))
     scales = [s.to(device, torch.float32).reshape(-1)
               for s, n in ((s_lut, n_lut), (s_dsp, n_dsp)) if n]
     return SplitWeights(planes.contiguous(), packed.contiguous(),
+                        ref.pack_bits_kmajor(planes).contiguous(),
+                        ref.pack_int4_kmajor(w_dsp).contiguous(),
                         torch.cat(scales).contiguous(), bits, n_lut, n_dsp)
 
 
@@ -105,14 +115,14 @@ def lut_matmul(x_q: torch.Tensor, sw: SplitWeights, *,
                mode: str = "auto") -> torch.Tensor:
     """The LUT partition alone: [M, K] int8 -> fp32 [M, n_lut]."""
     fn = _pick(bitserial_gemm, bitserial_gemm_plain, mode)
-    return fn(x_q, sw.planes, sw.s_lut, sw.bits)
+    return fn(x_q, sw.lut_words, sw.s_lut, sw.bits, sw.n_lut)
 
 
 def dsp_matmul(x_q: torch.Tensor, sw: SplitWeights, *,
                mode: str = "auto") -> torch.Tensor:
     """The DSP partition alone: [M, K] int8 -> fp32 [M, n_dsp]."""
     fn = _pick(int4_gemm, int4_gemm_plain, mode)
-    return fn(x_q, sw.packed, sw.s_dsp, sw.n_dsp)
+    return fn(x_q, sw.dsp_words, sw.s_dsp, sw.n_dsp)
 
 
 def split_matmul(x_q: torch.Tensor, sw: SplitWeights, *,

@@ -21,7 +21,12 @@ the kernels' weight preparation:
     integer tensor becomes ``bits`` binary planes with per-plane signed
     weights (two's complement: MSB plane weight is -2^(bits-1)).
   * ``pack_int4`` / ``unpack_int4`` — two int4 codes per int8 byte
-    along the last axis, even index in the low nibble.
+    along the last axis, even index in the low nibble (the reference's
+    layout, which the fused kernels read).
+  * ``pack_bits_kmajor`` / ``pack_int4_kmajor`` and their inverses — the
+    port's private K-major words that the single-path kernels read: 32
+    plane bits or 8 int4 codes of one column per int32 word, rows padded
+    to 16 bytes (:func:`kmajor_row_words`).
 """
 from __future__ import annotations
 
@@ -77,10 +82,77 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
     return out.reshape(*p.shape[:-1], p.shape[-1] * 2).to(torch.int8)
 
 
+#: values per int32 word of the K-major layouts: plane bits, int4 codes
+LUT_PER_WORD, DSP_PER_WORD = 32, 8
+
+
+def kmajor_row_words(k: int, per_word: int) -> int:
+    """Words of one K-major weight row: ``k`` values, ``per_word`` to a
+    word, zero-padded to a multiple of 4 words (16 bytes), so that every
+    row starts 16-byte aligned for the kernels' ``cp.async`` copies."""
+    return -(-k // (4 * per_word)) * 4
+
+
+def _to_words(vals: torch.Tensor, width: int, k: int) -> torch.Tensor:
+    """[..., k] unsigned ``width``-bit values -> [..., row words] int32,
+    value i of a word at bits [width*i, width*(i+1)), padding zero."""
+    per_word = 32 // width
+    kw = kmajor_row_words(k, per_word)
+    v = F.pad(vals.to(torch.int64), (0, kw * per_word - k))
+    v = v.reshape(*vals.shape[:-1], kw, per_word)
+    shifts = width * torch.arange(per_word, dtype=torch.int64,
+                                  device=vals.device)
+    w = torch.sum(v << shifts, dim=-1)
+    return (w - ((w >> 31) << 32)).to(torch.int32)  # two's complement
+
+
+def _from_words(words: torch.Tensor, width: int, k: int) -> torch.Tensor:
+    """Inverse of :func:`_to_words`: [..., row words] -> [..., k] int64."""
+    per_word = 32 // width
+    shifts = width * torch.arange(per_word, dtype=torch.int64,
+                                  device=words.device)
+    v = (words.to(torch.int64).unsqueeze(-1) >> shifts) & ((1 << width) - 1)
+    return v.reshape(*words.shape[:-1], words.shape[-1] * per_word)[..., :k]
+
+
+def pack_bits_kmajor(planes: torch.Tensor) -> torch.Tensor:
+    """[bits, K, N] 0/1 planes -> [bits, N, kmajor_row_words(K, 32)]
+    int32: bit k % 32 of word k // 32 of row (b, n) is planes[b, k, n];
+    the row's padding bits are zero."""
+    return _to_words(planes.transpose(1, 2), 1, planes.shape[1])
+
+
+def unpack_bits_kmajor(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits_kmajor`: [bits, K, N] int8 in {0, 1}."""
+    return _from_words(words, 1, k).transpose(1, 2).to(torch.int8)
+
+
+def pack_int4_kmajor(q: torch.Tensor) -> torch.Tensor:
+    """[K, N] int4 codes in [-8, 7] -> [N, kmajor_row_words(K, 8)] int32:
+    nibble k % 8 of word k // 8 of row n is code (k, n) in two's
+    complement, lowest nibble first; the row's padding codes are zero."""
+    return _to_words(q.t().to(torch.int64) & 0xF, 4, q.shape[0])
+
+
+def unpack_int4_kmajor(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_kmajor`: [K, N] int8 codes."""
+    return ((_from_words(words, 4, k) ^ 8) - 8).t().to(torch.int8)
+
+
 def exact_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact integer product of int8 [M, K] and small-integer [K, N]
     through float64 (see the module docstring), as int32."""
     return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+
+
+def bitplane_dot(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sum_b s_b * (x @ planes[b]) of int8 [M, K] and
+    [bits, K, N] 0/1 planes (paper Eq. 1)."""
+    acc = torch.zeros((x.shape[0], planes.shape[2]), dtype=torch.int32,
+                      device=x.device)
+    for b, s in enumerate(plane_scales(planes.shape[0])):
+        acc = acc + s * exact_dot(x, planes[b])
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +168,7 @@ def bitserial_gemm_ref(x: torch.Tensor, w_q: torch.Tensor,
     ``bits`` bits; w_scale: [N] fp32 per-column scales. Returns fp32
     [M, N] = (x @ w_q) * w_scale through the bitplane decomposition.
     """
-    planes = bitplane_decompose(w_q, bits)                # [B, K, N]
-    acc = torch.zeros((x.shape[0], w_q.shape[1]), dtype=torch.int32,
-                      device=x.device)
-    for b, s in enumerate(plane_scales(bits)):
-        acc = acc + s * exact_dot(x, planes[b])
+    acc = bitplane_dot(x, bitplane_decompose(w_q, bits))
     return acc.to(torch.float32) * w_scale[None, :]
 
 
@@ -144,12 +212,7 @@ def fused_hetero_gemm_ref(x: torch.Tensor, w_lut: torch.Tensor | None,
     """
     accs, scales = [], []
     if w_lut is not None and w_lut.shape[1]:
-        planes = bitplane_decompose(w_lut, bits)
-        acc = torch.zeros((x.shape[0], w_lut.shape[1]), dtype=torch.int32,
-                          device=x.device)
-        for b, s in enumerate(plane_scales(bits)):
-            acc = acc + s * exact_dot(x, planes[b])
-        accs.append(acc)
+        accs.append(bitplane_dot(x, bitplane_decompose(w_lut, bits)))
         scales.append(s_lut)
     if w_dsp is not None and w_dsp.shape[1]:
         accs.append(exact_dot(x, w_dsp))

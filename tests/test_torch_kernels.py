@@ -81,6 +81,45 @@ def test_bitplanes_match_reference(bits):
     assert np.array_equal(back.numpy(), q)
 
 
+KMAJOR_KS = [1, 31, 32, 33, 147, 4608]
+
+
+@pytest.mark.parametrize("k", KMAJOR_KS)
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_kmajor_words_round_trip(bits, k):
+    """The single-path kernels' K-major words: codes -> words -> codes
+    exactly, every row a multiple of 16 bytes whose padding is zero."""
+    rng = np.random.default_rng(bits * 10_000 + k)
+    n = 5
+    q = torch.from_numpy(rng.integers(-(2 ** (bits - 1)), 2 ** (bits - 1),
+                                      (k, n)))
+    planes = ref.bitplane_decompose(q, bits)
+    words = ref.pack_bits_kmajor(planes)
+    kw = ref.kmajor_row_words(k, ref.LUT_PER_WORD)
+    assert words.shape == (bits, n, kw) and words.dtype == torch.int32
+    assert kw % 4 == 0 and 32 * kw >= k > 32 * kw - 128
+    assert torch.equal(ref.unpack_bits_kmajor(words, k), planes)
+    # bit k % 32 of word k // 32 of row (b, n), and zero past K
+    bit = (words.numpy().view(np.uint32)[..., None]
+           >> np.arange(32, dtype=np.uint32)) & 1
+    bit = bit.reshape(bits, n, 32 * kw)
+    assert np.array_equal(bit[..., :k], planes.numpy().transpose(0, 2, 1))
+    assert not bit[..., k:].any()
+
+    codes = torch.from_numpy(rng.integers(-8, 8, (k, n)))
+    dwords = ref.pack_int4_kmajor(codes)
+    kn = ref.kmajor_row_words(k, ref.DSP_PER_WORD)
+    assert dwords.shape == (n, kn) and dwords.dtype == torch.int32
+    assert kn % 4 == 0 and 8 * kn >= k > 8 * kn - 32
+    assert torch.equal(ref.unpack_int4_kmajor(dwords, k),
+                       codes.to(torch.int8))
+    nib = (dwords.numpy().view(np.uint32)[..., None]
+           >> (4 * np.arange(8, dtype=np.uint32))) & 0xF
+    nib = nib.reshape(n, 8 * kn)
+    assert np.array_equal(nib[:, :k], codes.numpy().T & 0xF)
+    assert not nib[:, k:].any()
+
+
 def test_int4_packing_matches_reference():
     q = np.arange(-8, 8).repeat(3).reshape(4, 12)
     packed = ref.pack_int4(torch.from_numpy(q))
@@ -188,6 +227,47 @@ def test_dense_wrapper_matches_pallas_interpret(bits, n_lut, n_dsp):
                                   tw[2], tw[3]), want)
 
 
+# (bits, n_lut, n_dsp, m, k): every LUT bit width, one-sided splits, odd
+# n_dsp, ragged M and K (a word boundary, K not a multiple of 4)
+SINGLE_PATH_CASES = [
+    (1, 9, 0, 13, 72), (2, 24, 40, 5, 147), (3, 2, 61, 9, 33),
+    (4, 16, 47, 13, 72), (5, 0, 33, 1, 31), (6, 40, 1, 7, 96),
+    (7, 31, 0, 13, 33), (8, 62, 3, 3, 147),
+]
+
+
+@pytest.mark.parametrize("bits,n_lut,n_dsp,m,k", SINGLE_PATH_CASES)
+def test_single_path_kmajor_matches_pallas_interpret(bits, n_lut, n_dsp, m,
+                                                     k):
+    """``lut_matmul`` / ``dsp_matmul`` on the K-major words (CPU tensors:
+    the plain versions) are bitwise the reference's Pallas kernel bodies
+    in interpret mode and its oracles."""
+    rng = np.random.default_rng(bits * 1000 + m * 10 + k)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w_lut, s_lut, w_dsp, s_dsp = _split_weights(rng, k, n_lut, n_dsp, bits)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    sw = ops.prepare_split(k, _t(w_lut), _t(s_lut), bits, _t(w_dsp),
+                           _t(s_dsp), torch.device("cpu"))
+    if n_lut:
+        for mode in ("kernel", "ref"):
+            want = jops.bitserial_matmul(xj, jnp.asarray(w_lut),
+                                         jnp.asarray(s_lut), bits,
+                                         block=(16, 32, 32), mode=mode)
+            assert _same(ops.lut_matmul(xt, sw), want)
+            assert _same(ops.lut_matmul(xt, sw, mode="ref"), want)
+    if n_dsp:
+        for mode in ("kernel", "ref"):
+            want = jops.int4_matmul(xj, jnp.asarray(w_dsp),
+                                    jnp.asarray(s_dsp), block=(16, 32, 32),
+                                    mode=mode)
+            assert _same(ops.dsp_matmul(xt, sw), want)
+            assert _same(ops.dsp_matmul(xt, sw, mode="ref"), want)
+    if not (n_lut and n_dsp):
+        want = jops.fused_matmul(xj, _j(w_lut), _j(s_lut), bits, _j(w_dsp),
+                                 _j(s_dsp), mode="ref")
+        assert _same(ops.split_matmul(xt, sw), want)
+
+
 @pytest.mark.parametrize("kernel,stride,pad", [(3, 1, 1), (1, 1, 0)])
 def test_conv_wrapper_matches_pallas_interpret(kernel, stride, pad):
     bits, n_lut, n_dsp, in_hw, c_in = 4, 8, 8, 6, 4
@@ -220,6 +300,18 @@ def test_prepared_weights_layout():
     sw = _prepared()
     assert sw.planes.shape == (4, 24, 10) and sw.planes.dtype == torch.int8
     assert sw.packed.shape == (24, 4) and sw.packed.dtype == torch.int8
+    # K-major words: 24 bits -> one 16-byte row of 4 words; 24 nibbles ->
+    # 3 words padded to 4
+    assert sw.lut_words.shape == (4, 10, 4)
+    assert sw.lut_words.dtype == torch.int32
+    assert sw.dsp_words.shape == (7, 4)
+    assert sw.dsp_words.dtype == torch.int32
+    assert all(t.is_contiguous() for t in (sw.planes, sw.packed,
+                                           sw.lut_words, sw.dsp_words))
+    assert torch.equal(ref.unpack_bits_kmajor(sw.lut_words, 24), sw.planes)
+    codes = ref.unpack_int4_kmajor(sw.dsp_words, 24).to(torch.int32)
+    assert torch.equal(ref.pack_int4(torch.nn.functional.pad(codes, (0, 1))),
+                       sw.packed)
     assert sw.scale.shape == (17,) and sw.scale.dtype == torch.float32
     assert sw.s_lut.shape == (10,) and sw.s_dsp.shape == (7,)
     with pytest.raises(ValueError):
@@ -236,10 +328,25 @@ def test_wrappers_reject_bad_operands():
         fused_hetero_gemm(x[:, :20].contiguous(), sw.planes, sw.packed,
                           sw.scale, 4, 10, 7)
     with pytest.raises(ValueError, match="contiguous"):
-        bitserial_gemm(x, sw.planes.transpose(1, 2).contiguous()
-                       .transpose(1, 2), sw.s_lut, 4)
+        bitserial_gemm(x, sw.lut_words.transpose(1, 2).contiguous()
+                       .transpose(1, 2), sw.s_lut, 4, 10)
+    with pytest.raises(ValueError, match="int32"):
+        bitserial_gemm(x, sw.planes, sw.s_lut, 4, 10)
     with pytest.raises(ValueError, match="shape"):
-        int4_gemm(x, sw.packed, sw.s_dsp, 9)
+        int4_gemm(x, sw.dsp_words, sw.s_dsp, 9)
+    with pytest.raises(ValueError, match="shape"):      # words of K = 200
+        int4_gemm(x, torch.zeros((7, 28), dtype=torch.int32), sw.s_dsp, 7)
+    with pytest.raises(ValueError, match="int32"):
+        int4_gemm(x, sw.packed, sw.s_dsp, 7)
+    # every bit width 1-8 takes its own plane count and nothing else
+    for bits in range(1, 9):
+        swb = _prepared(bits=bits)
+        assert swb.lut_words.shape == (bits, 10, 4)
+        assert bitserial_gemm(x, swb.lut_words, swb.s_lut, bits,
+                              10).shape == (5, 10)
+        for wrong in (bits - 1, bits + 1):
+            with pytest.raises(ValueError):
+                bitserial_gemm(x, swb.lut_words, swb.s_lut, wrong, 10)
     with pytest.raises(ValueError, match="does not give"):
         fused_conv_gemm(torch.zeros((4, 4, 1), dtype=torch.int8),
                         sw.planes[:, :9].contiguous(),
@@ -340,12 +447,32 @@ def test_dense_kernels_match_plain_on_card(cuda, bits, n_lut, n_dsp, m, k):
         assert torch.equal(fused_hetero_gemm(xc, *args),
                            fused_hetero_gemm_plain(xc, *args))
     if n_lut:
-        assert torch.equal(bitserial_gemm(xc, sw.planes, sw.s_lut, bits),
-                           bitserial_gemm_plain(xc, sw.planes, sw.s_lut,
-                                                bits))
+        args = (sw.lut_words, sw.s_lut, bits, n_lut)
+        assert torch.equal(bitserial_gemm(xc, *args),
+                           bitserial_gemm_plain(xc, *args))
     if n_dsp:
-        assert torch.equal(int4_gemm(xc, sw.packed, sw.s_dsp, n_dsp),
-                           int4_gemm_plain(xc, sw.packed, sw.s_dsp, n_dsp))
+        args = (sw.dsp_words, sw.s_dsp, n_dsp)
+        assert torch.equal(int4_gemm(xc, *args), int4_gemm_plain(xc, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1, 31), (13, 147), (49, 4608)])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_single_path_kernels_every_bits_on_card(cuda, bits, m, k):
+    """Every LUT bit width, and an odd DSP column count, on the K-major
+    words: a word boundary, the byte-gathered A of K = 147, conv17's
+    split-K."""
+    rng = np.random.default_rng(bits * 100 + m)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    w = _split_weights(rng, k, 37, 19, bits)
+    sw = ops.prepare_split(k, *[_t(a) for a in w[:2]], bits,
+                           *[_t(a) for a in w[2:]], cuda)
+    xc = x.to(cuda)
+    args = (sw.lut_words, sw.s_lut, bits, 37)
+    assert torch.equal(bitserial_gemm(xc, *args),
+                       bitserial_gemm_plain(xc, *args))
+    args = (sw.dsp_words, sw.s_dsp, 19)
+    assert torch.equal(int4_gemm(xc, *args), int4_gemm_plain(xc, *args))
 
 
 @pytest.mark.cuda

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where a split-GEMM launch spends its device time, on one NVIDIA card.
+"""Where a kernel launch spends its device time, on one NVIDIA card.
 
     python3 kernel_parts.py [--out PATH]
 
-Builds variants of the split-GEMM sources into ``build/kernel_parts/``,
-each with parts of the K loop taken out, and times them at resnet18's
-distinct layer shapes, each launch under ``fused_hetero_gemm.split_plan``'s
-tile and K split.
+Builds variants of the kernel sources into ``build/kernel_parts/``, each
+with parts of the main loop taken out, and times them: the split-GEMM
+kernels at resnet18's distinct layer shapes, each launch under
+``fused_hetero_gemm.split_plan``'s tile and K split, and the flash kernel
+at the serving prefill, S=2048, decode and decode4 shapes
+(:data:`FLASH_SHAPES`), each under ``flash_attention.flash_plan``.
 
 ``src/repro_torch/kernels/csrc/fused_split_gemm.cu``, its
 ``fused_hetero_gemm`` on both sides of the split (:data:`VARIANTS`):
@@ -29,6 +31,24 @@ its one-sided shape (:data:`SPLIT_VARIANTS`):
                  spreading of bits or nibbles to bytes
     copies_only  only the cp.async copies (no fragments, no mma)
     empty        no copies either
+
+``src/repro_torch/kernels/csrc/flash_attention.cu``, its
+``flash_attention`` (:data:`FLASH_VARIANTS`):
+
+    full         the kernel as it is
+    no_mma       each mma replaced by one add of its operands (a LOP3
+                 and an FADD on the FP32 pipe, as split_gemm's no_mma),
+                 so the ldmatrix fragments, the softmax and the P
+                 packing stay
+    copies_only  only the cp.async copies of Q, K and V and the epilogue
+                 (no fragments, no mma, no softmax)
+    empty        no copies either: launch, the KV loop's barriers and the
+                 epilogue
+
+and, at a shape ``flash_plan`` gives the decode form, ``prefill_form``:
+the full kernel launched in the prefill form instead (one 64-row block
+per query head), which computes the same output, to weigh the decode
+form against it.
 
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
@@ -89,6 +109,31 @@ SPLIT_VARIANTS = {
     "copies_only": [_NO_MMA],
     "empty": [_NO_MMA, *_SPLIT_NO_COPIES],
 }
+_FLASH_NO_MMA = (
+    """  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+""",
+    """  c[0] += __uint_as_float(a[0] ^ b0 ^ b1);
+""")
+_FLASH_NO_COMPUTE = ("    if (skip) continue;\n", "    continue;\n")
+_FLASH_NO_COPIES = [
+    ("  issue_q();\n", ""),
+    ("    load_tile<D, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, tid);\n"
+     "    load_tile<D, BKV>(ks + TILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, "
+     "tid);\n", "")]
+#: flash_attention.cu: variant -> (statement, replacement) edits
+FLASH_VARIANTS = {
+    "full": [],
+    "no_mma": [_FLASH_NO_MMA],
+    "copies_only": [_FLASH_NO_COMPUTE],
+    "empty": [_FLASH_NO_COMPUTE, *_FLASH_NO_COPIES],
+}
+#: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048
+#: and the two decode-form shapes
+FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4")
 #: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
@@ -146,10 +191,61 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from chip_smoke import device_times, nvidia_smi
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_hetero_gemm import split_plan
 
     print(f"card: {nvidia_smi()}")
+    rows = time_split(torch, device_times) + time_flash(torch, device_times)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+def time_flash(torch, device_times) -> list[dict]:
+    """The flash variants at :data:`FLASH_SHAPES`, each under its plan,
+    and the full kernel in the prefill form where the plan is the decode
+    form."""
+    from chip_smoke import FLASH_SHAPES as SMOKE_SHAPES
+    from repro_torch.kernels.flash_attention import flash_plan, kernel_args
+    libs = build_variants("flash_attention", FLASH_VARIANTS)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for name, b, sq, skv, hq, hkv, d, causal, off in SMOKE_SHAPES:
+        if name not in FLASH_SHAPES:
+            continue
+        q, k, v = (torch.randn((bb, s, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+                   for bb, s, h in ((b, sq, hq), (b, skv, hkv),
+                                    (b, skv, hkv)))
+        out = torch.empty_like(q)
+        plan = flash_plan(b, sq, skv, hq, hkv, d)
+        cargs = {form: kernel_args(q, k, v, out, d ** -0.5, causal, off,
+                                   plan._replace(form=form))
+                 for form in {plan.form, "prefill"}}
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(lib, form=plan.form):
+            rc = lib.flash_attention(*cargs[form], stream)
+            if rc:
+                raise RuntimeError(f"launch failed with error {rc}")
+        fns = {vname: (lambda lib=lib: run(lib), 20)
+               for vname, lib in libs.items()}
+        if plan.form == "decode":
+            fns["prefill_form"] = (lambda: run(libs["full"], "prefill"), 20)
+        us = {vname: 1e3 * t
+              for vname, t in device_times(torch, fns).items()}
+        rows.append({"kernel": "flash_attention", "shape": name, "b": b,
+                     "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d,
+                     "form": plan.form, "grid": list(plan.grid), "us": us})
+        print(f"flash_attention {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+              f"Hkv={hkv} D={d} {plan.form} grid {plan.grid}: " + "; ".join(
+                  f"{vname} {t:.2f} us" for vname, t in us.items()))
+    return rows
+
+
+def time_split(torch, device_times) -> list[dict]:
+    """The split-GEMM variants at resnet18's :data:`SHAPES`."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_hetero_gemm import split_plan
     fused_libs = build_variants("fused_split_gemm", VARIANTS)
     split_libs = build_variants("split_gemm", SPLIT_VARIANTS)
     gen = torch.Generator().manual_seed(0)
@@ -203,10 +299,7 @@ def main(argv=None) -> int:
                   f"BM={plan.bm} BN={plan.bn} S={plan.split} blocks="
                   f"{plan.blocks}: " + "; ".join(
                       f"{name} {t:.2f} us" for name, t in us.items()))
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(rows, indent=1))
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

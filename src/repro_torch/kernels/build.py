@@ -47,7 +47,7 @@ SOURCES = {
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            *[_L] * 12, _F, _I, _I, _P],
+                            *[_L] * 12, _F, _I, _I, _I, _P],
     },
 }
 #: the source that defines each entry point

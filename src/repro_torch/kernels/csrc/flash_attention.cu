@@ -1,243 +1,480 @@
-// Flash attention (forward) for Hopper (sm_90a).
+// Flash attention (forward) for Hopper (sm_90a), on bf16 tensor cores.
 //
-// Replaces repro/kernels/flash_attention.py flash_attention (Pallas body
-// _flash_kernel, GQA repeat in repro/kernels/ops.py attention), and
-// computes what repro/models/layers.py blockwise_attention computes on
-// the serving path's prefill: online-softmax attention with an fp32
-// running max m, normaliser l and accumulator, a causal mask offset by
-// kv_offset, and ragged Sq / Skv masked in the kernel.
+// Replaces src/repro/kernels/flash_attention.py flash_attention (Pallas
+// body _flash_kernel; GQA repeat in src/repro/kernels/ops.py attention),
+// and computes what src/repro/models/layers.py blockwise_attention
+// computes on the serving path's prefill: online-softmax attention with
+// an fp32 running max m, normaliser l and accumulator, a causal mask
+// offset by kv_offset, and ragged Sq / Skv masked in the kernel.
 //
 // Layout. q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], out [B, Sq, Hq, D],
 // all bf16, D in {64, 128}, given by element strides (batch, sequence,
-// head) with the last dimension contiguous, so blockwise_attention's
-// [B, S, H, D] and ops.attention's [B, H, S, D] both arrive without a
-// copy. Query head h reads KV head
-// h / (Hq / Hkv): grouped-query attention with no repeated K or V.
+// head) that are multiples of 8 with the last dimension contiguous and
+// 16-byte aligned rows, so blockwise_attention's [B, S, H, D] and
+// ops.attention's [B, H, S, D] both arrive without a copy. Query head h
+// reads KV head h / (Hq / Hkv): grouped-query attention with no repeated
+// K or V.
 //
 // Numerics, as blockwise_attention:
-//   s   = (q . k) * scale in fp32, the scale applied after the dot;
+//   s   = (q . k) * scale in fp32, the scale applied after the dot (bf16
+//         products are exact in the mma's fp32 accumulator, so only the
+//         order of the sum differs); the kernel keeps s, m in base 2:
+//         s2 = (q . k) * (scale * log2 e), one multiply after the dot;
 //   s   = -1e30 where kpos >= Skv or (causal and kpos > qpos + kv_offset);
-//   l  += sum of the fp32 p = exp(s - m);
+//   p   = 2^(s2 - m2) = exp(s - m), in fp32, by ex2.approx.ftz (2 ulp;
+//         a p below 2^-126 flushes to 0, which l >= 1 cannot see);
+//   l  += sum of the fp32 p;
 //   acc = acc * alpha + (p rounded to bf16) . v, in fp32;
 //   out = acc / max(l, 1e-30), rounded to bf16.
-// A kv tile that lies wholly above the causal diagonal is not visited:
-// it would add exp(-1e30 - m) = 0 to l and acc with alpha = 1, so the
-// skip is exact. The first tile always holds key 0, which every query
-// row may see, so m is finite from the first tile on.
+// A kv tile that lies wholly above the causal diagonal (or past Skv) is
+// not visited: it would add exp(-1e30 - m) = 0 to l and acc with
+// alpha = 1, so the skip is exact. A row whose keys so far are all
+// masked keeps m = -1e30 and takes its exponents against 0, so its p,
+// l and acc stay 0 (only the decode form's later warps meet such rows;
+// key 0, which every row may see, lies in every prefill block's first
+// tile and in the decode form's warp 0).
 //
 // What bounds it on an H100. At the serving prefill (B=8, S=64, Hq=32,
-// Hkv=8, D=64, bf16) the work is 4*B*Hq*D*(S(S+1)/2) = 136 MFLOP and the
-// bytes are q, k, v and out once, 3.1 MB: ~1 us of HBM at 3.35 TB/s
-// against ~0.14 us of bf16 tensor-core time, so bytes bound it. At
-// S=2048 the 17 GFLOP of the causal product bound it (~17 us at
-// 989 TFLOP/s).
+// Hkv=8, D=64) the work is 4*B*Hq*D*(S(S+1)/2) = 136 MFLOP against 3.1
+// MB of q, k, v and out: ~1 us of HBM at 3.35 TB/s, ~0.14 us of bf16
+// tensor-core time, so bytes bound it, and a launch and one tile's
+// latency are what it costs. At S=2048 the 17 GFLOP of the causal
+// product bound it (~17 us at 989 TFLOP/s). At decode (Sq=1, Skv=1024)
+// the KV bytes bound it (~5 us).
 //
-// Design (simple and right first; mma/wgmma and TMA are later work):
-//   * one block of 256 threads per (64-row q tile, query head, batch);
-//     the kv loop runs inside the block, where the TPU's sequential grid
-//     axis carried the running statistics from step to step;
-//   * each 64-row K and V tile is staged in shared memory as fp32; the
-//     threads form a 16x16 grid, each owning 4 query rows and 4 key
-//     columns of the score tile (s = q . k by FMA from shared memory),
-//     then the same 4 rows and D/16 output columns of the accumulator;
-//   * the 16 lanes that own a row sit in one half-warp, so the row max
-//     and row sum are four shuffles, and p passes to the p . v product
-//     through shared memory with a warp barrier only;
-//   * fp32 FMA runs at 67 TFLOP/s, 1/15 of the bf16 tensor cores, and
-//     each FMA reads half a float from shared memory: far from the bound
-//     at long sequences, near it at the serving prefill.
+// Design (FlashAttention-2 shape on mma.sync; wgmma and TMA are later
+// work):
+//   * prefill form: one block of 4 warps per (64-row query tile, query
+//     head, batch). Each warp owns 16 query rows; their Q fragments are
+//     read once by ldmatrix and stay in registers for the whole KV loop.
+//     S = Q K^T is mma.sync m16n8k16 bf16 -> fp32 with K's B fragments
+//     from ldmatrix.x4 on the row-major [64][D] K tile; the row max and
+//     row sum take two quad shuffles (l is summed per thread and reduced
+//     once at the end); P goes from the C fragments to A fragments in
+//     registers (cvt.rn.bf16x2.f32) and P V is the same mma with V's B
+//     fragments from ldmatrix.x4.trans on the row-major V tile;
+//   * copies: K and V tiles arrive by 16-byte cp.async (zero-filled past
+//     Skv, Q past Sq: p is 0 there but 0 * NaN of stale shared memory is
+//     not) into a ring of stages, tile t + 1 in flight while tile t
+//     computes, one __syncthreads a tile. Rows are 16-byte chunks
+//     swizzled by (row & 7), so ldmatrix and cp.async hit no bank twice;
+//   * masks are compared per element only on tiles that cross the
+//     diagonal or the end of Skv; interior tiles take the unmasked path;
+//   * causal load balance: the query tile is the slowest grid dimension,
+//     walked in reverse, so the tiles with the most KV tiles start first;
+//   * decode form (Sq * Hq/Hkv <= 16): one block per (KV head, batch)
+//     packs the Hq/Hkv query heads x Sq positions that share the KV head
+//     into the 16 rows of one mma tile (row r: position r / rep, head
+//     hk * rep + r % rep), so each K and V tile is read once for all of
+//     them, and a 4-stage ring keeps three tiles in flight. Each warp
+//     takes a quarter of every 64-key tile (16 keys); the four (m, l,
+//     acc) merge through shared memory at the end with the usual
+//     rescaling, and each row goes back to its (position, head) by
+//     stride.
 //
 // Launches go on the caller's stream, allocate nothing and do not
 // synchronise; the entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKV = 64;       // keys per staged tile
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int LDP = BKV + 1;  // padded row stride of the p tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16;             // query rows of one mma tile
+constexpr int BQ = ROWS * WARPS;     // prefill: query rows per block
+constexpr int BKV = 64;              // keys per staged K or V tile
+constexpr int STAGES_PREFILL = 2;
+constexpr int STAGES_DECODE = 4;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
 
 struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  int Sq, Skv, Hq, Hkv;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  int Sq, Skv, rep;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  float scale;
+  float scale_log2;
   int causal, kv_offset;
 };
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ bf16 to_bf16(float x) {
-  return __float2bfloat16_rn(x);
+// Q tile, then the ring of [K tile, V tile] stages, all bf16.
+template <int D, bool DEC>
+constexpr int smem_bytes() {
+  return 2 * ((DEC ? ROWS : BQ) * D +
+              (DEC ? STAGES_DECODE : STAGES_PREFILL) * 2 * BKV * D);
 }
 
-// Sum / max over the 16 lanes of a half-warp (one row group).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
+// Element offset of 16-byte chunk `chunk` of row `row` in a [rows][D]
+// tile whose chunks are swizzled by (row & 7).
 template <int D>
-constexpr size_t smem_bytes() {
-  // Q and K tiles [64][D + 1], V tile [64][D], p tile [64][BKV + 1]
-  return sizeof(float) *
-         (size_t)(BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * LDP);
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// c += a . b on one m16n8k16 tile: a the 16x16 bf16 A fragment, (b0, b1)
+// the 16x8 bf16 B fragment, c the 16x8 fp32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in fp32 (MUFU.EX2: 2 ulp, subnormal results flushed to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half
+// (cvt.rn.bf16x2.f32).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rows [0, n) of an NROWS x D tile from g (row stride ld elements) into
+// its swizzled shared tile by 16-byte cp.async; rows from n on are zeros.
+template <int D, int NROWS>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          long long ld, int n, int tid) {
+  constexpr int CH = D / 8;
+  static_assert(NROWS * CH % THREADS == 0, "tile chunks per thread");
+#pragma unroll
+  for (int it = 0; it < NROWS * CH / THREADS; ++it) {
+    const int i = tid + it * THREADS, r = i / CH, c = i % CH;
+    const bool ok = r < n;
+    cp_async16(s + swz<D>(r, c), g + (ok ? r * ld : 0) + c * 8, ok);
+  }
+}
+
+// The decode form's 16 packed query rows: row r < Sq * rep is position
+// r / rep of query head hk * rep + r % rep; the rest are zeros.
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
-  constexpr int LD = D + 1;   // padded row stride: conflict-free columns
-  constexpr int DC = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BKV * LD;
-  float* Ps = Vs + BKV * D;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    Qs[r * LD + c] = q0 + r < a.Sq ? to_f(q[(q0 + r) * a.q_ss + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
+__device__ __forceinline__ void load_q_packed(bf16* s, const Args& a, int b,
+                                              int hk, int tid) {
+  constexpr int CH = D / 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  for (int it = 0; it < ROWS * CH / THREADS; ++it) {
+    const int i = tid + it * THREADS, r = i / CH, c = i % CH;
+    const bool ok = r < a.Sq * a.rep;
+    const bf16* g = a.q + b * a.q_sb;
+    if (ok) g += (r / a.rep) * a.q_ss + (hk * a.rep + r % a.rep) * a.q_sh;
+    cp_async16(s + swz<D>(r, c), g + c * 8, ok);
   }
+}
 
-  // kv tiles up to the last key the tile's last query row may see
+template <int D, bool DEC>
+__global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
+  constexpr int NST = DEC ? STAGES_DECODE : STAGES_PREFILL;
+  constexpr int KW = DEC ? BKV / WARPS : BKV;  // keys of a tile per warp
+  constexpr int NB = KW / 8;                   // n-blocks of a score tile
+  constexpr int DK = D / 16;                   // k-steps of q . k
+  constexpr int DN = D / 8;                    // n-blocks of the output
+  constexpr int TILE = BKV * D;                // elements of a K or V tile
+  static_assert(!DEC || 4 * (2 * WARPS * ROWS + WARPS * ROWS * D) <=
+                            2 * NST * 2 * TILE,
+                "the decode merge reuses the ring");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + (DEC ? ROWS : BQ) * D;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.y;
+  int h = 0, hk, q0 = 0;
+  if (DEC) {
+    hk = blockIdx.x;
+  } else {
+    h = blockIdx.x;
+    hk = h / a.rep;
+    const int n_q = gridDim.z;
+    q0 = BQ * (a.causal ? n_q - 1 - (int)blockIdx.z : (int)blockIdx.z);
+  }
+  const bf16* kg = a.k + b * a.k_sb + hk * a.k_sh;
+  const bf16* vg = a.v + b * a.v_sb + hk * a.v_sh;
+
+  // Query positions plus kv_offset: the thread's rows g and g + 8, and
+  // the warp's first and last row that is real.
+  int qpos[2], qlo, qhi;
+  if (DEC) {
+    qpos[0] = g / a.rep + a.kv_offset;
+    qpos[1] = (g + 8) / a.rep + a.kv_offset;
+    qlo = a.kv_offset;
+    qhi = a.Sq - 1 + a.kv_offset;
+  } else {
+    const int r0 = q0 + ROWS * warp;
+    qpos[0] = r0 + g + a.kv_offset;
+    qpos[1] = qpos[0] + 8;
+    qlo = r0 + a.kv_offset;
+    qhi = min(r0 + ROWS, a.Sq) - 1 + a.kv_offset;
+  }
+  // keys up to the last one a real query row of the block may see
   int kv_end = a.Skv;
-  if (a.causal) kv_end = min(kv_end, min(q0 + BQ, a.Sq) + a.kv_offset);
+  if (a.causal)
+    kv_end = min(kv_end, (DEC ? a.Sq : min(q0 + BQ, a.Sq)) + a.kv_offset);
   const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const int key0 = DEC ? KW * warp : 0;  // the warp's first key of a tile
+
+  auto issue_q = [&]() {
+    if (DEC)
+      load_q_packed<D>(Qs, a, b, hk, tid);
+    else
+      load_tile<D, BQ>(Qs, a.q + b * a.q_sb + h * a.q_sh + q0 * a.q_ss,
+                       a.q_ss, a.Sq - q0, tid);
+  };
+  auto issue_tile = [&](int t) {
+    bf16* ks = ring + (t % NST) * 2 * TILE;
+    const int k0 = t * BKV;
+    load_tile<D, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, tid);
+    load_tile<D, BKV>(ks + TILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, tid);
+  };
+
+  issue_q();
+#pragma unroll
+  for (int t = 0; t < NST - 1; ++t) {
+    if (t < n_tiles) issue_tile(t);
+    cp_async_commit();
+  }
+
+  uint32_t qf[DK][4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // Q staged; the previous tile's K, V, p read
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < a.Skv;
-      Ks[r * LD + c] = in ? to_f(k[(k0 + r) * a.k_ss + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(v[(k0 + r) * a.v_ss + c]) : 0.f;
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // tile t landed for all threads; tile t - 1 read
+    if (t + NST - 1 < n_tiles) issue_tile(t + NST - 1);
+    cp_async_commit();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+        ldsm_x4(qf[kk], Qs + swz<D>((DEC ? 0 : ROWS * warp) + (lane & 15),
+                                    2 * kk + (lane >> 4)));
     }
-    __syncthreads();
+    const bf16* ks = ring + (t % NST) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    const int kw0 = t * BKV + key0;
+    const bool skip =
+        qhi < qlo || kw0 >= a.Skv || (a.causal && kw0 > qhi);
+    if (skip) continue;
+    const bool edge = kw0 + KW > a.Skv || (a.causal && kw0 + KW - 1 > qlo);
 
-    float s[4][4];
+    // S = Q K^T over the warp's KW keys
+    float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int kk = 0; kk < DK; ++kk) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int jj = 0; jj < NB / 2; ++jj) {
+        uint32_t kf[4];
+        ldsm_x4(kf, ks + swz<D>(key0 + 16 * jj + (lane & 7) +
+                                    ((lane >> 4) << 3),
+                                2 * kk + ((lane >> 3) & 1)));
+        mma_bf16(s[2 * jj], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * jj + 1], qf[kk], kf[2], kf[3]);
+      }
     }
 
-    float alpha[4];
+    // online softmax in base 2; element e of n-block j is row g + 8 (e/2),
+    // key kw0 + 8 j + 2 t4 + e % 2
+    float mt[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i + a.kv_offset;
-      float mt = NEG_INF;
+    for (int j = 0; j < NB; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < a.Skv && (!a.causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] * a.scale : NEG_INF;
-        mt = fmaxf(mt, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * a.scale_log2;
+        if (edge) {
+          const int kpos = kw0 + 8 * j + 2 * t4 + (e & 1);
+          if (kpos >= a.Skv || (a.causal && kpos > qpos[e >> 1])) x = NEG_INF;
+        }
+        s[j][e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
       }
-      const float m_new = fmaxf(m[i], group_max(mt));
-      alpha[i] = expf(m[i] - m_new);
-      float ps = 0.f;
+    }
+    float alpha[2], mu[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = to_f(to_bf16(p));
-      }
-      l[i] = l[i] * alpha[i] + group_sum(ps);
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float m_new = fmaxf(m[i], mt[i]);
+      mu[i] = m_new == NEG_INF ? 0.f : m_new;
+      alpha[i] = fast_exp2(m[i] - mu[i]);
       m[i] = m_new;
     }
-    __syncwarp();  // a row group reads only the p its own 16 lanes wrote
-
-    float pv[4][DC];
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NB; ++j) {
 #pragma unroll
-      for (int j = 0; j < DC; ++j) pv[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < BKV; ++kk) {
-      float pr[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) pv[i][j] = fmaf(pr[i], vv[j], pv[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(s[j][e] - mu[e >> 1]);
+        rs[e >> 1] += p;  // l sums the fp32 p
+        s[j][e] = p;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] = acc[i][j] * alpha[i] + pv[i][j];
+    for (int n = 0; n < DN; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // acc += (P rounded to bf16) . V; P's C fragments are its A fragments
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int jj = 0; jj < DN / 2; ++jj) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vs + swz<D>(key0 + 16 * kk + (lane & 15),
+                                      2 * jj + (lane >> 4)));
+        mma_bf16(acc[2 * jj], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * jj + 1], pa, vf[2], vf[3]);
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= a.Sq) continue;
-    const float norm = fmaxf(l[i], 1e-30f);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  if (!DEC) {
+    bf16* og = a.out + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      out[r * a.o_ss + tx + 16 * j] = to_bf16(acc[i][j] / norm);
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + ROWS * warp + g + 8 * i;
+      if (r >= a.Sq) continue;
+      const float norm = fmaxf(l[i], 1e-30f);
+      bf16* orow = og + r * a.o_ss + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < DN; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(acc[n][2 * i] / norm,
+                                  acc[n][2 * i + 1] / norm);
+    }
+    return;
+  }
+
+  // decode form: merge the four warps' (m, l, acc) of each row
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* ms = reinterpret_cast<float*>(ring);
+  float* ls = ms + WARPS * ROWS;
+  float* as = ls + WARPS * ROWS;  // [WARPS][ROWS][D]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * ROWS + g + 8 * i;
+    if (t4 == 0) {
+      ms[r] = m[i];
+      ls[r] = l[i];
+    }
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      as[r * D + 8 * n + 2 * t4] = acc[n][2 * i];
+      as[r * D + 8 * n + 2 * t4 + 1] = acc[n][2 * i + 1];
+    }
+  }
+  __syncthreads();
+  constexpr int TPR = THREADS / ROWS;  // threads per output row
+  const int r = tid / TPR;
+  if (r >= a.Sq * a.rep) return;
+  float mx = NEG_INF;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * ROWS + r]);
+  float sc[WARPS], lsum = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    sc[w] = fast_exp2(ms[w * ROWS + r] - mx);
+    lsum += ls[w * ROWS + r] * sc[w];
+  }
+  const float norm = fmaxf(lsum, 1e-30f);
+  bf16* orow = a.out + b * a.o_sb + (r / a.rep) * a.o_ss +
+               (hk * a.rep + r % a.rep) * a.o_sh;
+  for (int c = tid % TPR; c < DN; c += TPR) {
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      o[e] = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        o[e] += as[(w * ROWS + r) * D + 8 * c + e] * sc[w];
+    }
+    uint4 pk;
+    pk.x = pack_bf16(o[0] / norm, o[1] / norm);
+    pk.y = pack_bf16(o[2] / norm, o[3] / norm);
+    pk.z = pack_bf16(o[4] / norm, o[5] / norm);
+    pk.w = pack_bf16(o[6] / norm, o[7] / norm);
+    *reinterpret_cast<uint4*>(orow + 8 * c) = pk;
   }
 }
 
-template <int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+template <int D, bool DEC>
+int launch(const Args& a, dim3 grid, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, DEC>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_kernel<D, DEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.Hq, B);
-  flash_kernel<D><<<grid, THREADS, smem, stream>>>(a);
+  flash_kernel<D, DEC><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -246,24 +483,42 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 extern "C" {
 
 // q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D] -> out [B, Sq, Hq, D], all
-// bf16, given by element strides (batch, sequence, head) with the last
-// dimension contiguous. D in {64, 128}; Hq a multiple of Hkv;
-// kv_offset >= 0.
+// bf16, given by element strides (batch, sequence, head), multiples of 8,
+// with the last dimension contiguous and 16-byte aligned bases. D in
+// {64, 128}; Hq a multiple of Hkv; kv_offset >= 0. Form 0 (prefill) runs
+// on a grid (Hq, B, ceil(Sq / 64)), form 1 (decode, only where
+// Sq * Hq / Hkv <= 16) on a grid (Hkv, B, 1); kernels/flash_attention.py
+// flash_plan picks the form and describes the same launch.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int Sq, int Skv, int Hq, int Hkv, int D,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
                     long long o_sb, long long o_ss, long long o_sh,
-                    float scale, int causal, int kv_offset, void* stream) {
-  const Args a{q,    k,    v,    out,  Sq,   Skv,  Hq,   Hkv,
-               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               o_sb, o_ss, o_sh, scale, causal, kv_offset};
+                    float scale, int causal, int kv_offset, int form,
+                    void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || B <= 0)
+    return cudaErrorInvalidValue;
+  const int rep = Hq / Hkv;
+  const bool dec = form == 1;
+  if ((form != 0 && form != 1) || (dec && Sq * rep > ROWS))
+    return cudaErrorInvalidValue;
+  const dim3 grid = dec ? dim3(Hkv, B, 1) : dim3(Hq, B, (Sq + BQ - 1) / BQ);
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<bf16*>(out),
+               Sq,   Skv,  rep,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+               v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * LOG2E,
+               causal, kv_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(a, B, s);
-    case 128: return launch<128>(a, B, s);
-    default: return cudaErrorInvalidValue;
+    case 64:
+      return dec ? launch<64, true>(a, grid, s)
+                 : launch<64, false>(a, grid, s);
+    case 128:
+      return dec ? launch<128, true>(a, grid, s)
+                 : launch<128, false>(a, grid, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -7,8 +7,16 @@ blockwise_attention`` computes there: online-softmax attention with fp32
 running statistics, a causal mask offset by ``kv_offset``, ragged
 sequence lengths masked in the kernel, and grouped-query attention by
 mapping query head ``h`` to KV head ``h // (Hq // Hkv)`` (no repeated
-K or V). One block per (64-row query tile, head, batch) walks the KV
-tiles in a loop and skips those wholly above the causal diagonal.
+K or V). Both products are bf16 tensor-core ``mma.sync`` with fp32
+accumulators; K and V tiles stream through a ``cp.async`` ring.
+
+:func:`flash_plan` picks the launch. The prefill form runs one block per
+(64-row query tile, query head, batch) and walks the KV tiles in a loop,
+skipping those wholly above the causal diagonal. The decode form, taken
+when ``Sq * Hq / Hkv <= 16``, runs one block per (KV head, batch) that
+packs the query heads sharing the KV head, times the ``Sq`` positions,
+into the 16 rows of one tensor-core tile, so each K and V tile is read
+once for all of them.
 
 :func:`flash_attention` launches the kernel on CUDA tensors and counts
 the launch, or raises; on CPU tensors, or with ``mode="ref"``, it
@@ -16,6 +24,8 @@ computes :func:`flash_attention_plain`, the chunked online softmax of
 ``blockwise_attention`` in plain PyTorch.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +35,41 @@ NEG_INF = -1e30
 MODES = ("auto", "ref")
 #: the head sizes the kernel is instantiated for (it takes bf16)
 KERNEL_HEAD_DIMS = (64, 128)
+#: the kernel's launch forms, in the order of the entry point's ``form``
+FORMS = ("prefill", "decode")
+BLOCK_Q = 64                # prefill: query rows per block (4 warps x 16)
+BLOCK_KV = 64               # keys per staged K or V tile
+DECODE_ROWS = 16            # decode: packed (position, head) rows a block
+#: K / V ring stages of each form
+STAGES = {"prefill": 2, "decode": 4}
+
+
+class FlashPlan(NamedTuple):
+    """How one call launches (128 threads a block): the form, its grid
+    (x, y, z) and its dynamic shared-memory bytes."""
+    form: str
+    grid: tuple[int, int, int]
+    smem: int
+
+
+def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
+               d: int) -> FlashPlan:
+    """The launch of one call: the decode form when the ``Hq / Hkv``
+    query heads of a KV head times the ``Sq`` positions fill at most one
+    16-row tile (grid (Hkv, B, 1)), else the prefill form (grid (Hq, B,
+    ceil(Sq / 64)), the query tile slowest). Shared memory holds the bf16
+    Q tile and the ring of [K, V] tile stages. The wrapper passes only
+    the form; the C entry point works out the same grid and shared
+    memory itself."""
+    if min(b, sq, skv, hq, hkv, d) <= 0 or hq % hkv:
+        raise ValueError(f"flash_plan: no launch for B={b} Sq={sq} "
+                         f"Skv={skv} Hq={hq} Hkv={hkv} D={d}")
+    if sq * (hq // hkv) <= DECODE_ROWS:
+        form, grid, rows = "decode", (hkv, b, 1), DECODE_ROWS
+    else:
+        form, grid, rows = "prefill", (hq, b, -(-sq // BLOCK_Q)), BLOCK_Q
+    smem = 2 * d * (rows + STAGES[form] * 2 * BLOCK_KV)
+    return FlashPlan(form, grid, smem)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,13 +176,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dimension must be "
                          "contiguous")
+    if any(st % 8 for t in (q, k, v)
+           for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1) or \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel copies 16-byte rows: "
+                         "strides must be multiples of 8 elements and "
+                         "the data 16-byte aligned")
     if skv == 0:
         raise ValueError("flash_attention: no keys")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    launch("flash_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), b, sq, skv, hq, hkv, d, *q.stride()[:3],
-           *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-           float(scale), int(causal), int(kv_offset))
+    plan = flash_plan(b, sq, skv, hq, hkv, d)
+    launch("flash_attention", q,
+           *kernel_args(q, k, v, out, scale, causal, kv_offset, plan))
     return out
+
+
+def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, scale: float, causal: bool,
+                kv_offset: int, plan: FlashPlan) -> tuple:
+    """The entry point's arguments before the stream, for ``plan``'s
+    form."""
+    b, sq, hq, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            k.shape[1], hq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], float(scale), int(causal),
+            int(kv_offset), FORMS.index(plan.form))

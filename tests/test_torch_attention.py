@@ -12,8 +12,13 @@ Tolerance: 3e-5 absolute and relative in fp32, the one
 oracle. Both sides compute the same fp32 online softmax; they differ
 only in summation order and in the chunk at which each running max is
 taken. The CUDA kernel itself runs only on a card (marker ``cuda``);
-``chip_smoke.py`` holds it to its plain version there in bf16.
+``chip_smoke.py`` holds it to its plain version there in bf16. Its
+launch plan (``flash_plan``: form, grid, shared memory) and the
+arguments the wrapper passes are checked here on the CPU.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,12 +29,22 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.models import layers as jlayers
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.flash_attention import flash_attention, \
-    flash_attention_plain
+    flash_attention_plain, flash_plan, kernel_args
 from repro_torch.models import layers
 
 TOL = dict(rtol=3e-5, atol=3e-5)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _load(name):
+    """A script at the repository root, imported by path."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _qkv(seed, b, hq, hkv, sq, skv, d):
@@ -196,6 +211,121 @@ def test_cache_write_matches_reference(s_new, idx):
 
 
 # ---------------------------------------------------------------------------
+# The kernel's launch plan
+# ---------------------------------------------------------------------------
+
+
+# (Sq, Hq, Hkv) -> form: decode when Sq * Hq / Hkv fills at most 16 rows
+@pytest.mark.parametrize("sq,hq,hkv,form", [
+    (1, 32, 8, "decode"), (4, 32, 8, "decode"), (5, 32, 8, "prefill"),
+    (16, 4, 4, "decode"), (17, 4, 4, "prefill"), (1, 16, 1, "decode"),
+    (2, 16, 1, "prefill"), (1, 32, 1, "prefill"), (64, 32, 8, "prefill"),
+])
+def test_flash_plan_picks_the_form(sq, hq, hkv, form):
+    plan = flash_plan(3, sq, 100, hq, hkv, 64)
+    assert plan.form == form
+    if form == "decode":
+        assert plan.grid == (hkv, 3, 1)
+    else:
+        assert plan.grid == (hq, 3, -(-sq // 64))
+
+
+# chip_smoke.py's flash shapes: (name, form, grid)
+CHIP_PLANS = [
+    ("prefill", "prefill", (32, 8, 1)),
+    ("s2048", "prefill", (32, 1, 32)),
+    ("ragged", "prefill", (32, 2, 16)),
+    ("noncausal", "prefill", (32, 2, 6)),
+    ("offset", "prefill", (32, 8, 1)),
+    ("decode", "decode", (8, 8, 1)),
+    ("d128_mha", "prefill", (16, 2, 8)),
+    ("decode4", "decode", (8, 8, 1)),
+]
+
+
+@pytest.mark.parametrize("name,form,grid", CHIP_PLANS)
+def test_flash_plan_at_chip_shapes(name, form, grid):
+    shapes = {row[0]: row[1:] for row in _load("chip_smoke").FLASH_SHAPES}
+    assert list(shapes) == [row[0] for row in CHIP_PLANS]
+    b, sq, skv, hq, hkv, d, _, _ = shapes[name]
+    plan = flash_plan(b, sq, skv, hq, hkv, d)
+    assert (plan.form, plan.grid) == (form, grid)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,hq,hkv", [(1, 32, 8), (4, 32, 8), (64, 32, 8),
+                                       (2048, 32, 32)])
+def test_flash_plan_shared_memory_fits(sq, hq, hkv, d):
+    plan = flash_plan(2, sq, 4096, hq, hkv, d)
+    rows = 16 if plan.form == "decode" else 64
+    stages = 4 if plan.form == "decode" else 2
+    # the bf16 Q tile and the ring of [K, V] 64-key tile stages, within
+    # the 227 KB of dynamic shared memory an H100 block may take
+    assert plan.smem == 2 * d * (rows + stages * 2 * 64)
+    assert plan.smem <= 227 * 1024
+
+
+def test_flash_plan_rejects_what_it_cannot_launch():
+    with pytest.raises(ValueError, match="no launch"):
+        flash_plan(1, 4, 0, 8, 2, 64)
+    with pytest.raises(ValueError, match="no launch"):
+        flash_plan(1, 4, 16, 6, 4, 64)
+
+
+@pytest.mark.parametrize("name", ["prefill", "decode4"])
+def test_kernel_args_match_the_entry_point(name):
+    """The wrapper's arguments fill the C entry point's signature in
+    ``build.SOURCES`` (the stream comes last), and carry the plan's form
+    (the entry point works out the grid and shared memory from it)."""
+    row = {r[0]: r[1:] for r in _load("chip_smoke").FLASH_SHAPES}[name]
+    b, sq, skv, hq, hkv, d, causal, off = row
+    q = torch.zeros((b, hq, sq, d)).transpose(1, 2)
+    k = v = torch.zeros((b, skv, hkv, d))
+    out = torch.empty((b, sq, hq, d))
+    plan = flash_plan(b, sq, skv, hq, hkv, d)
+    args = kernel_args(q, k, v, out, d ** -0.5, causal, off, plan)
+    argtypes = build.SOURCES["flash_attention"]["flash_attention"]
+    assert len(args) == len(argtypes) - 1
+    assert args[4:10] == (b, sq, skv, hq, hkv, d)
+    assert args[10:13] == (hq * sq * d, d, sq * d)      # [B, H, S, D] view
+    assert args[-4:] == (d ** -0.5, int(causal), off,
+                         ("prefill", "decode").index(plan.form))
+
+
+def test_kernel_parts_flash_variants_edit_the_source():
+    """Each statement a ``kernel_parts.py`` flash variant takes out is in
+    the source exactly once (the script fails loudly otherwise)."""
+    parts = _load("kernel_parts")
+    text = (parts.CSRC / "flash_attention.cu").read_text()
+    assert set(parts.FLASH_VARIANTS) == {"full", "no_mma", "copies_only",
+                                         "empty"}
+    for edits in parts.FLASH_VARIANTS.values():
+        for old, new in edits:
+            assert text.count(old) == 1, old
+            assert old != new
+
+
+@pytest.mark.parametrize("name", ["offset", "decode", "decode4"])
+def test_flash_row_check_sees_a_dropped_key(name):
+    """``chip_smoke.py``'s per-row check passes a schedule that rounds p
+    at other running maxima (64-key chunks, as the kernel's tiles) and
+    fails one whose causal limit is one key short, at shapes where each
+    row sees ~1000 keys."""
+    smoke = _load("chip_smoke")
+    b, sq, skv, hq, hkv, d, causal, off = {
+        r[0]: r[1:] for r in smoke.FLASH_SHAPES}[name]
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).to(torch.bfloat16)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    want = flash_attention_plain(q, k, v, causal=causal, kv_offset=off)
+    tiled = flash_attention_plain(q, k, v, causal=causal, kv_offset=off,
+                                  q_chunk=64, kv_chunk=64)
+    assert smoke.flash_row_err(tiled, want) <= smoke.FLASH_ROW_TOL
+    short = flash_attention_plain(q, k, v, causal=causal, kv_offset=off - 1)
+    assert smoke.flash_row_err(short, want) > smoke.FLASH_ROW_TOL
+
+
+# ---------------------------------------------------------------------------
 # On the card: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -208,17 +338,32 @@ def cuda():
     return torch.device("cuda")
 
 
+# (form, D, (b, hq, hkv, sq, skv), kv_offset)
+ON_CARD = [
+    ("prefill", 64, (2, 8, 2, 100, 100), 0),
+    ("prefill", 128, (1, 4, 4, 130, 130), 0),
+    ("decode", 64, (2, 8, 2, 4, 100), 96),
+    ("decode", 128, (2, 8, 2, 1, 77), 76),
+]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("form,d,dims,off", ON_CARD)
+def test_kernel_matches_plain_on_card(cuda, form, d, dims, off):
+    b, hq, hkv, sq, skv = dims
+    assert flash_plan(b, sq, skv, hq, hkv, d).form == form
     q, k, v = (_bshd(a).to(cuda, torch.bfloat16)
-               for a in _qkv(1, 2, 8, 2, 100, 100, 64))
+               for a in _qkv(1, b, hq, hkv, sq, skv, d))
     before = LAUNCHES["flash_attention"]
-    got = flash_attention(q, k, v, causal=True)
+    got = flash_attention(q, k, v, causal=True, kv_offset=off)
     assert LAUNCHES["flash_attention"] == before + 1
-    want = flash_attention_plain(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True, kv_offset=off)
     # two steps of bf16's 2^-8 on max|v|: p and the output are rounded
     # to bf16 at running maxima taken over other tiles
     tol = 2 * 2 ** -8 * float(v.abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     with pytest.raises(ValueError, match="bf16"):
         flash_attention(q.float(), k.float(), v.float())
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted.view(q.shape), k, v)

@@ -7,9 +7,9 @@ Phases, each printing its lines before the last:
 
 1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (``fused_split_gemm.cu``,
-   ``split_gemm.cu`` and ``flash_attention.cu``, one nvcc each, started
-   together), time the build and print ptxas's register, shared-memory
-   and spill report.
+   ``split_gemm.cu``, ``depthwise_gemm.cu`` and ``flash_attention.cu``,
+   one nvcc each, started together), time the build and print ptxas's
+   register, shared-memory and spill report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
@@ -46,7 +46,23 @@ Phases, each printing its lines before the last:
    the fused path and for ``fused=False``: per-image latency (host
    clock, median of the four) and the device's busy share of it (device
    time of one image from a profiler trace, :func:`busy_ms`).
-4. flash: the flash-attention kernel against its plain version in bf16
+4. mobilenet_v2: compile it (224, width 1.0, -O 0), bind synthetic
+   weights, and hold the depthwise kernel (``depthwise_conv_gemm`` on
+   the spatial block, ``grouped_gemm`` on the staged stack, each side
+   alone) bitwise to its plain version at the 17 depthwise layers and at
+   :data:`DW_CORNERS`; hold the split-GEMM kernels bitwise at the 21
+   distinct dense shapes (spatial, staged and single-path forms). Then
+   every path as in phase 3, with ``depthwise_conv_gemm`` once per
+   depthwise layer on the fused path, ``grouped_gemm`` once per
+   non-empty side on ``fused=False`` and once per layer staged, and the
+   logits bitwise equal across the fused, ``fused=False``, staged,
+   ``mode="ref"`` and CPU runs. Times per image, device time
+   (:func:`device_times`): the depthwise kernel's spatial and staged
+   forms, its plain version and ``F.conv2d(groups=C)`` in fp32 with TF32
+   off times the scale (the library yardstick, exact here: every sum is
+   below 2^24), beside the bytes bound; ``fused_conv_gemm`` over the 36
+   dense layers beside its plain version, ``_int_mm`` and the bound.
+5. flash: the flash-attention kernel against its plain version in bf16
    at eight shapes: the serving prefill (B=8, S=64, 32 query heads over
    8 KV heads, D=64, causal), S=2048 causal, S=1000 causal (ragged),
    S=333 non-causal, 64 queries at offset 960 of 1024 keys, one query at
@@ -63,7 +79,7 @@ Phases, each printing its lines before the last:
    events over back-to-back calls, which at small shapes measure the
    host's launch rate. The bound: q, k, v and out once over 3.35 TB/s
    vs 4·B·Hq·D·(unmasked pairs) over 989 TFLOP/s bf16.
-5. serve: full-width llama3.2-1b (16 layers, bf16, weights from
+6. serve: full-width llama3.2-1b (16 layers, bf16, weights from
    ``torch.Generator`` seed 0 on the card) through the port's launcher
    ``repro_torch.launch.serve.main`` (batch 8, prompt 64, 32 new
    tokens), then through ``repro_torch.serve.engine``'s prefill and
@@ -111,6 +127,7 @@ SOURCE = {
     "bitserial_gemm": f"{CSRC}/split_gemm.cu",
     "int4_gemm": f"{CSRC}/split_gemm.cu",
     "flash_attention": f"{CSRC}/flash_attention.cu",
+    "depthwise_gemm": f"{CSRC}/depthwise_gemm.cu",
 }
 REPLACES = {
     "fused_conv_gemm": "src/repro/kernels/fused_hetero_gemm.py:232",
@@ -118,6 +135,8 @@ REPLACES = {
     "bitserial_gemm": "src/repro/kernels/bitserial_gemm.py:62",
     "int4_gemm": "src/repro/kernels/int4_gemm.py:55",
     "flash_attention": "src/repro/kernels/flash_attention.py:78",
+    "depthwise_gemm": "src/repro/kernels/ops.py:256 (int32 einsum, no "
+                      "Pallas kernel)",
 }
 #: the executor path whose counted run each kernel's launches come from
 KERNEL_PATH = {
@@ -126,7 +145,21 @@ KERNEL_PATH = {
     "bitserial_gemm": "fused=False",
     "int4_gemm": "fused=False",
 }
+#: the same for full-width mobilenet_v2's kernels
+MOBILENET_PATH = {
+    "fused_conv_gemm": "fused",
+    "depthwise_conv_gemm": "fused",
+    "grouped_gemm": "staged",
+}
 N_IMAGES = 4
+#: depthwise kernel corners, (H=W, C, kernel, stride, pad, bits, n_lut):
+#: odd C, all-DSP (n_lut 0) and all-LUT (n_lut C) layers, in_hw that
+#: stride 2 does not divide (15, 9, 13, 57), one channel, a 5x5 window
+#: (K = 25), bits 1, 2 and 8, full-width b0_dw's 112x112 map
+DW_CORNERS = [(15, 33, 3, 2, 1, 3, 11), (7, 17, 3, 1, 1, 4, 0),
+              (9, 40, 3, 2, 1, 8, 40), (13, 1, 3, 2, 1, 1, 1),
+              (10, 24, 5, 2, 2, 5, 7), (57, 65, 3, 2, 1, 4, 0),
+              (112, 32, 3, 1, 1, 2, 32)]
 #: fused-kernel corners, (M, K, bits, n_lut, n_dsp) dense and (H=W, C,
 #: kernel, stride, pad, bits, n_lut, n_dsp) conv: M = 1, 13 and 49, K
 #: not a multiple of S·BK, the split boundary inside a tile, one-sided
@@ -627,11 +660,20 @@ def expected_launches(prog, ex) -> dict:
     """Per path, the launches of one image: the fused path launches
     ``fused_conv_gemm`` once per layer; ``fused=False`` one single-path
     kernel per non-empty split side; staged ``run_layer`` one
-    ``fused_hetero_gemm`` per two-sided layer, else the side's kernel."""
+    ``fused_hetero_gemm`` per two-sided layer, else the side's kernel.
+    A depthwise layer launches ``depthwise_conv_gemm`` once on the fused
+    path, ``grouped_gemm`` once per non-empty side on ``fused=False``
+    and ``grouped_gemm`` once staged."""
     want = {p: collections.Counter() for p in ("fused", "fused=False",
                                                "staged")}
     for lp in prog.layers:
         sw = ex._split[lp.index]
+        if lp.depthwise:
+            want["fused"]["depthwise_conv_gemm"] += 1
+            want["fused=False"].update(["grouped_gemm"] * ((sw.n_lut > 0)
+                                                           + (sw.n_dsp > 0)))
+            want["staged"]["grouped_gemm"] += 1
+            continue
         sides = [name for name, n in (("bitserial_gemm", sw.n_lut),
                                       ("int4_gemm", sw.n_dsp)) if n]
         want["fused"]["fused_conv_gemm"] += 1
@@ -652,14 +694,14 @@ def read_launches(launches, per_image: dict, n_images: int,
     return got
 
 
-def phase_slice(torch, prog, ex, details: dict) -> dict:
-    """Each CudaExecutor path on full-width resnet18, its launches
-    counted in a window of its own; returns each kernel's count."""
+def phase_slice(torch, prog, ex, details: dict,
+                network: str = "resnet18") -> dict:
+    """Each CudaExecutor path on full-width ``network``, its launches
+    counted in a window of its own; returns each path's counts."""
     import numpy as np
     from repro_torch.compiler import CudaExecutor, bind_synthetic, \
         compile_network, execute_report
-    from repro_torch.compiler.runtime.base import chain_layers, \
-        im2col_patches
+    from repro_torch.compiler.runtime.base import chain_layers
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.quant.uniform import qrange
 
@@ -713,8 +755,8 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
         outs[index] = ex.run_layer(index, x_sp)
         return outs[index]
     chain_layers(prog.layers, record, ex._as_codes(images[0]))
-    staged = {lp.index: im2col_patches(inputs[lp.index], lp.geometry)
-              .reshape(lp.dims.m, lp.dims.k) for lp in prog.layers}
+    staged = {lp.index: ex._staged_activations(lp, inputs[lp.index])
+              for lp in prog.layers}
     torch.cuda.synchronize()
     LAUNCHES.clear()
     staged_outs = {i: ex.run_layer(i, x) for i, x in staged.items()}
@@ -738,8 +780,8 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
     y0 = logits[0].cpu().numpy()
     if y0.shape != (1, 1000) or not np.isfinite(y0).all():
         raise AssertionError(f"logits {y0.shape} not finite [1, 1000]")
-    # a reduced resnet18 on the card and on the CPU
-    small = compile_network("resnet18", in_hw=32, width=0.25)
+    # a reduced network on the card and on the CPU
+    small = compile_network(network, in_hw=32, width=0.25)
     xs = images[0][:32, :32]
     ys = []
     for dev in ("cuda", "cpu"):
@@ -747,7 +789,7 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
         for lp in small.layers:
             bind_synthetic(e, lp, seed=lp.index)
         ys.append(e.run(xs).cpu())
-    require_equal(torch, "reduced resnet18 card vs cpu", ys[0], ys[1])
+    require_equal(torch, f"reduced {network} card vs cpu", ys[0], ys[1])
 
     med = statistics.median(lat)
     image_dev = busy_ms(torch, lambda: ex.run(images[0]), iters=4)
@@ -761,7 +803,7 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
           f"image {busy_text(split_dev, split_med)}")
     details["split_latency_ms"] = split_lat
     details["split_image_device_ms"] = split_dev
-    print(f"slice: resnet18 224 x{N_IMAGES} images via CudaExecutor: "
+    print(f"slice: {network} 224 x{N_IMAGES} images via CudaExecutor: "
           f"per-image latency median {med:.3f} ms ({', '.join(f'{v:.3f}' for v in lat)}); "
           f"|out| sum image 0 {float(np.abs(y0).sum()):.6e}; bitwise equal "
           f"to plain, fused=False, staged and CPU")
@@ -770,14 +812,245 @@ def phase_slice(torch, prog, ex, details: dict) -> dict:
               f"({'1 image' if path == 'staged' else f'{N_IMAGES} images'})")
     details["latency_ms"] = lat
     details["launches"] = paths
-    # each kernel's launches, read from the run of the path that uses it
+    return paths
+
+
+def path_launches(paths: dict, kernel_path: dict) -> dict:
+    """Each kernel's launches, read from the run of the path that uses
+    it (``kernel_path``: kernel -> path); raise if one is 0."""
     launches = {name: paths[path].get(name, 0)
-                for name, path in KERNEL_PATH.items()}
+                for name, path in kernel_path.items()}
     missing = [name for name, count in launches.items() if not count]
     if missing:
         raise AssertionError(f"kernels not launched on their path: "
                              f"{missing} ({paths})")
     return launches
+
+
+def dw_conv2d_fn(torch, x_sp, codes, scale, conv):
+    """The library yardstick of a depthwise layer:
+    ``F.conv2d(..., groups=C)`` in fp32 on the codes (input permuted to
+    NCHW and converted outside the timed call), times the scale; with
+    TF32 off every sum (below 2^24) is exact. Returns [1, C, oh, ow]."""
+    import torch.nn.functional as F
+    kernel, stride, pad, _ = conv
+    c = x_sp.shape[2]
+    xf = x_sp.permute(2, 0, 1).unsqueeze(0).float().contiguous()
+    wf = codes.t().reshape(c, 1, kernel, kernel).float().contiguous()
+    s = scale.reshape(1, c, 1, 1)
+    return lambda: F.conv2d(xf, wf, stride=stride, padding=pad,
+                            groups=c) * s
+
+
+def depthwise_layers(torch, prog, ex, details: dict) -> dict:
+    """The depthwise kernel at each depthwise layer of ``prog`` (its
+    bound weights, random int8 input): both entry points and each side
+    alone bitwise equal to the plain version, and the spatial form timed
+    per image beside the staged form, the plain version and
+    ``F.conv2d(groups=C)``; returns the per-image totals."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.depthwise_gemm import depthwise_conv_gemm, \
+        depthwise_conv_gemm_plain, grouped_gemm, grouped_gemm_plain
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    times = ("ms", "grouped_ms", "plain_ms", "library_ms")
+    tot = {**dict.fromkeys(times, 0.0), "bound_ms": 0.0, "bytes": 0.0,
+           "operations": 0.0, "max_abs_err": 0.0, "library_err": 0.0}
+    rows = details.setdefault("depthwise", [])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for lp in prog.layers:
+            if not lp.depthwise:
+                continue
+            g, sw, wts = lp.geometry, ex._split[lp.index], \
+                ex._weights[lp.index]
+            m, k, n, bits = lp.dims.m, lp.dims.k, lp.dims.n, lp.bits_w_lut
+            conv = (g.kernel, g.stride, g.pad, g.out_hw)
+            x_sp = torch.randint(-128, 128, g.in_shape, generator=gen,
+                                 dtype=torch.int8).cuda()
+            x_col = ref.conv_patches_ref(x_sp, *conv).contiguous()
+            args = (sw.planes, sw.packed, sw.scale, bits, sw.n_lut, sw.n_dsp)
+            kern = lambda: depthwise_conv_gemm(x_sp, *args, *conv)  # noqa: E731
+            plain = lambda: depthwise_conv_gemm_plain(x_sp, *args, *conv)  # noqa: E731
+            staged = lambda: grouped_gemm(x_col, *args)  # noqa: E731
+            want = plain()
+            err = require_equal(torch, f"depthwise_conv_gemm {lp.name}",
+                                kern(), want)
+            require_equal(torch, f"grouped_gemm {lp.name}", staged(),
+                          grouped_gemm_plain(x_col, *args))
+            require_equal(torch, f"grouped_gemm {lp.name} vs spatial",
+                          staged(), want)
+            for side, n_side, fn, cols in (
+                    ("lut", sw.n_lut, ops.lut_grouped_matmul,
+                     slice(0, sw.n_lut)),
+                    ("dsp", sw.n_dsp, ops.dsp_grouped_matmul,
+                     slice(sw.n_lut, n))):
+                if n_side:
+                    xs = x_col[:, :, cols].contiguous()
+                    require_equal(torch, f"grouped_gemm {lp.name} {side} "
+                                  f"side", fn(xs, sw), fn(xs, sw, mode="ref"))
+            codes = torch.cat([c for c in (wts.w_lut, wts.w_dsp)
+                               if c is not None], dim=1)
+            lib = dw_conv2d_fn(torch, x_sp, codes, sw.scale, conv)
+            lib_err = float((lib().reshape(n, m).t() - want).abs().max())
+            b_ms, b_by = bound_ms(x_sp.numel(), m, k, bits, sw.n_lut,
+                                  sw.n_dsp)
+            row = {"layer": lp.name, "m": m, "k": k, "n": n,
+                   "n_lut": sw.n_lut, "in_hw": g.in_hw, "stride": g.stride,
+                   **device_times(torch, {"ms": (kern, 10),
+                                          "grouped_ms": (staged, 10),
+                                          "plain_ms": (plain, 3),
+                                          "library_ms": (lib, 10)}),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_err": lib_err}
+            rows.append(row)
+            for key in (*times, "bound_ms"):
+                tot[key] += row[key]
+            tot[b_by] += b_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["library_err"] = max(tot["library_err"], lib_err)
+            print(f"depthwise {lp.name}: {g.in_hw}x{g.in_hw}x{n} stride "
+                  f"{g.stride} (M={m} N={n} n_lut={sw.n_lut}): device "
+                  f"{row['ms']:.4f} ms (staged form "
+                  f"{row['grouped_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                  f"conv2d {row['library_ms']:.4f} with max |err| "
+                  f"{lib_err:.3g}, bound {b_ms:.4f} by {b_by})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"kernel depthwise_gemm: {len(rows)} mobilenet_v2 depthwise layers "
+          f"bitwise equal to plain (spatial, staged and one-side forms); "
+          f"per image device {tot['ms']:.4f} ms (staged form "
+          f"{tot['grouped_ms']:.4f}, plain {tot['plain_ms']:.4f}, conv2d "
+          f"groups=C {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f})")
+    return tot
+
+
+def depthwise_corners(torch, details: dict) -> None:
+    """The depthwise kernel's two entry points at :data:`DW_CORNERS`,
+    each bitwise equal to the plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.depthwise_gemm import depthwise_conv_gemm, \
+        depthwise_conv_gemm_plain, grouped_gemm, grouped_gemm_plain
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    for hw, c, ks, st, pad, bits, n_lut in DW_CORNERS:
+        out_hw = (hw + 2 * pad - ks) // st + 1
+        conv, k = (ks, st, pad, out_hw), ks * ks
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+        s = torch.rand(c, generator=gen) + 0.5
+        sw = ops.prepare_split(
+            k, torch.randint(lo, hi, (k, n_lut), generator=gen), s[:n_lut],
+            bits, torch.randint(-8, 8, (k, c - n_lut), generator=gen),
+            s[n_lut:], torch.device("cuda"))
+        x_sp = torch.randint(-128, 128, (hw, hw, c), generator=gen,
+                             dtype=torch.int8).cuda()
+        x_col = ref.conv_patches_ref(x_sp, *conv).contiguous()
+        args = (sw.planes, sw.packed, sw.scale, bits, n_lut, c - n_lut)
+        tag = f"{hw}x{hw}x{c} k{ks}s{st}p{pad} bits={bits} {n_lut}/{c - n_lut}"
+        require_equal(torch, f"depthwise_conv_gemm {tag}",
+                      depthwise_conv_gemm(x_sp, *args, *conv),
+                      depthwise_conv_gemm_plain(x_sp, *args, *conv))
+        require_equal(torch, f"grouped_gemm {tag}", grouped_gemm(x_col, *args),
+                      grouped_gemm_plain(x_col, *args))
+    details["depthwise_corners"] = DW_CORNERS
+    print(f"kernels: depthwise corners bitwise equal to plain: "
+          f"{len(DW_CORNERS)} shapes x 2 entry points")
+
+
+def dense_shapes(torch, prog, ex, details: dict) -> dict:
+    """The split-GEMM kernels at each distinct dense layer shape of
+    ``prog`` (its bound weights, random int8 input), each bitwise equal
+    to the plain version: ``fused_conv_gemm`` on the spatial block, and
+    on the staged matrix ``split_matmul`` (``fused_hetero_gemm``, or the
+    side's single-path kernel for a one-sided layer) and each side's
+    single-path kernel; ``fused_conv_gemm`` timed per image (each shape
+    times its layers) beside its plain version, ``_int_mm`` and the
+    bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_hetero_gemm import split_plan
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    groups: dict = {}
+    for lp in prog.layers:
+        if not lp.depthwise:
+            g, sw = lp.geometry, ex._split[lp.index]
+            groups.setdefault((g.in_hw, g.c_in, g.kernel, g.stride, g.pad,
+                               sw.n_lut, sw.n_dsp), []).append(lp)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    rows = details.setdefault("dense", [])
+    for lps in groups.values():
+        lp = lps[0]
+        g, sw, wts = lp.geometry, ex._split[lp.index], ex._weights[lp.index]
+        m, k = lp.dims.m, lp.dims.k
+        conv = (g.kernel, g.stride, g.pad, g.out_hw)
+        x_sp = torch.randint(-128, 128, g.in_shape, generator=gen,
+                             dtype=torch.int8).cuda()
+        x_col = ref.conv_patches_ref(x_sp, *conv).reshape(m, k).contiguous()
+        kern = lambda: ops.split_conv_matmul(x_sp, *conv, sw)  # noqa: E731
+        plain = lambda: ops.split_conv_matmul(x_sp, *conv, sw,  # noqa: E731
+                                              mode="ref")
+        require_equal(torch, f"fused_conv_gemm {lp.name}", kern(), plain())
+        require_equal(torch, f"split_matmul {lp.name}",
+                      ops.split_matmul(x_col, sw),
+                      ops.split_matmul(x_col, sw, mode="ref"))
+        if sw.n_lut:
+            require_equal(torch, f"bitserial_gemm {lp.name}",
+                          ops.lut_matmul(x_col, sw),
+                          ops.lut_matmul(x_col, sw, mode="ref"))
+        if sw.n_dsp:
+            require_equal(torch, f"int4_gemm {lp.name}",
+                          ops.dsp_matmul(x_col, sw),
+                          ops.dsp_matmul(x_col, sw, mode="ref"))
+        codes = torch.cat([c for c in (wts.w_lut, wts.w_dsp)
+                           if c is not None], dim=1)
+        row = {"layers": [lp.name for lp in lps], "m": m, "k": k,
+               "n_lut": sw.n_lut, "n_dsp": sw.n_dsp,
+               "plan": list(split_plan(m, k, sw.n_lut, sw.n_dsp)),
+               **device_times(torch, {
+                   "ms": (kern, 10), "plain_ms": (plain, 3),
+                   "library_ms": (int_mm_fn(torch, x_col, codes, sw.scale),
+                                  10)}),
+               "bound_ms": bound_ms(x_sp.numel(), m, k, lp.bits_w_lut,
+                                    sw.n_lut, sw.n_dsp)[0]}
+        rows.append(row)
+        for key in tot:
+            tot[key] += len(lps) * row[key]
+        print(f"dense {lp.name} (x{len(lps)}): M={m} K={k} n_lut={sw.n_lut} "
+              f"n_dsp={sw.n_dsp} plan {tuple(row['plan'])}: bitwise equal; "
+              f"fused_conv_gemm {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, _int_mm {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f})")
+    n_dense = sum(len(lps) for lps in groups.values())
+    print(f"kernel fused_conv_gemm: {len(groups)} distinct mobilenet_v2 dense "
+          f"shapes ({n_dense} layers) bitwise equal to plain, staged and "
+          f"single-path forms too; per image device {tot['ms']:.4f} ms "
+          f"(plain {tot['plain_ms']:.4f}, _int_mm {tot['library_ms']:.4f}, "
+          f"bound {tot['bound_ms']:.4f})")
+    details["fused_conv_gemm_per_image"] = tot
+    return tot
+
+
+def phase_mobilenet(torch, details: dict):
+    """Full-width mobilenet_v2 (224, width 1.0, -O 0): the depthwise
+    kernel at its 17 layers and at corners, the split-GEMM kernels at its
+    dense shapes, and every CudaExecutor path with exact launch counts;
+    returns the depthwise kernel's per-image row and its launches on the
+    fused path."""
+    from repro_torch.compiler import CudaExecutor, bind_synthetic, \
+        compile_network
+    t0 = time.time()
+    prog = compile_network("mobilenet_v2")
+    n_dw = sum(lp.depthwise for lp in prog.layers)
+    print(f"compile: mobilenet_v2 224 -O 0, {len(prog.layers)} layers "
+          f"({n_dw} depthwise), fingerprint {prog.fingerprint()[:12]}, "
+          f"{time.time() - t0:.2f} s")
+    ex = CudaExecutor(prog)
+    for lp in prog.layers:
+        bind_synthetic(ex, lp, seed=lp.index)
+    row = depthwise_layers(torch, prog, ex, details)
+    depthwise_corners(torch, details)
+    dense_shapes(torch, prog, ex, details)
+    counts = path_launches(phase_slice(torch, prog, ex, details,
+                                       "mobilenet_v2"), MOBILENET_PATH)
+    return row, counts["depthwise_conv_gemm"]
 
 
 def flash_tol(v) -> float:
@@ -1050,7 +1323,8 @@ def main(argv=None) -> int:
                     help="also write the card, build time, ptxas reports, "
                          "per-layer timings with each launch's plan, the "
                          "corners, per-image latencies of the fused and "
-                         "fused=False paths, per-path launches, the flash "
+                         "fused=False paths, per-path launches (resnet18, "
+                         "and mobilenet_v2 under its own key), the flash "
                          "shape sweep and the serving run's windows, tokens "
                          "and times as JSON here")
     args = ap.parse_args(argv)
@@ -1076,7 +1350,10 @@ def main(argv=None) -> int:
     for lp in prog.layers:
         bind_synthetic(ex, lp, seed=lp.index)
     tot = phase_kernels(torch, prog, ex, details)
-    counts = phase_slice(torch, prog, ex, details)
+    counts = path_launches(phase_slice(torch, prog, ex, details),
+                           KERNEL_PATH)
+    tot["depthwise_gemm"], counts["depthwise_gemm"] = phase_mobilenet(
+        torch, details.setdefault("mobilenet_v2", {}))
     for t in tot.values():
         t["bound_by"] = "bytes" if t["bytes"] >= t["operations"] \
             else "operations"

@@ -8,7 +8,8 @@ weight codes and dequant scales, on one torch device.
 This module holds everything backends share: weight binding and
 validation, activation checks and im2col staging (conv layers accept
 spatial NHWC tensors and are staged per their
-:class:`~repro_torch.compiler.program.ConvGeometry`), layer chaining
+:class:`~repro_torch.compiler.program.ConvGeometry`; depthwise layers
+stage the per-channel [m, k, n] stack), layer chaining
 with inter-layer requantization (FC chains, and spatial NHWC conv
 chains that execute each layer's in-program fused elementwise tail —
 residual add, activation, pool glue, write-back requant — in absolute
@@ -186,45 +187,61 @@ class ExecutorBackend:
     def run_layer(self, index: int, x_q) -> torch.Tensor:
         """Execute one layer on int8 activations.
 
-        ``x_q`` is the pre-staged GEMM activation matrix [m, k] or, for
-        conv layers, the spatial NHWC tensor [in_hw, in_hw, c_in]
-        (staged here per the layer's geometry).
+        ``x_q`` is the pre-staged GEMM activation matrix [m, k] (plain
+        GEMM layers and dense convs), the spatial NHWC tensor
+        [in_hw, in_hw, c_in] for conv layers (staged here per the
+        layer's geometry), or the pre-staged per-channel im2col stack
+        [m, k, n] for depthwise layers.
 
         Returns fp32 [m, n] in split column order (LUT partition first),
-        i.e. exactly ``kernels.ref.hetero_gemm_ref``'s layout.
+        i.e. exactly ``kernels.ref.hetero_gemm_ref``'s layout — which
+        for depthwise layers is the natural channel order (the Eq.-12
+        split assigns the *first* ``n_lut`` filters to the LUT core).
         """
         lp = self.program.layers[index]
         if index not in self._weights:
             raise ExecutionError(f"layer {index} has no bound weights")
         x_q = self._staged_activations(lp, self._as_codes(x_q))
         wts = self._weights[index]
+
+        def _slice(lo, hi):
+            # depthwise channel c consumes im2col slice c: hand each
+            # partition exactly its channels' slices
+            return x_q[:, :, lo:hi] if lp.depthwise else x_q
+
         outs = []
         if lp.lut is not None:
             self._check_stream(lp, lp.lut)
             with self.tracer.measure(f"exec.{self.name}.lut", lp.name,
                                      layer=lp.index, n=lp.n_lut):
-                outs.append(self._run_core(lp, lp.lut, x_q,
+                outs.append(self._run_core(lp, lp.lut, _slice(0, lp.n_lut),
                                            wts.w_lut, wts.s_lut))
         if lp.dsp is not None:
             self._check_stream(lp, lp.dsp)
             with self.tracer.measure(f"exec.{self.name}.dsp", lp.name,
                                      layer=lp.index,
                                      n=lp.dims.n - lp.n_lut):
-                outs.append(self._run_core(lp, lp.dsp, x_q,
+                outs.append(self._run_core(lp, lp.dsp,
+                                           _slice(lp.n_lut, lp.dims.n),
                                            wts.w_dsp, wts.s_dsp))
         return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
     def _staged_activations(self, lp: LayerProgram,
                             x_q: torch.Tensor) -> torch.Tensor:
-        """Normalize layer input to the staged im2col form [m, k]."""
-        m, k = lp.dims.m, lp.dims.k
+        """Normalize layer input to the staged im2col form: [m, k] for
+        dense layers, [m, k, n] per-channel slices for depthwise."""
+        m, k, n = lp.dims.m, lp.dims.k, lp.dims.n
         geom = lp.geometry
-        if lp.depthwise:
-            raise ExecutionError(
-                f"layer {lp.index} is depthwise; depthwise layers are "
-                f"ported with mobilenet_v2 in a later slice")
         if geom is not None and tuple(x_q.shape) == geom.in_shape:
-            return im2col_patches(x_q, geom).reshape(m, k)
+            pat = im2col_patches(x_q, geom)
+            return pat if lp.depthwise else pat.reshape(m, k)
+        if lp.depthwise:
+            if tuple(x_q.shape) != (m, k, n):
+                want = (f"{geom.in_shape} spatial or " if geom else "")
+                raise ExecutionError(
+                    f"depthwise layer {lp.index} activations must be "
+                    f"{want}[{m},{k},{n}] staged, got {tuple(x_q.shape)}")
+            return x_q
         if tuple(x_q.shape) != (m, k):
             want = (f"{geom.in_shape} spatial or " if geom else "")
             raise ExecutionError(
@@ -354,7 +371,7 @@ def chain_layers(layers, run_layer, x_q, x_scale: float = 1.0):
 
 def _chain_spatial(layers, run_layer, x_q: torch.Tensor,
                    x_scale: float) -> torch.Tensor:
-    """Spatial NHWC chain over conv layers (resnet18).
+    """Spatial NHWC chain over conv layers.
 
     Layer ``pos`` consumes the stored post-tail codes of layer
     ``pos - src_offset``. The chain tracks a (codes, scale) pair per

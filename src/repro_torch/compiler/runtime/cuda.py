@@ -15,6 +15,13 @@ the reference:
   * ``fused=False`` stages im2col with torch and sends each partition
     to ``bitserial_gemm`` or ``int4_gemm``.
 
+Depthwise layers take the same three paths through one hand-written
+kernel (``kernels/depthwise_gemm.py``): spatial input is one
+``depthwise_conv_gemm`` launch (taps gathered inside the kernel), a
+staged [m, k, n] stack one ``grouped_gemm`` launch with both sides, and
+``fused=False`` one ``grouped_gemm`` launch per non-empty side on its
+channels' slices.
+
 Weights are prepared once, at bind, on the device
 (``kernels.ops.prepare_split``): bit planes and packed int4 bytes for
 the fused kernels, the same codes as K-major int32 words for the
@@ -84,17 +91,23 @@ class CudaExecutor(ExecutorBackend):
                                  n_lut=lp.n_lut):
             if geom is not None and tuple(x_q.shape) == geom.in_shape:
                 # spatial input: im2col happens inside the kernel
-                return kops.split_conv_matmul(
-                    x_q, geom.kernel, geom.stride, geom.pad, geom.out_hw,
-                    sw, mode=self.mode)
+                conv = (kops.split_depthwise_matmul if lp.depthwise
+                        else kops.split_conv_matmul)
+                return conv(x_q, geom.kernel, geom.stride, geom.pad,
+                            geom.out_hw, sw, mode=self.mode)
             x_q = self._staged_activations(lp, x_q)
-            return kops.split_matmul(x_q, sw, mode=self.mode)
+            staged = (kops.split_grouped_matmul if lp.depthwise
+                      else kops.split_matmul)
+            return staged(x_q, sw, mode=self.mode)
 
     def _run_core(self, lp: LayerProgram, cp: CoreProgram, x_q,
                   w_codes, w_scales) -> torch.Tensor:
         # the per-partition path (fused=False), on the staged [m, k]
-        # matrix and the weights prepared at bind
+        # matrix (depthwise: the partition's [m, k, n_part] slices) and
+        # the weights prepared at bind
         sw = self._split[lp.index]
         if cp.core == isa.CoreSel.LUT:
-            return kops.lut_matmul(x_q, sw, mode=self.mode)
-        return kops.dsp_matmul(x_q, sw, mode=self.mode)
+            fn = kops.lut_grouped_matmul if lp.depthwise else kops.lut_matmul
+        else:
+            fn = kops.dsp_grouped_matmul if lp.depthwise else kops.dsp_matmul
+        return fn(x_q, sw, mode=self.mode)

@@ -45,6 +45,11 @@ SOURCES = {
         "bitserial_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
         "int4_gemm": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P],
     },
+    "depthwise_gemm": {
+        "depthwise_conv_gemm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                                _P, _I, _P, _P, _P],
+        "grouped_gemm": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P],
+    },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             *[_L] * 12, _F, _I, _I, _I, _P],

@@ -1,15 +1,20 @@
-"""Public wrappers around the split-GEMM kernels and flash attention.
+"""Public wrappers around the split-GEMM kernels, the depthwise kernel
+and flash attention.
 
 Two layers of entry points:
 
   * on *prepared* split weights (:class:`SplitWeights`, made once by
     :func:`prepare_split`): :func:`split_matmul`,
-    :func:`split_conv_matmul`, :func:`lut_matmul`, :func:`dsp_matmul` —
-    what the executor calls on every layer;
+    :func:`split_conv_matmul`, :func:`lut_matmul`, :func:`dsp_matmul`,
+    and for depthwise layers :func:`split_grouped_matmul`,
+    :func:`split_depthwise_matmul`, :func:`lut_grouped_matmul`,
+    :func:`dsp_grouped_matmul` — what the executor calls on every layer;
   * on weight *codes*, the counterparts of ``repro.kernels.ops``:
     :func:`bitserial_matmul`, :func:`int4_matmul`, :func:`fused_matmul`,
-    :func:`fused_conv_matmul`, :func:`hetero_matmul` — these prepare
-    the weights on every call, as the reference's wrappers do.
+    :func:`fused_conv_matmul`, :func:`hetero_matmul`,
+    :func:`bitserial_grouped_matmul`, :func:`int4_grouped_matmul`,
+    :func:`fused_grouped_matmul`, :func:`fused_depthwise_matmul` — these
+    prepare the weights on every call, as the reference's wrappers do.
 
 ``mode`` is ``"auto"`` (the kernel wrapper: the CUDA kernel on CUDA
 tensors, its plain version on CPU tensors) or ``"ref"`` (plain PyTorch
@@ -28,6 +33,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref
 from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
     bitserial_gemm_plain
+from repro_torch.kernels.depthwise_gemm import depthwise_conv_gemm, \
+    depthwise_conv_gemm_plain, grouped_gemm, grouped_gemm_plain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_hetero_gemm import fused_conv_gemm, \
     fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain
@@ -149,6 +156,45 @@ def split_conv_matmul(x_sp: torch.Tensor, kernel: int, stride: int, pad: int,
               sw.n_dsp, kernel, stride, pad, out_hw)
 
 
+def split_grouped_matmul(x_col: torch.Tensor, sw: SplitWeights, *,
+                         mode: str = "auto") -> torch.Tensor:
+    """Depthwise layer, both sides in one launch: staged [M, K, N] int8
+    per-channel slices -> fp32 [M, N] in split order."""
+    fn = _pick(grouped_gemm, grouped_gemm_plain, mode)
+    return fn(x_col, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut,
+              sw.n_dsp)
+
+
+def split_depthwise_matmul(x_sp: torch.Tensor, kernel: int, stride: int,
+                           pad: int, out_hw: int, sw: SplitWeights, *,
+                           mode: str = "auto") -> torch.Tensor:
+    """Im2col-free depthwise conv from the unpadded [H, W, C] int8 block
+    in one launch, one-sided splits included: fp32 [out_hw**2, C]."""
+    fn = _pick(depthwise_conv_gemm, depthwise_conv_gemm_plain, mode)
+    return fn(x_sp, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut,
+              sw.n_dsp, kernel, stride, pad, out_hw)
+
+
+def lut_grouped_matmul(x_col: torch.Tensor, sw: SplitWeights, *,
+                       mode: str = "auto") -> torch.Tensor:
+    """The LUT partition of a depthwise layer alone: its channels'
+    [M, K, n_lut] slices (copied contiguous if a view) -> fp32
+    [M, n_lut]."""
+    fn = _pick(grouped_gemm, grouped_gemm_plain, mode)
+    return fn(x_col.contiguous(), sw.planes, sw.packed[:, :0], sw.s_lut,
+              sw.bits, sw.n_lut, 0)
+
+
+def dsp_grouped_matmul(x_col: torch.Tensor, sw: SplitWeights, *,
+                       mode: str = "auto") -> torch.Tensor:
+    """The DSP partition of a depthwise layer alone: its channels'
+    [M, K, n_dsp] slices (copied contiguous if a view) -> fp32
+    [M, n_dsp]."""
+    fn = _pick(grouped_gemm, grouped_gemm_plain, mode)
+    return fn(x_col.contiguous(), sw.planes[:, :, :0], sw.packed, sw.s_dsp,
+              sw.bits, 0, sw.n_dsp)
+
+
 # ---------------------------------------------------------------------------
 # On weight codes (the reference's public surface)
 # ---------------------------------------------------------------------------
@@ -238,6 +284,76 @@ def hetero_matmul(x_q: torch.Tensor, w_q_serial: torch.Tensor,
     if w_q_parallel.shape[1]:
         outs.append(int4_matmul(x_q, w_q_parallel, s_parallel, mode=mode))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def bitserial_grouped_matmul(x_col: torch.Tensor, w_q: torch.Tensor,
+                             w_scale: torch.Tensor, bits: int, *,
+                             mode: str = "auto") -> torch.Tensor:
+    """Depthwise (grouped) bitplane GEMM: each output channel contracts
+    only its own [M, K] slice of ``x_col`` [M, K, N]; w_q [K, N] codes
+    within ``bits`` bits; w_scale [N] fp32."""
+    if _plain(mode):
+        return ref.bitserial_grouped_gemm_ref(x_col, w_q, w_scale, bits)
+    sw = prepare_split(w_q.shape[0], w_q, w_scale, bits, None, None,
+                       x_col.device)
+    return lut_grouped_matmul(x_col, sw)
+
+
+def int4_grouped_matmul(x_col: torch.Tensor, w_q: torch.Tensor,
+                        w_scale: torch.Tensor, *,
+                        mode: str = "auto") -> torch.Tensor:
+    """Depthwise (grouped) int4 GEMM over per-channel slices: w_q
+    [K, N] codes in [-8, 7]."""
+    if _plain(mode):
+        return ref.int4_grouped_gemm_ref(x_col, w_q, w_scale)
+    sw = prepare_split(w_q.shape[0], None, None, 0, w_q, w_scale,
+                       x_col.device)
+    return dsp_grouped_matmul(x_col, sw)
+
+
+def fused_grouped_matmul(x_col: torch.Tensor, w_lut: torch.Tensor | None,
+                         s_lut: torch.Tensor | None, bits: int,
+                         w_dsp: torch.Tensor | None,
+                         s_dsp: torch.Tensor | None, *,
+                         mode: str = "auto") -> torch.Tensor:
+    """Fused depthwise split GEMM over per-channel im2col slices:
+    x_col [M, K, N] over *all* N channels in split order; the first
+    n_lut channels contract bit-serially, the rest as int4, in ONE
+    launch."""
+    w_lut, s_lut = _norm_side(w_lut, s_lut)
+    w_dsp, s_dsp = _norm_side(w_dsp, s_dsp)
+    if w_lut is None and w_dsp is None:
+        raise ValueError("fused_grouped_matmul: both split sides are empty")
+    if _plain(mode):
+        return ref.fused_hetero_grouped_gemm_ref(x_col, w_lut, s_lut, bits,
+                                                 w_dsp, s_dsp)
+    sw = prepare_split(x_col.shape[1], w_lut, s_lut, bits, w_dsp, s_dsp,
+                       x_col.device)
+    return split_grouped_matmul(x_col, sw)
+
+
+def fused_depthwise_matmul(x_sp: torch.Tensor, kernel: int, stride: int,
+                           pad: int, out_hw: int,
+                           w_lut: torch.Tensor | None,
+                           s_lut: torch.Tensor | None, bits: int,
+                           w_dsp: torch.Tensor | None,
+                           s_dsp: torch.Tensor | None, *,
+                           mode: str = "auto") -> torch.Tensor:
+    """Fused depthwise conv from the *unpadded* [H, W, C] int8 block;
+    weights as :func:`fused_grouped_matmul` with K = ``kernel**2`` taps
+    in (kh, kw) order."""
+    w_lut, s_lut = _norm_side(w_lut, s_lut)
+    w_dsp, s_dsp = _norm_side(w_dsp, s_dsp)
+    if w_lut is None and w_dsp is None:
+        raise ValueError("fused_depthwise_matmul: both split sides are "
+                         "empty")
+    if _plain(mode):
+        x_col = ref.conv_patches_ref(x_sp, kernel, stride, pad, out_hw)
+        return ref.fused_hetero_grouped_gemm_ref(x_col, w_lut, s_lut, bits,
+                                                 w_dsp, s_dsp)
+    sw = prepare_split(kernel * kernel, w_lut, s_lut, bits, w_dsp, s_dsp,
+                       x_sp.device)
+    return split_depthwise_matmul(x_sp, kernel, stride, pad, out_hw, sw)
 
 
 # ---------------------------------------------------------------------------

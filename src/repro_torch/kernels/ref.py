@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the split-GEMM kernels, and the plain
-softmax attention oracle.
+"""Plain PyTorch versions of the split-GEMM kernels, of the grouped
+(depthwise) contraction, and the plain softmax attention oracle.
 
 The counterparts of ``repro.kernels.ref``'s oracles, bit for bit. They
 run on any device: the CPU tests call them, and on the card they are
@@ -11,8 +11,10 @@ plane in {0, 1} or an int4 code (|w| <= 8) or at most an 8-bit code
 (|w| <= 128), and K <= 4608, so every partial sum is an integer below
 2^27, far inside float64's 2^53. CUDA has no int32 matmul, and DGEMM is
 exact on these inputs, so the same code is right on the CPU and on the
-card. The fp32 dequant is then one elementwise multiply, the same op
-the kernels and the reference apply.
+card. The grouped (depthwise) oracles contract only K = kh*kw taps per
+channel: an elementwise int32 product and an int32 sum over the taps,
+exact on any device. The fp32 dequant is then one elementwise multiply,
+the same op the kernels and the reference apply.
 
 Also hosts the representation helpers shared by the plain versions and
 the kernels' weight preparation:
@@ -155,6 +157,28 @@ def bitplane_dot(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def grouped_dot(x_col: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 per-channel contraction of int8 [M, K, N] and
+    small-integer [K, N]: out[m, c] = sum_k x_col[m, k, c] * w[k, c].
+
+    An elementwise int32 product and a sum over the K taps, which is
+    exact on every device (|x| <= 128, |w| <= 128 and K = kh*kw taps
+    keep every sum far below 2^31); no matmul, so no float path."""
+    prod = x_col.to(torch.int32) * w.to(torch.int32).unsqueeze(0)
+    return torch.sum(prod, dim=1, dtype=torch.int32)
+
+
+def bitplane_grouped_dot(x_col: torch.Tensor,
+                         planes: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sum_b s_b * grouped_dot(x_col, planes[b]) of int8
+    [M, K, N] and [bits, K, N] 0/1 planes (Eq. 1, per channel)."""
+    acc = torch.zeros((x_col.shape[0], planes.shape[2]), dtype=torch.int32,
+                      device=x_col.device)
+    for b, s in enumerate(plane_scales(planes.shape[0])):
+        acc = acc + s * grouped_dot(x_col, planes[b])
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Plain versions of the kernels
 # ---------------------------------------------------------------------------
@@ -181,6 +205,28 @@ def int4_gemm_ref(x: torch.Tensor, w_packed: torch.Tensor,
     """
     acc = exact_dot(x, unpack_int4(w_packed))
     return acc.to(torch.float32) * w_scale[None, :]
+
+
+def bitserial_grouped_gemm_ref(x_col: torch.Tensor, w_q: torch.Tensor,
+                               w_scale: torch.Tensor,
+                               bits: int) -> torch.Tensor:
+    """Grouped (depthwise) bitplane GEMM.
+
+    x_col: [M, K, N] int8, one im2col slice per output channel (K is the
+    kh*kw tap count; channel c sees only its own slice); w_q: [K, N]
+    codes within ``bits`` bits; w_scale: [N] fp32. Returns fp32 [M, N]
+    with out[m, c] = (sum_k x_col[m, k, c] * w_q[k, c]) * w_scale[c],
+    through the bitplane decomposition.
+    """
+    acc = bitplane_grouped_dot(x_col, bitplane_decompose(w_q, bits))
+    return acc.to(torch.float32) * w_scale[None, :]
+
+
+def int4_grouped_gemm_ref(x_col: torch.Tensor, w_q: torch.Tensor,
+                          w_scale: torch.Tensor) -> torch.Tensor:
+    """Grouped (depthwise) int4 GEMM: x_col [M, K, N] int8; w_q [K, N]
+    codes in [-8, 7]; w_scale [N] fp32. Returns fp32 [M, N]."""
+    return grouped_dot(x_col, w_q).to(torch.float32) * w_scale[None, :]
 
 
 def conv_patches_ref(x_sp: torch.Tensor, kernel: int, stride: int, pad: int,
@@ -220,6 +266,30 @@ def fused_hetero_gemm_ref(x: torch.Tensor, w_lut: torch.Tensor | None,
     acc = torch.cat(accs, dim=1)
     sc = torch.cat(scales)
     return acc.to(torch.float32) * sc[None, :]
+
+
+def fused_hetero_grouped_gemm_ref(x_col: torch.Tensor,
+                                  w_lut: torch.Tensor | None,
+                                  s_lut: torch.Tensor | None, bits: int,
+                                  w_dsp: torch.Tensor | None,
+                                  s_dsp: torch.Tensor | None
+                                  ) -> torch.Tensor:
+    """Fused grouped (depthwise) split GEMM.
+
+    x_col: [M, K, N] int8 per-channel im2col slices over *all* N
+    channels in split order: the first n_lut channels contract
+    bit-serially, the rest through the int4 path. Bit-identical to the
+    two grouped oracles run per partition and concatenated.
+    """
+    outs = []
+    n_lut = 0 if w_lut is None else w_lut.shape[1]
+    if n_lut:
+        outs.append(bitserial_grouped_gemm_ref(x_col[:, :, :n_lut], w_lut,
+                                               s_lut, bits))
+    if w_dsp is not None and w_dsp.shape[1]:
+        outs.append(int4_grouped_gemm_ref(x_col[:, :, n_lut:], w_dsp,
+                                          s_dsp))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def hetero_gemm_ref(x: torch.Tensor, w_q_serial: torch.Tensor,

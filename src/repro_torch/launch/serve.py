@@ -9,7 +9,9 @@ The counterpart of ``repro.launch.serve``. Weights are random, made on
 the device from ``--seed``; prompts come from ``SyntheticTokens`` with
 the same seed, so they are the reference's. Every prefill attention is
 one flash-attention kernel launch on the card (``--device cpu`` runs
-the plain versions). Prefill and decode times go to ``obs.METRICS`` as
+the plain versions; ``--smoke`` takes ``--device cpu``, since the
+flash kernel is not built for the smoke config's head size and fp32
+params). Prefill and decode times go to ``obs.METRICS`` as
 ``serve.request.*``; each timed region ends in
 ``torch.cuda.synchronize()`` on the card. The reference's
 ``--quantize``, ``--fleet`` and ``--accel-*`` options come with later
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
 import torch
@@ -53,6 +56,14 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
+    if args.smoke and device.type == "cuda":
+        # no silent fallback to plain attention: the flash kernel is
+        # built for head sizes 64 and 128 in bf16 only
+        print("error: --smoke serves the smoke config (head_dim 16, fp32 "
+              "params), which the flash-attention kernel is not "
+              "instantiated for; the smoke run takes --device cpu",
+              file=sys.stderr)
+        raise SystemExit(2)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: CUDA is not available; pass --device cpu "
                          "to serve on the CPU")

@@ -215,6 +215,25 @@ def test_serve_launcher_on_cpu(capsys, tmp_path):
         np.asarray(JSyntheticTokens(512, 2, 8, seed=0).next_batch()["tokens"]))
 
 
+@pytest.mark.parametrize("device", [[], ["--device", "cuda"],
+                                    ["--device", "cuda:0"]],
+                         ids=["default", "cuda", "cuda0"])
+def test_serve_smoke_refuses_the_card(capsys, monkeypatch, device):
+    """The smoke config (head_dim 16, fp32) has no flash-kernel
+    instantiation, so ``--smoke`` on a CUDA device exits 2 with a clear
+    message before anything is built, card or no card; it never falls
+    back to plain attention."""
+    cfg = registry.get("llama3.2-1b").smoke
+    assert cfg.head_dim == 16 and cfg.param_dtype == torch.float32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "llama3.2-1b", "--smoke", *device])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: --smoke")
+    assert "head_dim 16" in err and "fp32" in err and "--device cpu" in err
+
+
 def test_serve_imports_pull_in_no_jax():
     code = ("import sys, repro_torch.launch.serve, "
             "repro_torch.configs.registry as r; "

@@ -94,7 +94,36 @@ Phases, each printing its lines before the last:
    (device time from a profiler trace over the host-clock time, or "not
    measured" where the profiler records no device time).
 
-The line before the last is the kernels' JSON summary; the last line
+7. golden: one full-width resnet18 image through ``GoldenExecutor`` on
+   the card (the ISA contract checked instruction by instruction, every
+   tile through the exact plain oracles: no kernel may launch), bitwise
+   equal to ``CudaExecutor``'s fused path and ``mode="ref"``; then one
+   full-width mobilenet_v2 image the same way; then a weight fetch
+   planted at another layer's segment must raise ``ExecutionError``.
+   Times: seconds per image.
+8. accuracy: a convolution inside ``models.cnn.fp32_convs`` against
+   float64 (required within 1e-5 of max |out|, which TF32 is not); then
+   ``repro_torch.eval.accuracy.measure`` (train the fp32
+   reference on the card with TF32 off, freeze and fold its norms,
+   compile at ``-O 1`` with 8-bit all-LUT first and last layers, bind,
+   and evaluate top-1 agreement one image at a time) at
+   :data:`HARNESS` on both reduced nets, required at or above
+   ``AGREEMENT_FLOOR``, and on full-width resnet18 (224, 1000 classes),
+   recorded; each run's launches counted in a window of their own and
+   required to be exactly the fused path's per evaluated image. Then
+   the cross checks, each on networks trained, folded, compiled and
+   bound here through the harness's public functions: on each reduced
+   net two more trainings (whether they fold to the same weights is
+   printed, not required), the first bound into a golden and a fused
+   executor on the card and one on the CPU: equal agreement counts over
+   :data:`CROSS_SAMPLES` and bitwise-equal logits on the first batch of
+   :data:`CROSS_BATCH`; on full-width resnet18 one more training, whose
+   folded weights give bitwise-equal logits on the card and the CPU for
+   :data:`FULL_CPU_IMAGES` images. Times: training seconds, eval ms per
+   image (host clock).
+
+Each phase prints its seconds ("time: phase ..."). The line before the
+last is the kernels' JSON summary; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises, so the script
 exits non-zero and prints no result. It exits non-zero at once when
 CUDA is unavailable or the package is not beside it.
@@ -1317,6 +1346,298 @@ def phase_serve(torch, details: dict) -> int:
     return windows["prefill"]["flash_attention"]
 
 
+#: the accuracy harness's operating point on the card (both reduced
+#: nets, and full-width resnet18)
+HARNESS = dict(n_samples=256, batch=64, train_steps=200)
+#: reduced nets: samples evaluated through golden, the card and the CPU
+#: on the same folded weights, in batches of CROSS_BATCH; the first
+#: batch's logits are held bitwise
+CROSS_SAMPLES = 64
+CROSS_BATCH = 16
+#: full-width resnet18: images held bitwise between the card and the CPU
+FULL_CPU_IMAGES = 2
+
+
+def n_tiles(prog) -> int:
+    """Tiles golden executes for one image: per layer and core, the
+    partition's row tiles times its column tiles."""
+    total = 0
+    for lp in prog.layers:
+        for cp, n, (tm, tn) in (
+                (lp.lut, lp.n_lut, (prog.lut_cfg.m, prog.lut_cfg.n)),
+                (lp.dsp, lp.n_dsp, (prog.dsp_cfg.n_reg_row_a,
+                                    prog.dsp_cfg.n_reg_col_w))):
+            if cp is not None:
+                total += -(-lp.dims.m // tm) * -(-n // tn)
+    return total
+
+
+def golden_image(torch, prog, image, what: str):
+    """One image through ``GoldenExecutor`` on the card (no kernel may
+    launch: golden runs the exact oracles), held bitwise against the
+    fused path and ``mode="ref"``; returns its seconds."""
+    from repro_torch.compiler import CudaExecutor, GoldenExecutor, \
+        bind_synthetic
+    from repro_torch.kernels.build import LAUNCHES
+    golden = GoldenExecutor(prog)
+    for lp in prog.layers:
+        bind_synthetic(golden, lp, seed=lp.index)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    y = golden.run(image)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    read_window(LAUNCHES, {}, f"golden {what}")
+    for path, kw in (("fused", {}), ("mode=ref", {"mode": "ref"})):
+        ex = CudaExecutor(prog, **kw)
+        for lp in prog.layers:
+            bind_synthetic(ex, lp, seed=lp.index)
+        require_equal(torch, f"{what}: golden vs {path}", y, ex.run(image))
+    return secs
+
+
+def phase_golden(torch, prog, details: dict) -> None:
+    """``GoldenExecutor`` on the card: one full-width resnet18 image and
+    one mobilenet_v2 image bitwise equal to ``CudaExecutor``'s fused
+    path and ``mode="ref"``, then a weight fetch planted at the wrong
+    segment must raise ``ExecutionError``."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.compiler import ExecutionError, GoldenExecutor, \
+        bind_synthetic, compile_network
+    from repro_torch.core import isa
+    from repro_torch.quant.uniform import qrange
+
+    def image(p):
+        lo, hi = qrange(p.layers[0].bits_a)
+        return np.random.default_rng(0).integers(
+            lo, hi + 1, p.layers[0].geometry.in_shape).astype(np.int8)
+
+    out = details.setdefault("golden", {})
+    secs = golden_image(torch, prog, image(prog), "resnet18 224")
+    tiles = n_tiles(prog)
+    out["resnet18"] = {"s": secs, "tiles": tiles}
+    print(f"golden: resnet18 224, {tiles} tiles, one image {secs:.2f} s "
+          f"({1e6 * secs / tiles:.0f} us a tile); bitwise equal to the fused "
+          f"path and mode=ref; no kernel launched")
+    mob = compile_network("mobilenet_v2")
+    mob_s = golden_image(torch, mob, image(mob), "mobilenet_v2 224")
+    out["mobilenet_v2"] = {"s": mob_s, "tiles": n_tiles(mob)}
+    print(f"golden: mobilenet_v2 224, {n_tiles(mob)} tiles, one image "
+          f"{mob_s:.2f} s "
+          f"({1e6 * mob_s / n_tiles(mob):.0f} us a tile); bitwise equal to "
+          f"the fused path and mode=ref; no kernel launched")
+
+    # a planted fault: layer 0's first weight fetch at layer 1's segment
+    bad = compile_network("resnet18")
+    cp = bad.layers[0].lut
+    n = next(i for i, op in enumerate(cp.streams["fetch"])
+             if isinstance(op.instr, isa.FetchInstr)
+             and op.instr.stage_ctrl == 0)
+    wrong = bad.memory["L1.wgt.lut"].base
+    cp.streams["fetch"][n] = dataclasses.replace(
+        cp.streams["fetch"][n],
+        instr=dataclasses.replace(cp.streams["fetch"][n].instr,
+                                  ddr_base=wrong))
+    golden = GoldenExecutor(bad)
+    bind_synthetic(golden, bad.layers[0], seed=0)
+    try:
+        golden.run_layer(0, image(bad))
+    except ExecutionError as e:
+        if "weight fetch addresses" not in str(e):
+            raise AssertionError(f"planted fault raised {e!r}") from e
+        out["planted"] = str(e)
+        print(f"golden: planted weight fetch at L1.wgt.lut raised "
+              f"ExecutionError: {e}")
+    else:
+        raise AssertionError("golden ran a weight fetch at the wrong "
+                             "segment without raising")
+
+
+def harness_launches(prog) -> dict:
+    """Launches of one image of a compiled harness net: the fused path,
+    spatial input on every layer."""
+    want = collections.Counter()
+    for lp in prog.layers:
+        want["depthwise_conv_gemm" if lp.depthwise else "fused_conv_gemm"] += 1
+    return want
+
+
+def measured(torch, cfg, what: str, **kw):
+    """``measure(cfg.arch, backend="cuda", **HARNESS, **kw)`` with its
+    launches counted in a window of their own: exactly the fused path's
+    of the program ``compile_quantized_cnn(cfg)`` gives, once per
+    evaluated image. Returns (report, launches)."""
+    from repro_torch.eval import accuracy as acc
+    from repro_torch.kernels.build import LAUNCHES
+    prog, _ = acc.compile_quantized_cnn(cfg)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    rep = acc.measure(cfg.arch, backend="cuda", **HARNESS, **kw)
+    torch.cuda.synchronize()
+    launches = read_launches(LAUNCHES, harness_launches(prog),
+                             rep.n_samples, f"harness {what}")
+    print(f"accuracy: {what}: agreement {rep.agreement:.4f} (floor "
+          f"{acc.AGREEMENT_FLOOR}), top-1 compiled {rep.top1_compiled:.4f}, "
+          f"top-1 fp32 {rep.top1_ref:.4f} over {rep.n_samples} samples; "
+          f"training {rep.train_s:.2f} s ({HARNESS['train_steps']} steps, "
+          f"batch {HARNESS['batch']}); eval {rep.eval_ms_per_image:.3f} ms "
+          f"per image; simulated FPGA latency {rep.latency_ms} ms; "
+          f"launches {launches}")
+    return rep, launches
+
+
+def trained(torch, cfg):
+    """A reference trained at :data:`HARNESS`'s steps on the card, its
+    norms folded; returns (folded weights, reference forward, seconds)."""
+    from repro_torch.eval import accuracy as acc
+    from repro_torch.models import cnn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, norms, ref_fn = acc.build_reference(
+        cfg, train_steps=HARNESS["train_steps"])
+    folded = cnn.fold_inference_weights(params, cfg, norms)
+    torch.cuda.synchronize()
+    return folded, ref_fn, time.perf_counter() - t0
+
+
+def bound(prog, specs, folded: dict, backend: str, device: str):
+    """A ``backend`` executor of ``prog`` on ``device`` with ``folded``
+    bound through the harness."""
+    from repro_torch.compiler import get_backend
+    from repro_torch.eval import accuracy as acc
+    ex = get_backend(backend)(prog, device=device)
+    acc.bind_folded_weights(
+        ex, prog, {k: w.to(ex.device) for k, w in folded.items()}, specs)
+    return ex
+
+
+def folded_diff(a: dict, b: dict) -> tuple[bool, float]:
+    """Whether two folded weight sets are bitwise equal, and max |a - b|."""
+    same = all(a[k].shape == b[k].shape and bool((a[k] == b[k]).all())
+               for k in a)
+    return same, max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def cross_check(torch, arch: str, cfg, prog, specs, folded: dict,
+                ref_fn) -> dict:
+    """The same folded weights bound into golden and the fused path on
+    the card and the fused path's plain versions on the CPU:
+    ``evaluate_agreement`` over :data:`CROSS_SAMPLES` gives equal counts
+    on the three, and the first batch's logits are bitwise equal."""
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.eval import accuracy as acc
+    from repro_torch.kernels.build import LAUNCHES
+    # evaluate_agreement's first batch (seed 0: sample_seed 10_000)
+    first = SyntheticImages(cfg.n_classes, CROSS_BATCH, cfg.in_hw,
+                            sample_seed=10_000).next_batch()["images"]
+    counts, logits, secs = {}, {}, {}
+    for name, backend, device in (("golden", "golden", "cuda"),
+                                  ("cuda", "cuda", "cuda"),
+                                  ("cpu", "cuda", "cpu")):
+        ex = bound(prog, specs, folded, backend, device)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        counts[name] = acc.evaluate_agreement(ex, ref_fn, cfg, CROSS_SAMPLES,
+                                              batch=CROSS_BATCH)
+        secs[name] = time.perf_counter() - t0
+        read_launches(LAUNCHES, harness_launches(prog) if name == "cuda"
+                      else {}, CROSS_SAMPLES, f"{arch} reduced {name}")
+        logits[name] = acc._batched_runner(ex)(first).cpu()
+    for name in ("golden", "cpu"):
+        if counts[name] != counts["cuda"]:
+            raise AssertionError(f"{arch} reduced: {name} counts "
+                                 f"{counts[name]} != {counts['cuda']}")
+        require_equal(torch, f"{arch} reduced: {name} vs card logits",
+                      logits[name], logits["cuda"])
+    print(f"accuracy: {arch} reduced, a training of its own: counts "
+          f"{counts['cuda']} equal on golden, the card and the CPU; "
+          f"first-batch logits ({CROSS_BATCH} images) bitwise equal; ms per "
+          "image " + ", ".join(f"{n} {1e3 * t / CROSS_SAMPLES:.2f}"
+                              for n, t in secs.items()))
+    return {"cross_counts": counts["cuda"], "cross_ms_per_image": {
+        n: 1e3 * t / CROSS_SAMPLES for n, t in secs.items()}}
+
+
+def phase_accuracy(torch, details: dict) -> dict:
+    """The accuracy harness on the card: ``measure`` on both reduced
+    nets (gated at the floor) and on full-width resnet18 (recorded);
+    on the reduced nets two more trainings (whether they fold to the same
+    weights), the first bound into golden and the fused path on the card
+    and on the CPU (equal counts, bitwise first-batch logits); on
+    full-width resnet18 one more training on the card and the CPU
+    (bitwise logits). Returns the harness's launches per kernel."""
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.eval import accuracy as acc
+    from repro_torch.models import cnn
+
+    import numpy as np
+    out = details.setdefault("accuracy", {})
+    # the reference's convolutions: IEEE fp32 inside fp32_convs, against
+    # float64 (outside it cuDNN's default may use TF32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 64, 56, 56, device="cuda", generator=gen)
+    w = torch.randn(64, 64, 3, 3, device="cuda", generator=gen)
+    want = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+
+    def conv_err():
+        got = torch.nn.functional.conv2d(x, w, padding=1).double()
+        return float((got - want).abs().max() / want.abs().max())
+    with cnn.fp32_convs():
+        inside = conv_err()
+    outside = conv_err()
+    out["conv_rel_err"] = {"fp32_convs": inside, "default": outside}
+    print(f"accuracy: conv vs float64, max |err| / max |out|: "
+          f"{inside:.3g} in fp32_convs, {outside:.3g} with cuDNN's default "
+          f"flags (allow_tf32={torch.backends.cudnn.allow_tf32})")
+    if not inside < 1e-5:
+        raise AssertionError(f"fp32_convs conv error {inside} is not fp32's")
+    totals = collections.Counter()
+    for arch in ("resnet18", "mobilenet_v2"):
+        cfg = cnn.reduced_config(arch)
+        rep, launches = measured(torch, cfg, f"{arch} reduced")
+        totals.update(launches)
+        if rep.agreement < acc.AGREEMENT_FLOOR:
+            raise AssertionError(f"{arch} reduced: agreement "
+                                 f"{rep.agreement} below the floor")
+        folded, ref_fn, s_a = trained(torch, cfg)
+        folded_b, _, s_b = trained(torch, cfg)
+        same, diff = folded_diff(folded, folded_b)
+        print(f"accuracy: {arch} reduced: two more trainings ({s_a:.2f} s, "
+              f"{s_b:.2f} s) fold to "
+              f"{'bitwise the same weights' if same else 'other weights'} "
+              f"(max |diff| {diff:.3g})")
+        prog, specs = acc.compile_quantized_cnn(cfg)
+        out[arch] = {"report": rep.bench_row(), "retrain_s": [s_a, s_b],
+                     "trainings_bitwise_equal": same,
+                     "trainings_max_abs_diff": diff,
+                     **cross_check(torch, arch, cfg, prog, specs, folded,
+                                   ref_fn)}
+
+    cfg = cnn.CNNConfig(arch="resnet18")
+    rep, launches = measured(torch, cfg, "resnet18 224", reduced=False)
+    totals.update(launches)
+    folded, _, secs = trained(torch, cfg)
+    prog, specs = acc.compile_quantized_cnn(cfg)
+    images = SyntheticImages(1000, FULL_CPU_IMAGES, 224,
+                             sample_seed=10_000).next_batch()["images"]
+    logits = [acc._batched_runner(bound(prog, specs, folded, "cuda", dev))(
+        images).cpu() for dev in ("cuda", "cpu")]
+    require_equal(torch, "resnet18 224 harness: card vs cpu", logits[0],
+                  logits[1])
+    y = logits[0].numpy()
+    if y.shape != (FULL_CPU_IMAGES, 1000) or not np.isfinite(y).all():
+        raise AssertionError(f"harness logits {y.shape} not finite")
+    print(f"accuracy: resnet18 224: one more training ({secs:.2f} s); "
+          f"{FULL_CPU_IMAGES} images' logits bitwise equal on the card and "
+          f"the CPU")
+    out["resnet18_224"] = {"report": rep.bench_row(), "retrain_s": secs}
+    return dict(totals)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1340,8 +1661,16 @@ def main(argv=None) -> int:
         compile_network
 
     t_start = time.time()
-    details: dict = {}
-    phase_card(torch, details)
+    details: dict = {"phase_s": {}}
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        result = fn(*args)
+        details["phase_s"][name] = time.time() - t0
+        print(f"time: phase {name} {details['phase_s'][name]:.1f} s")
+        return result
+
+    phase("card", phase_card, torch, details)
     t0 = time.time()
     prog = compile_network("resnet18")
     print(f"compile: resnet18 224 -O 0, {len(prog.layers)} layers, "
@@ -1349,16 +1678,20 @@ def main(argv=None) -> int:
     ex = CudaExecutor(prog)
     for lp in prog.layers:
         bind_synthetic(ex, lp, seed=lp.index)
-    tot = phase_kernels(torch, prog, ex, details)
-    counts = path_launches(phase_slice(torch, prog, ex, details),
-                           KERNEL_PATH)
-    tot["depthwise_gemm"], counts["depthwise_gemm"] = phase_mobilenet(
-        torch, details.setdefault("mobilenet_v2", {}))
+    tot = phase("kernels", phase_kernels, torch, prog, ex, details)
+    counts = path_launches(phase("slice", phase_slice, torch, prog, ex,
+                                 details), KERNEL_PATH)
+    tot["depthwise_gemm"], counts["depthwise_gemm"] = phase(
+        "mobilenet_v2", phase_mobilenet, torch,
+        details.setdefault("mobilenet_v2", {}))
     for t in tot.values():
         t["bound_by"] = "bytes" if t["bytes"] >= t["operations"] \
             else "operations"
-    tot["flash_attention"] = phase_flash(torch, details)
-    counts["flash_attention"] = phase_serve(torch, details)
+    tot["flash_attention"] = phase("flash", phase_flash, torch, details)
+    counts["flash_attention"] = phase("serve", phase_serve, torch, details)
+    phase("golden", phase_golden, torch, prog, details)
+    harness = phase("accuracy", phase_accuracy, torch, details)
+    print(f"accuracy: harness launches over its measure() runs {harness}")
     kernels = []
     for name, replaces in REPLACES.items():
         t = tot[name]

@@ -7,6 +7,8 @@ Pipeline::
             └─ lower.lower_network          → Program (streams + DDR map)
                 └─ passes.PassPipeline      → optimized Program (-O1)
                     ├─ core.scheduler.simulate_program → Fig. 5 latency
+                    ├─ runtime.GoldenExecutor → contract-checked
+                    │                         reference outputs, tile by tile
                     └─ runtime.CudaExecutor → functional outputs on the
                                               card (split-GEMM kernels)
 
@@ -30,6 +32,7 @@ from repro_torch.compiler.runtime import (
     CudaExecutor,
     ExecutionError,
     ExecutorBackend,
+    GoldenExecutor,
     bind_numpy_weights,
     bind_synthetic,
     get_backend,
@@ -41,6 +44,6 @@ __all__ = [
     "list_networks", "network_layers", "OPT_LEVELS", "optimize_program",
     "ConvGeometry", "CoreProgram", "GemmLayer", "LayerProgram", "Program",
     "BACKENDS", "CudaExecutor", "ExecutionError", "ExecutorBackend",
-    "bind_numpy_weights", "bind_synthetic", "get_backend",
+    "GoldenExecutor", "bind_numpy_weights", "bind_synthetic", "get_backend",
     "synthetic_weights",
 ]

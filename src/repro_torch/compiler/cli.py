@@ -6,6 +6,7 @@ Examples::
     python -m repro_torch.compiler resnet18                   # summary
     python -m repro_torch.compiler resnet18 -O 1 --simulate   # + Fig.5 decomposition
     python -m repro_torch.compiler resnet18 --execute --backend cuda
+    python -m repro_torch.compiler resnet18 --execute --backend golden
     python -m repro_torch.compiler resnet18 --in-hw 32 --width 0.25 \\
         --execute --torch-device cpu                          # plain versions
     python -m repro_torch.compiler --list
@@ -135,33 +136,47 @@ def summarize(prog, simulate: bool = False) -> str:
 
 def execute_report(prog, backend: str = "cuda", seed: int = 0,
                    device="cuda") -> str:
-    """Execute a CNN program end to end with synthetic weights.
+    """Execute a program functionally with synthetic weights.
 
-    A synthetic input image is quantized to the first layer's
-    activation bits and chained through the whole network (im2col
-    staging, pooling glue, shortcut sources, inter-layer
-    requantization). The weights and the image come from the same
-    numpy generators as the reference's report, so the ``|out| sum``
-    checksum is comparable between the two packages.
+    Conv programs (every layer carries an im2col geometry — the CNN
+    workloads) run *end to end*: a synthetic input image is quantized
+    to the first layer's activation bits and chained through the whole
+    network (im2col staging, pooling glue, shortcut sources,
+    inter-layer requantization). Other programs are driven layer by
+    layer on fresh synthetic activations. The weights and activations
+    come from the same numpy generators as the reference's report, so
+    the ``|out| sum`` checksum is comparable between the two packages.
     """
     layers = prog.layers
-    if not layers or any(lp.geometry is None for lp in layers):
-        raise ValueError("execute_report runs CNN programs (every layer "
-                         "carries an im2col geometry)")
     ex = get_backend(backend)(prog, device=device)
     rng = np.random.default_rng(seed)
     for lp in layers:
         bind_synthetic(ex, lp, seed=seed + lp.index)
-    lp0 = layers[0]
-    lo_a, hi_a = qrange(lp0.bits_a)
-    x_q = rng.integers(lo_a, hi_a + 1, lp0.geometry.in_shape).astype(np.int8)
+    if layers and all(lp.geometry is not None for lp in layers):
+        lp0 = layers[0]
+        lo_a, hi_a = qrange(lp0.bits_a)
+        x_q = rng.integers(lo_a, hi_a + 1,
+                           lp0.geometry.in_shape).astype(np.int8)
+        t0 = time.time()
+        logits = ex.run(x_q).cpu().numpy()
+        dt = time.time() - t0
+        return (f"executed  {len(layers)}/{len(layers)} layers end to "
+                f"end via {backend} backend in {dt:.3f}s "
+                f"(logits [{logits.shape[0]},{logits.shape[1]}], "
+                f"|out| sum {float(np.abs(logits).sum()):.6e})")
+
+    checksum = 0.0
     t0 = time.time()
-    logits = ex.run(x_q).cpu().numpy()
+    for lp in layers:
+        lo_a, hi_a = qrange(lp.bits_a)
+        shape = (lp.dims.m, lp.dims.k, lp.dims.n) if lp.depthwise \
+            else (lp.dims.m, lp.dims.k)
+        x_q = rng.integers(lo_a, hi_a + 1, shape).astype(np.int8)
+        checksum += float(np.abs(ex.run_layer(lp.index, x_q).cpu().numpy())
+                          .sum())
     dt = time.time() - t0
-    return (f"executed  {len(layers)}/{len(layers)} layers end to "
-            f"end via {backend} backend in {dt:.3f}s "
-            f"(logits [{logits.shape[0]},{logits.shape[1]}], "
-            f"|out| sum {float(np.abs(logits).sum()):.6e})")
+    return (f"executed  {len(layers)}/{len(layers)} layers via "
+            f"{backend} backend in {dt:.3f}s (|out| sum {checksum:.6e})")
 
 
 def main(argv: list[str] | None = None) -> int:

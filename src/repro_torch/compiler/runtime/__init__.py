@@ -2,6 +2,8 @@
 
   base.py    — :class:`ExecutorBackend` interface + shared binding,
                validation, chaining; error taxonomy.
+  golden.py  — :class:`GoldenExecutor`: contract-checking reference
+               interpreter, tile by tile through ``kernels/ref.py``.
   cuda.py    — :class:`CudaExecutor`: one fused split-GEMM kernel
                launch per *layer* on the card (im2col-free convs;
                ``fused=False`` for the per-partition path).
@@ -23,8 +25,10 @@ from repro_torch.compiler.runtime.base import (
     synthetic_weights,
 )
 from repro_torch.compiler.runtime.cuda import CudaExecutor
+from repro_torch.compiler.runtime.golden import GoldenExecutor
 
 BACKENDS: dict[str, type[ExecutorBackend]] = {
+    GoldenExecutor.name: GoldenExecutor,
     CudaExecutor.name: CudaExecutor,
 }
 
@@ -41,7 +45,7 @@ def get_backend(name: str) -> type[ExecutorBackend]:
 
 __all__ = [
     "BACKENDS", "CudaExecutor", "ExecutionError", "ExecutorBackend",
-    "LayerWeights", "apply_pool", "bind_numpy_weights", "bind_synthetic",
-    "chain_layers", "get_backend", "im2col_patches", "requantize",
-    "spatialize", "synthetic_weights",
+    "GoldenExecutor", "LayerWeights", "apply_pool", "bind_numpy_weights",
+    "bind_synthetic", "chain_layers", "get_backend", "im2col_patches",
+    "requantize", "spatialize", "synthetic_weights",
 ]

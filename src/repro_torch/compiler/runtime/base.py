@@ -261,13 +261,14 @@ class ExecutorBackend:
                 f"layer {lp.index} {CORE_NAMES[cp.core]} streams "
                 f"deadlock: {e}") from e
 
-    def run(self, x_q, x_scale: float = 1.0) -> torch.Tensor:
+    def run(self, x_q, x_scale: float | torch.Tensor = 1.0) -> torch.Tensor:
         """Chain all layers end to end (see :func:`chain_layers`).
 
         ``x_q`` is int8: [m, k] for FC chains, the spatial
         [in_hw, in_hw, c_in] input image (one image) for conv chains;
-        ``x_scale`` is the input's dequant scale (conv chains return
-        absolute fp32 logits for the final layer).
+        ``x_scale`` is the input's dequant scale, a float or a 0-dim
+        float32 tensor (conv chains return absolute fp32 logits for the
+        final layer).
         """
         return chain_layers(self.program.layers, self.run_layer,
                             self._as_codes(x_q), x_scale=x_scale)
@@ -403,8 +404,8 @@ def _chain_spatial(layers, run_layer, x_q: torch.Tensor,
                 raise ExecutionError(
                     f"conv chain input must be spatial "
                     f"{geom.in_shape}, got {tuple(x_sp.shape)}")
-            s_in = torch.tensor(x_scale, dtype=torch.float32,
-                                device=x_sp.device)
+            s_in = torch.as_tensor(x_scale, dtype=torch.float32,
+                                   device=x_sp.device)
         else:
             src = pos - geom.src_offset
             if src < 0:

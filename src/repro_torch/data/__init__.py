@@ -1,1 +1,2 @@
-"""Seeded synthetic data: ``SyntheticTokens`` for the LM serving path."""
+"""Seeded synthetic data: ``SyntheticTokens`` for the LM serving path,
+``SyntheticImages`` for the CNN accuracy harness."""

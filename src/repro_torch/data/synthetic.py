@@ -1,9 +1,11 @@
-"""Seeded synthetic token batches for the LM serving path.
+"""Seeded synthetic batches: token streams for the LM serving path,
+class-conditioned images for the CNN accuracy harness.
 
-The counterpart of ``repro.data.synthetic.SyntheticTokens``: the same
-numpy generator and the same draws, so both packages serve identical
-prompts from one seed. Only the result's type differs: a ``torch.int32``
-tensor on the CPU (the caller moves it to its device).
+The counterparts of ``repro.data.synthetic``'s ``SyntheticTokens`` and
+``SyntheticImages``: the same numpy generators and the same draws, so
+both packages see identical prompts and images from one seed. Only the
+result's type differs: torch tensors on the CPU (the caller moves them
+to its device).
 """
 from __future__ import annotations
 
@@ -39,6 +41,37 @@ class SyntheticTokens:
             out[:, t] = nxt
             cur = nxt
         return {"tokens": torch.from_numpy(out)}
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
+
+
+class SyntheticImages:
+    """Class-conditioned Gaussian images for the CNN accuracy harness."""
+
+    def __init__(self, n_classes: int, batch: int, hw: int, seed: int = 0,
+                 snr: float = 3.0, sample_seed: int | None = None):
+        """``seed`` fixes the class prototypes (the task); ``sample_seed``
+        varies the noise/draws — train and test streams share ``seed``
+        but use different ``sample_seed`` values."""
+        self.n_classes, self.batch, self.hw = n_classes, batch, hw
+        rng = np.random.default_rng(seed)
+        self._proto = rng.standard_normal(
+            (n_classes, hw, hw, 3)).astype(np.float32)
+        self._snr = snr
+        self._rng = np.random.default_rng(
+            seed + 1 if sample_seed is None else sample_seed)
+
+    def next_batch(self) -> dict:
+        """``images`` float32 [batch, hw, hw, 3] (NHWC) and ``labels``
+        int32 [batch]."""
+        labels = self._rng.integers(0, self.n_classes, self.batch)
+        noise = self._rng.standard_normal(
+            (self.batch, self.hw, self.hw, 3)).astype(np.float32)
+        x = self._snr * self._proto[labels] + noise
+        return {"images": torch.from_numpy(x),
+                "labels": torch.from_numpy(labels.astype(np.int32))}
 
     def __iter__(self):
         while True:

@@ -4,8 +4,9 @@ from repro_torch.quant.uniform import (
     fit_scale,
     fit_scale_per_channel,
     qrange,
+    quant_snr_db,
     quantize,
 )
 
 __all__ = ["dequantize", "fit_scale", "fit_scale_per_channel", "qrange",
-           "quantize"]
+           "quant_snr_db", "quantize"]

@@ -8,8 +8,10 @@ The counterpart of ``repro.quant.uniform``'s inference half, bit for
 bit: ``torch.round`` rounds half to even like ``jnp.round``, scales
 multiply by the float32-rounded reciprocal of ``beta_hat`` (never
 divide by it), and ``x / s`` divides by a tensor, which is IEEE
-division on every device. The straight-through fake quantizers belong
-to training and are not ported yet.
+division on every device. ``quant_snr_db`` is the counterpart of
+``repro.quant.uniform.quant_snr_db``; only the tests call it. The
+straight-through fake quantizers belong to training and are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -56,3 +58,12 @@ def fit_scale_per_channel(x: torch.Tensor, bits: int, axis: int = 0,
     reduce_axes = tuple(i for i in range(x.ndim) if i != axis)
     m = torch.amax(x.abs(), dim=reduce_axes, keepdim=True)
     return torch.clamp(m, min=eps) * _inv_hi(bits)
+
+
+def quant_snr_db(x: torch.Tensor, x_hat: torch.Tensor,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Signal-to-quantization-noise ratio in dB (accuracy proxy when no
+    labelled dataset is available offline)."""
+    sig = torch.sum(torch.square(x))
+    err = torch.sum(torch.square(x - x_hat))
+    return 10.0 * torch.log10((sig + eps) / (err + eps))

@@ -94,14 +94,42 @@ Phases, each printing its lines before the last:
    (device time from a profiler trace over the host-clock time, or "not
    measured" where the profiler records no device time).
 
-7. golden: one full-width resnet18 image through ``GoldenExecutor`` on
+7. decode: decode sessions (``compiler/runtime/session.py``) on the
+   card. Full-width llama3.2-1b (113 layers) and mamba2-780m (193
+   layers), and jamba-v0.1-52b at its smoke config (at 52 B parameters
+   its full width does not fit one card), each compiled as
+   ``compile_decode_network`` does (batch 8, max_seq 64, ``-O 0``,
+   bits 4) but at the full config, with ``synthetic_decode_arrays``
+   (seed 0) bound into a ``ReferenceSession``, a fused ``CudaExecutor``
+   session and a ``fused=False`` one (the host arrays dropped once
+   bound; peak device memory printed). Each decodes
+   :data:`DECODE_STEPS` greedy steps (1 warm-up + the rest steady)
+   with its launches counted in a window of its own. Required: every
+   step's logits bitwise equal to the reference session's; exactly the
+   program's launches per step (``fused_hetero_gemm`` per two-sided
+   layer, the side's single-path kernel per one-sided layer;
+   ``bitserial_gemm`` / ``int4_gemm`` per side on ``fused=False``);
+   a staggered ``step_slots`` run (slots admitted at steps 0-2 by
+   ``reset_slot``) bitwise equal to a per-slot reference session.
+   Then each decode-path kernel is held bitwise to its plain version at
+   every distinct full-width layer shape (M = 8) and timed: device ms
+   per step of the kernel, its plain version and ``torch._int_mm`` with
+   M padded to 32, beside the code-width bound and, for
+   ``fused_hetero_gemm``, the bytes of the int8 planes it reads. Times:
+   host ms per warm-up and per steady step (median), device ms per
+   steady step (profiler) and its busy share; rows with non-zero logits
+   per step (the synthetic models' glue sends rows to 0). Last, golden
+   sessions at the three smoke configs (batch 1, max_seq 8, ``-O 1``, 4
+   steps): bitwise equal to the reference session, no kernel launched,
+   weight fetches in the warm-up program and none in the steady one.
+8. golden: one full-width resnet18 image through ``GoldenExecutor`` on
    the card (the ISA contract checked instruction by instruction, every
    tile through the exact plain oracles: no kernel may launch), bitwise
    equal to ``CudaExecutor``'s fused path and ``mode="ref"``; then one
    full-width mobilenet_v2 image the same way; then a weight fetch
    planted at another layer's segment must raise ``ExecutionError``.
    Times: seconds per image.
-8. accuracy: a convolution inside ``models.cnn.fp32_convs`` against
+9. accuracy: a convolution inside ``models.cnn.fp32_convs`` against
    float64 (required within 1e-5 of max |out|, which TF32 is not); then
    ``repro_torch.eval.accuracy.measure`` (train the fp32
    reference on the card with TF32 off, freeze and fold its norms,
@@ -350,12 +378,13 @@ def bound_ms(x_bytes: int, m: int, k: int, bits: int, n_lut: int,
         "operations"
 
 
-def int_mm_fn(torch, x_col, codes, scale):
+def int_mm_fn(torch, x_col, codes, scale, min_m: int = 17):
     """``torch._int_mm`` on the reconstructed int8 weights, zero-padded
-    to its constraints (M > 16, K and N multiples of 8), then x scale."""
+    to its constraints (M > 16, K and N multiples of 8; M to at least
+    ``min_m``), then x scale."""
     m, k = x_col.shape
     n = codes.shape[1]
-    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    mp, kp, np_ = max(m, min_m), -(-k // 8) * 8, -(-n // 8) * 8
     a = torch.zeros((mp, kp), dtype=torch.int8, device=x_col.device)
     a[:m, :k] = x_col
     w = torch.zeros((np_, kp), dtype=torch.int8, device=x_col.device)
@@ -1638,6 +1667,394 @@ def phase_accuracy(torch, details: dict) -> dict:
     return dict(totals)
 
 
+#: the decode phase: full-width sessions at batch 8 over a 64-position
+#: window (1 warm-up step, the rest steady), jamba-v0.1-52b at its smoke
+#: config (52 B parameters do not fit one card at full width), then
+#: golden sessions at the three smoke configs
+DECODE = dict(batch=8, max_seq=64, seed=0)
+DECODE_STEPS = {"llama3.2-1b": 16, "mamba2-780m": 8, "jamba-v0.1-52b": 8}
+#: step_slots calls of the staggered per-slot run; slot j is admitted
+#: (``reset_slot``) at step j % 3 and holds a stale request before that
+SLOT_STEPS = 4
+GOLDEN_DECODE = dict(batch=1, max_seq=8, steps=4)
+#: the decode path's kernels, in the order of the decode rows
+DECODE_KERNELS = ("fused_hetero_gemm", "bitserial_gemm", "int4_gemm")
+
+
+def compile_decode(name: str, smoke: bool, **kw):
+    """The decode-step program of ``name`` at :data:`DECODE`'s batch and
+    window (``kw`` overrides), as ``compile_decode_network`` compiles it
+    at its defaults, but at the full config when ``smoke`` is False."""
+    from repro_torch.compiler.lower import lower_network
+    from repro_torch.compiler.networks import decode_step_layers
+    from repro_torch.core.scheduler import DEVICES, DspCoreConfig, \
+        LutCoreConfig
+    kw = {"batch": DECODE["batch"], "max_seq": DECODE["max_seq"], **kw}
+    opt_level = kw.pop("opt_level", 0)
+    dev = DEVICES["XC7Z020"]
+    layers, spec = decode_step_layers(name, smoke=smoke, **kw)
+    return lower_network(
+        f"{name}.decode", layers, LutCoreConfig(m=8, n=16, k=128),
+        DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev)), dev,
+        bits_w_lut=4, bits_a=4, opt_level=opt_level, step=spec)
+
+
+def decode_launches(prog) -> dict:
+    """Per path, the launches of one decode step, read from the program:
+    ``CudaExecutor``'s fused path launches ``fused_hetero_gemm`` for a
+    two-sided layer and the side's single-path kernel for a one-sided
+    one; ``fused=False`` one single-path kernel per non-empty side."""
+    want = {p: collections.Counter() for p in ("fused", "fused=False")}
+    for lp in prog.layers:
+        sides = [name for name, n in (("bitserial_gemm", lp.n_lut),
+                                      ("int4_gemm", lp.dims.n - lp.n_lut))
+                 if n]
+        want["fused"][sides[0] if len(sides) == 1
+                      else "fused_hetero_gemm"] += 1
+        want["fused=False"].update(sides)
+    return want
+
+
+def weight_fetches(prog) -> int:
+    """Stage-0 fetches that target a ``weights``-resident segment."""
+    from repro_torch.core import isa
+    wbases = {s.base for s in prog.memory.segments
+              if s.residency == "weights"}
+    return sum(1 for lp in prog.layers for cp in (lp.lut, lp.dsp)
+               if cp is not None for op in cp.streams["fetch"]
+               if isinstance(op.instr, isa.FetchInstr)
+               and op.instr.stage_ctrl == 0 and op.instr.ddr_base in wbases)
+
+
+def greedy(torch, sess, steps: int):
+    """``steps`` greedy steps from token j + 1 in row j, each step's
+    token fed back; (logits per step, host ms per step), each step timed
+    to a ``torch.cuda.synchronize()``."""
+    tok = torch.arange(1, sess.spec.batch + 1, device=sess.device)
+    logits, ms = [], []
+    for pos in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.step(tok, pos)
+        tok = out.argmax(dim=-1)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(out)
+    return logits, ms
+
+
+def staggered(torch, sess):
+    """:data:`SLOT_STEPS` ``step_slots`` calls: slot j is admitted at
+    step j % 3 (``reset_slot``) and decodes from position 0; before
+    that it runs a stale request at positions 20 + j + step. Greedy
+    tokens fed back; returns the logits of each call."""
+    B = sess.spec.batch
+    sess.reset(per_slot=True)
+    admit = [j % 3 for j in range(B)]
+    tok = torch.arange(1, B + 1, device=sess.device)
+    out = []
+    for step in range(SLOT_STEPS):
+        for j in range(B):
+            if admit[j] == step and step:
+                sess.reset_slot(j)
+        pos = [step - a if step >= a else 20 + j + step
+               for j, a in enumerate(admit)]
+        logits = sess.step_slots(tok, pos)
+        tok = logits.argmax(dim=-1)
+        out.append(logits)
+    return out
+
+
+def decode_kernel_times(torch, prog, ex, gen) -> dict:
+    """Each kernel of the decode path against its plain version at each
+    distinct layer shape of ``prog`` (M = batch), bitwise, then timed:
+    device ms per launch of the kernel, its plain version and
+    ``torch._int_mm`` with M padded to 32, times the layers of that
+    shape; per path and kernel, the sums over one step with the code-
+    width bound and, for ``fused_hetero_gemm``, the bytes of the layout
+    it reads (int8 bit planes + packed int4) over the HBM rate."""
+    from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
+        bitserial_gemm_plain
+    from repro_torch.kernels.fused_hetero_gemm import fused_hetero_gemm, \
+        fused_hetero_gemm_plain
+    from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
+    shapes = collections.OrderedDict()
+    for lp in prog.layers:
+        key = (lp.dims.k, lp.n_lut, lp.dims.n - lp.n_lut)
+        shapes.setdefault(key, [lp.index, 0])[1] += 1
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "layout_ms",
+            "bytes", "operations")
+    tot = {}
+    m = prog.step.batch
+    for (k, n_lut, n_dsp), (index, count) in shapes.items():
+        sw, wts = ex._split[index], ex._weights[index]
+        bits = sw.bits
+        x = torch.randint(-8, 8, (m, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        cases = {}
+        if n_lut and n_dsp:
+            codes = torch.cat([wts.w_lut, wts.w_dsp], dim=1)
+            cases[("fused", "fused_hetero_gemm")] = (
+                lambda: fused_hetero_gemm(x, sw.planes, sw.packed, sw.scale,
+                                          bits, n_lut, n_dsp),
+                lambda: fused_hetero_gemm_plain(x, sw.planes, sw.packed,
+                                                sw.scale, bits, n_lut,
+                                                n_dsp),
+                int_mm_fn(torch, x, codes, sw.scale, min_m=32),
+                bound_ms(x.numel(), m, k, bits, n_lut, n_dsp),
+                (m * k + bits * k * n_lut + k * ((n_dsp + 1) // 2)
+                 + 4 * (n_lut + n_dsp) * (m + 1)) / HBM_BYTES_PER_S * 1e3)
+        sides = []
+        if n_lut:
+            sides.append(("bitserial_gemm", (
+                lambda: bitserial_gemm(x, sw.lut_words, sw.s_lut, bits,
+                                       n_lut),
+                lambda: bitserial_gemm_plain(x, sw.lut_words, sw.s_lut, bits,
+                                             n_lut),
+                int_mm_fn(torch, x, wts.w_lut, sw.s_lut, min_m=32),
+                bound_ms(x.numel(), m, k, bits, n_lut, 0), None)))
+        if n_dsp:
+            sides.append(("int4_gemm", (
+                lambda: int4_gemm(x, sw.dsp_words, sw.s_dsp, n_dsp),
+                lambda: int4_gemm_plain(x, sw.dsp_words, sw.s_dsp, n_dsp),
+                int_mm_fn(torch, x, wts.w_dsp, sw.s_dsp, min_m=32),
+                bound_ms(x.numel(), m, k, 0, 0, n_dsp), None)))
+        if len(sides) == 1:
+            cases[("fused", sides[0][0])] = sides[0][1]
+        for name, case in sides:
+            cases[("fused=False", name)] = case
+        for (path, name), (kern, plain, lib, (b_ms, b_by), lay) in \
+                cases.items():
+            err = require_equal(torch, f"{name} {prog.name} M={m} K={k} "
+                                f"{n_lut}/{n_dsp}", kern(), plain())
+            t = device_times(torch, {"ms": (kern, 10), "plain_ms": (plain, 2),
+                                     "library_ms": (lib, 10)})
+            row = tot.setdefault(f"{path} {name}", {
+                **dict.fromkeys(keys, 0.0), "launches": 0,
+                "max_abs_err": 0.0, "shapes": []})
+            row["shapes"].append({"k": k, "n_lut": n_lut, "n_dsp": n_dsp,
+                                  "layers": count, **t, "bound_ms": b_ms})
+            for key in ("ms", "plain_ms", "library_ms"):
+                row[key] += count * t[key]
+            row["bound_ms"] += count * b_ms
+            row[b_by] += count * b_ms
+            row["layout_ms"] += count * (b_ms if lay is None else lay)
+            row["launches"] += count
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    for row in tot.values():
+        row["bound_by"] = "bytes" if row["bytes"] >= row["operations"] \
+            else "operations"
+    return tot
+
+
+def decode_sessions(torch, name: str, prog, steps: int, out: dict):
+    """Bind the synthetic weights into the reference, a fused and a
+    ``fused=False`` ``ExecutorSession`` on the card, decode ``steps``
+    greedy tokens through each (each CUDA session's launches counted in
+    a window of its own: exactly the program's per step) and the
+    staggered per-slot run through the fused one; every logit bitwise
+    equal to the reference's. Returns (the fused session, launches)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.compiler import ExecutorSession, ReferenceSession, \
+        synthetic_decode_arrays
+    from repro_torch.kernels.build import LAUNCHES
+
+    t0 = time.time()
+    arrays = synthetic_decode_arrays(prog.layers, prog.step,
+                                     seed=DECODE["seed"])
+    draw_s = time.time() - t0
+    n_params = sum(a.size for key, a in arrays.items() if ".w_" in key)
+    t0 = time.time()
+    ref = ReferenceSession(prog)
+    sessions = {"fused": ExecutorSession(prog, backend="cuda"),
+                "fused=False": ExecutorSession(prog, backend="cuda",
+                                               fused=False)}
+    for sess in (ref, *sessions.values()):
+        sess.bind_arrays(arrays)
+    torch.cuda.synchronize()
+    bind_s = time.time() - t0
+    del arrays
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"decode: {name}: {len(prog.layers)} layers, {n_params:,} weight "
+          f"codes drawn in {draw_s:.1f} s, bound into the reference, fused "
+          f"and fused=False sessions in {bind_s:.1f} s; host arrays dropped; "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB")
+
+    want = decode_launches(prog)
+    LAUNCHES.clear()
+    ref_logits, ref_ms = greedy(torch, ref, steps)
+    read_window(LAUNCHES, {}, f"{name} reference session")
+    windows, host = {}, {}
+    for path, sess in sessions.items():
+        LAUNCHES.clear()
+        logits, ms = greedy(torch, sess, steps)
+        windows[path] = read_window(
+            LAUNCHES, {k: v * steps for k, v in want[path].items()},
+            f"{name} {path} session, {steps} steps")
+        for pos, (got, exp) in enumerate(zip(logits, ref_logits)):
+            require_equal(torch, f"{name} {path} step {pos} vs reference",
+                          got, exp)
+        host[path] = {"warmup_ms": ms[0],
+                      "steady_ms": statistics.median(ms[1:]), "ms": ms}
+        if not sess._warmed:
+            raise AssertionError(f"{name} {path}: session never warmed")
+    last = ref_logits[-1]
+    if tuple(last.shape) != (prog.step.batch, prog.layers[-1].dims.n) or \
+            not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{name} logits {tuple(last.shape)} not finite")
+    tokens = torch.stack([lg.argmax(dim=-1) for lg in ref_logits], 1)
+
+    LAUNCHES.clear()
+    slots = staggered(torch, sessions["fused"])
+    windows["step_slots"] = read_window(
+        LAUNCHES, {k: v * SLOT_STEPS for k, v in want["fused"].items()},
+        f"{name} staggered step_slots")
+    ref_slots = staggered(torch, ref)
+    for i, (got, exp) in enumerate(zip(slots, ref_slots)):
+        require_equal(torch, f"{name} step_slots call {i} vs reference",
+                      got, exp)
+    live_slots = [int((lg != 0).any(dim=-1).sum()) for lg in ref_slots]
+
+    # device time of one steady step (the caches take the same position
+    # again; the logits above are already checked)
+    tok = tokens[:, 0].contiguous()
+    busy = {}
+    for path, sess in sessions.items():
+        sess.reset(per_slot=False)
+        sess.step(tok, 0)
+        busy[path] = busy_ms(torch, lambda s=sess: s.step(tok, 1), iters=3)
+    sums = [float(np.abs(lg.cpu().numpy()).sum()) for lg in ref_logits]
+    # rows whose logits are not all 0: a row whose activations requant
+    # to 0 codes (a per-tensor scale set by another row, or an SSM gate
+    # 1 + tanh(mean) at 0) carries 0 through every later layer
+    live = [int((lg != 0).any(dim=-1).sum()) for lg in ref_logits]
+    peak_run = torch.cuda.max_memory_allocated()
+    for path in sessions:
+        h = host[path]
+        print(f"decode: {name} {path}: {steps} steps bitwise equal to the "
+              f"reference session; host ms warm-up {h['warmup_ms']:.3f}, "
+              f"steady median {h['steady_ms']:.3f} "
+              f"({', '.join(f'{v:.2f}' for v in h['ms'][1:])}); device per "
+              f"steady step {busy_text(busy[path], h['steady_ms'])}; "
+              f"launches {windows[path]}")
+    print(f"decode: {name}: reference session host ms per step median "
+          f"{statistics.median(ref_ms[1:]):.3f}; staggered step_slots x"
+          f"{SLOT_STEPS} bitwise equal to the per-slot reference (rows with "
+          f"non-zero logits {live_slots}), launches "
+          f"{windows['step_slots']}; |logits| sum per step "
+          f"{', '.join(f'{v:.4e}' for v in sums)}; rows with non-zero "
+          f"logits per step {live}; last tokens "
+          f"{tokens[:, -1].tolist()}; peak device memory "
+          f"{peak_run / 2 ** 30:.2f} GiB")
+    out[name] = {"layers": len(prog.layers), "weight_codes": n_params,
+                 "draw_s": draw_s, "bind_s": bind_s, "peak_bytes": peak,
+                 "host": host, "device_step_ms": busy, "windows": windows,
+                 "ref_step_ms": ref_ms, "logits_abs_sum": sums,
+                 "live_rows": live, "live_slot_rows": live_slots,
+                 "peak_run_bytes": peak_run,
+                 "tokens": tokens.cpu().tolist()}
+    launches = collections.Counter()
+    for counts in windows.values():
+        launches.update(counts)
+    return sessions["fused"], launches
+
+
+def golden_sessions(torch, out: dict) -> None:
+    """Golden ``ExecutorSession`` at each decode family's smoke config on
+    the card: :data:`GOLDEN_DECODE` steps bitwise equal to the reference
+    session, no kernel launched, and the steady program (what every step
+    after the first runs, its fetches checked one by one) with no weight
+    fetch."""
+    from repro_torch.compiler import ExecutorSession, ReferenceSession, \
+        compile_decode_network
+    from repro_torch.kernels.build import LAUNCHES
+    g = GOLDEN_DECODE
+    for name in DECODE_STEPS:
+        prog = compile_decode_network(name, batch=g["batch"],
+                                      max_seq=g["max_seq"], opt_level=1)
+        ref, sess = ReferenceSession(prog), ExecutorSession(prog,
+                                                            backend="golden")
+        for s in (ref, sess):
+            s.bind_synthetic_all(seed=DECODE["seed"])
+        LAUNCHES.clear()
+        t0 = time.time()
+        logits, ms = greedy(torch, sess, g["steps"])
+        secs = time.time() - t0
+        want, _ = greedy(torch, ref, g["steps"])
+        read_window(LAUNCHES, {}, f"{name} golden session")
+        for pos, (got, exp) in enumerate(zip(logits, want)):
+            require_equal(torch, f"{name} golden step {pos} vs reference",
+                          got, exp)
+        warm, steady = weight_fetches(sess.warm), weight_fetches(sess.steady)
+        if not (warm > 0 and steady == 0 and sess._warmed):
+            raise AssertionError(f"{name} golden: weight fetches warm {warm}"
+                                 f", steady {steady}")
+        print(f"decode: golden {name} smoke, {len(prog.layers)} layers, "
+              f"{g['steps']} steps in {secs:.2f} s (warm-up "
+              f"{ms[0]:.0f} ms, steady {statistics.median(ms[1:]):.0f} ms): "
+              f"bitwise equal to the reference session; weight fetches warm "
+              f"{warm}, steady {steady}; no kernel launched")
+        out.setdefault("golden", {})[name] = {
+            "steps_s": secs, "step_ms": ms, "weight_fetches_warm": warm,
+            "weight_fetches_steady": steady}
+
+
+def phase_decode(torch, details: dict):
+    """Decode sessions on the card: full-width llama3.2-1b and
+    mamba2-780m, jamba-v0.1-52b at its smoke config, each through the
+    fused and ``fused=False`` ``ExecutorSession`` and the staggered
+    per-slot run, bitwise equal to the reference session at every step;
+    every decode-path kernel bitwise and timed at each full-width layer
+    shape; golden sessions at the smoke configs. Returns the launches of
+    every counted window, per kernel."""
+    import gc
+    out = details.setdefault("decode", {})
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    launches = collections.Counter()
+    for name, steps in DECODE_STEPS.items():
+        smoke = name.startswith("jamba")
+        t0 = time.time()
+        prog = compile_decode(name, smoke)
+        print(f"compile: {name}{' smoke' if smoke else ''} decode batch "
+              f"{prog.step.batch} max_seq {prog.step.max_seq} -O 0: "
+              f"{len(prog.layers)} layers, fingerprint "
+              f"{prog.fingerprint()[:12]}, {time.time() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        sess, counts = decode_sessions(torch, name, prog, steps, out)
+        launches.update(counts)
+        if not smoke:
+            tot = decode_kernel_times(torch, prog, sess._warm_ex, gen)
+            per_step = {key: {"launches": row["launches"],
+                              "ms": row["ms"], "bound_ms": row["bound_ms"]}
+                        for key, row in tot.items()}
+            want = decode_launches(prog)
+            for key, row in tot.items():
+                path, kname = key.split(" ")
+                if row["launches"] != want[path][kname]:
+                    raise AssertionError(f"{name} {key}: {row['launches']} "
+                                         f"layers timed, program launches "
+                                         f"{want[path][kname]}")
+                print(f"decode: {name} {key}: {row['launches']} launches per "
+                      f"step, device {row['ms']:.4f} ms per step (plain "
+                      f"{row['plain_ms']:.4f}, _int_mm at M=32 "
+                      f"{row['library_ms']:.4f}), bound {row['bound_ms']:.4f}"
+                      f" ms ({row['bound_by']}; "
+                      f"{row['ms'] / row['bound_ms']:.1f}x), the bytes of "
+                      f"the layout it reads {row['layout_ms']:.4f} ms "
+                      f"({row['ms'] / row['layout_ms']:.1f}x); "
+                      f"bitwise at {len(row['shapes'])} shapes")
+            out[name]["kernels"] = tot
+            out[name]["kernels_per_step"] = per_step
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    golden_sessions(torch, out)
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1646,8 +2063,9 @@ def main(argv=None) -> int:
                          "corners, per-image latencies of the fused and "
                          "fused=False paths, per-path launches (resnet18, "
                          "and mobilenet_v2 under its own key), the flash "
-                         "shape sweep and the serving run's windows, tokens "
-                         "and times as JSON here")
+                         "shape sweep, the serving run's windows, tokens "
+                         "and times, and the decode sessions' step times, "
+                         "windows and per-shape kernel times as JSON here")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1689,6 +2107,12 @@ def main(argv=None) -> int:
             else "operations"
     tot["flash_attention"] = phase("flash", phase_flash, torch, details)
     counts["flash_attention"] = phase("serve", phase_serve, torch, details)
+    decode_counts = phase("decode", phase_decode, torch, details)
+    for name in DECODE_KERNELS:
+        if not decode_counts.get(name):
+            raise AssertionError(f"{name} not launched on the decode path "
+                                 f"({decode_counts})")
+        counts[name] += decode_counts[name]
     phase("golden", phase_golden, torch, prog, details)
     harness = phase("accuracy", phase_accuracy, torch, details)
     print(f"accuracy: harness launches over its measure() runs {harness}")

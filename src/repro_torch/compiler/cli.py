@@ -1,5 +1,5 @@
-"""``python -m repro_torch.compiler`` — compile CNNs to ISA programs and
-execute them on the card.
+"""``python -m repro_torch.compiler`` — compile networks to ISA programs
+and execute them on the card.
 
 Examples::
 
@@ -9,11 +9,15 @@ Examples::
     python -m repro_torch.compiler resnet18 --execute --backend golden
     python -m repro_torch.compiler resnet18 --in-hw 32 --width 0.25 \\
         --execute --torch-device cpu                          # plain versions
+    python -m repro_torch.compiler llama3.2-1b --decode --execute
+    python -m repro_torch.compiler mamba2-780m --decode --simulate
     python -m repro_torch.compiler --list
 
-The counterpart of ``repro.compiler.cli`` for CNN programs on one
-device. Multi-device bundles, decode programs, the LM registry and the
-asm/bin formats are ported in later slices.
+The counterpart of ``repro.compiler.cli`` on one device: CNN programs,
+the registry archs' fixed-sequence programs (their smoke configs at
+``--seq-len``) and their decode-step programs (``--decode``), which
+``--execute`` drives through an ``ExecutorSession``. Multi-device
+bundles and the asm/bin formats are ported in later slices.
 """
 from __future__ import annotations
 
@@ -31,17 +35,20 @@ from repro_torch.core.scheduler import (
 )
 from repro_torch.quant.uniform import qrange
 from repro_torch.compiler.lower import lower_network
-from repro_torch.compiler.networks import list_networks, network_layers
+from repro_torch.compiler.networks import decode_step_layers, \
+    list_networks, network_layers
 from repro_torch.compiler.passes import OPT_LEVELS
-from repro_torch.compiler.runtime import BACKENDS, bind_synthetic, get_backend
+from repro_torch.compiler.runtime import BACKENDS, ExecutorSession, \
+    bind_synthetic, get_backend
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.compiler",
-        description="Compile a CNN to unified-ISA instruction streams and "
-                    "execute it with PyTorch/CUDA.")
-    p.add_argument("network", nargs="?", help="resnet18 | mobilenet_v2")
+        description="Compile a network to unified-ISA instruction streams "
+                    "and execute it with PyTorch/CUDA.")
+    p.add_argument("network", nargs="?",
+                   help="resnet18 | mobilenet_v2 | any registered arch id")
     p.add_argument("--list", action="store_true",
                    help="list compilable networks and exit")
     p.add_argument("--device", default="XC7Z020", choices=sorted(DEVICES),
@@ -52,6 +59,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="activation bit-width (2-8)")
     p.add_argument("--ratio", type=float, default=None,
                    help="fixed LUT filter ratio; default solves Eq. 12")
+    p.add_argument("--seq-len", type=int, default=64,
+                   help="token count for LM archs")
+    p.add_argument("--decode", action="store_true",
+                   help="compile an autoregressive decode step program "
+                        "(m = --batch) with resident weights and "
+                        "KV-cache/state segments instead of the "
+                        "fixed-sequence program")
+    p.add_argument("--batch", type=int, default=1,
+                   help="sequences per decode step (--decode)")
+    p.add_argument("--max-seq", type=int, default=64,
+                   help="KV-cache/state depth of a decode session "
+                        "(--decode)")
     p.add_argument("--in-hw", type=int, default=None,
                    help="CNN input size (default 224); reduced variants "
                         "stay geometry-consistent end to end")
@@ -71,29 +90,60 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--simulate", action="store_true",
                    help="also run the event-driven simulator")
     p.add_argument("--execute", action="store_true",
-                   help="also execute the program end to end with "
-                        "synthetic weights via --backend")
+                   help="also execute the program with synthetic weights "
+                        "via --backend: CNN programs end to end, decode "
+                        "programs as a 4-token greedy session, other LM "
+                        "programs layer by layer")
     return p
 
 
 def compile_network(name: str, *, device: str = "XC7Z020", bits_w: int = 4,
                     bits_a: int = 4, ratio: float | None = None,
-                    lut_m: int = 8, lut_n: int = 16, lut_k: int = 128,
-                    opt_level: int = 0, in_hw: int | None = None,
-                    width: float | None = None):
+                    seq_len: int = 64, lut_m: int = 8, lut_n: int = 16,
+                    lut_k: int = 128, opt_level: int = 0,
+                    in_hw: int | None = None, width: float | None = None):
     """Programmatic entry point: one single-device ``Program``.
     ``in_hw``/``width`` scale the CNN workloads to their reduced
-    geometry-consistent variants."""
+    geometry-consistent variants (ignored for LM archs, which compile
+    their smoke configs at ``seq_len`` tokens)."""
     dev = DEVICES[device]
     lut_cfg = LutCoreConfig(m=lut_m, n=lut_n, k=lut_k)
     dsp_cfg = DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev))
-    layers = network_layers(name, in_hw=in_hw, width=width)
+    layers = network_layers(name, seq_len=seq_len, in_hw=in_hw, width=width)
     n_luts = None
     if ratio is not None:
         n_luts = [int(round(ratio * gl.dims.n)) for gl in layers]
     return lower_network(name, layers, lut_cfg, dsp_cfg, dev,
                          bits_w_lut=bits_w, bits_a=bits_a,
                          n_luts=n_luts, opt_level=opt_level)
+
+
+def compile_decode_network(name: str, *, batch: int = 1, max_seq: int = 64,
+                           device: str = "XC7Z020", bits_w: int = 4,
+                           bits_a: int = 4, ratio: float | None = None,
+                           lut_m: int = 8, lut_n: int = 16, lut_k: int = 128,
+                           opt_level: int = 0):
+    """Compile the decode-mode step program of an lm/ssm/hybrid arch
+    (its smoke config).
+
+    The emitted program runs one token position for ``batch``
+    sequences: weight segments are residency-class ``weights`` (loaded
+    by the warm-up invocation, reused by ``lower.steady_program``
+    afterwards), attention K/V projections append to ``kv`` cache
+    segments sized for ``max_seq`` positions and SSM blocks carry a
+    persistent ``state`` segment. Multi-device bundles are not ported
+    yet.
+    """
+    dev = DEVICES[device]
+    lut_cfg = LutCoreConfig(m=lut_m, n=lut_n, k=lut_k)
+    dsp_cfg = DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev))
+    layers, spec = decode_step_layers(name, batch=batch, max_seq=max_seq)
+    n_luts = None
+    if ratio is not None:
+        n_luts = [int(round(ratio * gl.dims.n)) for gl in layers]
+    return lower_network(f"{name}.decode", layers, lut_cfg, dsp_cfg,
+                         dev, bits_w_lut=bits_w, bits_a=bits_a,
+                         n_luts=n_luts, opt_level=opt_level, step=spec)
 
 
 def summarize(prog, simulate: bool = False) -> str:
@@ -120,6 +170,11 @@ def summarize(prog, simulate: bool = False) -> str:
                      f"(-{total_before - total_after})")
         for ps in prog.opt_stats:
             lines.append(f"  {ps.render()}")
+    if getattr(prog, "step", None) is not None:
+        sp = prog.step
+        lines.append(f"decode    family={sp.family} batch={sp.batch} "
+                     f"max_seq={sp.max_seq} (resident weights + "
+                     f"persistent kv/state segments)")
     if simulate:
         t0 = time.time()
         ps = simulate_program(prog)
@@ -127,6 +182,12 @@ def summarize(prog, simulate: bool = False) -> str:
         lines.append(f"simulated {ps.total_cycles} cycles "
                      f"({prog.device.cycles_to_ms(ps.total_cycles):.3f} ms "
                      f"@ {prog.device.freq_mhz:.0f} MHz; sim wall {dt:.2f}s)")
+        if hasattr(ps, "steady_cycles"):
+            lines.append(
+                f"  decode: warm-up {ps.warmup_cycles} cycles/token, "
+                f"steady-state {ps.steady_cycles} cycles/token "
+                f"({ps.warmup_cycles / max(ps.steady_cycles, 1):.2f}x "
+                f"warm-up cost)")
         for core in ("lut", "dsp"):
             d = ps.decomposition(core)
             lines.append(f"  {core}: wait={d['l_wait']} run={d['l_run']} "
@@ -138,15 +199,19 @@ def execute_report(prog, backend: str = "cuda", seed: int = 0,
                    device="cuda") -> str:
     """Execute a program functionally with synthetic weights.
 
-    Conv programs (every layer carries an im2col geometry — the CNN
-    workloads) run *end to end*: a synthetic input image is quantized
-    to the first layer's activation bits and chained through the whole
-    network (im2col staging, pooling glue, shortcut sources,
-    inter-layer requantization). Other programs are driven layer by
-    layer on fresh synthetic activations. The weights and activations
-    come from the same numpy generators as the reference's report, so
-    the ``|out| sum`` checksum is comparable between the two packages.
+    Decode programs (a ``StepSpec`` header) run a short greedy decode
+    through an ``ExecutorSession``. Conv programs (every layer carries
+    an im2col geometry — the CNN workloads) run *end to end*: a
+    synthetic input image is quantized to the first layer's activation
+    bits and chained through the whole network (im2col staging, pooling
+    glue, shortcut sources, inter-layer requantization). Other programs
+    are driven layer by layer on fresh synthetic activations. The
+    weights and activations come from the same numpy generators as the
+    reference's report, so the checksums are comparable between the two
+    packages.
     """
+    if getattr(prog, "step", None) is not None:
+        return _decode_session_report(prog, backend, seed, device)
     layers = prog.layers
     ex = get_backend(backend)(prog, device=device)
     rng = np.random.default_rng(seed)
@@ -179,6 +244,25 @@ def execute_report(prog, backend: str = "cuda", seed: int = 0,
             f"{backend} backend in {dt:.3f}s (|out| sum {checksum:.6e})")
 
 
+def _decode_session_report(prog, backend: str = "cuda", seed: int = 0,
+                           device="cuda", n_tokens: int = 4) -> str:
+    """Drive a short greedy decode through an ``ExecutorSession``: bind
+    synthetic weights once, then step token by token (warm-up program
+    first, steady-state program after)."""
+    sess = ExecutorSession(prog, backend=backend, device=device)
+    sess.bind_synthetic_all(seed=seed if seed else None)
+    token, checksum = 1, 0.0
+    t0 = time.time()
+    for pos in range(n_tokens):
+        logits = sess.step(token, pos).cpu().numpy()
+        token = int(np.argmax(logits[0]))
+        checksum += float(np.abs(logits).sum())
+    dt = time.time() - t0
+    return (f"decoded   {n_tokens} token(s) via {backend} session in "
+            f"{dt:.3f}s (1 warm-up + {n_tokens - 1} steady step(s), "
+            f"|logits| sum {checksum:.6e})")
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.list:
@@ -192,11 +276,18 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
     try:
-        prog = compile_network(
-            args.network, device=args.device, bits_w=args.bits_w,
-            bits_a=args.bits_a, ratio=args.ratio, lut_m=args.lut_m,
-            lut_n=args.lut_n, lut_k=args.lut_k, opt_level=args.opt,
-            in_hw=args.in_hw, width=args.width)
+        if args.decode:
+            prog = compile_decode_network(
+                args.network, batch=args.batch, max_seq=args.max_seq,
+                device=args.device, bits_w=args.bits_w, bits_a=args.bits_a,
+                ratio=args.ratio, lut_m=args.lut_m, lut_n=args.lut_n,
+                lut_k=args.lut_k, opt_level=args.opt)
+        else:
+            prog = compile_network(
+                args.network, device=args.device, bits_w=args.bits_w,
+                bits_a=args.bits_a, ratio=args.ratio, seq_len=args.seq_len,
+                lut_m=args.lut_m, lut_n=args.lut_n, lut_k=args.lut_k,
+                opt_level=args.opt, in_hw=args.in_hw, width=args.width)
     except (KeyError, ValueError) as e:
         msg = e.args[0] if e.args else e
         print(f"error: {msg}", file=sys.stderr)

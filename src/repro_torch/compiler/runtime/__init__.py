@@ -7,6 +7,9 @@
   cuda.py    — :class:`CudaExecutor`: one fused split-GEMM kernel
                launch per *layer* on the card (im2col-free convs;
                ``fused=False`` for the per-partition path).
+  session.py — decode sessions: :class:`ExecutorSession` (resident
+               weights + live KV/state over a backend, warm-up then
+               steady program) and the plain :class:`ReferenceSession`.
 
 Select by name via :func:`get_backend` (the CLI's ``--backend`` flag
 resolves here).
@@ -21,11 +24,19 @@ from repro_torch.compiler.runtime.base import (
     chain_layers,
     im2col_patches,
     requantize,
+    requantize_rows,
     spatialize,
     synthetic_weights,
 )
 from repro_torch.compiler.runtime.cuda import CudaExecutor
 from repro_torch.compiler.runtime.golden import GoldenExecutor
+from repro_torch.compiler.runtime.session import (
+    DecodeSession,
+    ExecutorSession,
+    ReferenceSession,
+    decode_step_ref,
+    synthetic_decode_arrays,
+)
 
 BACKENDS: dict[str, type[ExecutorBackend]] = {
     GoldenExecutor.name: GoldenExecutor,
@@ -44,8 +55,10 @@ def get_backend(name: str) -> type[ExecutorBackend]:
 
 
 __all__ = [
-    "BACKENDS", "CudaExecutor", "ExecutionError", "ExecutorBackend",
-    "GoldenExecutor", "LayerWeights", "apply_pool", "bind_numpy_weights",
-    "bind_synthetic", "chain_layers", "get_backend", "im2col_patches",
-    "requantize", "spatialize", "synthetic_weights",
+    "BACKENDS", "CudaExecutor", "DecodeSession", "ExecutionError",
+    "ExecutorBackend", "ExecutorSession", "GoldenExecutor", "LayerWeights",
+    "ReferenceSession", "apply_pool", "bind_numpy_weights", "bind_synthetic",
+    "chain_layers", "decode_step_ref", "get_backend", "im2col_patches",
+    "requantize", "requantize_rows", "spatialize", "synthetic_decode_arrays",
+    "synthetic_weights",
 ]

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.scheduler import simulate
 from repro_torch.kernels.ref import conv_patches_ref
-from repro_torch.quant.uniform import fit_scale, qrange
+from repro_torch.quant.uniform import _inv_hi, fit_scale, qrange
 from repro_torch.compiler.program import CORE_NAMES, ConvGeometry, \
     CoreProgram, LayerProgram, Program
 
@@ -286,6 +286,24 @@ def requantize(x: torch.Tensor, bits: int) -> torch.Tensor:
     ``bits`` with a per-tensor max-abs scale (the chain's single
     bit-exactness-critical quantizer)."""
     return requantize_with_scale(x, bits)[0]
+
+
+def requantize_rows(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Row-independent twin of :func:`requantize`: one max-abs scale
+    per batch row instead of per tensor.
+
+    For a single-row input the scale reduction sees exactly the same
+    elements as the per-tensor path, so the two are bit-identical at
+    batch 1 — which is what lets slot-batched decode
+    (``DecodeSession.step_slots``) mix unrelated requests in one batch
+    while each slot stays bit-exact against a dedicated batch-1
+    session. The scales stay a device tensor, so ``x / s_a`` is IEEE
+    division on every device.
+    """
+    lo, hi = qrange(bits)
+    s_a = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8) \
+        * _inv_hi(bits)
+    return torch.clamp(torch.round(x / s_a), lo, hi).to(torch.int8)
 
 
 def requantize_with_scale(x: torch.Tensor, bits: int):

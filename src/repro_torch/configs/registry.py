@@ -18,8 +18,8 @@ from typing import Any
 class ArchConfig:
     arch_id: str
     family: str                        # dense | moe | ssm | hybrid | audio | vlm
-    model: Any                         # LMConfig
-    module: str                        # repro_torch.models.{lm}
+    model: Any                         # LMConfig / SSMLMConfig / HybridConfig
+    module: str                        # repro_torch.models.{lm,ssm,hybrid}
     smoke: Any = None                  # reduced same-family config
     notes: str = ""
 
@@ -52,7 +52,9 @@ def list_archs() -> list[str]:
 
 
 #: config modules under ``repro_torch.configs``: the archs ported so far
-_ARCH_MODULES = ["llama32_1b"]
+#: (mamba2-780m and jamba-v0.1-52b as configs only: the compiler and the
+#: decode sessions read them; their forwards are later slices)
+_ARCH_MODULES = ["llama32_1b", "mamba2_780m", "jamba_v01_52b"]
 
 _loaded = False
 

@@ -13,7 +13,9 @@ the plain versions; ``--smoke`` takes ``--device cpu``, since the
 flash kernel is not built for the smoke config's head size and fp32
 params). Prefill and decode times go to ``obs.METRICS`` as
 ``serve.request.*``; each timed region ends in
-``torch.cuda.synchronize()`` on the card. The reference's
+``torch.cuda.synchronize()`` on the card. Archs whose module is not
+``lm`` (mamba2-780m, jamba-v0.1-52b) are refused with exit code 2: the
+port has their configs but not their forwards yet. The reference's
 ``--quantize``, ``--fleet`` and ``--accel-*`` options come with later
 slices.
 """
@@ -55,6 +57,16 @@ def main(argv=None) -> dict:
                          ".csv) on exit")
     args = ap.parse_args(argv)
 
+    arch = registry.get(args.arch)
+    if arch.module != "lm":
+        # the registry has this arch's config (the compiler and the
+        # decode sessions read it) but the port has no forward for it
+        print(f"error: {args.arch} is a {arch.module!r} arch; the port "
+              f"has its config only (compile and decode it through a "
+              f"session with python -m repro_torch.compiler {args.arch} "
+              f"--decode --execute); its forward comes with ROADMAP queue "
+              f"1, item 7 (the other model families)", file=sys.stderr)
+        raise SystemExit(2)
     device = torch.device(args.device)
     if args.smoke and device.type == "cuda":
         # no silent fallback to plain attention: the flash kernel is
@@ -67,7 +79,6 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: CUDA is not available; pass --device cpu "
                          "to serve on the CPU")
-    arch = registry.get(args.arch)
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
     cfg = arch.model

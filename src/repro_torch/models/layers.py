@@ -231,3 +231,23 @@ def mlp_specs(d_model: int, d_ff: int, dtype=torch.bfloat16) -> dict:
 def mlp_apply(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     h = ACTIVATIONS[act](x @ p["gate"]) * (x @ p["up"])
     return h @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (config only: the forward is a later slice)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The reference's ``MoEConfig``: what the compiler's layer walk and
+    the decode sessions read (``n_experts``, ``top_k``, ``d_ff``,
+    ``n_shared``); the dispatch fields belong to the MoE forward, which
+    the port does not have yet."""
+    n_experts: int
+    top_k: int
+    d_ff: int                       # per-expert hidden
+    n_shared: int = 0               # shared (always-on) experts
+    capacity_factor: float = 1.25
+    group_size: int = 512           # tokens per dispatch group
+    router_z_loss: float = 1e-3

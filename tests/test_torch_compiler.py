@@ -17,9 +17,18 @@ from pathlib import Path
 
 import pytest
 
+from repro.compiler import cli as jcli
+from repro.compiler import compile_decode_network as compile_decode_jax
 from repro.compiler import compile_network as compile_jax
+from repro.compiler import list_networks as jax_list_networks
+from repro.compiler import network_layers as jax_network_layers
+from repro.configs import registry as jregistry
+from repro_torch.compiler import compile_decode_network as \
+    compile_decode_torch
 from repro_torch.compiler import compile_network as compile_torch
 from repro_torch.compiler import cli, list_networks, network_layers
+from repro_torch.configs import registry
+from repro_torch.core.workloads import WORKLOADS
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -29,13 +38,18 @@ COPIED = [
     "core/isa.py", "core/scheduler.py", "core/workloads.py",
     "core/latency_model.py", "core/split.py",
     "compiler/program.py", "compiler/lower.py", "compiler/passes.py",
+    "compiler/networks.py",
     "obs/counters.py", "obs/trace.py", "obs/metrics.py",
 ]
 
+#: (network, keyword arguments); ``decode`` compiles the decode-step
+#: program (``compile_decode_network``) instead of the fixed one
 PROGRAMS = [
     ("resnet18", {}),
     ("resnet18", {"in_hw": 32, "width": 0.25}),
     ("mobilenet_v2", {}),
+    ("llama3.2-1b", {"seq_len": 8}),
+    ("llama3.2-1b", {"decode": True, "batch": 2, "max_seq": 16}),
 ]
 
 
@@ -48,19 +62,28 @@ def test_copied_module_equals_original(path):
 
 
 def _layer_view(lp):
+    geom = None if lp.geometry is None else dataclasses.astuple(lp.geometry)
     return (lp.index, lp.name, lp.dims.m, lp.dims.k, lp.dims.n, lp.n_lut,
-            lp.bits_w_lut, lp.bits_a, lp.depthwise,
-            dataclasses.astuple(lp.geometry),
+            lp.bits_w_lut, lp.bits_a, lp.depthwise, geom,
             tuple(dataclasses.astuple(op) for op in lp.elementwise))
+
+
+def _compile(fixed, decode, name, kw, opt_level):
+    kw = dict(kw)
+    fn = decode if kw.pop("decode", False) else fixed
+    return fn(name, opt_level=opt_level, **kw)
 
 
 @pytest.mark.parametrize("opt_level", [0, 1])
 @pytest.mark.parametrize("name,kw", PROGRAMS,
-                         ids=["resnet18", "resnet18-reduced", "mobilenet_v2"])
+                         ids=["resnet18", "resnet18-reduced", "mobilenet_v2",
+                              "llama3.2-1b", "llama3.2-1b-decode"])
 def test_compiled_program_matches_reference(name, kw, opt_level):
-    want = compile_jax(name, opt_level=opt_level, **kw)
-    got = compile_torch(name, opt_level=opt_level, **kw)
+    want = _compile(compile_jax, compile_decode_jax, name, kw, opt_level)
+    got = _compile(compile_torch, compile_decode_torch, name, kw, opt_level)
     assert got.fingerprint() == want.fingerprint()
+    assert (got.step and dataclasses.asdict(got.step)) == \
+        (want.step and dataclasses.asdict(want.step))
     assert [_layer_view(lp) for lp in got.layers] == \
         [_layer_view(lp) for lp in want.layers]
     assert got.stats().n_instructions == want.stats().n_instructions
@@ -75,11 +98,25 @@ def test_resnet18_full_width_program_identity():
                for lp in prog.layers)
 
 
+def _gemm_view(layers):
+    return [(gl.name, dataclasses.astuple(gl.dims)) for gl in layers]
+
+
 def test_networks_are_the_cnn_workloads():
-    assert list_networks() == ["mobilenet_v2", "resnet18"]
+    """The CNN workloads and the port's registry archs, each walked into
+    the same GEMM layers as the JAX package's ``network_layers`` (LM
+    archs at their smoke and their full configs)."""
+    assert list_networks() == sorted(WORKLOADS) + registry.list_archs()
+    assert set(list_networks()) < set(jax_list_networks())
     assert len(network_layers("resnet18")) == 21
-    with pytest.raises(ValueError, match="later slice"):
-        network_layers("llama3.2-1b")
+    for name in list_networks():
+        assert _gemm_view(network_layers(name)) == \
+            _gemm_view(jax_network_layers(name)), name
+        if name not in WORKLOADS:
+            assert _gemm_view(network_layers(name, smoke=False)) == \
+                _gemm_view(jax_network_layers(name, smoke=False)), name
+    with pytest.raises(KeyError, match="later slices"):
+        network_layers("qwen3-8b")
 
 
 def test_cli_summary_and_errors(capsys):
@@ -87,11 +124,19 @@ def test_cli_summary_and_errors(capsys):
                      "--simulate"]) == 0
     out = capsys.readouterr().out
     assert "layers    21" in out and "simulated" in out
-    assert cli.main(["llama3.2-1b"]) == 2
-    assert "later slice" in capsys.readouterr().err
+    # an LM arch compiles its smoke config: the JAX CLI's summary
+    for argv in (["llama3.2-1b", "--seq-len", "8"],
+                 ["mamba2-780m", "--decode", "--batch", "2"]):
+        assert cli.main(argv) == 0
+        got = capsys.readouterr().out
+        assert jcli.main(argv) == 0
+        assert got == capsys.readouterr().out
+    assert "layers    9" in got and "decode    family=ssm batch=2" in got
+    assert cli.main(["qwen3-8b"]) == 2
+    assert "later slices" in capsys.readouterr().err
     assert cli.main(["resnet18", "--ratio", "2"]) == 2
     assert cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["mobilenet_v2", "resnet18"]
+    assert capsys.readouterr().out.split() == list_networks()
 
 
 def _imports(path: Path):

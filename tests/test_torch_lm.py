@@ -63,7 +63,8 @@ def _close(got, want):
 
 
 def test_registry_and_config():
-    assert registry.list_archs() == ["llama3.2-1b"]
+    assert registry.list_archs() == ["jamba-v0.1-52b", "llama3.2-1b",
+                                     "mamba2-780m"]
     arch = registry.get("llama3.2-1b")
     want = jregistry.get("llama3.2-1b")
     for cfg, ref_cfg in ((arch.model, want.model), (arch.smoke, want.smoke)):
@@ -232,6 +233,21 @@ def test_serve_smoke_refuses_the_card(capsys, monkeypatch, device):
     err = capsys.readouterr().err
     assert err.startswith("error: --smoke")
     assert "head_dim 16" in err and "fp32" in err and "--device cpu" in err
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_serve_refuses_archs_without_a_forward(capsys, arch):
+    """The registry has the ssm and hybrid configs for the compiler and
+    the decode sessions, but the port has no forward for them: the
+    launcher exits 2 naming the queue item, before anything is built,
+    card or no card."""
+    assert registry.get(arch).module != "lm"
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", arch])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert err.startswith(f"error: {arch} is a")
+    assert "queue 1, item 7" in err and "--decode --execute" in err
 
 
 def test_serve_imports_pull_in_no_jax():

@@ -149,6 +149,36 @@ Phases, each printing its lines before the last:
    folded weights give bitwise-equal logits on the card and the CPU for
    :data:`FULL_CPU_IMAGES` images. Times: training seconds, eval ms per
    image (host clock).
+10. multi: multi-device bundles and compiled serving, every simulated
+   device on the one card. :data:`CNN_BUNDLES` (full-width resnet18
+   ``filter`` x 2 and x 3 and ``pipeline`` x 2, mobilenet_v2 ``filter``
+   and ``pipeline`` x 2, ``-O 0``, the synthetic binding of phase 3)
+   through ``MultiDeviceExecutor(backend="cuda")``, fused and
+   ``fused=False``: every global layer and 4 images' logits bitwise
+   equal to the single-device fused path of phases 3 and 4, launches
+   exactly what the bundle's device programs launch; each shard's
+   kernel bitwise to its plain version and timed beside the
+   single-device layers'; ``python -m repro_torch.compiler resnet18
+   --devices 2 --partition filter --execute`` prints the single-device
+   checksum. Full-width llama3.2-1b decode bundles
+   (:data:`DECODE_BUNDLES`, batch 8, max_seq 64): the single-device
+   ``ReferenceSession``'s logits recorded for :data:`MULTI_STEPS` greedy
+   steps and the session freed, then each bundle's ``ExecutorSession``
+   (one at a time), every step bitwise equal, launches exactly the
+   device programs' per step, each shard's kernel bitwise and timed.
+   ``launch.serve`` with :data:`SERVE_ACCEL` exits 0 on the card and
+   (``--smoke --device cpu``) on the CPU with the same image magics and
+   lengths, and in-process exactly one flash launch per prefill layer
+   plus the compiled session's kernels. A ``FleetServer`` with a
+   subprocess and a thread ``cuda`` worker serves :data:`FLEET_REQUESTS`
+   bitwise equal to a single-request session on the card, continuous
+   faster than serial; ``BundleFleet`` on a 2-device ``filter`` and
+   ``pipeline`` FC bundle bitwise equal to ``MultiDeviceExecutor``.
+   Times: per-image latency, beside the single-device path timed in
+   turns, and device busy share per CNN bundle; ms per steady decode
+   step, device ms and busy share; compile and bind seconds and peak
+   device memory; fleet requests/s and tokens/s; ``BundleFleet`` ms per
+   run.
 
 Each phase prints its seconds ("time: phase ..."). The line before the
 last is the kernels' JSON summary; the last line
@@ -162,6 +192,7 @@ import argparse
 import collections
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -209,6 +240,10 @@ MOBILENET_PATH = {
     "grouped_gemm": "staged",
 }
 N_IMAGES = 4
+#: per network, the single-device fused path of phase 3 / 4: its bound
+#: executor, image 0 and that image's logits, latency and device time,
+#: which the multi-device phase holds its bundles against
+SINGLE: dict = {}
 #: depthwise kernel corners, (H=W, C, kernel, stride, pad, bits, n_lut):
 #: odd C, all-DSP (n_lut 0) and all-LUT (n_lut C) layers, in_hw that
 #: stride 2 does not divide (15, 9, 13, 57), one channel, a 5x5 window
@@ -870,6 +905,8 @@ def phase_slice(torch, prog, ex, details: dict,
               f"({'1 image' if path == 'staged' else f'{N_IMAGES} images'})")
     details["latency_ms"] = lat
     details["launches"] = paths
+    SINGLE[network] = {"ex": ex, "image": images[0], "logits": logits[0],
+                       "latency_ms": med, "device_ms": image_dev}
     return paths
 
 
@@ -1687,16 +1724,23 @@ def compile_decode(name: str, smoke: bool, **kw):
     at its defaults, but at the full config when ``smoke`` is False."""
     from repro_torch.compiler.lower import lower_network
     from repro_torch.compiler.networks import decode_step_layers
-    from repro_torch.core.scheduler import DEVICES, DspCoreConfig, \
-        LutCoreConfig
     kw = {"batch": DECODE["batch"], "max_seq": DECODE["max_seq"], **kw}
     opt_level = kw.pop("opt_level", 0)
-    dev = DEVICES["XC7Z020"]
     layers, spec = decode_step_layers(name, smoke=smoke, **kw)
-    return lower_network(
-        f"{name}.decode", layers, LutCoreConfig(m=8, n=16, k=128),
-        DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev)), dev,
-        bits_w_lut=4, bits_a=4, opt_level=opt_level, step=spec)
+    return lower_network(f"{name}.decode", layers, *compiler_cfgs(),
+                         bits_w_lut=4, bits_a=4, opt_level=opt_level,
+                         step=spec)
+
+
+def compiler_cfgs():
+    """The compiler's defaults: its LUT and DSP core configs and the
+    XC7Z020."""
+    from repro_torch.core.scheduler import DEVICES, DspCoreConfig, \
+        LutCoreConfig
+    dev = DEVICES["XC7Z020"]
+    return (LutCoreConfig(m=8, n=16, k=128),
+            DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev)),
+            dev)
 
 
 def decode_launches(prog) -> dict:
@@ -1706,13 +1750,20 @@ def decode_launches(prog) -> dict:
     one; ``fused=False`` one single-path kernel per non-empty side."""
     want = {p: collections.Counter() for p in ("fused", "fused=False")}
     for lp in prog.layers:
-        sides = [name for name, n in (("bitserial_gemm", lp.n_lut),
-                                      ("int4_gemm", lp.dims.n - lp.n_lut))
-                 if n]
-        want["fused"][sides[0] if len(sides) == 1
-                      else "fused_hetero_gemm"] += 1
-        want["fused=False"].update(sides)
+        want["fused"][staged_kernel(lp)] += 1
+        want["fused=False"].update(name for name, n in (
+            ("bitserial_gemm", lp.n_lut), ("int4_gemm", lp.dims.n - lp.n_lut))
+            if n)
     return want
+
+
+def staged_kernel(lp) -> str:
+    """The kernel the fused path launches on a staged [m, k] layer:
+    ``fused_hetero_gemm`` for a two-sided split, else the side's
+    single-path kernel."""
+    sides = [name for name, n in (("bitserial_gemm", lp.n_lut),
+                                  ("int4_gemm", lp.dims.n - lp.n_lut)) if n]
+    return sides[0] if len(sides) == 1 else "fused_hetero_gemm"
 
 
 def weight_fetches(prog) -> int:
@@ -2055,6 +2106,556 @@ def phase_decode(torch, details: dict):
     return dict(launches)
 
 
+#: the multi-device phase's CNN bundles, (network, plan kind, devices),
+#: each at full width, -O 0, batch 1
+CNN_BUNDLES = [("resnet18", "filter", 2), ("resnet18", "filter", 3),
+               ("resnet18", "pipeline", 2), ("mobilenet_v2", "filter", 2),
+               ("mobilenet_v2", "pipeline", 2)]
+#: full-width llama3.2-1b decode bundles, (plan kind, devices), and the
+#: greedy steps each decodes
+DECODE_BUNDLES = [("filter", 2), ("pipeline", 2)]
+MULTI_STEPS = 8
+#: the compiled-serving command (``launch.serve``), as a user runs it
+SERVE_ACCEL = ["--arch", "llama3.2-1b", "--quantize", "--accel-devices",
+               "2", "--accel-partition", "filter", "--accel-backend",
+               "cuda", "--fleet", "2"]
+#: the cuda fleet: llama3.2-1b's smoke decode program (as the launcher
+#: and the reference's fleet serve it), 2 slots a worker, and the
+#: requests (prompt, new tokens) it serves under each policy
+FLEET = dict(arch="llama3.2-1b", batch_slots=2, max_seq=8, seed=0)
+FLEET_REQUESTS = [([3, 11], 4), ([5], 5), ([1, 2, 3], 3), ([9, 8], 4),
+                  ([7], 6), ([2, 4, 6], 4), ([11, 13], 3), ([4], 5)]
+#: the FC chain BundleFleet distributes, (m, k, n) per layer
+FC_CHAIN = [(32, 256, 512), (32, 512, 384), (32, 384, 256), (32, 256, 128)]
+
+
+def decode_bundle(name: str, kind: str, n_dev: int):
+    """The decode-step bundle of ``name`` at its full config, as
+    ``compile_decode_network(devices=n_dev, partition=kind)`` compiles
+    its smoke config: ``lower_partitioned`` at :data:`DECODE`'s batch
+    and window, ``-O 0``, then ``decorate_decode_bundle``."""
+    from repro_torch.compiler.networks import decode_step_layers
+    from repro_torch.compiler.partition import decorate_decode_bundle, \
+        derive_plan, lower_partitioned
+    lut, dsp, dev = compiler_cfgs()
+    layers, spec = decode_step_layers(name, batch=DECODE["batch"],
+                                      max_seq=DECODE["max_seq"],
+                                      smoke=False)
+    plan = derive_plan(layers, n_dev, kind)
+    return decorate_decode_bundle(lower_partitioned(
+        f"{name}.decode", layers, plan, lut, dsp, dev, bits_w_lut=4,
+        bits_a=4, opt_level=0), spec)
+
+
+def bundle_launches(mdp, executors, path: str, per_program) -> dict:
+    """The launches of one traversal of a bundle, summed over its device
+    programs (a one-sided shard launches its side's kernel): read from
+    each device program by ``per_program(program, executor)[path]``."""
+    want = collections.Counter()
+    for prog, ex in zip(mdp.devices, executors):
+        want.update(per_program(prog, ex)[path])
+    return dict(want)
+
+
+def shard_kernels(torch, executors, shards, what: str) -> dict:
+    """Each shard's kernel launch (``shards``: (executor index, local
+    layer, input, kernel name)) held bitwise to its plain version on the
+    card, then timed (:func:`device_times`); returns device ms per
+    traversal by kernel name."""
+    fns, names = {}, {}
+    for i, (d, li, x, kname) in enumerate(shards):
+        ex = executors[d]
+        ex.mode = "ref"
+        want = ex.run_layer(li, x)
+        ex.mode = "auto"
+        require_equal(torch, f"{what} shard dev{d} L{li} kernel vs plain",
+                      ex.run_layer(li, x), want)
+        fns[i] = (lambda e=ex, li=li, x=x: e.run_layer(li, x), 5)
+        names[i] = kname
+    times = device_times(torch, fns)
+    ms = collections.Counter()
+    for i, t in times.items():
+        ms[names[i]] += t
+    slow = sorted(times, key=times.get, reverse=True)[:3]
+    print(f"multi: {what}: slowest shards " + "; ".join(
+        f"dev{shards[i][0]} L{shards[i][1]} {names[i]} "
+        f"{shard_shape(executors[shards[i][0]], shards[i][1])} "
+        f"{1e3 * times[i]:.1f} us" for i in slow))
+    return dict(ms)
+
+
+def shard_shape(ex, li: int) -> str:
+    """A shard's GEMM extents, split and the fused kernels' plan."""
+    from repro_torch.kernels.fused_hetero_gemm import split_plan
+    lp = ex.program.layers[li]
+    n_dsp = lp.dims.n - lp.n_lut
+    return (f"(M={lp.dims.m} K={lp.dims.k} n_lut={lp.n_lut} n_dsp={n_dsp}"
+            f"{' depthwise' if lp.depthwise else ''}, plan "
+            f"{tuple(split_plan(lp.dims.m, lp.dims.k, lp.n_lut, n_dsp))})")
+
+
+def conv_kernel(lp) -> str:
+    return "depthwise_gemm" if lp.depthwise else "fused_conv_gemm"
+
+
+def decode_shards(torch, sess, gen) -> list:
+    """Each shard of a decode bundle session's steady executors at its
+    M = batch shape, on random int8 activations, for
+    :func:`shard_kernels`."""
+    shards = []
+    for d, ex in enumerate(sess._steady_ex.executors):
+        for lp in ex.program.layers:
+            x = torch.randint(-8, 8, (lp.dims.m, lp.dims.k), generator=gen,
+                              dtype=torch.int8).to("cuda")
+            shards.append((d, lp.index, x, staged_kernel(lp)))
+    return shards
+
+
+def cnn_bundles(torch, out: dict) -> dict:
+    """Full-width resnet18 and mobilenet_v2 bundles through
+    ``MultiDeviceExecutor`` on the card, fused and ``fused=False``:
+    every global layer and the logits bitwise equal to the single-device
+    fused path, launches exactly the device programs'; then the CLI's
+    bundle checksum. Returns the launches of the counted windows."""
+    import os
+
+    from repro_torch.compiler import MultiDeviceExecutor, compile_network, \
+        execute_report
+    from repro_torch.compiler.runtime.base import chain_layers
+    from repro_torch.kernels.build import LAUNCHES
+    launches = collections.Counter()
+    for network, kind, n_dev in CNN_BUNDLES:
+        single = SINGLE[network]
+        ex, image, want = single["ex"], single["image"], single["logits"]
+        tag = f"{network} {kind} x{n_dev}"
+        t0 = time.time()
+        mdp = compile_network(network, devices=n_dev, partition=kind)
+        compile_s = time.time() - t0
+        t0 = time.time()
+        mexs = {"fused": MultiDeviceExecutor(mdp, backend="cuda"),
+                "fused=False": MultiDeviceExecutor(mdp, backend="cuda",
+                                                   fused=False)}
+        for mex in mexs.values():
+            for gi in range(mdp.n_layers):
+                mex.bind_synthetic(gi, seed=gi)
+        torch.cuda.synchronize()
+        bind_s = time.time() - t0
+        # every global layer (its shards joined) on the single-device
+        # chain's own inputs
+        inputs, outs = {}, {}
+
+        def record(i, x):
+            inputs[i] = x
+            outs[i] = ex.run_layer(i, x)
+            return outs[i]
+        chain_layers(ex.program.layers, record, ex._as_codes(image))
+        for gi, x in inputs.items():
+            require_equal(torch, f"{tag} layer {gi} vs single-device",
+                          mexs["fused"].run_layer(gi, x), outs[gi])
+        row = {"compile_s": compile_s, "bind_s": bind_s,
+               "single_ms": single["latency_ms"],
+               "single_device_ms": single["device_ms"]}
+        for path, mex in mexs.items():
+            mex.run(image)
+            torch.cuda.synchronize()
+            per_image = bundle_launches(mdp, mex.executors, path,
+                                        expected_launches)
+            LAUNCHES.clear()
+            lat, ys = [], []
+            for _ in range(N_IMAGES):
+                t0 = time.perf_counter()
+                ys.append(mex.run(image))
+                torch.cuda.synchronize()
+                lat.append(1e3 * (time.perf_counter() - t0))
+            counts = read_launches(LAUNCHES, per_image, N_IMAGES,
+                                   f"{tag} {path}")
+            for y in ys:
+                require_equal(torch, f"{tag} {path} logits vs single-device",
+                              y, want)
+            launches.update(counts)
+            # the single-device fused path timed beside the bundle, in
+            # turns (the host clock moves from phase to phase)
+            side = {"bundle": [], "single": []}
+            for i in range(2 * N_IMAGES):
+                who = "bundle" if i % 4 in (1, 2) else "single"
+                run = mex.run if who == "bundle" else ex.run
+                t0 = time.perf_counter()
+                run(image)
+                torch.cuda.synchronize()
+                side[who].append(1e3 * (time.perf_counter() - t0))
+            med = statistics.median(lat)
+            side_med = {k: statistics.median(v) for k, v in side.items()}
+            dev = busy_ms(torch, lambda m=mex: m.run(image), iters=4)
+            row[path] = {"latency_ms": lat, "median_ms": med,
+                         "device_ms": dev, "launches_per_image": per_image,
+                         "in_turns_ms": side}
+            print(f"multi: {tag} {path}: {N_IMAGES} images bitwise equal to "
+                  f"the single-device logits; per-image latency median "
+                  f"{med:.3f} ms ({', '.join(f'{v:.3f}' for v in lat)}); in "
+                  f"turns with the single-device fused path: bundle "
+                  f"{side_med['bundle']:.3f} ms, single "
+                  f"{side_med['single']:.3f} ms; device "
+                  f"{busy_text(dev, med)}; launches per image {per_image}")
+        if kind == "filter":
+            # the shards' kernels at their narrower shapes, beside the
+            # single-device layers' kernels timed the same way
+            fused = mexs["fused"]
+            shards = []
+            for gl in fused.layers:
+                x = inputs[gl.index]
+                for d, li, lo, hi in gl.placements:
+                    x_d = x[..., lo:hi].contiguous() if gl.depthwise else x
+                    shards.append((d, li, x_d, conv_kernel(gl)))
+            row["shard_kernel_ms"] = shard_kernels(
+                torch, fused.executors, shards, tag)
+            row["single_kernel_ms"] = shard_kernels(
+                torch, [ex], [(0, lp.index, inputs[lp.index],
+                               conv_kernel(lp)) for lp in ex.program.layers],
+                f"{network} single-device")
+            print(f"multi: {tag}: kernel device ms per image, shards "
+                  f"{row['shard_kernel_ms']} vs single-device "
+                  f"{row['single_kernel_ms']}")
+        print(f"multi: {tag}: compile {compile_s:.2f} s, bind (two "
+              f"executors) {bind_s:.2f} s; every layer bitwise equal to the "
+              f"single-device layer")
+        out.setdefault("cnn", {})[tag] = row
+        del mexs
+    # the CLI on a bundle: the single-device run's checksum
+    single_line = execute_report(SINGLE["resnet18"]["ex"].program,
+                                 backend="cuda")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.compiler", "resnet18",
+         "--devices", "2", "--partition", "filter", "--execute"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"compiler CLI on a bundle exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    bundle_line = proc.stdout.strip().splitlines()[-1]
+    if "x2 devices" not in bundle_line or \
+            bundle_line.split("|out| sum")[1] != \
+            single_line.split("|out| sum")[1]:
+        raise AssertionError(f"CLI bundle checksum: {bundle_line!r} vs "
+                             f"single {single_line!r}")
+    print(f"multi: cli resnet18 --devices 2 --partition filter --execute: "
+          f"{bundle_line}; the single-device run's |out| sum")
+    out["cli"] = {"bundle": bundle_line, "single": single_line}
+    return dict(launches)
+
+
+def decode_bundles(torch, out: dict) -> dict:
+    """Full-width llama3.2-1b decode bundles (``filter`` and
+    ``pipeline`` x 2) through ``ExecutorSession`` on the card, every
+    step's logits bitwise equal to the single-device reference session,
+    launches exactly the device programs' per step; at most two
+    sessions held at once. Returns the launches of the counted
+    windows."""
+    import gc
+
+    from repro_torch.compiler import ExecutorSession, ReferenceSession, \
+        synthetic_decode_arrays
+    from repro_torch.kernels.build import LAUNCHES
+    name = "llama3.2-1b"
+    t0 = time.time()
+    prog = compile_decode(name, False)
+    single_s = time.time() - t0
+    t0 = time.time()
+    arrays = synthetic_decode_arrays(prog.layers, prog.step,
+                                     seed=DECODE["seed"])
+    draw_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ref = ReferenceSession(prog)
+    ref.bind_arrays(arrays)
+    LAUNCHES.clear()
+    ref_logits, ref_ms = greedy(torch, ref, MULTI_STEPS)
+    read_window(LAUNCHES, {}, f"{name} reference session")
+    ref_peak = torch.cuda.max_memory_allocated()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"multi: {name} decode: single-device program compiled in "
+          f"{single_s:.2f} s, codes drawn in {draw_s:.1f} s; reference "
+          f"session {MULTI_STEPS} steps recorded (host ms median "
+          f"{statistics.median(ref_ms[1:]):.1f}), peak device memory "
+          f"{ref_peak / 2 ** 30:.2f} GiB; freed")
+    rows = {"single_compile_s": single_s, "draw_s": draw_s,
+            "ref_peak_bytes": ref_peak}
+    launches = collections.Counter()
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    for kind, n_dev in DECODE_BUNDLES:
+        tag = f"{name} decode {kind} x{n_dev}"
+        t0 = time.time()
+        mdp = decode_bundle(name, kind, n_dev)
+        compile_s = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        sess = ExecutorSession(mdp, backend="cuda")
+        session_s = time.time() - t0
+        t0 = time.time()
+        sess.bind_arrays(arrays)
+        torch.cuda.synchronize()
+        bind_s = time.time() - t0
+        per_step = bundle_launches(
+            mdp, sess._warm_ex.executors, "fused",
+            lambda p, _e: decode_launches(p))
+        LAUNCHES.clear()
+        logits, ms = greedy(torch, sess, MULTI_STEPS)
+        counts = read_window(
+            LAUNCHES, {k: v * MULTI_STEPS for k, v in per_step.items()},
+            f"{tag}, {MULTI_STEPS} steps")
+        for pos, (got, exp) in enumerate(zip(logits, ref_logits)):
+            require_equal(torch, f"{tag} step {pos} vs reference", got, exp)
+        launches.update(counts)
+        steady = statistics.median(ms[1:])
+        tok = logits[0].argmax(dim=-1)
+        sess.reset()
+        sess.step(tok, 0)
+        dev = busy_ms(torch, lambda: sess.step(tok, 1), iters=3)
+        kernel_ms = shard_kernels(torch, sess._steady_ex.executors,
+                                  decode_shards(torch, sess, gen), tag)
+        peak = torch.cuda.max_memory_allocated()
+        rows[f"{kind} x{n_dev}"] = {
+            "compile_s": compile_s, "session_s": session_s,
+            "bind_s": bind_s, "host_ms": ms, "steady_ms": steady,
+            "device_step_ms": dev, "launches_per_step": per_step,
+            "kernel_ms_per_step": kernel_ms, "peak_bytes": peak}
+        print(f"multi: {tag}: compiled in {compile_s:.2f} s, session "
+              f"(steady_bundle + executors) {session_s:.2f} s, bound in "
+              f"{bind_s:.1f} s; {MULTI_STEPS} steps bitwise equal to the "
+              f"reference session; host ms warm-up {ms[0]:.3f}, steady "
+              f"median {steady:.3f} ({', '.join(f'{v:.2f}' for v in ms[1:])}"
+              f"); device per steady step {busy_text(dev, steady)}; "
+              f"launches per step {per_step}; shard kernels device ms per "
+              f"step {kernel_ms}; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB")
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    del arrays
+    out["decode"] = rows
+    return dict(launches)
+
+
+def serve_line(text: str, prefix: str) -> str:
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    if len(lines) != 1:
+        raise AssertionError(f"launcher printed {len(lines)} lines "
+                             f"starting {prefix!r}:\n{text[-3000:]}")
+    return lines[0]
+
+
+def compiled_serving(torch, out: dict) -> dict:
+    """``launch.serve --quantize ... --fleet 2`` as a user runs it, on the
+    card and (``--smoke --device cpu``, the same programs) on the CPU:
+    exit 0, the accel and fleet lines, the same image magics and lengths
+    and the same compiled-session and fleet tokens. Then the same path
+    in-process with its launches counted: one flash launch per prefill
+    layer and the compiled session's kernels per step. Returns those
+    launches."""
+    import os
+
+    from repro_torch.compiler import compile_decode_network
+    from repro_torch.configs import registry
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import serve
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = {}
+    for where, extra in (("card", []), ("cpu", ["--smoke", "--device",
+                                                  "cpu"])):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             *SERVE_ACCEL, *extra], capture_output=True, text=True,
+            timeout=900, env=env, cwd=ROOT)
+        secs = time.time() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"launch.serve {' '.join(SERVE_ACCEL + extra)}"
+                                 f" exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        lines = {key: serve_line(proc.stdout, prefix) for key, prefix in (
+            ("image", "# accel program "), ("decode", "# accel decode program"),
+            ("session", "# accel decode session [cuda]"),
+            ("fleet", "# fleet[2 workers]"), ("prefill", "prefill:"),
+            ("decode_ms", "decode:"))}
+        runs[where] = {"s": secs, "lines": lines}
+        print(f"multi: launch.serve {' '.join(SERVE_ACCEL + extra)}: exit 0 "
+              f"in {secs:.1f} s")
+        for line in lines.values():
+            print(f"multi:   {line}")
+
+    def image(line):                     # magic and length of an image
+        return re.search(r"(N3H\w+) (\d+) B", line).groups()
+
+    def tokens(line):
+        return line.split("tokens ")[-1]
+    card, cpu = runs["card"]["lines"], runs["cpu"]["lines"]
+    for key in ("image", "decode"):
+        if image(card[key]) != image(cpu[key]):
+            raise AssertionError(f"{key} image on the card {image(card[key])}"
+                                 f" != on the CPU {image(cpu[key])}")
+    # the fleet serves fixed prompts on both; the compiled session's
+    # prompts are each run's own (full and smoke vocabularies). The
+    # sessions' glue (softmax, silu) is not bitwise across devices, so
+    # the fleet's tokens are compared, not required equal
+    same = tokens(card["fleet"]) == tokens(cpu["fleet"])
+    runs["fleet_tokens_equal_card_cpu"] = same
+    print(f"multi: compiled serving: images {image(card['image'])} and "
+          f"{image(card['decode'])} on the card and the CPU; fleet tokens "
+          f"{'equal' if same else 'differ'} on the two")
+
+    # in-process, launches counted: the quantized prefill (one flash
+    # launch a layer) and the compiled decode session (its program's
+    # kernels each step)
+    cfg = registry.get("llama3.2-1b").model
+    prog = compile_decode_network("llama3.2-1b", batch=1, max_seq=16,
+                                  opt_level=1)
+    n_steps = 4 + 4 - 1
+    want = collections.Counter({"flash_attention": cfg.n_layers})
+    for k, v in decode_launches(prog)["fused"].items():
+        want[k] += v * n_steps
+    LAUNCHES.clear()
+    summary = serve.main(SERVE_ACCEL[:-2] + ["--new-tokens", "2"])
+    torch.cuda.synchronize()
+    counts = read_window(LAUNCHES, dict(want),
+                         "launch.serve --quantize in-process")
+    if tokens(card["session"]) != str(summary["accel_tokens"][0, 4:]
+                                       .tolist()):
+        raise AssertionError(f"in-process session tokens "
+                             f"{summary['accel_tokens'].tolist()} != "
+                             f"{card['session']}")
+    print(f"multi: launch.serve --quantize in-process: launches {counts}; "
+          f"prefill {summary['prefill_ms']:.3f} ms")
+    out["serve"] = {"runs": runs, "launches": counts,
+                    "inprocess_prefill_ms": summary["prefill_ms"]}
+    return counts
+
+
+def fleet_cuda(torch, out: dict) -> dict:
+    """``FleetServer`` with a subprocess and a thread ``cuda`` worker on
+    the card: each request's tokens bitwise equal to a single-request
+    ``ExecutorSession`` on the card, under the continuous and the serial
+    policy; continuous must serve more requests/s. Returns the thread
+    worker's launches (the subprocess's are its own)."""
+    import numpy as np
+    from repro_torch.compiler import ExecutorSession, compile_decode_network
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve.engine import greedy_generate_compiled
+    from repro_torch.serve.fleet import FleetServer
+    prog = compile_decode_network(FLEET["arch"], batch=1,
+                                  max_seq=FLEET["max_seq"], opt_level=1)
+    oracle = ExecutorSession(prog, backend="cuda")
+    oracle.bind_synthetic_all(seed=FLEET["seed"])
+    want = [greedy_generate_compiled(oracle, np.array([p], np.int32),
+                                     n)[0].numpy()
+            for p, n in FLEET_REQUESTS]
+    n_tok = sum(n for _, n in FLEET_REQUESTS)
+    res, launches = {}, collections.Counter()
+    for policy in ("continuous", "serial"):
+        t0 = time.time()
+        with FleetServer(FLEET["arch"], [("w0", "cuda", "subprocess"),
+                                         ("w1", "cuda", "thread")],
+                         batch_slots=FLEET["batch_slots"],
+                         max_seq=FLEET["max_seq"], seed=FLEET["seed"],
+                         policy=policy) as fleet:
+            start_s = time.time() - t0
+            for f in [fleet.submit([1], 1) for _ in range(4)]:   # warm-up
+                f.result(600)
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            futs = [fleet.submit(p, n) for p, n in FLEET_REQUESTS]
+            rows = [f.result(600) for f in futs]
+            secs = time.perf_counter() - t0
+            counts = {k: v for k, v in LAUNCHES.items() if v}
+        for i, (row, exp) in enumerate(zip(rows, want)):
+            if not np.array_equal(row, exp):
+                raise AssertionError(f"fleet {policy} request {i}: tokens "
+                                     f"{row.tolist()} != single session "
+                                     f"{exp.tolist()}")
+        launches.update(counts)
+        res[policy] = {"s": secs, "req_per_s": len(rows) / secs,
+                       "tok_per_s": n_tok / secs, "start_s": start_s,
+                       "thread_worker_launches": counts}
+        print(f"multi: fleet {policy} (w0 cuda subprocess, w1 cuda thread, "
+              f"2 slots each; started in {start_s:.1f} s): "
+              f"{len(rows)} requests in {1e3 * secs:.1f} ms, "
+              f"{len(rows) / secs:.2f} req/s, {n_tok / secs:.1f} new tok/s; "
+              f"tokens bitwise equal to a single-request session on the "
+              f"card; thread worker launches {counts}")
+    if not res["continuous"]["req_per_s"] > res["serial"]["req_per_s"]:
+        raise AssertionError(f"continuous batching {res['continuous']} not "
+                             f"faster than serial {res['serial']}")
+    out["fleet"] = res
+    return dict(launches)
+
+
+def bundle_fleet(torch, out: dict) -> dict:
+    """``BundleFleet`` with two ``cuda`` thread workers on a 2-device
+    ``filter`` and ``pipeline`` FC bundle: bitwise equal to the
+    in-process ``MultiDeviceExecutor`` on the card, launches exactly the
+    device programs'. Returns those launches."""
+    import numpy as np
+    from repro_torch.compiler import GemmLayer, MultiDeviceExecutor, \
+        derive_plan, from_bundle_binary, lower_partitioned, to_bundle_binary
+    from repro_torch.core.scheduler import GemmDims
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve.fleet import BundleFleet
+    lut, dsp, dev = compiler_cfgs()
+    layers = [GemmLayer(f"fc{i}", GemmDims(*d))
+              for i, d in enumerate(FC_CHAIN)]
+    x = np.random.default_rng(0).integers(
+        -8, 8, FC_CHAIN[0][:2]).astype(np.int8)
+    launches, res = collections.Counter(), {}
+    for kind in ("filter", "pipeline"):
+        mdp = lower_partitioned("fc", layers, derive_plan(layers, 2, kind),
+                                lut, dsp, dev, bits_w_lut=4, bits_a=4,
+                                opt_level=1)
+        image = to_bundle_binary(mdp)
+        mex = MultiDeviceExecutor(from_bundle_binary(image), backend="cuda")
+        for gi in range(mdp.n_layers):
+            mex.bind_synthetic(gi)
+        want = mex.run(x).cpu()
+        per_run = bundle_launches(mdp, mex.executors, "fused",
+                                  lambda p, _e: decode_launches(p))
+        with BundleFleet(image, seed=None, backends=["cuda", "cuda"]) as bf:
+            bf.run(x)
+            LAUNCHES.clear()
+            ms, got = [], None
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = bf.run(x)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counts = read_launches(LAUNCHES, per_run, 5,
+                                   f"BundleFleet {kind}")
+        require_equal(torch, f"BundleFleet {kind} vs MultiDeviceExecutor",
+                      torch.from_numpy(got), want)
+        launches.update(counts)
+        res[kind] = {"ms": ms, "median_ms": statistics.median(ms),
+                     "launches_per_run": per_run}
+        print(f"multi: BundleFleet {kind} x2 (cuda thread workers, FC chain "
+              f"{FC_CHAIN}): bitwise equal to MultiDeviceExecutor; "
+              f"{statistics.median(ms):.3f} ms per run "
+              f"({', '.join(f'{v:.3f}' for v in ms)}); launches per run "
+              f"{per_run}")
+    out["bundle_fleet"] = res
+    return dict(launches)
+
+
+def phase_multi(torch, details: dict) -> dict:
+    """Multi-device bundles and compiled serving on the card: the CNN
+    bundles, the llama3.2-1b decode bundles, ``launch.serve --quantize
+    ... --fleet 2``, a ``cuda`` fleet and ``BundleFleet``. Returns the
+    launches of every counted window, per kernel."""
+    out = details.setdefault("multi", {})
+    launches = collections.Counter()
+    for part in (cnn_bundles, decode_bundles, compiled_serving, fleet_cuda,
+                 bundle_fleet):
+        t0 = time.time()
+        launches.update(part(torch, out))
+        out.setdefault("part_s", {})[part.__name__] = time.time() - t0
+        print(f"multi: {part.__name__} {time.time() - t0:.1f} s")
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2116,6 +2717,15 @@ def main(argv=None) -> int:
     phase("golden", phase_golden, torch, prog, details)
     harness = phase("accuracy", phase_accuracy, torch, details)
     print(f"accuracy: harness launches over its measure() runs {harness}")
+    multi = phase("multi", phase_multi, torch, details)
+    print(f"multi: launches over the phase's counted windows {multi}")
+    for name in ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
+                 "int4_gemm", "flash_attention", "depthwise_conv_gemm"):
+        if not multi.get(name):
+            raise AssertionError(f"{name} not launched on the multi-device "
+                                 f"path ({multi})")
+        counts["depthwise_gemm" if name == "depthwise_conv_gemm"
+               else name] += multi[name]
     kernels = []
     for name, replaces in REPLACES.items():
         t = tot[name]

@@ -11,13 +11,20 @@ Examples::
         --execute --torch-device cpu                          # plain versions
     python -m repro_torch.compiler llama3.2-1b --decode --execute
     python -m repro_torch.compiler mamba2-780m --decode --simulate
+    python -m repro_torch.compiler llama3.2-1b --format asm   # text assembly
+    python -m repro_torch.compiler mobilenet_v2 --format bin -o mb2.n3h
+    python -m repro_torch.compiler resnet18 --devices 2 --partition filter \
+        --execute                                         # multi-device bundle
     python -m repro_torch.compiler --list
 
-The counterpart of ``repro.compiler.cli`` on one device: CNN programs,
-the registry archs' fixed-sequence programs (their smoke configs at
-``--seq-len``) and their decode-step programs (``--decode``), which
-``--execute`` drives through an ``ExecutorSession``. Multi-device
-bundles and the asm/bin formats are ported in later slices.
+The counterpart of ``repro.compiler.cli``: CNN programs, the registry
+archs' fixed-sequence programs (their smoke configs at ``--seq-len``)
+and their decode-step programs (``--decode``), which ``--execute``
+drives through an ``ExecutorSession``; ``--devices N`` / ``--partition``
+compile a multi-device bundle, executed through
+``MultiDeviceExecutor`` with every simulated device on the one torch
+device. ``--format asm|bin`` writes the same text and images as the
+reference's CLI.
 """
 from __future__ import annotations
 
@@ -34,12 +41,21 @@ from repro_torch.core.scheduler import (
     simulate_program,
 )
 from repro_torch.quant.uniform import qrange
+from repro_torch.compiler import asm
 from repro_torch.compiler.lower import lower_network
 from repro_torch.compiler.networks import decode_step_layers, \
     list_networks, network_layers
+from repro_torch.compiler.partition import (
+    PLAN_KINDS,
+    LinkModel,
+    PartitionError,
+    decorate_decode_bundle,
+    derive_plan,
+    lower_partitioned,
+)
 from repro_torch.compiler.passes import OPT_LEVELS
 from repro_torch.compiler.runtime import BACKENDS, ExecutorSession, \
-    bind_synthetic, get_backend
+    MultiDeviceExecutor, bind_synthetic, get_backend
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,6 +95,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lut-m", type=int, default=8)
     p.add_argument("--lut-n", type=int, default=16)
     p.add_argument("--lut-k", type=int, default=128)
+    p.add_argument("--devices", type=int, default=1,
+                   help="compile for N coordinated devices (a "
+                        "multi-device bundle when N > 1 or --partition "
+                        "is given)")
+    p.add_argument("--partition", choices=PLAN_KINDS, default=None,
+                   help="partition plan kind: pipeline stages or "
+                        "filter-parallel shards; default derives from "
+                        "the parallel/ axis rules")
+    p.add_argument("--link-latency", type=int, default=None,
+                   help="cross-device link latency in cycles "
+                        "(default: LinkModel default)")
+    p.add_argument("--batches", type=int, default=8,
+                   help="back-to-back inputs the multi-device makespan "
+                        "covers under --simulate (pipeline plans "
+                        "overlap them)")
     p.add_argument("-O", "--opt", type=int, default=0, choices=OPT_LEVELS,
                    help="optimization level: 0 = canonical Fig.-3 schedule, "
                         "1 = passes.py pipeline")
@@ -87,13 +118,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--torch-device", default="cuda",
                    help="torch device --execute runs on (cpu runs the "
                         "kernels' plain versions)")
+    p.add_argument("--format", choices=("summary", "asm", "bin"),
+                   default="summary")
     p.add_argument("--simulate", action="store_true",
-                   help="also run the event-driven simulator")
+                   help="also run the event-driven simulator (summary "
+                        "mode)")
     p.add_argument("--execute", action="store_true",
                    help="also execute the program with synthetic weights "
                         "via --backend: CNN programs end to end, decode "
                         "programs as a 4-token greedy session, other LM "
-                        "programs layer by layer")
+                        "programs layer by layer (summary mode)")
+    p.add_argument("-o", "--output", default=None,
+                   help="write asm/bin to a file instead of stdout")
     return p
 
 
@@ -101,11 +137,18 @@ def compile_network(name: str, *, device: str = "XC7Z020", bits_w: int = 4,
                     bits_a: int = 4, ratio: float | None = None,
                     seq_len: int = 64, lut_m: int = 8, lut_n: int = 16,
                     lut_k: int = 128, opt_level: int = 0,
+                    devices: int = 1, partition: str | None = None,
+                    link_latency: int | None = None,
                     in_hw: int | None = None, width: float | None = None):
-    """Programmatic entry point: one single-device ``Program``.
-    ``in_hw``/``width`` scale the CNN workloads to their reduced
-    geometry-consistent variants (ignored for LM archs, which compile
-    their smoke configs at ``seq_len`` tokens)."""
+    """Programmatic entry point used by the CLI, the launcher and tests.
+
+    ``devices > 1`` (or an explicit ``partition`` kind) compiles a
+    multi-device ``MultiDeviceProgram`` bundle under a plan derived by
+    ``partition.derive_plan``; otherwise the legacy single
+    ``Program``. ``in_hw``/``width`` scale the CNN workloads to their
+    reduced geometry-consistent variants (ignored for LM archs, which
+    compile their smoke configs at ``seq_len`` tokens).
+    """
     dev = DEVICES[device]
     lut_cfg = LutCoreConfig(m=lut_m, n=lut_n, k=lut_k)
     dsp_cfg = DspCoreConfig(n_reg_row_a=DspCoreConfig.rows_for_device(dev))
@@ -113,16 +156,25 @@ def compile_network(name: str, *, device: str = "XC7Z020", bits_w: int = 4,
     n_luts = None
     if ratio is not None:
         n_luts = [int(round(ratio * gl.dims.n)) for gl in layers]
-    return lower_network(name, layers, lut_cfg, dsp_cfg, dev,
-                         bits_w_lut=bits_w, bits_a=bits_a,
-                         n_luts=n_luts, opt_level=opt_level)
+    if devices == 1 and partition is None:
+        return lower_network(name, layers, lut_cfg, dsp_cfg, dev,
+                             bits_w_lut=bits_w, bits_a=bits_a,
+                             n_luts=n_luts, opt_level=opt_level)
+    link = LinkModel() if link_latency is None \
+        else LinkModel(latency_cycles=link_latency)
+    plan = derive_plan(layers, devices, kind=partition, link=link)
+    return lower_partitioned(name, layers, plan, lut_cfg, dsp_cfg, dev,
+                             bits_w_lut=bits_w, bits_a=bits_a,
+                             n_luts=n_luts, opt_level=opt_level)
 
 
 def compile_decode_network(name: str, *, batch: int = 1, max_seq: int = 64,
                            device: str = "XC7Z020", bits_w: int = 4,
                            bits_a: int = 4, ratio: float | None = None,
                            lut_m: int = 8, lut_n: int = 16, lut_k: int = 128,
-                           opt_level: int = 0):
+                           opt_level: int = 0, devices: int = 1,
+                           partition: str | None = None,
+                           link_latency: int | None = None):
     """Compile the decode-mode step program of an lm/ssm/hybrid arch
     (its smoke config).
 
@@ -131,8 +183,9 @@ def compile_decode_network(name: str, *, batch: int = 1, max_seq: int = 64,
     by the warm-up invocation, reused by ``lower.steady_program``
     afterwards), attention K/V projections append to ``kv`` cache
     segments sized for ``max_seq`` positions and SSM blocks carry a
-    persistent ``state`` segment. Multi-device bundles are not ported
-    yet.
+    persistent ``state`` segment. ``devices > 1`` compiles the bundle
+    via ``lower_partitioned`` and decode-decorates every per-device
+    program (``partition.decorate_decode_bundle``).
     """
     dev = DEVICES[device]
     lut_cfg = LutCoreConfig(m=lut_m, n=lut_n, k=lut_k)
@@ -141,9 +194,54 @@ def compile_decode_network(name: str, *, batch: int = 1, max_seq: int = 64,
     n_luts = None
     if ratio is not None:
         n_luts = [int(round(ratio * gl.dims.n)) for gl in layers]
-    return lower_network(f"{name}.decode", layers, lut_cfg, dsp_cfg,
-                         dev, bits_w_lut=bits_w, bits_a=bits_a,
-                         n_luts=n_luts, opt_level=opt_level, step=spec)
+    if devices == 1 and partition is None:
+        return lower_network(f"{name}.decode", layers, lut_cfg, dsp_cfg,
+                             dev, bits_w_lut=bits_w, bits_a=bits_a,
+                             n_luts=n_luts, opt_level=opt_level, step=spec)
+    link = LinkModel() if link_latency is None \
+        else LinkModel(latency_cycles=link_latency)
+    plan = derive_plan(layers, devices, kind=partition, link=link)
+    mdp = lower_partitioned(f"{name}.decode", layers, plan, lut_cfg,
+                            dsp_cfg, dev, bits_w_lut=bits_w, bits_a=bits_a,
+                            n_luts=n_luts, opt_level=opt_level)
+    return decorate_decode_bundle(mdp, spec)
+
+
+def summarize_bundle(mdp, simulate: bool = False, batches: int = 8) -> str:
+    """Multi-device summary: plan, per-device programs, hand-offs."""
+    lines = [
+        f"bundle    {mdp.name}  ({mdp.plan.describe()})",
+        f"devices   {mdp.n_devices}  layers {mdp.n_layers} (global)",
+        f"edges     {len(mdp.edges)} cross-device channel(s), "
+        f"{sum(e.nbytes for e in mdp.edges)} B/traversal over the link",
+        f"link      {mdp.plan.link.latency_cycles} cycle latency, "
+        f"{mdp.plan.link.bytes_per_cycle} B/cycle",
+    ]
+    for d, prog in enumerate(mdp.devices):
+        s = prog.stats()
+        lines.append(f"  dev{d}  {len(prog.layers)} layers, "
+                     f"{s.n_instructions} instrs, "
+                     f"{s.ddr_footprint} B ddr, "
+                     f"{s.bytes_fetched / 1e6:.3f} MB fetched")
+    if mdp.devices and mdp.devices[0].opt_stats:
+        lines.append("passes    (per device)")
+        for ps in mdp.devices[0].opt_stats:
+            lines.append(f"  dev0 {ps.render()}")
+    if simulate:
+        t0 = time.time()
+        bs = simulate_program(mdp, batches=batches)
+        dt = time.time() - t0
+        dev0 = mdp.devices[0].device
+        lines.append(
+            f"simulated {bs.total_cycles} cycles makespan for "
+            f"{bs.batches} input(s) "
+            f"({dev0.cycles_to_ms(bs.total_cycles):.3f} ms @ "
+            f"{dev0.freq_mhz:.0f} MHz; sim wall {dt:.2f}s)")
+        lines.append(f"  latency/traversal {bs.latency_cycles} cycles, "
+                     f"steady-state interval {bs.interval_cycles}")
+        for d, s in enumerate(bs.device_sims):
+            lines.append(f"  dev{d}: {s.total_cycles} cycles")
+    return "\n".join(lines)
 
 
 def summarize(prog, simulate: bool = False) -> str:
@@ -209,14 +307,30 @@ def execute_report(prog, backend: str = "cuda", seed: int = 0,
     weights and activations come from the same numpy generators as the
     reference's report, so the checksums are comparable between the two
     packages.
+
+    Accepts a single ``Program`` or a multi-device bundle; the bundle
+    path drives the same synthetic weights and activations through
+    ``MultiDeviceExecutor``, so its checksum is bit-identical to the
+    single-device run of the same network.
     """
-    if getattr(prog, "step", None) is not None:
+    is_bundle = hasattr(prog, "devices")
+    step = getattr(prog.devices[0] if is_bundle else prog, "step", None)
+    if step is not None:
         return _decode_session_report(prog, backend, seed, device)
-    layers = prog.layers
-    ex = get_backend(backend)(prog, device=device)
+    if is_bundle:
+        ex = MultiDeviceExecutor(prog, backend=backend, device=device)
+        layers = ex.layers
+    else:
+        ex = get_backend(backend)(prog, device=device)
+        layers = prog.layers
     rng = np.random.default_rng(seed)
+    what = f"{backend} backend" if not is_bundle else \
+        f"{backend} backend x{prog.n_devices} devices"
     for lp in layers:
-        bind_synthetic(ex, lp, seed=seed + lp.index)
+        if is_bundle:
+            ex.bind_synthetic(lp.index, seed=seed + lp.index)
+        else:
+            bind_synthetic(ex, lp, seed=seed + lp.index)
     if layers and all(lp.geometry is not None for lp in layers):
         lp0 = layers[0]
         lo_a, hi_a = qrange(lp0.bits_a)
@@ -226,7 +340,7 @@ def execute_report(prog, backend: str = "cuda", seed: int = 0,
         logits = ex.run(x_q).cpu().numpy()
         dt = time.time() - t0
         return (f"executed  {len(layers)}/{len(layers)} layers end to "
-                f"end via {backend} backend in {dt:.3f}s "
+                f"end via {what} in {dt:.3f}s "
                 f"(logits [{logits.shape[0]},{logits.shape[1]}], "
                 f"|out| sum {float(np.abs(logits).sum()):.6e})")
 
@@ -241,7 +355,7 @@ def execute_report(prog, backend: str = "cuda", seed: int = 0,
                           .sum())
     dt = time.time() - t0
     return (f"executed  {len(layers)}/{len(layers)} layers via "
-            f"{backend} backend in {dt:.3f}s (|out| sum {checksum:.6e})")
+            f"{what} in {dt:.3f}s (|out| sum {checksum:.6e})")
 
 
 def _decode_session_report(prog, backend: str = "cuda", seed: int = 0,
@@ -275,25 +389,56 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: --ratio must be in [0, 1], got {args.ratio}",
               file=sys.stderr)
         return 2
+    if args.devices < 1:
+        print(f"error: --devices must be >= 1, got {args.devices}",
+              file=sys.stderr)
+        return 2
     try:
         if args.decode:
             prog = compile_decode_network(
                 args.network, batch=args.batch, max_seq=args.max_seq,
                 device=args.device, bits_w=args.bits_w, bits_a=args.bits_a,
                 ratio=args.ratio, lut_m=args.lut_m, lut_n=args.lut_n,
-                lut_k=args.lut_k, opt_level=args.opt)
+                lut_k=args.lut_k, opt_level=args.opt,
+                devices=args.devices, partition=args.partition,
+                link_latency=args.link_latency)
         else:
             prog = compile_network(
                 args.network, device=args.device, bits_w=args.bits_w,
                 bits_a=args.bits_a, ratio=args.ratio, seq_len=args.seq_len,
                 lut_m=args.lut_m, lut_n=args.lut_n, lut_k=args.lut_k,
-                opt_level=args.opt, in_hw=args.in_hw, width=args.width)
-    except (KeyError, ValueError) as e:
+                opt_level=args.opt, devices=args.devices,
+                partition=args.partition, link_latency=args.link_latency,
+                in_hw=args.in_hw, width=args.width)
+    except (KeyError, ValueError, PartitionError) as e:
         msg = e.args[0] if e.args else e
         print(f"error: {msg}", file=sys.stderr)
         return 2
-    print(summarize(prog, simulate=args.simulate))
-    if args.execute:
-        print(execute_report(prog, backend=args.backend,
-                             device=args.torch_device))
+
+    is_bundle = hasattr(prog, "devices")
+    if args.format == "summary":
+        if is_bundle:
+            print(summarize_bundle(prog, simulate=args.simulate,
+                                   batches=args.batches))
+        else:
+            print(summarize(prog, simulate=args.simulate))
+        if args.execute:
+            print(execute_report(prog, backend=args.backend,
+                                 device=args.torch_device))
+        return 0
+    if args.format == "asm":
+        text = asm.disassemble_bundle(prog) if is_bundle \
+            else asm.disassemble(prog)
+        if args.output:
+            with open(args.output, "w") as f:
+                f.write(text)
+        else:
+            sys.stdout.write(text)
+        return 0
+    blob = asm.to_bundle_binary(prog) if is_bundle else asm.to_binary(prog)
+    if args.output:
+        with open(args.output, "wb") as f:
+            f.write(blob)
+    else:
+        sys.stdout.buffer.write(blob)
     return 0

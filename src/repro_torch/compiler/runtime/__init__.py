@@ -7,6 +7,10 @@
   cuda.py    — :class:`CudaExecutor`: one fused split-GEMM kernel
                launch per *layer* on the card (im2col-free convs;
                ``fused=False`` for the per-partition path).
+  multi.py   — :class:`MultiDeviceExecutor`: steps a
+               ``partition.MultiDeviceProgram`` bundle, one backend
+               executor per simulated device (all on one torch device),
+               with the cross-device hand-off.
   session.py — decode sessions: :class:`ExecutorSession` (resident
                weights + live KV/state over a backend, warm-up then
                steady program) and the plain :class:`ReferenceSession`.
@@ -30,6 +34,8 @@ from repro_torch.compiler.runtime.base import (
 )
 from repro_torch.compiler.runtime.cuda import CudaExecutor
 from repro_torch.compiler.runtime.golden import GoldenExecutor
+from repro_torch.compiler.runtime.multi import MultiDeviceExecutor, \
+    global_layers
 from repro_torch.compiler.runtime.session import (
     DecodeSession,
     ExecutorSession,
@@ -57,8 +63,9 @@ def get_backend(name: str) -> type[ExecutorBackend]:
 __all__ = [
     "BACKENDS", "CudaExecutor", "DecodeSession", "ExecutionError",
     "ExecutorBackend", "ExecutorSession", "GoldenExecutor", "LayerWeights",
-    "ReferenceSession", "apply_pool", "bind_numpy_weights", "bind_synthetic",
-    "chain_layers", "decode_step_ref", "get_backend", "im2col_patches",
+    "MultiDeviceExecutor", "ReferenceSession", "apply_pool",
+    "bind_numpy_weights", "bind_synthetic", "chain_layers",
+    "decode_step_ref", "get_backend", "global_layers", "im2col_patches",
     "requantize", "requantize_rows", "spatialize", "synthetic_decode_arrays",
     "synthetic_weights",
 ]

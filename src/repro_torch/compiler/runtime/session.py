@@ -362,6 +362,12 @@ class DecodeSession:
             raise ExecutionError(
                 "no embedding table bound (bind_embedding / "
                 "bind_synthetic_all)")
+        # the reference's gather clamps a token past the table to its
+        # last row (a negative one counts from the end first), as JAX
+        # indexing does; the launcher feeds the full vocabulary's
+        # prompts to the smoke decode program's table
+        vocab = self._embed_table.shape[0]
+        tok = torch.where(tok < 0, tok + vocab, tok).clamp(0, vocab - 1)
         return self._embed_table[tok]
 
     # -- glue units --------------------------------------------------------
@@ -573,7 +579,9 @@ class ExecutorSession(DecodeSession):
     ``step(token, pos)`` repeatedly.
 
     ``program`` is a decode-decorated
-    :class:`~repro_torch.compiler.program.Program`. The first step
+    :class:`~repro_torch.compiler.program.Program` (or a decorated
+    ``MultiDeviceProgram`` bundle — the session then drives a
+    ``MultiDeviceExecutor`` per phase). The first step
     executes the warm-up program (weight DMAs included); later steps
     execute the steady-state variant (``compiler/lower.py
     steady_program``) whose weight fetches are elided — on the golden
@@ -588,23 +596,41 @@ class ExecutorSession(DecodeSession):
 
     def __init__(self, program, backend: str | type = "cuda",
                  tracer=None, device="cuda", **backend_kwargs):
-        if hasattr(program, "devices"):
-            raise NotImplementedError(
-                f"{program.name}: multi-device decode bundles are not "
-                f"ported yet (ROADMAP queue 1, item 4: "
-                f"compiler/partition.py and runtime/multi.py)")
-        from repro_torch.compiler.runtime import get_backend
-        spec = program.step
-        self.steady = steady_program(program)
-        cls = get_backend(backend) if isinstance(backend, str) else backend
-        self._warm_ex = cls(program, tracer=tracer, device=device,
-                            **backend_kwargs)
-        self._steady_ex = cls(self.steady, tracer=tracer, device=device,
-                              **backend_kwargs)
-        self.session_name = self._warm_ex.name
+        from repro_torch.compiler.partition import (MultiDeviceProgram,
+                                                    steady_bundle)
+        if isinstance(program, MultiDeviceProgram):
+            from repro_torch.compiler.runtime.multi import \
+                MultiDeviceExecutor
+            spec = program.devices[0].step
+            if spec is None:
+                raise ExecutionError(
+                    f"{program.name}: bundle is not decode-decorated "
+                    f"(partition.decorate_decode_bundle)")
+            self.steady = steady_bundle(program)
+            self._warm_ex = MultiDeviceExecutor(
+                program, backend=backend, tracer=tracer, device=device,
+                **backend_kwargs)
+            self._steady_ex = MultiDeviceExecutor(
+                self.steady, backend=backend, tracer=tracer, device=device,
+                **backend_kwargs)
+            bname = backend if isinstance(backend, str) else backend.name
+            self.session_name = f"multi.{bname}"
+            layers = self._warm_ex.layers
+        else:
+            from repro_torch.compiler.runtime import get_backend
+            spec = program.step
+            self.steady = steady_program(program)
+            cls = get_backend(backend) if isinstance(backend, str) \
+                else backend
+            self._warm_ex = cls(program, tracer=tracer, device=device,
+                                **backend_kwargs)
+            self._steady_ex = cls(self.steady, tracer=tracer, device=device,
+                                  **backend_kwargs)
+            self.session_name = self._warm_ex.name
+            layers = program.layers
         self.warm = program
         self._warmed = False
-        super().__init__(program.layers, spec, program.name, tracer, device)
+        super().__init__(layers, spec, program.name, tracer, device)
 
     def bind_layer(self, index, w_lut=None, s_lut=None,
                    w_dsp=None, s_dsp=None) -> None:

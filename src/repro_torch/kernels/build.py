@@ -11,7 +11,9 @@ at once. Nothing is built when this module is imported.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds
 one where it launches its kernel, and nowhere else, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. The count and the first
+load of a library take a lock: fleet workers launch from several
+threads at once.
 """
 from __future__ import annotations
 
@@ -62,6 +64,7 @@ SOURCE_OF = {name: src for src, entries in SOURCES.items()
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -164,6 +167,7 @@ def launch(name: str, x, *args) -> None:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, name)(*args, stream)
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

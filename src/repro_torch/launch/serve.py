@@ -1,9 +1,13 @@
 """Serving launcher: batched prefill + greedy decode over synthetic
-prompts, reporting per-phase latency and token throughput.
+prompts, reporting per-phase latency and token throughput; optionally
+the paper's hybrid quantization on every projection and the compiled
+accelerator program served through decode sessions and the fleet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --quantize --accel-devices 2 --accel-partition filter --fleet 2
 
 The counterpart of ``repro.launch.serve``. Weights are random, made on
 the device from ``--seed``; prompts come from ``SyntheticTokens`` with
@@ -15,24 +19,150 @@ params). Prefill and decode times go to ``obs.METRICS`` as
 ``serve.request.*``; each timed region ends in
 ``torch.cuda.synchronize()`` on the card. Archs whose module is not
 ``lm`` (mamba2-780m, jamba-v0.1-52b) are refused with exit code 2: the
-port has their configs but not their forwards yet. The reference's
-``--quantize``, ``--fleet`` and ``--accel-*`` options come with later
-slices.
+port has their configs but not their forwards yet.
+
+``--quantize`` fake-quantizes every attention projection (the LM's
+``HeteroQuantConfig``: ``--w-bits`` LUT columns at ``--ratio``, 8-bit
+activations), then prints the accelerator program image for the
+serving config (``N3HPROG1``, or an ``N3HBUND1`` bundle for
+``--accel-devices`` > 1), the decode-step image, and a greedy decode
+through a compiled session on ``--accel-backend`` (``cuda``: the
+split-GEMM kernels; ``golden``: the contract-checking interpreter).
+``--fleet N`` also serves the decode program through N golden thread
+workers behind ``serve.fleet.FleetServer``. The compiled programs are
+the registry arch's smoke config, as in the reference.
+
+Accelerator program cache: serving hot paths that ship compiled ISA
+programs to accelerator workers reuse serialized ``N3HPROG1`` /
+``N3HBUND1`` images from an in-process LRU keyed by the full compile
+key (arch, device, bits, ratio, opt level, seq len, partition plan)
+instead of re-lowering the network per request —
+:func:`compiled_program_image` is the single entry point.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import sys
+import threading
 import time
 
 import torch
 
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.models.lm import HeteroQuantConfig
 from repro_torch.obs import METRICS
 from repro_torch.serve.engine import greedy_token, make_cache, \
     make_decode_fn, make_prefill_fn
+
+
+# ---------------------------------------------------------------------------
+# Compiled-program LRU (serving-time N3HPROG1/N3HBUND1 reuse)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramKey:
+    """Full compile identity of a servable accelerator program.
+
+    ``mode="fixed"`` is the classic fixed-sequence program;
+    ``mode="decode"`` is the decode-resident step program (weights
+    resident across invocations, KV/state segments persistent), keyed
+    additionally by ``batch`` and ``max_seq``.
+    """
+    arch: str
+    device: str = "XC7Z020"
+    bits_w: int = 4
+    bits_a: int = 4
+    ratio: float | None = None
+    opt_level: int = 1
+    seq_len: int = 64
+    devices: int = 1
+    partition: str | None = None
+    mode: str = "fixed"
+    batch: int = 1
+    max_seq: int = 0
+
+
+class ProgramCache:
+    """Thread-safe LRU of compiled program images.
+
+    Values are the serialized images (``N3HPROG1`` for single-device
+    keys, ``N3HBUND1`` for multi-device plans) — deterministic and
+    bit-exact, so they can be shipped to workers byte-for-byte. A miss
+    lowers the network through ``repro_torch.compiler`` once; every
+    further request under the same key is a dictionary hit.
+    """
+
+    def __init__(self, maxsize: int = 16):
+        self.maxsize = maxsize
+        self._images: "collections.OrderedDict[ProgramKey, bytes]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: ProgramKey) -> bytes:
+        with self._lock:
+            image = self._images.get(key)
+            if image is not None:
+                self._images.move_to_end(key)
+                self.hits += 1
+                METRICS.incr("serve.program_cache.hit")
+                return image
+        t0 = time.time()
+        image = self._compile(key)
+        METRICS.observe("serve.program_cache.compile_ms",
+                        (time.time() - t0) * 1e3)
+        with self._lock:
+            self.misses += 1
+            METRICS.incr("serve.program_cache.miss")
+            self._images[key] = image
+            while len(self._images) > self.maxsize:
+                self._images.popitem(last=False)
+        return image
+
+    @staticmethod
+    def _compile(key: ProgramKey) -> bytes:
+        from repro_torch.compiler import (asm, compile_decode_network,
+                                          compile_network)
+        if key.mode == "decode":
+            prog = compile_decode_network(
+                key.arch, batch=key.batch,
+                max_seq=key.max_seq or key.seq_len, device=key.device,
+                bits_w=key.bits_w, bits_a=key.bits_a, ratio=key.ratio,
+                opt_level=key.opt_level, devices=key.devices,
+                partition=key.partition)
+        else:
+            prog = compile_network(
+                key.arch, device=key.device, bits_w=key.bits_w,
+                bits_a=key.bits_a, ratio=key.ratio, seq_len=key.seq_len,
+                opt_level=key.opt_level, devices=key.devices,
+                partition=key.partition)
+        if hasattr(prog, "devices"):
+            return asm.to_bundle_binary(prog)
+        return asm.to_binary(prog)
+
+    def info(self) -> dict:
+        with self._lock:
+            return {"programs": len(self._images), "hits": self.hits,
+                    "misses": self.misses, "maxsize": self.maxsize}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._images.clear()
+            self.hits = self.misses = 0
+
+
+#: process-wide cache; serving code and tests share it.
+PROGRAM_CACHE = ProgramCache()
+
+
+def compiled_program_image(key: ProgramKey) -> bytes:
+    """Serialized accelerator program for ``key`` (LRU-cached)."""
+    return PROGRAM_CACHE.get(key)
 
 
 def _sync(device: torch.device) -> None:
@@ -48,7 +178,34 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--quantize", action="store_true",
+                    help="enable the paper's hybrid quantization on all "
+                         "projections (w: 4b LUT-path ratio 0.5, a: 8b)")
+    ap.add_argument("--w-bits", type=int, default=4)
+    ap.add_argument("--ratio", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--accel-devices", type=int, default=1,
+                    help="accelerator count for the compiled ISA program "
+                         "image shipped to workers (--quantize path)")
+    ap.add_argument("--accel-partition", choices=("pipeline", "filter"),
+                    default=None,
+                    help="partition plan for --accel-devices > 1")
+    ap.add_argument("--accel-backend", choices=("golden", "cuda"),
+                    default="cuda",
+                    help="executor backend for the compiled decode "
+                         "session demo (--quantize path; it runs on "
+                         "--device)")
+    ap.add_argument("--accel-decode-tokens", type=int, default=4,
+                    help="tokens to generate through the compiled "
+                         "decode-resident session (--quantize path; "
+                         "0 disables the session demo)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="also serve through the distributed fleet: N "
+                         "in-process golden workers behind the async "
+                         "program server with continuous batching "
+                         "(repro_torch.serve.fleet), on --device; fleet "
+                         "request/worker counters land in the same "
+                         "--metrics export")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -58,6 +215,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     arch = registry.get(args.arch)
+    if args.quantize and arch.module != "lm":
+        raise SystemExit("--quantize drives the lm family here; other "
+                         "families quantize via HeteroLinear directly")
     if arch.module != "lm":
         # the registry has this arch's config (the compiler and the
         # decode sessions read it) but the port has no forward for it
@@ -81,6 +241,11 @@ def main(argv=None) -> dict:
                          "to serve on the CPU")
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
+    if args.quantize:
+        arch = dataclasses.replace(
+            arch, model=dataclasses.replace(
+                arch.model, hetero_quant=HeteroQuantConfig(
+                    w_bits_lut=args.w_bits, a_bits=8, ratio=args.ratio)))
     cfg = arch.model
     max_seq = args.prompt_len + args.new_tokens
 
@@ -121,7 +286,12 @@ def main(argv=None) -> dict:
                   total_new / max(t_decode, 1e-9))
 
     tokens = torch.cat(out, dim=1).cpu()
-    print(f"# arch={cfg.name} device={device}")
+    result = {"prompts": prompts.cpu(), "tokens": tokens,
+              "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+              "decode_ms_per_step": t_decode * 1e3 / n_steps}
+    if args.quantize:
+        result.update(_accel(args, prompts.cpu(), max_seq, device))
+    print(f"# arch={cfg.name} quantized={args.quantize} device={device}")
     print(f"prefill: {t_prefill * 1e3:8.1f} ms "
           f"({args.batch * args.prompt_len / max(t_prefill, 1e-9):.0f} "
           f"tok/s)")
@@ -129,12 +299,90 @@ def main(argv=None) -> dict:
           f"{t_decode * 1e3 / n_steps:.1f} ms/step, "
           f"{total_new / max(t_decode, 1e-9):.0f} tok/s")
     print("sample tokens:", [int(t) for t in tokens[0, :16]])
+    if args.fleet > 0:
+        result["fleet_tokens"] = _fleet(args, device)
     if args.metrics:
         METRICS.save(args.metrics)
         print(f"# metrics written to {args.metrics}")
-    return {"prompts": prompts.cpu(), "tokens": tokens,
-            "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
-            "decode_ms_per_step": t_decode * 1e3 / n_steps}
+    return result
+
+
+def _accel(args, prompts: torch.Tensor, max_seq: int,
+           device: torch.device) -> dict:
+    """The ``--quantize`` path's compiled programs: the deployable ISA
+    image for this serving config, the decode-resident step image, and
+    a live greedy decode through a compiled session on ``device``."""
+    # the LRU means repeat requests under the same key ship the cached
+    # image instead of re-lowering the network
+    key = ProgramKey(
+        arch=args.arch, bits_w=args.w_bits, bits_a=8,
+        ratio=args.ratio, opt_level=1, seq_len=args.prompt_len,
+        devices=args.accel_devices,
+        partition=args.accel_partition)
+    t0 = time.time()
+    image = compiled_program_image(key)
+    t_img = time.time() - t0
+    print(f"# accel program {image[:8].decode()} "
+          f"{len(image)} B in {t_img * 1e3:.1f} ms "
+          f"(cache {PROGRAM_CACHE.info()})")
+    # decode-resident step image for the same serving config (weights
+    # resident, KV persistent) + a live session demo
+    dkey = dataclasses.replace(
+        key, mode="decode", batch=1,
+        max_seq=min(max_seq, 16), bits_a=4)
+    dimage = compiled_program_image(dkey)
+    print(f"# accel decode program {dimage[:8].decode()} "
+          f"{len(dimage)} B (batch={dkey.batch} "
+          f"max_seq={dkey.max_seq})")
+    out = {"accel_image": image, "accel_decode_image": dimage}
+    if args.accel_decode_tokens > 0:
+        from repro_torch.serve.engine import (greedy_generate_compiled,
+                                              make_compiled_session)
+        session = make_compiled_session(
+            args.arch, backend=args.accel_backend, batch=1,
+            max_seq=dkey.max_seq, bits_w=args.w_bits,
+            seed=args.seed, torch_device=device)
+        s0 = min(4, dkey.max_seq - args.accel_decode_tokens)
+        t0 = time.time()
+        toks = greedy_generate_compiled(
+            session, prompts[:1, :s0], args.accel_decode_tokens)
+        _sync(device)
+        n_steps = s0 + args.accel_decode_tokens - 1
+        t_sess = time.time() - t0
+        warm = METRICS.snapshot()["gauges"].get(
+            "serve.decode.warmup_cycles", 0)
+        steady = METRICS.snapshot()["gauges"].get(
+            "serve.decode.steady_cycles", 0)
+        print(f"# accel decode session [{args.accel_backend}]: "
+              f"{n_steps} steps in {t_sess * 1e3:.1f} ms "
+              f"({n_steps / max(t_sess, 1e-9):.1f} tok/s host), "
+              f"sim {warm:.0f} warm-up / {steady:.0f} steady "
+              f"cycles/token, tokens "
+              f"{list(map(int, toks[0, s0:]))}")
+        out["accel_tokens"] = toks.cpu()
+    return out
+
+
+def _fleet(args, device: torch.device):
+    """Distributed-fleet demo: the same decode-resident program, served
+    by ``--fleet`` golden thread workers with continuous batching. Runs
+    before the --metrics export so the serve.fleet.* request/worker
+    counters land in the same registry file."""
+    from repro_torch.serve.fleet import FleetServer
+    workers = [(f"w{i}", "golden", "thread") for i in range(args.fleet)]
+    n_req = 2 * args.fleet + 2
+    t0 = time.time()
+    with FleetServer(args.arch, workers, batch_slots=2, max_seq=8,
+                     seed=args.seed, torch_device=str(device)) as fleet:
+        rows = [f.result(600) for f in
+                [fleet.submit([3, 11], 3) for _ in range(n_req)]]
+    t_fleet = time.time() - t0
+    print(f"# fleet[{args.fleet} workers]: {n_req} requests in "
+          f"{t_fleet:.1f} s "
+          f"({n_req / max(t_fleet, 1e-9):.2f} req/s), "
+          f"{METRICS.counter('serve.fleet.steps')} fleet steps, "
+          f"tokens {rows[0].tolist()}")
+    return rows
 
 
 if __name__ == "__main__":

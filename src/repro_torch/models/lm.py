@@ -1,10 +1,12 @@
 """Decoder-only LM of the dense llama family, in PyTorch.
 
 The counterpart of ``repro.models.lm`` for a dense config: no MoE, no
-MLA, no M-RoPE, no qk-norm, no hybrid quantization and no int8 KV
-cache (each of those raises ``NotImplementedError`` naming its later
-slice). Layers are stacked as in the reference (a leading "layers" axis
-on every leaf) and walked by a Python loop where the reference scans.
+MLA, no M-RoPE, no qk-norm and no int8 KV cache (each of those raises
+``NotImplementedError`` naming its later slice). With ``hetero_quant``
+set, every attention projection runs the reference's hybrid fake-quant
+forward (paper §4, QAT form; the launcher's ``--quantize``). Layers
+are stacked as in the reference (a leading "layers" axis on every
+leaf) and walked by a Python loop where the reference scans.
 Prefill attention runs on the flash-attention kernel; decode attention
 is plain torch over the cache.
 
@@ -23,11 +25,25 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.quant.hybrid import LayerQuantConfig
+from repro_torch.quant.uniform import fit_scale, qrange
 
 
 # ---------------------------------------------------------------------------
-# Config
+# Configs
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HeteroQuantConfig:
+    """Paper §4/§5 knobs applied to every projection of the LM."""
+    w_bits_lut: int = 4
+    a_bits: int = 4
+    ratio: float = 0.5         # columns on the flexible (bitplane) path
+
+    def layer_cfg(self) -> LayerQuantConfig:
+        return LayerQuantConfig(w_bits_lut=self.w_bits_lut,
+                                a_bits=self.a_bits, ratio=self.ratio)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +95,6 @@ _LATER = {
     "mla": "the MLA slice (deepseek-v2)",
     "mrope_sections": "the VLM slice (qwen2-vl)",
     "qk_norm": "the qwen3 slice",
-    "hetero_quant": "the HeteroLinear / --quantize slice",
     "kv_cache_quant": "the int8 KV-cache slice",
     "n_dense_prefix": "the MoE slice (deepseek-v2)",
 }
@@ -168,8 +183,35 @@ def params_from_jax(tree: Any, device=torch.device("cuda"),
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """The plain projection (hybrid fake-quant is a later slice)."""
-    return x @ w
+    """Projection with optional hybrid fake-quant (paper §4, QAT form),
+    cast for cast the reference's: fp32 quantization, the weight
+    rounded back to its dtype before the product, straight-through
+    forms. Every division is by a tensor on ``x``'s device (IEEE
+    division on the card too)."""
+    hq = cfg.hetero_quant
+    if hq is None:
+        return x @ w
+    out = w.shape[-1]
+    n_serial = int(round(hq.ratio * out))
+    # Column split without data-dependent permutation (the KL allocation
+    # is applied at deploy time; the boundary is static).
+    is_serial = torch.arange(out, device=w.device) < n_serial
+
+    def fq_w(w, bits):
+        hi = 2 ** (bits - 1) - 1
+        lim = torch.amax(torch.abs(w), dim=0, keepdim=True)
+        s = torch.clamp(lim.float(), min=1e-8) / torch.tensor(
+            float(hi), dtype=torch.float32, device=w.device)
+        q = torch.clamp(torch.round(w.float() / s), -(hi + 1), hi) * s
+        return w + (q.to(w.dtype) - w).detach()
+
+    w_q = torch.where(is_serial[None, :], fq_w(w, hq.w_bits_lut),
+                      fq_w(w, 4))
+    s_a = fit_scale(x.detach().float(), hq.a_bits)
+    lo, hi = qrange(hq.a_bits)
+    x_q = torch.clamp(torch.round(x.float() / s_a), lo, hi) * s_a
+    x_q = x + (x_q.to(x.dtype) - x).detach()
+    return x_q @ w_q
 
 
 def _layer(params: dict, i: int) -> dict:

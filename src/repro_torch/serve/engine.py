@@ -10,14 +10,27 @@ launcher one signature whatever the model:
 PyTorch runs eagerly, so there is no ``jit``; the cache is written in
 place and returned. ``attn_mode="ref"`` runs prefill attention on the
 flash kernel's plain version (the comparison run on the card).
+
+The compiled (quantized) serving path drives a registry arch's
+decode-step program through a decode-resident ``ExecutorSession``
+(``make_compiled_session``, ``greedy_generate_compiled``): weights
+bound once, warm-up program on the first token, steady program after,
+every GEMM a split-GEMM kernel launch on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.configs.registry import ArchConfig
+
+
+@dataclasses.dataclass
+class ServeState:
+    cache: Any
+    pos: int
 
 
 def _check_family(arch: ArchConfig) -> None:
@@ -81,3 +94,82 @@ def greedy_generate(arch: ArchConfig, params: Any, prompts: torch.Tensor,
         new.append(tok)
         pos += 1
     return torch.cat([prompts.to(torch.int32)] + new, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Compiled (quantized) serving path: decode-resident executor sessions
+# ---------------------------------------------------------------------------
+
+
+def make_compiled_session(arch_id: str, *, backend: str = "cuda",
+                          batch: int = 1, max_seq: int = 64,
+                          bits_w: int = 4, bits_a: int = 4,
+                          opt_level: int = 1, device: str = "XC7Z020",
+                          seed: int | None = None, tracer=None,
+                          torch_device="cuda"):
+    """Build a decode-resident :class:`~repro_torch.compiler.runtime.
+    session.ExecutorSession` for a registry arch: compile the decode
+    step program (weights resident, KV/state persistent), bind synthetic
+    quantized weights once, and report the simulator's warm-up vs
+    steady-state step cycles into ``obs.METRICS``
+    (``serve.decode.warmup_cycles`` / ``serve.decode.steady_cycles``).
+
+    ``device`` is the modelled FPGA the program is compiled for;
+    ``torch_device`` is where the session runs (the card unless the
+    caller asks for the CPU).
+    """
+    from repro_torch.obs import METRICS
+    from repro_torch.core.scheduler import simulate_program
+    from repro_torch.compiler import compile_decode_network
+    from repro_torch.compiler.runtime import ExecutorSession
+    prog = compile_decode_network(arch_id, batch=batch, max_seq=max_seq,
+                                  bits_w=bits_w, bits_a=bits_a,
+                                  opt_level=opt_level, device=device)
+    ds = simulate_program(prog)
+    METRICS.gauge("serve.decode.warmup_cycles", ds.warmup_cycles)
+    METRICS.gauge("serve.decode.steady_cycles", ds.steady_cycles)
+    session = ExecutorSession(prog, backend=backend, tracer=tracer,
+                              device=torch_device)
+    session.bind_synthetic_all(seed=seed)
+    return session
+
+
+def make_compiled_decode_fn(session) -> Callable:
+    """Adapt an ``ExecutorSession`` to the uniform decode signature.
+    ``params`` and ``cache`` pass through untouched — the session owns
+    the resident weights and the live cache buffers."""
+    def decode_fn(params, token, cache, pos):
+        logits = session.step(
+            torch.as_tensor(token).to(torch.int32).reshape(-1), int(pos))
+        return logits, cache
+    return decode_fn
+
+
+def greedy_generate_compiled(session, prompts, n_new: int) -> torch.Tensor:
+    """Greedy generation through a compiled decode session: the prompt
+    is consumed step by step (warm-up program on the first token,
+    steady-state program after), then ``n_new`` greedy tokens follow —
+    every step against the session's resident weights and live caches.
+
+    prompts: [B, S0] int (numpy or a tensor). Returns [B, S0 + n_new]
+    int32 on the prompts' device (the CPU for numpy prompts).
+    """
+    prompts = torch.as_tensor(prompts).to(torch.int32)
+    b, s0 = prompts.shape
+    if b != session.spec.batch:
+        raise ValueError(f"session is compiled for batch="
+                         f"{session.spec.batch}, prompts have {b}")
+    if s0 + n_new > session.spec.max_seq:
+        raise ValueError(f"{s0} prompt + {n_new} new tokens exceed the "
+                         f"session's max_seq={session.spec.max_seq}")
+    session.reset()
+    logits = None
+    for t in range(s0):
+        logits = session.step(prompts[:, t], t)
+    new = []
+    for i in range(n_new):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        new.append(tok[:, None].to(prompts.device))
+        if i + 1 < n_new:
+            logits = session.step(tok, s0 + i)
+    return torch.cat([prompts] + new, dim=1)

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import pytest
 
+from repro.compiler import asm as jasm
 from repro.compiler import cli as jcli
 from repro.compiler import compile_decode_network as compile_decode_jax
 from repro.compiler import compile_network as compile_jax
@@ -26,7 +27,7 @@ from repro.configs import registry as jregistry
 from repro_torch.compiler import compile_decode_network as \
     compile_decode_torch
 from repro_torch.compiler import compile_network as compile_torch
-from repro_torch.compiler import cli, list_networks, network_layers
+from repro_torch.compiler import asm, cli, list_networks, network_layers
 from repro_torch.configs import registry
 from repro_torch.core.workloads import WORKLOADS
 
@@ -38,18 +39,22 @@ COPIED = [
     "core/isa.py", "core/scheduler.py", "core/workloads.py",
     "core/latency_model.py", "core/split.py",
     "compiler/program.py", "compiler/lower.py", "compiler/passes.py",
-    "compiler/networks.py",
+    "compiler/networks.py", "compiler/asm.py", "compiler/partition.py",
     "obs/counters.py", "obs/trace.py", "obs/metrics.py",
+    "serve/protocol.py",
 ]
 
 #: (network, keyword arguments); ``decode`` compiles the decode-step
-#: program (``compile_decode_network``) instead of the fixed one
+#: program (``compile_decode_network``) instead of the fixed one, and
+#: ``devices`` / ``partition`` a multi-device bundle
 PROGRAMS = [
     ("resnet18", {}),
     ("resnet18", {"in_hw": 32, "width": 0.25}),
     ("mobilenet_v2", {}),
     ("llama3.2-1b", {"seq_len": 8}),
     ("llama3.2-1b", {"decode": True, "batch": 2, "max_seq": 16}),
+    ("resnet18", {"in_hw": 32, "width": 0.25, "devices": 2,
+                  "partition": "filter"}),
 ]
 
 
@@ -77,10 +82,23 @@ def _compile(fixed, decode, name, kw, opt_level):
 @pytest.mark.parametrize("opt_level", [0, 1])
 @pytest.mark.parametrize("name,kw", PROGRAMS,
                          ids=["resnet18", "resnet18-reduced", "mobilenet_v2",
-                              "llama3.2-1b", "llama3.2-1b-decode"])
+                              "llama3.2-1b", "llama3.2-1b-decode",
+                              "resnet18-reduced-filter2"])
 def test_compiled_program_matches_reference(name, kw, opt_level):
     want = _compile(compile_jax, compile_decode_jax, name, kw, opt_level)
     got = _compile(compile_torch, compile_decode_torch, name, kw, opt_level)
+    if hasattr(want, "devices"):
+        # a bundle: the same image bytes, and each device program the
+        # same as the reference's by the single-program checks below
+        assert asm.to_bundle_binary(got) == jasm.to_bundle_binary(want)
+        pairs = list(zip(got.devices, want.devices, strict=True))
+    else:
+        pairs = [(got, want)]
+    for got, want in pairs:
+        _same_program(got, want)
+
+
+def _same_program(got, want):
     assert got.fingerprint() == want.fingerprint()
     assert (got.step and dataclasses.asdict(got.step)) == \
         (want.step and dataclasses.asdict(want.step))

@@ -266,6 +266,25 @@ def test_gemms_and_logits_match_jax(programs, record_property, name, seed):
         assert nonzero
 
 
+def test_out_of_range_tokens_take_the_reference_rows(programs):
+    """A token past the embedding table (what the launcher's compiled
+    session gets: full-vocabulary prompts on the smoke program) or a
+    negative one takes the row the reference's gather takes: JAX
+    indexing counts a negative index from the end, then clamps."""
+    prog, jprog = programs["llama3.2-1b"]
+    vocab = prog.layers[-1].dims.n
+    jref = JReferenceSession(jprog)
+    jref.bind_synthetic_all(seed=0)
+    ref, cuda = _ref(prog, 0), _session(prog, "cuda", 0)
+    for pos, t in enumerate([vocab + 100, -1, -vocab - 3, vocab - 1]):
+        tok = np.array([t], np.int32)
+        want = np.asarray(jref.step(tok, pos))
+        got = ref.step(tok, pos)
+        assert torch.equal(cuda.step(tok, pos), got)
+        tol = LOGIT_TOL * max(float(np.abs(want).max()), 1.0)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
 def test_cli_decode_report_matches_jax(capsys):
     """``python -m repro_torch.compiler llama3.2-1b --decode --execute
     --torch-device cpu`` decodes 4 tokens with the JAX CLI's checksum
@@ -422,17 +441,41 @@ def test_refusals_match_reference(programs):
 
 
 def test_bundle_is_refused(programs):
-    """A multi-device bundle (anything with ``devices``) raises
-    NotImplementedError naming its queue item; nothing falls back to a
-    single device."""
+    """A multi-device bundle that is not decode-decorated is refused
+    with the reference's message; a decorated ``filter`` x 2 decode
+    bundle decodes bit-identically to the single-device
+    ``ReferenceSession`` (the mirror of the reference's
+    ``test_multi_device_decode_session_matches_single``) — residency
+    decoration survives the split."""
+    from repro.compiler import partition as jpartition
+    from repro_torch.compiler import partition
     prog, _ = programs["llama3.2-1b"]
+    bundle = compile_decode_network("llama3.2-1b", devices=2,
+                                    partition="filter", **_kw())
+    jbundle = jcompile_decode("llama3.2-1b", devices=2, partition="filter",
+                              **_kw())
+    undecorated = partition.MultiDeviceProgram(
+        name=bundle.name, plan=bundle.plan,
+        devices=[dataclasses.replace(p, step=None) for p in bundle.devices],
+        edges=bundle.edges)
+    jundecorated = jpartition.MultiDeviceProgram(
+        name=jbundle.name, plan=jbundle.plan,
+        devices=[dataclasses.replace(p, step=None) for p in jbundle.devices],
+        edges=jbundle.edges)
+    got = _message(lambda: ExecutorSession(undecorated, device=CPU),
+                   ExecutionError)
+    assert got == _message(lambda: JExecutorSession(jundecorated),
+                           JExecutionError)
+    assert "bundle is not decode-decorated" in got
 
-    class Bundle:
-        name = "llama3.2-1b.decode"
-        devices = [prog, prog]
-    msg = _message(lambda: ExecutorSession(Bundle(), device=CPU),
-                   NotImplementedError)
-    assert "queue 1, item 4" in msg and "llama3.2-1b.decode" in msg
+    ref = ReferenceSession(prog, device=CPU)
+    ref.bind_synthetic_all(seed=0)
+    sess = ExecutorSession(bundle, backend="cuda", device=CPU)
+    sess.bind_synthetic_all(seed=0)
+    assert sess.session_name == "multi.cuda"
+    for pos, t in enumerate([2, 7]):
+        tok = np.array([t], np.int32)
+        assert torch.equal(ref.step(tok, pos), sess.step(tok, pos))
 
 
 def test_cuda_session_refuses_without_a_card(programs, monkeypatch):

@@ -34,6 +34,7 @@ from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.launch import serve
 from repro_torch.models import layers, lm
+from repro_torch.quant import hybrid as quant_hybrid
 from repro_torch.serve import engine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -83,8 +84,8 @@ def test_registry_and_config():
 
 @pytest.mark.parametrize("field,value", [
     ("moe", object()), ("mla", object()), ("qk_norm", True),
-    ("mrope_sections", (2, 3, 3)), ("hetero_quant", object()),
-    ("kv_cache_quant", True), ("act", "gelu")])
+    ("mrope_sections", (2, 3, 3)), ("kv_cache_quant", True),
+    ("act", "gelu")])
 def test_other_configs_name_their_slice(field, value):
     cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
                               **{field: value})
@@ -192,6 +193,93 @@ def test_greedy_tokens_equal_reference(smoke):
     again = engine.greedy_generate(tarch, tparams, torch.from_numpy(prompts),
                                    NEW, attn_mode="ref")
     assert torch.equal(again, got)
+
+
+def _quantized(arch, mod):
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, hetero_quant=mod.HeteroQuantConfig(
+            w_bits_lut=4, a_bits=8, ratio=0.5)))
+
+
+def test_quantized_prefill_and_decode_match_reference(smoke):
+    """``--quantize``'s hybrid fake-quant projections (the reference's
+    ``HeteroQuantConfig`` forward, w 4-bit LUT / int4 DSP columns at
+    ratio 0.5, a 8-bit) on the same params: prefill logits, then each
+    decode step over the reference's greedy tokens, within ``TOL`` (the
+    same fp32 arithmetic in another order; the quantizers' roundings
+    agree, so no code moves)."""
+    jarch, tarch, jparams, tparams, prompts = smoke
+    jarch, tarch = _quantized(jarch, jlm), _quantized(tarch, lm)
+    max_seq = PROMPT + NEW
+    jcache = jengine.make_cache(jarch, BATCH, max_seq, jnp.float32)
+    tcache = engine.make_cache(tarch, BATCH, max_seq, torch.float32, CPU)
+    jlogits, jcache = jax.jit(jengine.make_prefill_fn(jarch))(
+        jparams, {"tokens": jnp.asarray(prompts)}, jcache)
+    tlogits, tcache = engine.make_prefill_fn(tarch)(
+        tparams, {"tokens": torch.from_numpy(prompts)}, tcache)
+    _close(tlogits, jlogits)
+    plain, _ = engine.make_prefill_fn(_smoke(registry))(
+        tparams, {"tokens": torch.from_numpy(prompts)},
+        engine.make_cache(tarch, BATCH, max_seq, torch.float32, CPU))
+    assert not torch.allclose(plain, tlogits, **TOL)   # quantization acts
+
+    jdecode = jax.jit(jengine.make_decode_fn(jarch))
+    tdecode = engine.make_decode_fn(tarch)
+    tok = np.array(jnp.argmax(jlogits[:, -1], axis=-1))[:, None]
+    for pos in range(PROMPT, PROMPT + 3):
+        jlogits, jcache = jdecode(jparams, jnp.asarray(tok, jnp.int32),
+                                  jcache, jnp.int32(pos))
+        tlogits, tcache = tdecode(tparams, torch.from_numpy(tok).int(),
+                                  tcache, pos)
+        _close(tlogits, jlogits)
+        tok = np.array(jnp.argmax(jlogits, axis=-1))[:, None]
+
+
+def test_quantized_projection_casts_like_reference():
+    """``_proj``'s fake-quant on bf16 operands: the weight is rounded
+    back to bf16 before the product, as the reference's
+    ``q.astype(w.dtype)`` does; the result equals the reference's
+    bits."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 3, 32)).astype(np.float32)
+    w = (rng.standard_normal((32, 24)) / 6).astype(np.float32)
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
+                              hetero_quant=lm.HeteroQuantConfig(
+                                  w_bits_lut=3, a_bits=8, ratio=0.25))
+    jcfg = dataclasses.replace(jregistry.get("llama3.2-1b").smoke,
+                               hetero_quant=jlm.HeteroQuantConfig(
+                                   w_bits_lut=3, a_bits=8, ratio=0.25))
+    xb, wb = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    got = lm._proj(xb, wb, cfg)
+    want = jlm._proj(jnp.asarray(x, jnp.bfloat16),
+                     jnp.asarray(w, jnp.bfloat16), jcfg)
+    assert got.dtype == torch.bfloat16
+    # bitwise at this size: the same roundings, a 32-term bf16 product
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    assert lm.HeteroQuantConfig().layer_cfg() == \
+        quant_hybrid.LayerQuantConfig(w_bits_lut=4, a_bits=4, ratio=0.5)
+
+
+@pytest.mark.parametrize("kw,msg", [
+    ({"ratio": 1.5}, "ratio must be in [0,1], got 1.5"),
+    ({"w_bits_lut": 9}, "w_bits_lut out of range: 9"),
+    ({"a_bits": 0}, "a_bits out of range: 0")])
+def test_layer_quant_config_range_errors(kw, msg):
+    from repro.quant.hybrid import LayerQuantConfig as JLayerQuantConfig
+    for cls in (quant_hybrid.LayerQuantConfig, JLayerQuantConfig):
+        with pytest.raises(ValueError) as info:
+            cls(**kw)
+        assert str(info.value) == msg
+    assert quant_hybrid.LayerQuantConfig(ratio=0.3).n_lut_filters(10) == 3
+
+
+def test_serve_quantize_refuses_other_families():
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "mamba2-780m", "--quantize"])
+    assert exc.value.code == ("--quantize drives the lm family here; "
+                              "other families quantize via HeteroLinear "
+                              "directly")
 
 
 def test_other_families_raise():

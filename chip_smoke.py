@@ -178,7 +178,31 @@ Phases, each printing its lines before the last:
    turns, and device busy share per CNN bundle; ms per steady decode
    step, device ms and busy share; compile and bind seconds and peak
    device memory; fleet requests/s and tokens/s; ``BundleFleet`` ms per
-   run.
+   run; each shard's kernel also beside its code-width bound and
+   ``torch._int_mm`` on its reconstructed int8 weights (depthwise shards:
+   ``F.conv2d(groups=C)``).
+11. codesign: the co-design loop on the card. ``HeteroLinear``
+   (:data:`HETERO`: the quickstart layer, and llama3.2-1b's MLP
+   up-projection at ratio 0.5 and at the ratio ``solve_tpu_split(...,
+   spatial=True)`` gives on ``H100_SXM``): ``deploy`` on the card, then
+   ``apply_deploy`` launches exactly one ``bitserial_gemm`` and one
+   ``int4_gemm`` and is bitwise equal to ``mode="ref"`` and to the CPU
+   run of the same codes, and within :data:`QAT_DEPLOY_TOL` of
+   ``apply_qat``; both kernels timed beside their plain versions,
+   ``torch._int_mm`` on the codes and the code-width bound. A one-layer
+   FC program of the MLP shape bound with ``bind_deployed``: one
+   ``fused_hetero_gemm`` launch, bitwise equal to ``hetero_matmul``'s
+   LUT-first output, timed the same way. The README's search
+   (:data:`DSE_README`, agent on the card), its sim-gap check, and
+   ``ProgramEvaluator.verify`` of the winner (golden vs ``CudaExecutor``
+   on the card). The measured-accuracy search on reduced resnet18
+   (``make_accuracy_fn(backend="cuda")``, ``reward_source ==
+   "measured"``) with exactly ``fused_conv_gemm`` once per layer per
+   evaluated image, ``verify`` of its winner; the winner's design point
+   at full-width resnet18 through ``verify`` if golden would take at
+   most :data:`GOLDEN_VERIFY_S` there, else its program layer by layer
+   on the kernels against ``mode="ref"``. :data:`QAT_STEPS` QAT steps of
+   reduced resnet18 on the card: the loss falls.
 
 Each phase prints its seconds ("time: phase ..."). The line before the
 last is the kernels' JSON summary; the last line
@@ -2157,12 +2181,37 @@ def bundle_launches(mdp, executors, path: str, per_program) -> dict:
     return dict(want)
 
 
+def shard_yardsticks(torch, ex, li: int, x):
+    """A shard's code-width bound (:func:`bound_ms`) and its library call:
+    ``torch._int_mm`` on its reconstructed int8 weights (staged through
+    im2col for a conv shard, M padded to 32 for a decode shard), or
+    ``F.conv2d(groups=C)`` for a depthwise one."""
+    from repro_torch.compiler.runtime.base import im2col_patches
+    lp = ex.program.layers[li]
+    sw, wts = ex._split[li], ex._weights[li]
+    codes = torch.cat([c for c in (wts.w_lut, wts.w_dsp) if c is not None],
+                      dim=1)
+    g, m, k = lp.geometry, lp.dims.m, lp.dims.k
+    bound = bound_ms(x.numel(), m, k, sw.bits, sw.n_lut, sw.n_dsp)
+    if lp.depthwise:
+        lib = dw_conv2d_fn(torch, x, codes, sw.scale,
+                           (g.kernel, g.stride, g.pad, g.out_hw))
+    elif g is not None and tuple(x.shape) == g.in_shape:
+        lib = int_mm_fn(torch, im2col_patches(x, g).reshape(m, k)
+                        .contiguous(), codes, sw.scale)
+    else:
+        lib = int_mm_fn(torch, x, codes, sw.scale, min_m=32)
+    return bound, lib
+
+
 def shard_kernels(torch, executors, shards, what: str) -> dict:
     """Each shard's kernel launch (``shards``: (executor index, local
     layer, input, kernel name)) held bitwise to its plain version on the
-    card, then timed (:func:`device_times`); returns device ms per
-    traversal by kernel name."""
-    fns, names = {}, {}
+    card, then timed (:func:`device_times`) beside its library call and
+    with its code-width bound (:func:`shard_yardsticks`); returns, by
+    kernel name, device ms per traversal of the kernels, the library
+    calls and the bounds, and what bounds the sum."""
+    fns, names, bounds = {}, {}, {}
     for i, (d, li, x, kname) in enumerate(shards):
         ex = executors[d]
         ex.mode = "ref"
@@ -2171,17 +2220,34 @@ def shard_kernels(torch, executors, shards, what: str) -> dict:
         require_equal(torch, f"{what} shard dev{d} L{li} kernel vs plain",
                       ex.run_layer(li, x), want)
         fns[i] = (lambda e=ex, li=li, x=x: e.run_layer(li, x), 5)
+        bounds[i], fns[("library", i)] = shard_yardsticks(torch, ex, li, x)
+        fns[("library", i)] = (fns[("library", i)], 5)
         names[i] = kname
-    times = device_times(torch, fns)
-    ms = collections.Counter()
-    for i, t in times.items():
-        ms[names[i]] += t
-    slow = sorted(times, key=times.get, reverse=True)[:3]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        times = device_times(torch, fns)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    tot = {}
+    for i, kname in names.items():
+        t = tot.setdefault(kname, {"ms": 0.0, "library_ms": 0.0,
+                                   "bound_ms": 0.0, "bytes": 0.0,
+                                   "operations": 0.0})
+        b_ms, b_by = bounds[i]
+        t["ms"] += times[i]
+        t["library_ms"] += times[("library", i)]
+        t["bound_ms"] += b_ms
+        t[b_by] += b_ms
+    for t in tot.values():
+        t["bound_by"] = "bytes" if t.pop("bytes") >= t.pop("operations") \
+            else "operations"
+    slow = sorted(names, key=times.get, reverse=True)[:3]
     print(f"multi: {what}: slowest shards " + "; ".join(
         f"dev{shards[i][0]} L{shards[i][1]} {names[i]} "
         f"{shard_shape(executors[shards[i][0]], shards[i][1])} "
         f"{1e3 * times[i]:.1f} us" for i in slow))
-    return dict(ms)
+    return tot
 
 
 def shard_shape(ex, li: int) -> str:
@@ -2656,6 +2722,393 @@ def phase_multi(torch, details: dict) -> dict:
     return dict(launches)
 
 
+#: the co-design phase's HeteroLinear layers, (name, m, k, n, w_bits,
+#: a_bits, ratio): the layer of examples/quickstart.py, and llama3.2-1b's
+#: MLP up-projection (the ``llama1b.mlp`` row of
+#: benchmarks/tpu_hetero.py) at ratio 0.5 and (None) at the ratio
+#: ``solve_tpu_split(spatial=True)`` gives on ``H100_SXM``
+HETERO = [("quickstart", 16, 256, 192, 6, 8, 0.4),
+          ("llama1b.mlp", 4096, 2048, 8192, 4, 4, 0.5),
+          ("llama1b.mlp solved", 4096, 2048, 8192, 4, 4, None)]
+#: ``apply_deploy`` vs ``apply_qat`` on the card: max |diff| within this
+#: fraction of max |y| (the JAX package's own check)
+QAT_DEPLOY_TOL = 1e-4
+#: the README's search: ``python -m repro_torch.dse --network
+#: llama3.2-1b --seq-len 16 --target 1.0 --episodes 12
+#: --simulate-elites --top-k 3``
+DSE_README = dict(network="llama3.2-1b", seq_len=16, target_latency_ms=1.0,
+                  episodes=12, simulate_elites=True, top_k=3)
+#: the measured-accuracy search of tests/test_accuracy_eval.py
+DSE_MEASURED = dict(episodes=4, sim_every=2, top_k=2, simulate_elites=True,
+                    target_latency_ms=50.0, seed=0)
+DSE_ACCURACY = dict(n_samples=16, batch=16, train_steps=15)
+#: golden's verify of a full-width design point is run when it would
+#: take at most this many seconds (golden's µs per tile measured on the
+#: reduced winner times the full-width program's tiles)
+GOLDEN_VERIFY_S = 60.0
+QAT_STEPS = 6
+
+
+def hetero_layer(torch, name, m, k, n, w_bits, a_bits, ratio, out: dict):
+    """One HeteroLinear layer deployed on the card: ``apply_deploy``'s
+    launches, bitwise checks and tolerance, then each side's kernel timed
+    on the deployed codes. Returns (deployed, x_q, launches)."""
+    from repro_torch.core import hetero_linear as hl
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
+        bitserial_gemm_plain
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
+    from repro_torch.quant import LayerQuantConfig
+    from repro_torch.quant.uniform import fit_scale, qrange
+    cfg = hl.HeteroLinearConfig(
+        k, n, LayerQuantConfig(w_bits_lut=w_bits, a_bits=a_bits,
+                               ratio=0.5 if ratio is None else ratio),
+        solve_ratio=ratio is None, spatial=True)
+    params = hl.init_hetero_linear(torch.Generator().manual_seed(0), cfg)
+    x = (0.5 * torch.randn((m, k), generator=torch.Generator().manual_seed(
+        1))).cuda()
+    t0 = time.perf_counter()
+    d = hl.deploy(params, cfg)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    n_ser = d.wq_serial.shape[1]
+    LAUNCHES.clear()
+    y = hl.apply_deploy(d, x)
+    torch.cuda.synchronize()
+    want = {kn: 1 for kn, cols in (("bitserial_gemm", n_ser),
+                                   ("int4_gemm", n - n_ser)) if cols}
+    launches = read_window(LAUNCHES, want, f"apply_deploy {name}")
+    require_equal(torch, f"apply_deploy {name} vs mode=ref", y,
+                  hl.apply_deploy(d, x, mode="ref"))
+    y_cpu = hl.apply_deploy(d.to("cpu"), x.cpu())
+    if not torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32)):
+        raise AssertionError(f"apply_deploy {name}: card != CPU run")
+    y_qat = hl.apply_qat(params, x, cfg)
+    qat_err = float((y - y_qat).abs().max() / y_qat.abs().max())
+    if not qat_err <= QAT_DEPLOY_TOL:
+        raise AssertionError(f"apply_deploy {name} vs apply_qat: {qat_err}")
+    # the kernels alone on the deployed codes, at this shape
+    s_a = fit_scale(x, a_bits)
+    x_q = torch.clamp(torch.round(x / s_a), *qrange(a_bits)).to(torch.int8)
+    sw = ops.prepare_split(k, d.wq_serial, d.s_serial, w_bits,
+                           d.wq_parallel, d.s_parallel, x_q.device)
+    rows = {}
+    for kname, (n_lut, n_dsp), kern, plain, codes, scale in (
+            ("bitserial_gemm", (n_ser, 0),
+             lambda: bitserial_gemm(x_q, sw.lut_words, sw.s_lut, w_bits,
+                                    n_ser),
+             lambda: bitserial_gemm_plain(x_q, sw.lut_words, sw.s_lut,
+                                          w_bits, n_ser),
+             d.wq_serial, d.s_serial),
+            ("int4_gemm", (0, n - n_ser),
+             lambda: int4_gemm(x_q, sw.dsp_words, sw.s_dsp, n - n_ser),
+             lambda: int4_gemm_plain(x_q, sw.dsp_words, sw.s_dsp, n - n_ser),
+             d.wq_parallel, d.s_parallel)):
+        if not n_lut + n_dsp:
+            continue
+        err = require_equal(torch, f"{kname} {name}", kern(), plain())
+        b_ms, b_by = bound_ms(x_q.numel(), m, k, w_bits, n_lut, n_dsp)
+        rows[kname] = {
+            "n": n_lut + n_dsp, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by,
+            **device_times(torch, {
+                "ms": (kern, 5), "plain_ms": (plain, 2),
+                "library_ms": (int_mm_fn(torch, x_q, codes, scale), 5)})}
+    out.setdefault("hetero", {})[name] = {
+        "m": m, "k": k, "n": n, "w_bits": w_bits, "a_bits": a_bits,
+        "ratio": cfg.resolved_ratio(), "n_serial": n_ser,
+        "deploy_s": deploy_s, "qat_rel_err": qat_err, "launches": launches,
+        "kernels": rows}
+    print(f"codesign: HeteroLinear {name} (m={m} k={k} n={n} w{w_bits}/"
+          f"a{a_bits} ratio {cfg.resolved_ratio():.4f}: {n_ser} serial / "
+          f"{n - n_ser} int4 columns): deploy {deploy_s:.2f} s; "
+          f"apply_deploy launches {launches}, bitwise equal to mode=ref and "
+          f"the CPU run, vs apply_qat {qat_err:.2e} of max |y|; " + "; ".join(
+              f"{kn} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, _int_mm "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})" for kn, r in rows.items()))
+    return d, x_q, launches
+
+
+def deployed_program(torch, d, x_q, name, bits_a, out: dict) -> dict:
+    """A one-layer FC program of the deployed layer's shape, bound with
+    ``bind_deployed``: ``run_layer`` launches ``fused_hetero_gemm`` once
+    and is bitwise equal to ``hetero_matmul``'s LUT-first output; the
+    kernel timed on the executor's weights."""
+    from repro_torch.compiler import CudaExecutor
+    from repro_torch.compiler.lower import lower_network
+    from repro_torch.compiler.program import GemmLayer
+    from repro_torch.core.scheduler import GemmDims
+    from repro_torch.kernels import hetero_matmul
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.fused_hetero_gemm import fused_hetero_gemm, \
+        fused_hetero_gemm_plain
+    m, k = x_q.shape
+    n_lut = d.wq_serial.shape[1]
+    n = n_lut + d.wq_parallel.shape[1]
+    t0 = time.perf_counter()
+    prog = lower_network(name, [GemmLayer(name, GemmDims(m, k, n))],
+                         *compiler_cfgs(), bits_w_lut=d.bits_serial,
+                         bits_a=bits_a, n_luts=[n_lut])
+    lower_s = time.perf_counter() - t0
+    ex = CudaExecutor(prog)
+    ex.bind_deployed(0, d)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    got = ex.run_layer(0, x_q)
+    torch.cuda.synchronize()
+    launches = read_window(LAUNCHES, {"fused_hetero_gemm": 1},
+                           f"bind_deployed {name}")
+    want = hetero_matmul(x_q, d.wq_serial, d.s_serial, d.bits_serial,
+                         d.wq_parallel, d.s_parallel)
+    err = require_equal(torch, f"bind_deployed {name} vs hetero_matmul",
+                        got, want)
+    sw, wts = ex._split[0], ex._weights[0]
+    args = (x_q, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut, sw.n_dsp)
+    require_equal(torch, f"fused_hetero_gemm {name}",
+                  fused_hetero_gemm(*args), fused_hetero_gemm_plain(*args))
+    b_ms, b_by = bound_ms(x_q.numel(), m, k, sw.bits, sw.n_lut, sw.n_dsp)
+    codes = torch.cat([wts.w_lut, wts.w_dsp], dim=1)
+    row = {"m": m, "k": k, "n_lut": n_lut, "n": n, "lower_s": lower_s,
+           "n_instructions": prog.n_instructions, "launches": launches,
+           "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           **device_times(torch, {
+               "ms": (lambda: fused_hetero_gemm(*args), 5),
+               "plain_ms": (lambda: fused_hetero_gemm_plain(*args), 2),
+               "library_ms": (int_mm_fn(torch, x_q, codes, sw.scale), 5)})}
+    out["bind_deployed"] = row
+    print(f"codesign: bind_deployed {name}: one-layer FC program "
+          f"({prog.n_instructions} instructions, lowered in {lower_s:.2f} s) "
+          f"launches {launches}, bitwise equal to hetero_matmul; "
+          f"fused_hetero_gemm {row['ms']:.4f} ms (plain "
+          f"{row['plain_ms']:.4f}, _int_mm {row['library_ms']:.4f}, bound "
+          f"{b_ms:.4f} by {b_by})")
+    return launches
+
+
+def verify_window(torch, ev, info, what: str) -> dict:
+    """``ProgramEvaluator.verify`` (golden vs ``CudaExecutor``, both on
+    the card) in a launch window: the kernels' executor launches each
+    layer's staged kernel once (golden launches none)."""
+    from repro_torch.kernels.build import LAUNCHES
+    prog = ev._entry(ev.config_key(info), info)[0][0]
+    want = collections.Counter(
+        "grouped_gemm" if lp.depthwise else staged_kernel(lp)
+        for lp in prog.layers)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ok = ev.verify(info)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"verify {what}: golden != cuda")
+    launches = read_window(LAUNCHES, dict(want), f"verify {what}")
+    print(f"codesign: verify {what}: golden == cuda on every layer of the "
+          f"winner's program ({len(prog.layers)} layers, {n_tiles(prog)} "
+          f"golden tiles) in {secs:.2f} s; launches {launches}")
+    return launches, secs, n_tiles(prog)
+
+
+def readme_search(torch, out: dict) -> dict:
+    """The README's search through the port's ``run_search`` with the
+    agent on the card, then ``verify`` of its winner."""
+    from repro_torch.core.scheduler import XC7Z020
+    from repro_torch.dse import SIM_GAP_TOL_PCT, ProgramEvaluator, \
+        gemm_specs, run_search
+    t0 = time.perf_counter()
+    res = run_search(**DSE_README)
+    wall = time.perf_counter() - t0
+    if res.reward_source != "simulated" or \
+            not abs(res.sim_gap_pct) <= SIM_GAP_TOL_PCT:
+        raise AssertionError(f"README search: source {res.reward_source}, "
+                             f"gap {res.sim_gap_pct}")
+    info = res.best_info
+    print(f"codesign: README search ({DSE_README['network']}, seq "
+          f"{DSE_README['seq_len']}, {DSE_README['episodes']} episodes, "
+          f"agent on the card) in {wall:.2f} s (run_search's own "
+          f"{res.wall_s:.2f}): best reward {res.best_reward:+.4f} "
+          f"({res.reward_source}); analytical {res.analytical_latency_ms:.4f}"
+          f" ms vs simulated {res.simulated_latency_ms:.4f} ms, gap "
+          f"{res.sim_gap_pct:+.2f}% (tolerance {SIM_GAP_TOL_PCT}%); program "
+          f"cache {res.evaluator_cache}; winner bits {info['bw_lut']}, "
+          f"a-bits {info['ba']}, ratios "
+          f"{[round(r, 4) for r in info['ratios']]}")
+    ev = ProgramEvaluator(gemm_specs(DSE_README["network"],
+                                     seq_len=DSE_README["seq_len"]),
+                          XC7Z020, DSE_README["target_latency_ms"])
+    launches, secs, tiles = verify_window(torch, ev, info, "README winner")
+    out["readme_search"] = {
+        "wall_s": wall, "best_reward": res.best_reward,
+        "reward_source": res.reward_source,
+        "analytical_ms": res.analytical_latency_ms,
+        "simulated_ms": res.simulated_latency_ms,
+        "gap_pct": res.sim_gap_pct, "cache": res.evaluator_cache,
+        "bw_lut": info["bw_lut"], "ba": info["ba"], "ratios": info["ratios"],
+        "verify_s": secs, "verify_tiles": tiles}
+    return launches
+
+
+def measured_search(torch, out: dict) -> dict:
+    """The measured-accuracy search on reduced resnet18 through
+    ``CudaExecutor`` on the card, ``fused_conv_gemm`` launches read
+    around it; ``verify`` of its winner; the winner's design point at
+    full width verified by golden or held on the kernels against
+    ``mode="ref"`` (:data:`GOLDEN_VERIFY_S`)."""
+    import numpy as np
+
+    from repro_torch.compiler import CudaExecutor, bind_synthetic
+    from repro_torch.core.scheduler import XC7Z020
+    from repro_torch.core.workloads import resnet18_specs
+    from repro_torch.dse import AccuracyProxy, ProgramEvaluator, \
+        evaluate_config, run_search
+    from repro_torch.eval.accuracy import make_accuracy_fn
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models import cnn
+    from repro_torch.quant.uniform import qrange
+    cfg = cnn.reduced_config("resnet18")
+    t0 = time.perf_counter()
+    fn = make_accuracy_fn(cfg, backend="cuda", **DSE_ACCURACY)
+    train_s = time.perf_counter() - t0
+    programs = []
+
+    def counted(program):
+        programs.append(program)
+        return fn(program)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = run_search("resnet18", specs=cnn.specs_for(cfg),
+                     accuracy_fn=counted, **DSE_MEASURED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = collections.Counter()
+    for prog in programs:
+        for name, count in harness_launches(prog).items():
+            want[name] += count * DSE_ACCURACY["n_samples"]
+    launches = read_window(LAUNCHES, dict(want), "measured-accuracy search")
+    if res.reward_source != "measured" or not res.elites or any(
+            r["reward_source"] != "measured" or r["measured_acc"] is None
+            for r in res.elites):
+        raise AssertionError(f"measured search: {res.reward_source} "
+                             f"{res.elites}")
+    info = res.best_info
+    print(f"codesign: measured-accuracy search (reduced resnet18, "
+          f"{DSE_MEASURED['episodes']} episodes, reference trained "
+          f"{DSE_ACCURACY['train_steps']} steps in {train_s:.2f} s) in "
+          f"{wall:.2f} s: {len(programs)} programs measured over "
+          f"{DSE_ACCURACY['n_samples']} images each, launches {launches}; "
+          f"winner reward {res.best_reward:+.4f} (measured agreement "
+          f"{info['measured_acc']:.2f}%, simulated {info['simulated_latency_ms']:.4f}"
+          f" ms); elites' measured agreement "
+          f"{[r['measured_acc'] for r in res.elites]}")
+    ev = ProgramEvaluator(cnn.specs_for(cfg), XC7Z020,
+                          DSE_MEASURED["target_latency_ms"])
+    v_launches, v_secs, v_tiles = verify_window(torch, ev, info,
+                                                "reduced resnet18 winner")
+    for name, count in v_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    # the winner's design point at full width
+    specs = resnet18_specs()
+    proxy = AccuracyProxy()
+    bw = [8 if s.is_first or s.is_last else b
+          for s, b in zip(specs, info["bw_lut"])]
+    ba = [8 if s.is_first or s.is_last else b
+          for s, b in zip(specs, info["ba"])]
+    _r, full_info = evaluate_config(specs, info["lut_cfg"], info["dsp_cfg"],
+                                    XC7Z020, bw, ba, proxy, 1e9, 0.01)
+    ev_full = ProgramEvaluator(specs, XC7Z020, 1e9)
+    t0 = time.perf_counter()
+    prog = ev_full._entry(ev_full.config_key(full_info), full_info)[0][0]
+    compile_s = time.perf_counter() - t0
+    est = v_secs / max(v_tiles, 1) * n_tiles(prog)
+    row = {"compile_s": compile_s, "tiles": n_tiles(prog),
+           "golden_estimate_s": est}
+    if est <= GOLDEN_VERIFY_S:
+        row["how"] = "verify (golden vs cuda)"
+        full_launches, row["verify_s"], _ = verify_window(
+            torch, ev_full, full_info, "full-width resnet18 design point")
+        for name, count in full_launches.items():
+            launches[name] = launches.get(name, 0) + count
+    else:
+        row["how"] = "layer by layer on the kernels vs mode=ref"
+        gen = np.random.default_rng(0)
+        kern, plain = CudaExecutor(prog), CudaExecutor(prog, mode="ref")
+        for lp in prog.layers:
+            bind_synthetic(kern, lp, seed=lp.index)
+            bind_synthetic(plain, lp, seed=lp.index)
+            lo, hi = qrange(lp.bits_a)
+            x_q = torch.from_numpy(gen.integers(
+                lo, hi + 1, (lp.dims.m, lp.dims.k)).astype(np.int8)).cuda()
+            require_equal(torch, f"full-width winner layer {lp.name}",
+                          kern.run_layer(lp.index, x_q),
+                          plain.run_layer(lp.index, x_q))
+    print(f"codesign: the winner's design point at full-width resnet18 "
+          f"(lut {info['lut_cfg']}, compiled in {compile_s:.2f} s, "
+          f"{row['tiles']} golden tiles, golden estimated at {est:.1f} s "
+          f"from the reduced verify): checked by {row['how']}")
+    out["measured_search"] = {
+        "train_s": train_s, "wall_s": wall, "programs": len(programs),
+        "best_reward": res.best_reward, "measured_acc": info["measured_acc"],
+        "elites": res.elites, "verify_s": v_secs, "full_width": row}
+    return launches
+
+
+def qat_steps(torch, out: dict) -> None:
+    """:data:`QAT_STEPS` QAT steps of reduced resnet18 on the card (w8/a8,
+    ratio 0.5, SGD 0.05, one batch): the loss falls."""
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.models import cnn
+    from repro_torch.quant import LayerQuantConfig
+    cfg = cnn.reduced_config("resnet18")
+    qcfgs = [LayerQuantConfig(w_bits_lut=8, a_bits=8, ratio=0.5)
+             for _ in cnn.specs_for(cfg)]
+    p = {name: {k: v.cuda() for k, v in layer.items()} for name, layer in
+         cnn.init(cfg, torch.Generator().manual_seed(0)).items()}
+    batch = SyntheticImages(10, 16, 32, seed=0).next_batch()
+    x, y = batch["images"].cuda(), batch["labels"].cuda()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(QAT_STEPS):
+        for leaf in (v for layer in p.values() for v in layer.values()):
+            leaf.requires_grad_(True)
+        loss = cnn.cross_entropy(cnn.forward(p, x, cfg, qcfgs), y)
+        loss.backward()
+        with torch.no_grad():
+            p = {name: {k: v - 0.05 * v.grad for k, v in layer.items()}
+                 for name, layer in p.items()}
+        losses.append(float(loss.detach()))
+    secs = time.perf_counter() - t0
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"QAT loss did not fall: {losses}")
+    out["qat"] = {"losses": losses, "s": secs}
+    print(f"codesign: {QAT_STEPS} QAT steps of reduced resnet18 on the card "
+          f"(hybrid fake quant w8/a8, ratio 0.5) in {secs:.2f} s: loss "
+          f"{' -> '.join(f'{v:.4f}' for v in losses)}")
+
+
+def phase_codesign(torch, details: dict) -> dict:
+    """The co-design loop on the card (phase 11). Returns the launches of
+    every counted window, per kernel."""
+    out = details.setdefault("codesign", {})
+    launches = collections.Counter()
+    for name, m, k, n, w_bits, a_bits, ratio in HETERO:
+        d, x_q, counts = hetero_layer(torch, name, m, k, n, w_bits, a_bits,
+                                      ratio, out)
+        launches.update(counts)
+        if name == "llama1b.mlp":
+            launches.update(deployed_program(torch, d, x_q, name, a_bits,
+                                             out))
+        del d, x_q
+    for part in (readme_search, measured_search):
+        t0 = time.time()
+        launches.update(part(torch, out))
+        out.setdefault("part_s", {})[part.__name__] = time.time() - t0
+    qat_steps(torch, out)
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2719,6 +3172,14 @@ def main(argv=None) -> int:
     print(f"accuracy: harness launches over its measure() runs {harness}")
     multi = phase("multi", phase_multi, torch, details)
     print(f"multi: launches over the phase's counted windows {multi}")
+    codesign = phase("codesign", phase_codesign, torch, details)
+    print(f"codesign: launches over the phase's counted windows {codesign}")
+    for name in ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
+                 "int4_gemm"):
+        if not codesign.get(name):
+            raise AssertionError(f"{name} not launched on the co-design "
+                                 f"path ({codesign})")
+        counts[name] += codesign[name]
     for name in ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
                  "int4_gemm", "flash_attention", "depthwise_conv_gemm"):
         if not multi.get(name):

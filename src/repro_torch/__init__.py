@@ -5,7 +5,8 @@ the counterpart of ``repro.X``. It imports torch and numpy, never JAX
 and nothing of ``repro``; the pure-Python modules it needs are copies,
 held to their originals by ``tests/test_torch_compiler.py``.
 
-  core      — unified ISA, event-driven scheduler, workloads, split solver
+  core      — unified ISA, event-driven scheduler, workloads, split solver,
+              resource and chip cost models, the deployable HeteroLinear
   models    — CNN configurations (resnet18 / mobilenet_v2 specs); the
               dense decoder-only LM (``layers``, ``lm``)
   configs   — architecture registry (llama3.2-1b)
@@ -15,7 +16,9 @@ held to their originals by ``tests/test_torch_compiler.py``.
   data      — seeded synthetic token batches
   serve     — prefill / decode factories and greedy generation
   launch    — the serving launcher (``python -m repro_torch.launch.serve``)
-  quant     — uniform symmetric quantizer
+  quant     — uniform symmetric quantizer, filter-wise hybrid
+              quantization, the straight-through fake quantizers
+  dse       — the DDPG design-space search (``python -m repro_torch.dse``)
   obs       — tracer, counters, metrics
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes

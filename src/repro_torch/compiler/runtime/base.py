@@ -171,6 +171,17 @@ class ExecutorBackend:
         w_dsp, s_dsp = _chk(w_dsp, s_dsp, n_dsp, "dsp", 4)
         self._weights[index] = LayerWeights(w_lut, s_lut, w_dsp, s_dsp)
 
+    def bind_deployed(self, index: int, deployed) -> None:
+        """Bind from a ``hetero_linear.DeployedHeteroLinear`` (its column
+        order is already LUT-first, matching the program split)."""
+        lp = self.program.layers[index]
+        self.bind_layer(
+            index,
+            w_lut=deployed.wq_serial if lp.n_lut else None,
+            s_lut=deployed.s_serial if lp.n_lut else None,
+            w_dsp=deployed.wq_parallel if lp.n_dsp else None,
+            s_dsp=deployed.s_parallel if lp.n_dsp else None)
+
     # -- execution ---------------------------------------------------------
 
     def _on_device(self, a, dtype: torch.dtype) -> torch.Tensor:

@@ -14,8 +14,13 @@ carry across with :func:`params_from_numpy`; ``conv2d`` permutes them to
 torch's layouts (an NHWC tensor viewed as NCHW is channels-last, which
 cuDNN takes without a copy). Every forward runs its convolutions in IEEE
 fp32 with deterministic algorithms (:func:`fp32_convs`: cuDNN's TF32 off
-and ``deterministic`` on for the call). The hybrid
-fake-quant forward (``quant_cfgs``) arrives with ``quant/hybrid.py``.
+and ``deterministic`` on for the call).
+
+Quantization-aware forward: with ``quant_cfgs`` given (one
+``LayerQuantConfig`` per spec), each conv's filters are fake-quantized
+with the paper's hybrid filter-wise scheme (§4: DSP-core filters int4,
+LUT-core filters 2–8 bit, KL-based allocation) and activations are
+quantized layer-wise — first/last layers at 8 bits, as in the paper.
 
 Normalization is a folded (inference-style) per-channel scale+bias over
 a mean-free RMS statistic, which folds into the requantization at
@@ -34,6 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.workloads import ConvSpec, mobilenet_v2_specs, resnet18_specs
 from repro_torch.compiler.runtime.base import _same_pads
+from repro_torch.quant.hybrid import LayerQuantConfig, hybrid_fake_quant_weight
+from repro_torch.quant.uniform import fake_quant_per_channel, fit_scale, qrange
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +132,15 @@ def params_from_numpy(tree: Any, device=torch.device("cuda")) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Conv primitive
+# Quantized conv primitive
 # ---------------------------------------------------------------------------
+
+
+def _quant_activations(x: torch.Tensor, bits: int) -> torch.Tensor:
+    s = fit_scale(x.detach(), bits)
+    lo, hi = qrange(bits)
+    xq = torch.clamp(torch.round(x / s), lo, hi) * s
+    return x + (xq - x).detach()                        # STE
 
 
 @contextlib.contextmanager
@@ -155,10 +169,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, s: ConvSpec) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def conv_layer(p: dict, x: torch.Tensor, s: ConvSpec, q=None,
-               relu: bool = True, norm: torch.Tensor | None = None,
+def conv_layer(p: dict, x: torch.Tensor, s: ConvSpec,
+               q: LayerQuantConfig | None = None, relu: bool = True,
+               norm: torch.Tensor | None = None,
                capture: dict | None = None) -> torch.Tensor:
-    """NHWC conv + folded norm + optional relu.
+    """NHWC conv + folded norm + optional relu, with hybrid quant.
 
     ``norm`` freezes the layer's RMS statistic to a precomputed value
     (inference mode — the batch statistic is data-dependent, so two
@@ -167,11 +182,19 @@ def conv_layer(p: dict, x: torch.Tensor, s: ConvSpec, q=None,
     statistic actually used under ``s.name`` (see
     :func:`calibrate_norms`).
     """
+    w = p["w"]
     if q is not None:
-        raise NotImplementedError(
-            "quantization-aware forward (quant_cfgs) needs the hybrid "
-            "fake-quant STE of quant/hybrid.py, ROADMAP queue 1 item 5")
-    out = conv2d(x, p["w"], s)
+        a_bits = 8 if (s.is_first or s.is_last) else q.a_bits
+        x = _quant_activations(x, a_bits)
+        if s.is_first or s.is_last:
+            w = fake_quant_per_channel(w, 8, axis=3)
+        else:
+            # filters live on the last axis -> move to front for the
+            # filter-wise hybrid scheme, then restore.
+            w_f = torch.movedim(w, 3, 0)
+            w_f = hybrid_fake_quant_weight(w_f, q)
+            w = torch.movedim(w_f, 0, 3)
+    out = conv2d(x, w, s)
     # BN-style per-channel RMS normalization (mean-free)
     if norm is None:
         rms = torch.sqrt(torch.mean(torch.square(out), dim=(0, 1, 2),

@@ -9,9 +9,14 @@ bit: ``torch.round`` rounds half to even like ``jnp.round``, scales
 multiply by the float32-rounded reciprocal of ``beta_hat`` (never
 divide by it), and ``x / s`` divides by a tensor, which is IEEE
 division on every device. ``quant_snr_db`` is the counterpart of
-``repro.quant.uniform.quant_snr_db``; only the tests call it. The
-straight-through fake quantizers belong to training and are not ported
-yet.
+``repro.quant.uniform.quant_snr_db``; only the tests call it.
+
+The straight-through fake quantizers of quantization-aware training:
+:func:`fake_quant` is a ``torch.autograd.Function`` with the
+reference's custom VJP (the gradient passes where the code is inside
+its range, no gradient to the scale), and :func:`fake_quant_per_channel`
+the reference's ``x + stop_gradient(deq - x)`` form with its scales
+fitted on ``x.detach()``.
 """
 from __future__ import annotations
 
@@ -58,6 +63,44 @@ def fit_scale_per_channel(x: torch.Tensor, bits: int, axis: int = 0,
     reduce_axes = tuple(i for i in range(x.ndim) if i != axis)
     m = torch.amax(x.abs(), dim=reduce_axes, keepdim=True)
     return torch.clamp(m, min=eps) * _inv_hi(bits)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantize-dequantize forward; the backward passes ``g`` where
+    ``lo <= x / s <= hi`` and 0 elsewhere, and gives ``s`` none."""
+
+    @staticmethod
+    def forward(ctx, x, s, bits):
+        lo, hi = qrange(bits)
+        r = x / s
+        ctx.save_for_backward((r >= lo) & (r <= hi))
+        return dequantize(quantize(x, s, bits), s)
+
+    @staticmethod
+    def backward(ctx, g):
+        (in_range,) = ctx.saved_tensors
+        return torch.where(in_range, g, torch.zeros_like(g)), None, None
+
+
+def fake_quant(x: torch.Tensor, s: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator.
+
+    Forward: dequantize(quantize(x, s, bits), s).
+    Backward: identity for x within the clip range, zero outside
+    (the standard STE used in quantization-aware training); the scale
+    is a calibration constant and gets no gradient. ``s`` is a tensor
+    on ``x``'s device, so that ``x / s`` is IEEE division."""
+    return _FakeQuant.apply(x, s, bits)
+
+
+def fake_quant_per_channel(x: torch.Tensor, bits: int,
+                           axis: int = 0) -> torch.Tensor:
+    """Per-channel fake quantization with on-the-fly max-abs scales (STE)."""
+    s = fit_scale_per_channel(x.detach(), bits, axis=axis)
+    q = torch.clamp(torch.round(x / s), *qrange(bits))
+    deq = q * s
+    # STE: forward uses deq, gradient flows as identity.
+    return x + (deq - x).detach()
 
 
 def quant_snr_db(x: torch.Tensor, x_hat: torch.Tensor,

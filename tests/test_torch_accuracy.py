@@ -35,7 +35,7 @@ from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.eval import accuracy as acc
 from repro_torch.eval.accuracy import AGREEMENT_FLOOR, measure
 from repro_torch.models import cnn
-from repro_torch.quant import quant_snr_db
+from repro_torch.quant import LayerQuantConfig, quant_snr_db
 
 ARCHS = ["resnet18", "mobilenet_v2"]
 #: Smallest useful operating point — plumbing tests only.
@@ -288,8 +288,9 @@ def test_fold_refuses_nonzero_bias_and_quant_cfgs():
     params["conv3"]["bias"][1] = 0.5
     with pytest.raises(ValueError, match="conv3 has a nonzero norm bias"):
         cnn.fold_inference_weights(params, cfg, norms)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        cnn.forward(params, x, cfg, quant_cfgs=[object()] * 21)
+    # the quantization-aware forward is ported: quant_cfgs run, not raise
+    q = LayerQuantConfig(w_bits_lut=6, a_bits=4, ratio=0.5)
+    assert cnn.forward(params, x, cfg, quant_cfgs=[q] * 21).shape == (2, 10)
     with pytest.raises(ValueError, match="unknown CNN arch"):
         cnn.forward(params, x, dataclasses.replace(cfg, arch="vgg"))
 

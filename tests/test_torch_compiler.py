@@ -41,8 +41,64 @@ COPIED = [
     "compiler/program.py", "compiler/lower.py", "compiler/passes.py",
     "compiler/networks.py", "compiler/asm.py", "compiler/partition.py",
     "obs/counters.py", "obs/trace.py", "obs/metrics.py",
-    "serve/protocol.py",
+    "serve/protocol.py", "core/cost_model.py", "dse/search.py",
 ]
+
+#: modules copied from ``src/repro`` with their imports rewritten and then
+#: exactly these (old, new) substitutions, each made once: the chip
+#: record the environment defaults to (and the docstring that named
+#: the reference's chip), and ``verify``'s second executor
+#: (the reference compares golden with ``PallasExecutor``; the port with
+#: ``CudaExecutor``, both on the torch device it is given)
+SUBSTITUTED = {
+    "dse/env.py": [
+        ("from repro_torch.core.tpu_cost import TPUChip, V5E\n",
+         "from repro_torch.core.tpu_cost import TPUChip, H100_SXM\n"),
+        ("target_latency_ms: float, chip: TPUChip = V5E,",
+         "target_latency_ms: float, chip: TPUChip = H100_SXM,"),
+        ("    the split ratio is solved per layer against the v5e roofline (the\n",
+         "    the split ratio is solved per layer against the chip's roofline (the\n"),
+    ],
+    "dse/evaluator.py": [
+        ("""    def verify(self, info: dict, seed: int = 0) -> bool:
+        \"\"\"Execute the config's compiled program functionally and check
+        golden-vs-pallas bit-exactness layer by layer (the repo's
+        standing cross-check for a program that "actually runs"):
+        synthetic weights, synthetic quantized activations, exact
+        integer comparison of every layer output.\"\"\"
+        from repro_torch.compiler.runtime import (
+            GoldenExecutor,
+            PallasExecutor,
+            bind_synthetic,
+        )
+""", """    def verify(self, info: dict, seed: int = 0,
+               torch_device="cuda") -> bool:
+        \"\"\"Execute the config's compiled program functionally and check
+        golden-vs-cuda bit-exactness layer by layer (the repo's
+        standing cross-check for a program that "actually runs"):
+        synthetic weights, synthetic quantized activations, exact
+        integer comparison of every layer output, both executors on
+        ``torch_device``.\"\"\"
+        from repro_torch.compiler.runtime import (
+            CudaExecutor,
+            GoldenExecutor,
+            bind_synthetic,
+        )
+"""),
+        ("        golden, pallas = GoldenExecutor(prog), PallasExecutor(prog)\n",
+         "        golden = GoldenExecutor(prog, device=torch_device)\n"
+         "        cuda = CudaExecutor(prog, device=torch_device)\n"),
+        ("            bind_synthetic(pallas, lp, seed=seed + lp.index)\n",
+         "            bind_synthetic(cuda, lp, seed=seed + lp.index)\n"),
+        ("""            out_g = np.asarray(golden.run_layer(lp.index, x_q))
+            out_p = np.asarray(pallas.run_layer(lp.index, x_q))
+            if not (out_g == out_p).all():
+""", """            out_g = golden.run_layer(lp.index, x_q).cpu().numpy()
+            out_c = cuda.run_layer(lp.index, x_q).cpu().numpy()
+            if not (out_g == out_c).all():
+"""),
+    ],
+}
 
 #: (network, keyword arguments); ``decode`` compiles the decode-step
 #: program (``compile_decode_network``) instead of the fixed one, and
@@ -58,12 +114,24 @@ PROGRAMS = [
 ]
 
 
+def _imports_rewritten(path: str) -> str:
+    original = (ROOT / "src" / "repro" / path).read_text()
+    return re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.",
+                  original, flags=re.M)
+
+
 @pytest.mark.parametrize("path", COPIED)
 def test_copied_module_equals_original(path):
-    original = (ROOT / "src" / "repro" / path).read_text()
-    rewritten = re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.",
-                       original, flags=re.M)
-    assert (PORT / path).read_text() == rewritten
+    assert (PORT / path).read_text() == _imports_rewritten(path)
+
+
+@pytest.mark.parametrize("path", sorted(SUBSTITUTED))
+def test_substituted_module_equals_original(path):
+    want = _imports_rewritten(path)
+    for old, new in SUBSTITUTED[path]:
+        assert want.count(old) == 1, old
+        want = want.replace(old, new)
+    assert (PORT / path).read_text() == want
 
 
 def _layer_view(lp):
@@ -176,7 +244,10 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_executor_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch.compiler.runtime.cuda; "
+    code = ("import sys, repro_torch.compiler.runtime.cuda, "
+            "repro_torch.core, repro_torch.core.hetero_linear, "
+            "repro_torch.dse, repro_torch.dse.__main__, "
+            "repro_torch.models.cnn, repro_torch.quant; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")

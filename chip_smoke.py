@@ -63,12 +63,15 @@ Phases, each printing its lines before the last:
    below 2^24), beside the bytes bound; ``fused_conv_gemm`` over the 36
    dense layers beside its plain version, ``_int_mm`` and the bound.
 5. flash: the flash-attention kernel against its plain version in bf16
-   at eight shapes: the serving prefill (B=8, S=64, 32 query heads over
-   8 KV heads, D=64, causal), S=2048 causal, S=1000 causal (ragged),
-   S=333 non-causal, 64 queries at offset 960 of 1024 keys, one query at
-   offset 1023 (decode), S=512 causal at D=128 with 16 query and 16 KV
-   heads, and 4 queries at offset 997 of 1001 keys (the decode form's
-   16-row edge), each with the plan it ran under
+   at thirteen shapes: the serving prefill (B=8, S=64, 32 query heads
+   over 8 KV heads, D=64, causal), S=2048 causal, S=1000 causal
+   (ragged), S=333 non-causal, 64 queries at offset 960 of 1024 keys,
+   one query at offset 1023 (decode), S=512 causal at D=128 with 16
+   query and 16 KV heads, 4 queries at offset 997 of 1001 keys (the
+   decode form's 16-row edge), and the archs phase's: D=256 at gemma-7b's
+   prefill (16/16 heads), ragged at S=1000 and in the decode form,
+   yi-34b's GQA 56/8 and qwen3-8b's 32/8 at D=128, each with the plan it
+   ran under
    (``flash_attention.flash_plan``: form and grid). Required: max |err|
    within :func:`flash_tol`, and every output row within
    :data:`FLASH_ROW_TOL` of its plain row's norm (:func:`flash_row_err`).
@@ -93,6 +96,22 @@ Phases, each printing its lines before the last:
    step over 31 steps, tokens/s, and the device's busy share of each
    (device time from a profiler trace over the host-clock time, or "not
    measured" where the profiler records no device time).
+6b. archs: the other archs the launcher serves, each at :data:`SERVE`'s
+   batch, prompt, new tokens and seed, one model on the card at a time
+   (:data:`ARCHS`): qwen3-8b (36 layers, GQA 32/8, qk-norm), gemma-7b
+   (28 layers, head size 256, GeGLU, tied 256000-token vocabulary) and
+   mamba2-780m (48 layers) at published width and depth, yi-34b at
+   published widths cut to 32 of its 60 layers. Each runs once through
+   ``launch.serve.main`` and once through the engine, each in launch
+   windows of its own. Required: exactly ``n_layers``
+   ``flash_attention`` launches per prefill for the LMs and none in
+   decode or with ``mode="ref"``; none at all for mamba2-780m (no
+   kernel, no fallback); the checks and times of phase 6 (the same
+   function, :func:`serve_arch`). qwen3-8b also decodes
+   :data:`KV_QUANT_STEPS` steps with the int8 KV cache beside the bf16
+   one on the same tokens (relative logit difference printed). Times:
+   prefill (median of 3), decode per step, their busy shares, peak
+   device memory of the launcher's run and of the engine's.
 
 7. decode: decode sessions (``compiler/runtime/session.py``) on the
    card. Full-width llama3.2-1b (113 layers) and mamba2-780m (193
@@ -298,7 +317,11 @@ SINGLE_COLUMNS = [(33, 23), (100, 77), (680, 5)]
 #: serving prefill's shape, the one the kernel's row reports; d128_mha
 #: runs the D=128 instantiation with one query head per KV head, decode4
 #: the decode form at Sq * Hq / Hkv = 16 over a KV length that does not
-#: split evenly over its 4 warps
+#: split evenly over its 4 warps. The last five are the archs phase's:
+#: gemma-7b's serving prefill at D=256 (d256_prefill), D=256 with tiles
+#: that cross the diagonal (d256_ragged) and in the decode form
+#: (d256_decode4, 3 ring stages), yi-34b's 7 query heads a KV head
+#: (gqa7) and qwen3-8b's serving prefill
 FLASH_SHAPES = [
     ("prefill", 8, 64, 64, 32, 8, 64, True, 0),
     ("s2048", 1, 2048, 2048, 32, 8, 64, True, 0),
@@ -308,6 +331,11 @@ FLASH_SHAPES = [
     ("decode", 8, 1, 1024, 32, 8, 64, True, 1023),
     ("d128_mha", 2, 512, 512, 16, 16, 128, True, 0),
     ("decode4", 8, 4, 1001, 32, 8, 64, True, 997),
+    ("d256_prefill", 8, 64, 64, 16, 16, 256, True, 0),
+    ("d256_ragged", 2, 1000, 1000, 16, 16, 256, True, 0),
+    ("d256_decode4", 8, 4, 1001, 16, 16, 256, True, 997),
+    ("gqa7", 8, 64, 64, 56, 8, 128, True, 0),
+    ("qwen3_prefill", 8, 64, 64, 32, 8, 128, True, 0),
 ]
 #: the serving run: llama3.2-1b at batch 8, prompt 64, 32 new tokens
 SERVE = dict(arch="llama3.2-1b", batch=8, prompt=64, new=32, seed=0)
@@ -1301,32 +1329,45 @@ def read_window(launches, want: dict, what: str) -> dict:
     return got
 
 
-def phase_serve(torch, details: dict) -> int:
-    """Full-width llama3.2-1b through the launcher, then through the
-    engine with prefill and decode counted in windows of their own and
-    held against the mode="ref" run; returns the flash launches of one
-    prefill."""
+def serve_arch(torch, arch_id: str, out: dict, layers=None,
+               prefill_runs: int = 3) -> int:
+    """One arch at :data:`SERVE`'s batch, prompt, new tokens and seed
+    (``layers`` cuts its depth), through the launcher and then through
+    the engine with prefill, decode and the ``mode="ref"`` run each in a
+    launch window of its own; the model is freed before returning.
+    Returns the flash launches of the engine's counted prefill."""
+    import dataclasses
     import numpy as np
     from repro_torch.configs import registry
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.launch import serve
-    from repro_torch.obs import METRICS
     from repro_torch.serve import engine
 
     b, s0, n_new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
-    arch = registry.get(SERVE["arch"])
+    arch = registry.get(arch_id)
+    argv = ["--arch", arch_id, "--batch", str(b), "--prompt-len", str(s0),
+            "--new-tokens", str(n_new), "--seed", str(SERVE["seed"])]
+    if layers is not None:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, n_layers=layers))
+        argv += ["--layers", str(layers)]
     cfg, dev = arch.model, torch.device("cuda")
-    per_prefill = {"flash_attention": cfg.n_layers}
+    per_prefill = {"flash_attention": cfg.n_layers} \
+        if arch.module == "lm" else {}
 
     # the user's entry point: one batch of requests, one prefill
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    summary = serve.main(["--arch", SERVE["arch"], "--batch", str(b),
-                          "--prompt-len", str(s0), "--new-tokens",
-                          str(n_new), "--seed", str(SERVE["seed"])])
+    summary = serve.main(argv)
     torch.cuda.synchronize()
-    read_window(LAUNCHES, per_prefill, "launcher (1 prefill + decode)")
-    details["serve_metrics"] = METRICS.snapshot()
+    windows = {"launcher": read_window(LAUNCHES, per_prefill,
+                                       f"{arch_id} launcher (1 prefill + "
+                                       f"decode)")}
+    launcher_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     with torch.inference_mode():
         gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
@@ -1334,7 +1375,8 @@ def phase_serve(torch, details: dict) -> int:
         prompts = SyntheticTokens(cfg.vocab, b, s0, seed=SERVE["seed"]
                                   ).next_batch()["tokens"].to(dev)
         if not torch.equal(prompts.cpu(), summary["prompts"]):
-            raise AssertionError("engine prompts != the launcher's")
+            raise AssertionError(f"{arch_id}: engine prompts != the "
+                                 f"launcher's")
         prefill = engine.make_prefill_fn(arch)
         prefill_ref = engine.make_prefill_fn(arch, attn_mode="ref")
         decode = engine.make_decode_fn(arch)
@@ -1363,77 +1405,165 @@ def phase_serve(torch, details: dict) -> int:
         run_prefill(prefill)                                    # warm-up
         LAUNCHES.clear()
         logits, cache, _ = run_prefill(prefill)
-        windows = {"prefill": read_window(LAUNCHES, per_prefill, "prefill")}
+        windows["prefill"] = read_window(LAUNCHES, per_prefill,
+                                         f"{arch_id} prefill")
         LAUNCHES.clear()
         tokens, t_decode = run_decode(logits, cache)
-        windows["decode"] = read_window(LAUNCHES, {}, f"{n_new - 1} decode "
-                                        f"steps")
+        windows["decode"] = read_window(LAUNCHES, {}, f"{arch_id} "
+                                        f"{n_new - 1} decode steps")
         LAUNCHES.clear()
         ref_logits, ref_cache, _ = run_prefill(prefill_ref)
         ref_tokens, _ = run_decode(ref_logits, ref_cache)
-        windows["mode=ref"] = read_window(LAUNCHES, {}, "mode=ref prefill "
-                                          "+ decode")
-        prefill_ms = [run_prefill(prefill)[2] for _ in range(7)]
+        windows["mode=ref"] = read_window(LAUNCHES, {}, f"{arch_id} "
+                                          f"mode=ref prefill + decode")
+        prefill_ms = [run_prefill(prefill)[2] for _ in range(prefill_runs)]
         # device time of one prefill and of one decode step
         cache_d = run_prefill(prefill)[1]
         tok_d = tokens[:, :1]
         prefill_dev = busy_ms(torch, lambda: run_prefill(prefill), iters=3)
         decode_dev = busy_ms(torch, lambda: decode(params, tok_d, cache_d,
                                                    s0), iters=5)
+        if arch_id == "qwen3-8b":
+            out["kv_quant"] = kv_quant_diff(torch, arch, params, prompts,
+                                            tokens)
+    peak = torch.cuda.max_memory_allocated()
 
     want_shape = (b, s0, cfg.vocab)
     if tuple(logits.shape) != want_shape or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
-                             f"finite {want_shape}")
+        raise AssertionError(f"{arch_id}: prefill logits "
+                             f"{tuple(logits.shape)} not finite "
+                             f"{want_shape}")
     err = float((logits - ref_logits).abs().max())
     tol = LOGIT_TOL * float(ref_logits.abs().max())
     if not err <= tol:
-        raise AssertionError(f"prefill logits kernel vs mode=ref: max |err| "
-                             f"{err} > {tol}")
+        raise AssertionError(f"{arch_id}: prefill logits kernel vs "
+                             f"mode=ref: max |err| {err} > {tol}")
     top2 = ref_logits[:, -1].topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > tol
     first_same = tokens[:, 0] == ref_tokens[:, 0]
     if not bool(first_same[clear].all()):
-        raise AssertionError(f"first token differs from mode=ref in a row "
-                             f"whose top-2 gap exceeds {tol}: "
-                             f"{tokens[:, 0].tolist()} vs "
+        raise AssertionError(f"{arch_id}: first token differs from "
+                             f"mode=ref in a row whose top-2 gap exceeds "
+                             f"{tol}: {tokens[:, 0].tolist()} vs "
                              f"{ref_tokens[:, 0].tolist()}")
     agree = int((tokens == ref_tokens).sum())
     logits_equal = float((logits == ref_logits).float().mean())
     same_as_launcher = bool(torch.equal(tokens.cpu(), summary["tokens"]))
     med = statistics.median(prefill_ms)
     per_step = t_decode / (n_new - 1)
-    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-          f"{cfg.param_dtype}, batch {b} prompt {s0} new {n_new}: "
-          f"launches per window {windows}")
-    print(f"serve: prefill logits vs mode=ref max |err| {err:.4g} (tol "
-          f"{tol:.4g}), {100 * logits_equal:.3f}% bitwise equal; first "
-          f"tokens equal in {int(first_same.sum())}/{b} "
+    cut = f" (cut from {registry.get(arch_id).model.n_layers})" \
+        if layers else ""
+    print(f"serve: {cfg.name} {cfg.n_layers} layers{cut} d_model "
+          f"{cfg.d_model} {cfg.param_dtype}, batch {b} prompt {s0} new "
+          f"{n_new}: launches per window {windows}; peak memory "
+          f"{launcher_peak / 2**30:.2f} GiB launcher, {peak / 2**30:.2f} "
+          f"GiB engine")
+    print(f"serve: {arch_id} prefill logits vs mode=ref max |err| "
+          f"{err:.4g} (tol {tol:.4g}), {100 * logits_equal:.3f}% bitwise "
+          f"equal; first tokens equal in {int(first_same.sum())}/{b} "
           f"rows ({int(clear.sum())} with a top-2 gap above tol); greedy "
           f"tokens equal {agree}/{tokens.numel()}; engine tokens "
           f"{'equal' if same_as_launcher else 'differ from'} the launcher's")
-    print(f"serve: prefill median {med:.3f} ms over 7 "
-          f"({', '.join(f'{t:.3f}' for t in prefill_ms)}), "
+    print(f"serve: {arch_id} prefill median {med:.3f} ms over "
+          f"{prefill_runs} ({', '.join(f'{t:.3f}' for t in prefill_ms)}), "
           f"{b * s0 / med * 1e3:.0f} tok/s; decode {per_step:.3f} ms/step "
           f"over {n_new - 1} steps, {b * (n_new - 1) / t_decode * 1e3:.0f} "
           f"tok/s; launcher prefill {summary['prefill_ms']:.3f} ms, decode "
           f"{summary['decode_ms_per_step']:.3f} ms/step")
-    print(f"serve: device time per prefill {busy_text(prefill_dev, med)} "
-          f"of the median, per decode step "
+    print(f"serve: {arch_id} device time per prefill "
+          f"{busy_text(prefill_dev, med)} of the median, per decode step "
           f"{busy_text(decode_dev, per_step)}")
-    details["serve"] = {
-        "windows": windows, "logit_err": err, "logit_tol": tol,
-        "first_tokens_equal": int(first_same.sum()),
+    out[arch_id] = {
+        "layers": cfg.n_layers, "windows": windows, "logit_err": err,
+        "logit_tol": tol, "first_tokens_equal": int(first_same.sum()),
         "rows_above_tol": int(clear.sum()), "tokens_equal": agree,
         "tokens": tokens.cpu().tolist(), "ref_tokens":
         ref_tokens.cpu().tolist(), "prefill_ms": prefill_ms,
         "decode_ms_per_step": per_step, "logits_bitwise_equal":
-        logits_equal, "prefill_device_ms": prefill_dev,
-        "decode_step_device_ms": decode_dev, "launcher": {
+        logits_equal, "tokens_equal_launcher": same_as_launcher,
+        "prefill_device_ms": prefill_dev, "decode_step_device_ms":
+        decode_dev, "launcher_peak_bytes": launcher_peak,
+        "engine_peak_bytes": peak, "launcher": {
             k: summary[k] for k in ("prefill_ms", "decode_ms",
                                     "decode_ms_per_step")},
         "logits_abs_sum": float(np.abs(logits.float().cpu().numpy()).sum())}
-    return windows["prefill"]["flash_attention"]
+    del params, cache, cache_d, ref_cache, logits, ref_logits
+    torch.cuda.empty_cache()
+    return windows["prefill"].get("flash_attention", 0)
+
+
+def phase_serve(torch, details: dict) -> int:
+    """Full-width llama3.2-1b (:func:`serve_arch`, 7 timed prefills);
+    returns the flash launches of one prefill."""
+    from repro_torch.obs import METRICS
+    out = details.setdefault("serve", {})
+    launches = serve_arch(torch, SERVE["arch"], out, prefill_runs=7)
+    details["serve_metrics"] = METRICS.snapshot()
+    return launches
+
+
+#: the archs phase: (arch, layers) served at SERVE's batch, prompt, new
+#: tokens and seed; layers None is the published depth. yi-34b keeps its
+#: published widths at 32 of its 60 layers: its bf16 parameters are 68.8
+#: GB, and init_params draws each stacked leaf in fp32 first (its MLP's
+#: [60, 7168, 20480] alone 35 GB), so the whole model does not fit the
+#: 80 GB card; at 32 layers the parameters take 37.5 GB and the fp32
+#: draw of one MLP leaf 18.8 GB more
+ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 32),
+         ("mamba2-780m", None)]
+#: decode steps of qwen3-8b with the int8 KV cache against the bf16 one
+KV_QUANT_STEPS = 8
+
+
+def kv_quant_diff(torch, arch, params, prompts, tokens) -> dict:
+    """qwen3-8b through the engine with the int8 KV cache
+    (``kv_cache_quant``) and with the bf16 one, fed the same tokens (the
+    bf16 run's greedy ones) for :data:`KV_QUANT_STEPS` decode steps;
+    the int8 run's prefill launches flash once a layer. Returns the
+    relative logit difference max |int8 - bf16| / max |bf16| per step."""
+    import dataclasses
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.serve import engine
+    b, s0 = prompts.shape
+    quant = dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, kv_cache_quant=True))
+    steps = {}
+    for name, a in (("bf16", arch), ("int8", quant)):
+        cache = engine.make_cache(a, b, s0 + KV_QUANT_STEPS,
+                                  a.model.param_dtype, prompts.device)
+        LAUNCHES.clear()
+        logits, cache = engine.make_prefill_fn(a)(
+            params, {"tokens": prompts}, cache)
+        read_window(LAUNCHES, {"flash_attention": a.model.n_layers},
+                    f"qwen3-8b {name} cache prefill")
+        if name == "int8" and cache["layers"]["k"].dtype != torch.int8:
+            raise AssertionError("kv_cache_quant cache is not int8")
+        decode = engine.make_decode_fn(a)
+        rows = []
+        for i in range(KV_QUANT_STEPS):
+            step, cache = decode(params, tokens[:, i:i + 1], cache, s0 + i)
+            rows.append(step)
+        steps[name] = torch.stack(rows)
+    if not torch.isfinite(steps["int8"]).all():
+        raise AssertionError("int8 KV cache logits not finite")
+    ref = steps["bf16"]
+    rel = ((steps["int8"] - ref).abs().amax(dim=(1, 2))
+           / ref.abs().amax(dim=(1, 2))).tolist()
+    agree = float((steps["int8"].argmax(-1) == ref.argmax(-1)).float()
+                  .mean())
+    print(f"archs: qwen3-8b int8 KV cache vs bf16 over {KV_QUANT_STEPS} "
+          f"decode steps: relative logit difference per step "
+          f"{', '.join(f'{r:.4f}' for r in rel)}; argmax equal in "
+          f"{100 * agree:.1f}% of rows")
+    return {"rel_logit_diff": rel, "argmax_equal": agree}
+
+
+def phase_archs(torch, details: dict) -> int:
+    """:data:`ARCHS` through :func:`serve_arch`, one model on the card at
+    a time; returns the flash launches of their counted prefills."""
+    out = details.setdefault("archs", {})
+    return sum(serve_arch(torch, arch_id, out, layers)
+               for arch_id, layers in ARCHS)
 
 
 #: the accuracy harness's operating point on the card (both reduced
@@ -3161,6 +3291,7 @@ def main(argv=None) -> int:
             else "operations"
     tot["flash_attention"] = phase("flash", phase_flash, torch, details)
     counts["flash_attention"] = phase("serve", phase_serve, torch, details)
+    counts["flash_attention"] += phase("archs", phase_archs, torch, details)
     decode_counts = phase("decode", phase_decode, torch, details)
     for name in DECODE_KERNELS:
         if not decode_counts.get(name):

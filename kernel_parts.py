@@ -7,8 +7,10 @@ Builds variants of the kernel sources into ``build/kernel_parts/``, each
 with parts of the main loop taken out, and times them: the split-GEMM
 kernels at resnet18's distinct layer shapes, each launch under
 ``fused_hetero_gemm.split_plan``'s tile and K split, and the flash kernel
-at the serving prefill, S=2048, decode and decode4 shapes
-(:data:`FLASH_SHAPES`), each under ``flash_attention.flash_plan``.
+at the serving prefill, S=2048, decode, decode4 and the three D=256
+shapes (:data:`FLASH_SHAPES`), each under ``flash_attention.flash_plan``.
+Each variant's ptxas report (registers, spills) is printed as it is
+built.
 
 ``src/repro_torch/kernels/csrc/fused_split_gemm.cu``, its
 ``fused_hetero_gemm`` on both sides of the split (:data:`VARIANTS`):
@@ -44,6 +46,9 @@ its one-sided shape (:data:`SPLIT_VARIANTS`):
                  (no fragments, no mma, no softmax)
     empty        no copies either: launch, the KV loop's barriers and the
                  epilogue
+    one_pass     D=256 in one pass over the KV tiles, acc for all 256
+                 output columns in registers (the kernel takes two passes
+                 of 128 columns, which spill nothing)
 
 and, at a shape ``flash_plan`` gives the decode form, ``prefill_form``:
 the full kernel launched in the prefill form instead (one 64-row block
@@ -118,9 +123,9 @@ _FLASH_NO_MMA = (
 """,
     """  c[0] += __uint_as_float(a[0] ^ b0 ^ b1);
 """)
-_FLASH_NO_COMPUTE = ("    if (skip) continue;\n", "    continue;\n")
+_FLASH_NO_COMPUTE = ("      if (skip) continue;\n", "      continue;\n")
 _FLASH_NO_COPIES = [
-    ("  issue_q();\n", ""),
+    ("      issue_q();\n", ""),
     ("    load_tile<D, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, tid);\n"
      "    load_tile<D, BKV>(ks + TILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, "
      "tid);\n", "")]
@@ -130,10 +135,13 @@ FLASH_VARIANTS = {
     "no_mma": [_FLASH_NO_MMA],
     "copies_only": [_FLASH_NO_COMPUTE],
     "empty": [_FLASH_NO_COMPUTE, *_FLASH_NO_COPIES],
+    "one_pass": [("  constexpr int NPASS = D >= 256 ? 2 : 1;\n",
+                  "  constexpr int NPASS = 1;\n")],
 }
-#: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048
-#: and the two decode-form shapes
-FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4")
+#: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048,
+#: the two decode-form shapes and the three at D=256
+FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4", "d256_prefill",
+                "d256_ragged", "d256_decode4")
 #: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
@@ -168,10 +176,14 @@ def build_variants(source: str, variants: dict) -> dict[str, ctypes.CDLL]:
                                         stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
-        _, err = proc.communicate()
+        out, err = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"error: nvcc failed on {source} variant "
                              f"{name}:\n{err}")
+        usage = [ln.split(":", 1)[-1].strip()
+                 for ln in (out + err).splitlines()
+                 if "Used" in ln or "spill" in ln]
+        print(f"build: {source} {name}: ptxas: {'; '.join(usage)}")
         libs[name] = ctypes.CDLL(str(lib))
         for entry, argtypes in build.SOURCES[source].items():
             fn = getattr(libs[name], entry)

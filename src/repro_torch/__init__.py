@@ -8,18 +8,20 @@ held to their originals by ``tests/test_torch_compiler.py``.
   core      — unified ISA, event-driven scheduler, workloads, split solver,
               resource and chip cost models, the deployable HeteroLinear
   models    — CNN configurations (resnet18 / mobilenet_v2 specs); the
-              dense decoder-only LM (``layers``, ``lm``)
-  configs   — architecture registry (llama3.2-1b)
+              dense decoder-only LM (``layers``, ``lm``) and Mamba2
+              (``ssm``)
+  configs   — architecture registry (llama3.2-1b, qwen3-8b, gemma-7b,
+              yi-34b, mamba2-780m, jamba-v0.1-52b)
   compiler  — lowering to ISA programs, passes, CLI, executor backends
-  kernels   — split-GEMM and flash-attention CUDA kernels for Hopper and
-              their plain versions
+  kernels   — split-GEMM, depthwise and flash-attention CUDA kernels for
+              Hopper and their plain versions
   data      — seeded synthetic token batches
   serve     — prefill / decode factories and greedy generation
   launch    — the serving launcher (``python -m repro_torch.launch.serve``)
   quant     — uniform symmetric quantizer, filter-wise hybrid
               quantization, the straight-through fake quantizers
   dse       — the DDPG design-space search (``python -m repro_torch.dse``)
-  obs       — tracer, counters, metrics
+  obs       — tracer, counters, metrics, profile report
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 another device, and raise when CUDA is absent.

@@ -5,6 +5,7 @@ Examples::
 
     python -m repro_torch.compiler resnet18                   # summary
     python -m repro_torch.compiler resnet18 -O 1 --simulate   # + Fig.5 decomposition
+    python -m repro_torch.compiler llama3.2-1b -O 1 --trace t.json --profile
     python -m repro_torch.compiler resnet18 --execute --backend cuda
     python -m repro_torch.compiler resnet18 --execute --backend golden
     python -m repro_torch.compiler resnet18 --in-hw 32 --width 0.25 \\
@@ -128,6 +129,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "via --backend: CNN programs end to end, decode "
                         "programs as a 4-token greedy session, other LM "
                         "programs layer by layer (summary mode)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="simulate with the repro_torch.obs tracer and "
+                        "write a Chrome trace-event JSON (open in "
+                        "Perfetto; summary mode)")
+    p.add_argument("--profile", action="store_true",
+                   help="render the per-layer/per-core utilization "
+                        "report from a traced simulation (summary mode)")
     p.add_argument("-o", "--output", default=None,
                    help="write asm/bin to a file instead of stdout")
     return p
@@ -422,6 +430,23 @@ def main(argv: list[str] | None = None) -> int:
                                    batches=args.batches))
         else:
             print(summarize(prog, simulate=args.simulate))
+        if args.trace or args.profile:
+            from repro_torch.obs import Tracer, profile_report
+            tracer = Tracer()
+            simulate_program(prog, batches=args.batches, tracer=tracer)
+            errs = tracer.counters.closure_errors()
+            if errs:
+                print("error: cycle accounting failed to close:",
+                      file=sys.stderr)
+                for e in errs:
+                    print(f"  {e}", file=sys.stderr)
+                return 1
+            if args.trace:
+                tracer.save(args.trace)
+                n_events = len(tracer.to_chrome()["traceEvents"])
+                print(f"trace     {args.trace} ({n_events} events)")
+            if args.profile:
+                print(profile_report(tracer), end="")
         if args.execute:
             print(execute_report(prog, backend=args.backend,
                                  device=args.torch_device))

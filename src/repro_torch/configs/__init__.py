@@ -1,3 +1,8 @@
-"""Architecture configs of the port: the registry, the arch the port
-serves (``llama3.2-1b``) and the archs it compiles and decodes through
-compiled sessions (``mamba2-780m``, ``jamba-v0.1-52b``)."""
+"""Architecture configs of the port (one module per arch) and the
+registry: the archs it serves (``llama3.2-1b``, ``qwen3-8b``,
+``gemma-7b``, ``yi-34b``, ``mamba2-780m``) and the one it compiles and
+decodes through compiled sessions only (``jamba-v0.1-52b``)."""
+from repro_torch.configs.registry import ArchConfig, get, list_archs, \
+    register
+
+__all__ = ["ArchConfig", "get", "list_archs", "register"]

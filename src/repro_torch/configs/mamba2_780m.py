@@ -3,8 +3,8 @@ ssm_state=128, SSD. [arXiv:2405.21060; unverified]
 
 Attention-free. The paper's technique applies to the in/out
 projections (GEMM-level); the SSD scan itself is not a GEMM and is not
-split. The port has this config for the compiler and the decode
-sessions; its forward (``models/ssm.py``) is a later slice.
+split. The compiler and the decode sessions read this config, and
+``models/ssm.py`` serves it.
 """
 import torch
 

@@ -3,8 +3,8 @@ model config, and a reduced same-family smoke config for CPU tests, to
 one model module of ``repro_torch.models``.
 
 The counterpart of ``repro.configs.registry`` for the archs the port
-has. Sharding-rule overrides and the dry-run shape sets belong to the
-``parallel`` slice and are not here. Modules are named as strings and
+has. Sharding-rule overrides (yi-34b's) and the dry-run shape sets
+belong to the ``parallel`` slice and are not here. Modules are named as strings and
 imported on first use, only from ``repro_torch``.
 """
 from __future__ import annotations
@@ -52,9 +52,10 @@ def list_archs() -> list[str]:
 
 
 #: config modules under ``repro_torch.configs``: the archs ported so far
-#: (mamba2-780m and jamba-v0.1-52b as configs only: the compiler and the
-#: decode sessions read them; their forwards are later slices)
-_ARCH_MODULES = ["llama32_1b", "mamba2_780m", "jamba_v01_52b"]
+#: (jamba-v0.1-52b as a config only: the compiler and the decode
+#: sessions read it; its forward is a later slice)
+_ARCH_MODULES = ["yi_34b", "gemma_7b", "llama32_1b", "qwen3_8b",
+                 "mamba2_780m", "jamba_v01_52b"]
 
 _loaded = False
 

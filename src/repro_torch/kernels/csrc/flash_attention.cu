@@ -8,7 +8,7 @@
 // offset by kv_offset, and ragged Sq / Skv masked in the kernel.
 //
 // Layout. q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], out [B, Sq, Hq, D],
-// all bf16, D in {64, 128}, given by element strides (batch, sequence,
+// all bf16, D in {64, 128, 256}, given by element strides (batch, sequence,
 // head) that are multiples of 8 with the last dimension contiguous and
 // 16-byte aligned rows, so blockwise_attention's [B, S, H, D] and
 // ops.attention's [B, H, S, D] both arrive without a copy. Query head h
@@ -40,13 +40,22 @@
 // tensor-core time, so bytes bound it, and a launch and one tile's
 // latency are what it costs. At S=2048 the 17 GFLOP of the causal
 // product bound it (~17 us at 989 TFLOP/s). At decode (Sq=1, Skv=1024)
-// the KV bytes bound it (~5 us).
+// the KV bytes bound it (~5 us). At gemma-7b's prefill (B=8, S=64, 16
+// heads of D=256) the 16.8 MB bound it (~5 us).
 //
 // Design (FlashAttention-2 shape on mma.sync; wgmma and TMA are later
 // work):
 //   * prefill form: one block of 4 warps per (64-row query tile, query
-//     head, batch). Each warp owns 16 query rows; their Q fragments are
-//     read once by ldmatrix and stay in registers for the whole KV loop.
+//     head, batch). Each warp owns 16 query rows; at D <= 128 their Q
+//     fragments are read once by ldmatrix and stay in registers for the
+//     whole KV loop (acc and Q take 16 * D / 32 + 16 * D / 64 registers
+//     a thread). At D = 256 acc alone would take 128 and Q 64 more, and
+//     with the score tile the kernel spilled. So at D = 256 Q stays in
+//     shared memory, each k-step of q . k reading its A fragment by
+//     ldmatrix (QREG false), and the block makes two passes over the KV
+//     tiles (NPASS), each accumulating 128 of the 256 output columns:
+//     q . k and the softmax are done twice and K is read twice, for no
+//     spill (kernel_parts.py's one_pass variant keeps the single pass);
 //     S = Q K^T is mma.sync m16n8k16 bf16 -> fp32 with K's B fragments
 //     from ldmatrix.x4 on the row-major [64][D] K tile; the row max and
 //     row sum take two quad shuffles (l is summed per thread and reduced
@@ -66,7 +75,9 @@
 //     packs the Hq/Hkv query heads x Sq positions that share the KV head
 //     into the 16 rows of one mma tile (row r: position r / rep, head
 //     hk * rep + r % rep), so each K and V tile is read once for all of
-//     them, and a 4-stage ring keeps three tiles in flight. Each warp
+//     them, and a 4-stage ring keeps three tiles in flight (3 stages at
+//     D = 256, whose 4 would need 264 KiB of shared memory; two passes
+//     of 128 columns there too). Each warp
 //     takes a quarter of every 64-key tile (16 keys); the four (m, l,
 //     acc) merge through shared memory at the end with the usual
 //     rescaling, and each row goes back to its (position, head) by
@@ -86,8 +97,6 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 16;             // query rows of one mma tile
 constexpr int BQ = ROWS * WARPS;     // prefill: query rows per block
 constexpr int BKV = 64;              // keys per staged K or V tile
-constexpr int STAGES_PREFILL = 2;
-constexpr int STAGES_DECODE = 4;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -107,18 +116,38 @@ struct Args {
   int causal, kv_offset;
 };
 
+// K / V ring stages: 2 in the prefill form; 4 in the decode form, 3 at
+// D = 256, where 4 stages and the Q tile would take 264 KiB of the 227 KiB
+// a block may have (kernels/flash_attention.py stages).
+template <int D, bool DEC>
+__host__ __device__ constexpr int stages() {
+  return DEC ? (D >= 256 ? 3 : 4) : 2;
+}
+
 // Q tile, then the ring of [K tile, V tile] stages, all bf16.
 template <int D, bool DEC>
 constexpr int smem_bytes() {
-  return 2 * ((DEC ? ROWS : BQ) * D +
-              (DEC ? STAGES_DECODE : STAGES_PREFILL) * 2 * BKV * D);
+  return 2 * ((DEC ? ROWS : BQ) * D + stages<D, DEC>() * 2 * BKV * D);
 }
+static_assert(smem_bytes<256, false>() <= 232448 &&
+                  smem_bytes<256, true>() <= 232448,
+              "a block may take 227 KiB of shared memory");
 
 // Element offset of 16-byte chunk `chunk` of row `row` in a [rows][D]
 // tile whose chunks are swizzled by (row & 7).
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+// The same offset within a row for chunk 2 i + c0 (c0 in {0, 1}), with
+// z = c0 ^ (row & 7) the lane's constant: (2 i + c0) ^ (row & 7) =
+// ((2 i) & ~7) + (((2 i) & 7) ^ z). In a loop unrolled over i the first
+// term is an immediate and the second one of four values, so the
+// ldmatrix addresses of a whole tile take four registers rather than
+// one per step held across the KV loop.
+__device__ __forceinline__ int swz_step(int i, int z) {
+  return (((2 * i) & ~7) + (((2 * i) & 7) ^ z)) << 3;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -213,15 +242,22 @@ __device__ __forceinline__ void load_q_packed(bf16* s, const Args& a, int b,
 
 template <int D, bool DEC>
 __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
-  constexpr int NST = DEC ? STAGES_DECODE : STAGES_PREFILL;
+  constexpr int NST = stages<D, DEC>();
+  constexpr bool QREG = D <= 128;              // Q fragments in registers
   constexpr int KW = DEC ? BKV / WARPS : BKV;  // keys of a tile per warp
   constexpr int NB = KW / 8;                   // n-blocks of a score tile
   constexpr int DK = D / 16;                   // k-steps of q . k
-  constexpr int DN = D / 8;                    // n-blocks of the output
+  // output columns in NPASS passes: at D = 256 acc for all 256 would take
+  // 128 registers a thread, so each pass accumulates 128 of them
+  constexpr int NPASS = D >= 256 ? 2 : 1;
+  constexpr int DV = D / NPASS;                // output columns of a pass
+  constexpr int DN = DV / 8;                   // n-blocks of a pass's output
   constexpr int TILE = BKV * D;                // elements of a K or V tile
-  static_assert(!DEC || 4 * (2 * WARPS * ROWS + WARPS * ROWS * D) <=
+  static_assert(!DEC || 4 * (2 * WARPS * ROWS + WARPS * ROWS * DV) <=
                             2 * NST * 2 * TILE,
                 "the decode merge reuses the ring");
+  static_assert(DV % 64 == 0 || NPASS == 1,
+                "a pass's columns start on a whole swizzle period");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* ring = Qs + (DEC ? ROWS : BQ) * D;
@@ -277,193 +313,221 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
     load_tile<D, BKV>(ks + TILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, tid);
   };
 
-  issue_q();
-#pragma unroll
-  for (int t = 0; t < NST - 1; ++t) {
-    if (t < n_tiles) issue_tile(t);
-    cp_async_commit();
-  }
+  // the lane's ldmatrix rows: its Q row, K rows krow + 16 jj, V rows
+  // vrow + 16 kk; each is lane & 7 modulo 8, so one swizzle constant zq
+  // (chunk 2 kk + (lane >> 4), as V's chunks) and zk (chunk 2 kk +
+  // ((lane >> 3) & 1)) serve all of them
+  const bf16* qs_lane = Qs + ((DEC ? 0 : ROWS * warp) + (lane & 15)) * D;
+  const int krow = key0 + (lane & 7) + ((lane >> 4) << 3);
+  const int vrow = key0 + (lane & 15);
+  const int zq = (lane >> 4) ^ (lane & 7);
+  const int zk = ((lane >> 3) & 1) ^ (lane & 7);
+  uint32_t qf[QREG ? DK : 1][4];
 
-  uint32_t qf[DK][4];
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[DN][4];
-#pragma unroll
-  for (int n = 0; n < DN; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();  // tile t landed for all threads; tile t - 1 read
-    if (t + NST - 1 < n_tiles) issue_tile(t + NST - 1);
-    cp_async_commit();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk)
-        ldsm_x4(qf[kk], Qs + swz<D>((DEC ? 0 : ROWS * warp) + (lane & 15),
-                                    2 * kk + (lane >> 4)));
+#pragma unroll 1
+  for (int pass = 0; pass < NPASS; ++pass) {
+    // output columns [c0, c0 + DV) of this pass; a later pass walks the KV
+    // tiles again, so the ring (and the decode merge's use of it) must be
+    // free first
+    const int c0 = pass * DV;
+    if (pass == 0) {
+      issue_q();
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    const bf16* ks = ring + (t % NST) * 2 * TILE;
-    const bf16* vs = ks + TILE;
-    const int kw0 = t * BKV + key0;
-    const bool skip =
-        qhi < qlo || kw0 >= a.Skv || (a.causal && kw0 > qhi);
-    if (skip) continue;
-    const bool edge = kw0 + KW > a.Skv || (a.causal && kw0 + KW - 1 > qlo);
-
-    // S = Q K^T over the warp's KW keys
-    float s[NB][4];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-#pragma unroll
-      for (int jj = 0; jj < NB / 2; ++jj) {
-        uint32_t kf[4];
-        ldsm_x4(kf, ks + swz<D>(key0 + 16 * jj + (lane & 7) +
-                                    ((lane >> 4) << 3),
-                                2 * kk + ((lane >> 3) & 1)));
-        mma_bf16(s[2 * jj], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * jj + 1], qf[kk], kf[2], kf[3]);
-      }
+    for (int t = 0; t < NST - 1; ++t) {
+      if (t < n_tiles) issue_tile(t);
+      cp_async_commit();
     }
 
-    // online softmax in base 2; element e of n-block j is row g + 8 (e/2),
-    // key kw0 + 8 j + 2 t4 + e % 2
-    float mt[2] = {NEG_INF, NEG_INF};
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float acc[DN][4];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
+    for (int n = 0; n < DN; ++n)
+      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();  // tile t landed for all threads; tile t - 1 read
+      if (t + NST - 1 < n_tiles) issue_tile(t + NST - 1);
+      cp_async_commit();
+      if constexpr (QREG) {
+        if (t == 0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * a.scale_log2;
-        if (edge) {
-          const int kpos = kw0 + 8 * j + 2 * t4 + (e & 1);
-          if (kpos >= a.Skv || (a.causal && kpos > qpos[e >> 1])) x = NEG_INF;
+          for (int kk = 0; kk < DK; ++kk)
+            ldsm_x4(qf[kk], qs_lane + swz_step(kk, zq));
         }
-        s[j][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+      }
+      const bf16* ks = ring + (t % NST) * 2 * TILE;
+      const bf16* vs = ks + TILE;
+      const int kw0 = t * BKV + key0;
+      const bool skip =
+          qhi < qlo || kw0 >= a.Skv || (a.causal && kw0 > qhi);
+      if (skip) continue;
+      const bool edge = kw0 + KW > a.Skv || (a.causal && kw0 + KW - 1 > qlo);
+
+      // S = Q K^T over the warp's KW keys
+      float s[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldsm_x4(qa, qs_lane + swz_step(kk, zq));
+        }
+#pragma unroll
+        for (int jj = 0; jj < NB / 2; ++jj) {
+          uint32_t kf[4];
+          ldsm_x4(kf, ks + (krow + 16 * jj) * D + swz_step(kk, zk));
+          mma_bf16(s[2 * jj], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * jj + 1], qa, kf[2], kf[3]);
+        }
+      }
+
+      // online softmax in base 2; element e of n-block j is row g + 8 (e/2),
+      // key kw0 + 8 j + 2 t4 + e % 2
+      float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * a.scale_log2;
+          if (edge) {
+            const int kpos = kw0 + 8 * j + 2 * t4 + (e & 1);
+            if (kpos >= a.Skv || (a.causal && kpos > qpos[e >> 1])) x = NEG_INF;
+          }
+          s[j][e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        }
+      }
+      float alpha[2], mu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+        const float m_new = fmaxf(m[i], mt[i]);
+        mu[i] = m_new == NEG_INF ? 0.f : m_new;
+        alpha[i] = fast_exp2(m[i] - mu[i]);
+        m[i] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(s[j][e] - mu[e >> 1]);
+          rs[e >> 1] += p;  // l sums the fp32 p
+          s[j][e] = p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      // acc += (P rounded to bf16) . V; P's C fragments are its A fragments
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int jj = 0; jj < DN / 2; ++jj) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, vs + c0 + (vrow + 16 * kk) * D +
+                                swz_step(jj, zq));
+          mma_bf16(acc[2 * jj], pa, vf[0], vf[1]);
+          mma_bf16(acc[2 * jj + 1], pa, vf[2], vf[3]);
+        }
       }
     }
-    float alpha[2], mu[2];
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float m_new = fmaxf(m[i], mt[i]);
-      mu[i] = m_new == NEG_INF ? 0.f : m_new;
-      alpha[i] = fast_exp2(m[i] - mu[i]);
-      m[i] = m_new;
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     }
-    float rs[2] = {0.f, 0.f};
+
+    if (!DEC) {
+      bf16* og = a.out + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
+      for (int i = 0; i < 2; ++i) {
+        const int r = q0 + ROWS * warp + g + 8 * i;
+        if (r >= a.Sq) continue;
+        const float norm = fmaxf(l[i], 1e-30f);
+        bf16* orow = og + r * a.o_ss + c0 + 2 * t4;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[j][e] - mu[e >> 1]);
-        rs[e >> 1] += p;  // l sums the fp32 p
-        s[j][e] = p;
+        for (int n = 0; n < DN; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+              __floats2bfloat162_rn(acc[n][2 * i] / norm,
+                                    acc[n][2 * i + 1] / norm);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int n = 0; n < DN; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+      continue;
     }
 
-    // acc += (P rounded to bf16) . V; P's C fragments are its A fragments
-#pragma unroll
-    for (int kk = 0; kk < NB / 2; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jj = 0; jj < DN / 2; ++jj) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, vs + swz<D>(key0 + 16 * kk + (lane & 15),
-                                      2 * jj + (lane >> 4)));
-        mma_bf16(acc[2 * jj], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * jj + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-
-  if (!DEC) {
-    bf16* og = a.out + b * a.o_sb + h * a.o_sh;
+    // decode form: merge the four warps' (m, l, acc) of each row
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+    float* ms = reinterpret_cast<float*>(ring);
+    float* ls = ms + WARPS * ROWS;
+    float* as = ls + WARPS * ROWS;  // [WARPS][ROWS][DV]
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = q0 + ROWS * warp + g + 8 * i;
-      if (r >= a.Sq) continue;
-      const float norm = fmaxf(l[i], 1e-30f);
-      bf16* orow = og + r * a.o_ss + 2 * t4;
+      const int r = warp * ROWS + g + 8 * i;
+      if (t4 == 0) {
+        ms[r] = m[i];
+        ls[r] = l[i];
+      }
 #pragma unroll
-      for (int n = 0; n < DN; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-            __floats2bfloat162_rn(acc[n][2 * i] / norm,
-                                  acc[n][2 * i + 1] / norm);
+      for (int n = 0; n < DN; ++n) {
+        as[r * DV + 8 * n + 2 * t4] = acc[n][2 * i];
+        as[r * DV + 8 * n + 2 * t4 + 1] = acc[n][2 * i + 1];
+      }
     }
-    return;
-  }
-
-  // decode form: merge the four warps' (m, l, acc) of each row
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring
-  float* ms = reinterpret_cast<float*>(ring);
-  float* ls = ms + WARPS * ROWS;
-  float* as = ls + WARPS * ROWS;  // [WARPS][ROWS][D]
+    __syncthreads();
+    constexpr int TPR = THREADS / ROWS;  // threads per output row
+    const int r = tid / TPR;
+    if (r >= a.Sq * a.rep) continue;
+    float mx = NEG_INF;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * ROWS + g + 8 * i;
-    if (t4 == 0) {
-      ms[r] = m[i];
-      ls[r] = l[i];
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * ROWS + r]);
+    float sc[WARPS], lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      sc[w] = fast_exp2(ms[w * ROWS + r] - mx);
+      lsum += ls[w * ROWS + r] * sc[w];
     }
+    const float norm = fmaxf(lsum, 1e-30f);
+    bf16* orow = a.out + b * a.o_sb + (r / a.rep) * a.o_ss +
+                 (hk * a.rep + r % a.rep) * a.o_sh + c0;
+    for (int c = tid % TPR; c < DN; c += TPR) {
+      float o[8];
 #pragma unroll
-    for (int n = 0; n < DN; ++n) {
-      as[r * D + 8 * n + 2 * t4] = acc[n][2 * i];
-      as[r * D + 8 * n + 2 * t4 + 1] = acc[n][2 * i + 1];
+      for (int e = 0; e < 8; ++e) {
+        o[e] = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w)
+          o[e] += as[(w * ROWS + r) * DV + 8 * c + e] * sc[w];
+      }
+      uint4 pk;
+      pk.x = pack_bf16(o[0] / norm, o[1] / norm);
+      pk.y = pack_bf16(o[2] / norm, o[3] / norm);
+      pk.z = pack_bf16(o[4] / norm, o[5] / norm);
+      pk.w = pack_bf16(o[6] / norm, o[7] / norm);
+      *reinterpret_cast<uint4*>(orow + 8 * c) = pk;
     }
-  }
-  __syncthreads();
-  constexpr int TPR = THREADS / ROWS;  // threads per output row
-  const int r = tid / TPR;
-  if (r >= a.Sq * a.rep) return;
-  float mx = NEG_INF;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * ROWS + r]);
-  float sc[WARPS], lsum = 0.f;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    sc[w] = fast_exp2(ms[w * ROWS + r] - mx);
-    lsum += ls[w * ROWS + r] * sc[w];
-  }
-  const float norm = fmaxf(lsum, 1e-30f);
-  bf16* orow = a.out + b * a.o_sb + (r / a.rep) * a.o_ss +
-               (hk * a.rep + r % a.rep) * a.o_sh;
-  for (int c = tid % TPR; c < DN; c += TPR) {
-    float o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      o[e] = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w)
-        o[e] += as[(w * ROWS + r) * D + 8 * c + e] * sc[w];
-    }
-    uint4 pk;
-    pk.x = pack_bf16(o[0] / norm, o[1] / norm);
-    pk.y = pack_bf16(o[2] / norm, o[3] / norm);
-    pk.z = pack_bf16(o[4] / norm, o[5] / norm);
-    pk.w = pack_bf16(o[6] / norm, o[7] / norm);
-    *reinterpret_cast<uint4*>(orow + 8 * c) = pk;
   }
 }
 
@@ -485,7 +549,7 @@ extern "C" {
 // q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D] -> out [B, Sq, Hq, D], all
 // bf16, given by element strides (batch, sequence, head), multiples of 8,
 // with the last dimension contiguous and 16-byte aligned bases. D in
-// {64, 128}; Hq a multiple of Hkv; kv_offset >= 0. Form 0 (prefill) runs
+// {64, 128, 256}; Hq a multiple of Hkv; kv_offset >= 0. Form 0 (prefill) runs
 // on a grid (Hq, B, ceil(Sq / 64)), form 1 (decode, only where
 // Sq * Hq / Hkv <= 16) on a grid (Hkv, B, 1); kernels/flash_attention.py
 // flash_plan picks the form and describes the same launch.
@@ -517,6 +581,9 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     case 128:
       return dec ? launch<128, true>(a, grid, s)
                  : launch<128, false>(a, grid, s);
+    case 256:
+      return dec ? launch<256, true>(a, grid, s)
+                 : launch<256, false>(a, grid, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -34,14 +34,20 @@ from repro_torch.kernels.build import launch
 NEG_INF = -1e30
 MODES = ("auto", "ref")
 #: the head sizes the kernel is instantiated for (it takes bf16)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 #: the kernel's launch forms, in the order of the entry point's ``form``
 FORMS = ("prefill", "decode")
 BLOCK_Q = 64                # prefill: query rows per block (4 warps x 16)
 BLOCK_KV = 64               # keys per staged K or V tile
 DECODE_ROWS = 16            # decode: packed (position, head) rows a block
-#: K / V ring stages of each form
-STAGES = {"prefill": 2, "decode": 4}
+
+
+def stages(form: str, d: int) -> int:
+    """K / V ring stages of ``form`` at head size ``d``, as the kernel's
+    ``stages<D, DEC>()``: 2 in the prefill form, 4 in the decode form
+    but 3 at D = 256, where 4 stages and its Q tile would need 264 KiB
+    of shared memory."""
+    return {"prefill": 2, "decode": 3 if d >= 256 else 4}[form]
 
 
 class FlashPlan(NamedTuple):
@@ -58,9 +64,9 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
     query heads of a KV head times the ``Sq`` positions fill at most one
     16-row tile (grid (Hkv, B, 1)), else the prefill form (grid (Hq, B,
     ceil(Sq / 64)), the query tile slowest). Shared memory holds the bf16
-    Q tile and the ring of [K, V] tile stages. The wrapper passes only
-    the form; the C entry point works out the same grid and shared
-    memory itself."""
+    Q tile and the ring of :func:`stages` [K, V] tile stages. The wrapper
+    passes only the form; the C entry point works out the same grid and
+    shared memory itself."""
     if min(b, sq, skv, hq, hkv, d) <= 0 or hq % hkv:
         raise ValueError(f"flash_plan: no launch for B={b} Sq={sq} "
                          f"Skv={skv} Hq={hq} Hkv={hkv} D={d}")
@@ -68,7 +74,7 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
         form, grid, rows = "decode", (hkv, b, 1), DECODE_ROWS
     else:
         form, grid, rows = "prefill", (hq, b, -(-sq // BLOCK_Q)), BLOCK_Q
-    smem = 2 * d * (rows + STAGES[form] * 2 * BLOCK_KV)
+    smem = 2 * d * (rows + stages(form, d) * 2 * BLOCK_KV)
     return FlashPlan(form, grid, smem)
 
 
@@ -169,7 +175,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention: head size {d} is not instantiated "
-            f"({KERNEL_HEAD_DIMS}); other sizes are for a later slice")
+            f"({KERNEL_HEAD_DIMS}); other sizes (the smoke configs' 8-32) "
+            f"are for a later slice")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: the kernel takes bf16, got "
                          f"{q.dtype}")

@@ -6,20 +6,24 @@ accelerator program served through decode sessions and the fleet.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b --layers 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --quantize --accel-devices 2 --accel-partition filter --fleet 2
 
 The counterpart of ``repro.launch.serve``. Weights are random, made on
 the device from ``--seed``; prompts come from ``SyntheticTokens`` with
-the same seed, so they are the reference's. Every prefill attention is
-one flash-attention kernel launch on the card (``--device cpu`` runs
-the plain versions; ``--smoke`` takes ``--device cpu``, since the
-flash kernel is not built for the smoke config's head size and fp32
-params). Prefill and decode times go to ``obs.METRICS`` as
+the same seed, so they are the reference's. The LMs (llama3.2-1b,
+qwen3-8b, gemma-7b, yi-34b) run every prefill attention as one
+flash-attention kernel launch on the card (``--device cpu`` runs the
+plain versions); an LM's ``--smoke`` takes ``--device cpu``, since the
+flash kernel is not built for the smoke configs' head sizes and fp32
+params. mamba2-780m (module ``ssm``) launches no kernel of the port;
+as in the reference, its prefill scores the prompt and decode starts
+from the empty state. Prefill and decode times go to ``obs.METRICS`` as
 ``serve.request.*``; each timed region ends in
-``torch.cuda.synchronize()`` on the card. Archs whose module is not
-``lm`` (mamba2-780m, jamba-v0.1-52b) are refused with exit code 2: the
-port has their configs but not their forwards yet.
+``torch.cuda.synchronize()`` on the card. jamba-v0.1-52b (module
+``hybrid``) is refused with exit code 2: the port has its config but
+not its forward yet.
 
 ``--quantize`` fake-quantizes every attention projection (the LM's
 ``HeteroQuantConfig``: ``--w-bits`` LUT columns at ``--ratio``, 8-bit
@@ -52,9 +56,10 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
 from repro_torch.models.lm import HeteroQuantConfig
 from repro_torch.obs import METRICS
-from repro_torch.serve.engine import greedy_token, make_cache, \
+from repro_torch.serve.engine import SERVED, greedy_token, make_cache, \
     make_decode_fn, make_prefill_fn
 
 
@@ -184,6 +189,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--w-bits", type=int, default=4)
     ap.add_argument("--ratio", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="serve the first N layers of the config, at its "
+                         "widths (a model whose published depth does not "
+                         "fit the card)")
     ap.add_argument("--accel-devices", type=int, default=1,
                     help="accelerator count for the compiled ISA program "
                          "image shipped to workers (--quantize path)")
@@ -218,29 +227,40 @@ def main(argv=None) -> dict:
     if args.quantize and arch.module != "lm":
         raise SystemExit("--quantize drives the lm family here; other "
                          "families quantize via HeteroLinear directly")
-    if arch.module != "lm":
+    if arch.module not in SERVED:
         # the registry has this arch's config (the compiler and the
         # decode sessions read it) but the port has no forward for it
         print(f"error: {args.arch} is a {arch.module!r} arch; the port "
               f"has its config only (compile and decode it through a "
               f"session with python -m repro_torch.compiler {args.arch} "
               f"--decode --execute); its forward comes with ROADMAP queue "
-              f"1, item 7 (the other model families)", file=sys.stderr)
+              f"1, item 1 (MoE, then the hybrid family)", file=sys.stderr)
         raise SystemExit(2)
     device = torch.device(args.device)
-    if args.smoke and device.type == "cuda":
+    smoke = arch.smoke
+    if args.smoke and device.type == "cuda" and arch.module == "lm" and (
+            smoke.head_dim not in KERNEL_HEAD_DIMS
+            or smoke.param_dtype != torch.bfloat16):
         # no silent fallback to plain attention: the flash kernel is
-        # built for head sizes 64 and 128 in bf16 only
-        print("error: --smoke serves the smoke config (head_dim 16, fp32 "
-              "params), which the flash-attention kernel is not "
-              "instantiated for; the smoke run takes --device cpu",
-              file=sys.stderr)
+        # built for the head sizes KERNEL_HEAD_DIMS in bf16 only
+        dtype = str(smoke.param_dtype).split(".")[-1].replace("float32",
+                                                             "fp32")
+        print(f"error: --smoke serves the smoke config (head_dim "
+              f"{smoke.head_dim}, {dtype} params), which the "
+              f"flash-attention kernel is not instantiated for; the smoke "
+              f"run takes --device cpu", file=sys.stderr)
         raise SystemExit(2)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: CUDA is not available; pass --device cpu "
                          "to serve on the CPU")
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
+    if args.layers is not None:
+        if not 0 < args.layers <= arch.model.n_layers:
+            raise SystemExit(f"error: --layers must be in [1, "
+                             f"{arch.model.n_layers}], got {args.layers}")
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, n_layers=args.layers))
     if args.quantize:
         arch = dataclasses.replace(
             arch, model=dataclasses.replace(
@@ -291,7 +311,8 @@ def main(argv=None) -> dict:
               "decode_ms_per_step": t_decode * 1e3 / n_steps}
     if args.quantize:
         result.update(_accel(args, prompts.cpu(), max_seq, device))
-    print(f"# arch={cfg.name} quantized={args.quantize} device={device}")
+    print(f"# arch={cfg.name} layers={cfg.n_layers} "
+          f"quantized={args.quantize} device={device}")
     print(f"prefill: {t_prefill * 1e3:8.1f} ms "
           f"({args.batch * args.prompt_len / max(t_prefill, 1e-9):.0f} "
           f"tok/s)")

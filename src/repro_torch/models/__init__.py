@@ -1,5 +1,12 @@
-"""Models: ``cnn`` is ResNet-18 / MobileNet-V2 (the configs the
-compiler scales and the fp32 networks the accuracy harness trains);
-``layers`` and ``lm`` are the dense decoder-only LM the serving path
-runs; ``ssm`` and ``hybrid`` hold the Mamba2 and Jamba configs (and
-``layers.MoEConfig``) that the compiler and the decode sessions read."""
+"""Models, in PyTorch.
+
+  layers  — shared blocks: ParamSpec machinery, RMSNorm, RoPE, the
+            attention forms (prefill on the flash-attention kernel),
+            the gated MLPs, the int8 KV-cache quantizer
+  lm      — decoder-only LM of the dense family (llama3.2-1b, qwen3-8b,
+            gemma-7b, yi-34b): forward, prefill and decode
+  ssm     — Mamba2 SSD (chunked state-space duality): forward and decode
+  hybrid  — the Jamba config the compiler and the decode sessions read
+  cnn     — ResNet-18 / MobileNet-V2: the configs the compiler scales and
+            the fp32 and QAT networks the accuracy harness trains
+"""

@@ -1,9 +1,10 @@
 """Model building blocks of the dense LM's serving path, in PyTorch.
 
-The counterpart of ``repro.models.layers`` for what the dense llama
-family serves with: parameter declarations and their initialisation,
-RMSNorm, rotary embeddings, the gated MLP, the KV-cache write, and the
-three attention forms. There is one device, so the reference's logical
+The counterpart of ``repro.models.layers`` for what the dense LMs and
+Mamba2 serve with: parameter declarations and their initialisation,
+RMSNorm, rotary embeddings, the gated MLPs (silu, and gemma's
+tanh-approximate gelu), the KV-cache write and its int8 quantizer, and
+the three attention forms. There is one device, so the reference's logical
 sharding annotations have no counterpart. Parameters are nested dicts
 of tensors; a layer-stacked leaf carries a leading "layers" axis, which
 the model walks with a Python loop where the reference scans.
@@ -19,6 +20,7 @@ import dataclasses
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,8 +56,9 @@ def init_params(spec_tree: Any, gen: torch.Generator) -> Any:
     The laws are the reference's: ``normal`` draws N(0, 1/fan_in) with
     fan_in the second-to-last extent, ``embed`` N(0, 1), in fp32 and
     then cast; ``zeros`` / ``ones`` are constant. The bits differ from
-    ``jax.random``'s; :func:`repro_torch.models.lm.params_from_jax`
-    carries the reference's own weights across where bits matter.
+    ``jax.random``'s; :func:`tree_from_numpy` (behind the models'
+    ``params_from_jax``) carries the reference's own weights across
+    where bits matter.
     """
     device = gen.device
 
@@ -72,6 +75,33 @@ def init_params(spec_tree: Any, gen: torch.Generator) -> Any:
         return x.mul_(1.0 / math.sqrt(max(fan, 1))).to(spec.dtype)
 
     return tree_map(make, spec_tree)
+
+
+def init_constants(spec_tree: Any, device) -> Any:
+    """Materialize a tree of ``zeros`` / ``ones`` specs (a cache) on
+    ``device``."""
+    def make(spec: ParamSpec) -> torch.Tensor:
+        fill = {"zeros": 0, "ones": 1}[spec.init]
+        return torch.full(spec.shape, fill, dtype=spec.dtype, device=device)
+    return tree_map(make, spec_tree)
+
+
+def tree_from_numpy(tree: Any, device,
+                    dtype: torch.dtype | None = None) -> Any:
+    """A tree of numpy (or JAX) arrays as tensors on ``device``, bit for
+    bit (ml_dtypes' bfloat16 as ``torch.bfloat16``), unless ``dtype``
+    casts the floating leaves."""
+    def convert(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+    return tree_map(convert, tree)
 
 
 def stack_specs(spec_tree: Any, n: int) -> Any:
@@ -188,25 +218,52 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(v.dtype)
 
 
+def quantize_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> int8 with per-(batch, head) ``scale`` [B, H]."""
+    s = scale[:, None, :, None]
+    return torch.clamp(torch.round(x.float() / torch.clamp(s, min=1e-8)),
+                       -127, 127).to(torch.int8)
+
+
+def kv_scale_from(x: torch.Tensor) -> torch.Tensor:
+    """Prefill-calibrated per-(batch, head) int8 scale: max|x|/127 (an
+    IEEE division on the card too: by a tensor on ``x``'s device)."""
+    hi = torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    return torch.amax(torch.abs(x.float()), dim=(1, 3)) / hi + 1e-8
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: int, *,
-                     softmax_scale: float | None = None) -> torch.Tensor:
+                     softmax_scale: float | None = None,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token attention over a partly filled cache, plain torch.
 
     q: [B, 1, Hq, D]; caches: [B, Skv, Hkv, D]; keys at positions
-    ``>= kv_len`` are masked (a prefix mask, not a causal one).
+    ``>= kv_len`` are masked (a prefix mask, not a causal one). An int8
+    cache is read as bf16, as the reference does, with ``k_scale`` /
+    ``v_scale`` ([B, Hkv], fp32), its per-head dequantization scales,
+    applied to the fp32 scores and outputs.
     """
     b, _, hq, d = q.shape
     _, skv, hkv, _ = k_cache.shape
     rep = hq // hkv
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    int8_cache = k_cache.dtype == torch.int8
+    qk_dtype = torch.bfloat16 if int8_cache else k_cache.dtype
+    pv_dtype = torch.bfloat16 if int8_cache else v_cache.dtype
     qr = q.reshape(b, hkv, rep, d)
-    s = torch.einsum("bhrd,bkhd->bhrk", qr.float(), k_cache.float()) * scale
+    s = torch.einsum("bhrd,bkhd->bhrk", qr.to(qk_dtype).float(),
+                     k_cache.to(qk_dtype).float()) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, None]
     mask = torch.arange(skv, device=q.device) >= kv_len
     s = s.masked_fill(mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhrk,bkhd->bhrd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    out = torch.einsum("bhrk,bkhd->bhrd", p.to(pv_dtype).float(),
+                       v_cache.to(pv_dtype).float())
+    if v_scale is not None:
+        out = out * v_scale[:, :, None, None]
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
@@ -217,6 +274,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 ACTIVATIONS: dict[str, Callable] = {
     "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
 }
 
 

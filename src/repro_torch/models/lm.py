@@ -1,14 +1,17 @@
 """Decoder-only LM of the dense llama family, in PyTorch.
 
-The counterpart of ``repro.models.lm`` for a dense config: no MoE, no
-MLA, no M-RoPE, no qk-norm and no int8 KV cache (each of those raises
-``NotImplementedError`` naming its later slice). With ``hetero_quant``
-set, every attention projection runs the reference's hybrid fake-quant
-forward (paper §4, QAT form; the launcher's ``--quantize``). Layers
-are stacked as in the reference (a leading "layers" axis on every
-leaf) and walked by a Python loop where the reference scans.
-Prefill attention runs on the flash-attention kernel; decode attention
-is plain torch over the cache.
+The counterpart of ``repro.models.lm`` for a dense config
+(llama3.2-1b, qwen3-8b, gemma-7b, yi-34b): GQA or MHA, qk-norm after
+the head split (qwen3), the silu or gelu gated MLP (gemma's GeGLU),
+tied embeddings and the int8 KV cache (``kv_cache_quant``: prefill
+calibrates per-head scales, decode clips into them). MoE, MLA, M-RoPE
+and a dense prefix raise ``NotImplementedError`` naming their later
+slice. With ``hetero_quant`` set, every attention projection runs the
+reference's hybrid fake-quant forward (paper §4, QAT form; the
+launcher's ``--quantize``). Layers are stacked as in the reference (a
+leading "layers" axis on every leaf) and walked by a Python loop where
+the reference scans. Prefill attention runs on the flash-attention
+kernel; decode attention is plain torch over the cache.
 
 Entry points:
   param_specs / init / params_from_jax  — parameters
@@ -20,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 
 from repro_torch.models import layers as L
@@ -94,9 +96,7 @@ _LATER = {
     "moe": "the MoE slice (qwen3-moe, deepseek-v2)",
     "mla": "the MLA slice (deepseek-v2)",
     "mrope_sections": "the VLM slice (qwen2-vl)",
-    "qk_norm": "the qwen3 slice",
-    "kv_cache_quant": "the int8 KV-cache slice",
-    "n_dense_prefix": "the MoE slice (deepseek-v2)",
+    "n_dense_prefix": "the MLA slice (deepseek-v2)",
 }
 
 
@@ -108,9 +108,8 @@ def check_supported(cfg: LMConfig) -> None:
                 f"{cfg.name}: LMConfig.{field} is not ported yet; it "
                 f"comes with {later}")
     if cfg.act not in L.ACTIVATIONS:
-        raise NotImplementedError(
-            f"{cfg.name}: activation {cfg.act!r} is not ported yet; it "
-            f"comes with the gemma slice")
+        raise ValueError(f"{cfg.name}: unknown activation {cfg.act!r}; "
+                         f"have {sorted(L.ACTIVATIONS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -121,14 +120,18 @@ def check_supported(cfg: LMConfig) -> None:
 def _layer_specs(cfg: LMConfig) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {
+        "wq": ParamSpec((d, hq * hd), dt),
+        "wk": ParamSpec((d, hkv * hd), dt),
+        "wv": ParamSpec((d, hkv * hd), dt),
+        "wo": ParamSpec((hq * hd, d), dt),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = L.rmsnorm_spec(hd, dt)
+        attn["k_norm"] = L.rmsnorm_spec(hd, dt)
     return {
         "ln_attn": L.rmsnorm_spec(d, dt),
-        "attn": {
-            "wq": ParamSpec((d, hq * hd), dt),
-            "wk": ParamSpec((d, hkv * hd), dt),
-            "wv": ParamSpec((d, hkv * hd), dt),
-            "wo": ParamSpec((hq * hd, d), dt),
-        },
+        "attn": attn,
         "ln_mlp": L.rmsnorm_spec(d, dt),
         "mlp": L.mlp_specs(d, cfg.d_ff, dt),
     }
@@ -157,24 +160,13 @@ def param_count(cfg: LMConfig) -> int:
     return L.param_count(param_specs(cfg))
 
 
-def _to_torch(a, device, dtype) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
-        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a.copy())
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t.to(device)
-
-
 def params_from_jax(tree: Any, device=torch.device("cuda"),
                     dtype: torch.dtype | None = None) -> dict:
     """The reference's ``lm.init`` pytree (nested dicts of numpy or JAX
     arrays, the layer axis stacked) as the port's parameters on
     ``device``: the same structure and, unless ``dtype`` casts the
     floating leaves, the same bits."""
-    return L.tree_map(lambda a: _to_torch(a, device, dtype), tree)
+    return L.tree_from_numpy(tree, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -225,13 +217,16 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
                ) -> torch.Tensor:
     """Self-attention: full causal when ``cache`` is None, else a
     prefill (S > 1) or one decode step writing at ``cache_len``; the
-    cache is updated in place."""
+    cache (with an int8 cache, its scales too) is updated in place."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     q = _proj(x, p["wq"], cfg).reshape(b, s, hq, hd)
     k = _proj(x, p["wk"], cfg).reshape(b, s, hkv, hd)
     v = _proj(x, p["wv"], cfg).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -244,11 +239,21 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
                                         kv_chunk=cfg.kv_chunk)
     else:
         idx = int(cache_len)
-        L.cache_write(cache["k"], k, idx)
-        L.cache_write(cache["v"], v, idx)
+        k_sc = v_sc = None
+        k_store, v_store = k, v
+        if cfg.kv_cache_quant:
+            if s > 1:  # prefill calibrates the per-head scales
+                cache["k_scale"].copy_(L.kv_scale_from(k))
+                cache["v_scale"].copy_(L.kv_scale_from(v))
+            # decode clips into the prefill-calibrated scales
+            k_sc, v_sc = cache["k_scale"], cache["v_scale"]
+            k_store, v_store = L.quantize_kv(k, k_sc), L.quantize_kv(v, v_sc)
+        L.cache_write(cache["k"], k_store, idx)
+        L.cache_write(cache["v"], v_store, idx)
         if s == 1:
             out = L.decode_attention(q, cache["k"], cache["v"],
-                                     kv_len=idx + s)
+                                     kv_len=idx + s, k_scale=k_sc,
+                                     v_scale=v_sc)
         else:
             # prefill: attend within the freshly written prompt
             out = L.blockwise_attention(q, k, v, causal=True,
@@ -304,18 +309,23 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
 
 def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16) -> dict:
+    """K / V [B, max_seq, Hkv, D] a layer; with ``kv_cache_quant`` int8
+    codes and fp32 per-(batch, head) scales [B, Hkv], initialised to 1."""
     check_supported(cfg)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    layer = {"k": ParamSpec(shape, dtype, "zeros"),
-             "v": ParamSpec(shape, dtype, "zeros")}
+    kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
+    layer = {"k": ParamSpec(shape, kv_dt, "zeros"),
+             "v": ParamSpec(shape, kv_dt, "zeros")}
+    if cfg.kv_cache_quant:
+        for name in ("k_scale", "v_scale"):
+            layer[name] = ParamSpec((batch, cfg.n_kv_heads), torch.float32,
+                                    "ones")
     return {"layers": L.stack_specs(layer, cfg.n_layers)}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=torch.device("cuda")) -> dict:
-    return L.tree_map(
-        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
-        cache_specs(cfg, batch, max_seq, dtype))
+    return L.init_constants(cache_specs(cfg, batch, max_seq, dtype), device)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cache: dict, cfg: LMConfig,

@@ -1,11 +1,17 @@
 """Inference engine: prefill / decode step factories + generation loop.
 
-The counterpart of ``repro.serve.engine`` for the LM family (the other
-families raise ``NotImplementedError``). The factories give the
+The counterpart of ``repro.serve.engine`` for the LM and SSM families
+(the others raise ``NotImplementedError``). The factories give the
 launcher one signature whatever the model:
 
     prefill_fn(params, batch, cache)       -> (logits, cache)
     decode_fn(params, token, cache, pos)   -> (logits, cache)
+
+Family notes, as in the reference:
+  * lm   — real prefill (scores the prompt AND fills the KV cache).
+  * ssm  — decode carries the recurrent state; "prefill" scores the
+           prompt with the chunked forward and returns the cache as it
+           was (``greedy_generate`` builds the state token by token).
 
 PyTorch runs eagerly, so there is no ``jit``; the cache is written in
 place and returned. ``attn_mode="ref"`` runs prefill attention on the
@@ -33,27 +39,41 @@ class ServeState:
     pos: int
 
 
+#: the model modules the port serves
+SERVED = ("lm", "ssm")
+
+
 def _check_family(arch: ArchConfig) -> None:
-    if arch.module != "lm":
+    if arch.module not in SERVED:
         raise NotImplementedError(
             f"{arch.arch_id}: the {arch.module!r} family is served by a "
-            f"later slice of the port; this one serves module 'lm'")
+            f"later slice of the port; this one serves modules {SERVED}")
 
 
 def make_cache(arch: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=torch.device("cuda")) -> Any:
     _check_family(arch)
-    return arch.model_module().init_cache(arch.model, batch, max_seq, dtype,
-                                          device)
+    mod = arch.model_module()
+    if arch.module == "ssm":       # the recurrent state takes no max_seq
+        return mod.init_cache(arch.model, batch, dtype=dtype, device=device)
+    return mod.init_cache(arch.model, batch, max_seq, dtype, device)
 
 
 def make_prefill_fn(arch: ArchConfig, attn_mode: str = "auto") -> Callable:
     _check_family(arch)
     mod, cfg = arch.model_module(), arch.model
 
+    if arch.module == "lm":
+        def prefill_fn(params, batch, cache):
+            return mod.prefill(params, batch["tokens"], cache, cfg,
+                               attn_mode=attn_mode)
+        return prefill_fn
+
+    # ssm: forward scores the prompt; the recurrent state accrues during
+    # generation (see greedy_generate)
     def prefill_fn(params, batch, cache):
-        return mod.prefill(params, batch["tokens"], cache, cfg,
-                           attn_mode=attn_mode)
+        logits, _ = mod.forward(params, batch["tokens"], cfg)
+        return logits, cache
     return prefill_fn
 
 
@@ -73,19 +93,27 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
 
 def greedy_generate(arch: ArchConfig, params: Any, prompts: torch.Tensor,
                     n_new: int, attn_mode: str = "auto") -> torch.Tensor:
-    """Greedy batched generation (the end-to-end serving path): one
-    prefill scores the prompt and fills an fp32 KV cache (the
-    reference's default), then ``n_new - 1`` decode steps.
+    """Greedy batched generation (the end-to-end serving path) with an
+    fp32 cache (the reference's default). For the LM, one prefill scores
+    the prompt and fills the KV cache; the recurrent family (ssm) builds
+    its state token by token through ``decode_fn``, since its prefill
+    scores the prompt but does not advance the state. Then ``n_new - 1``
+    decode steps.
 
     prompts: [B, S0] int on the parameters' device. Returns
     [B, S0 + n_new].
     """
     b, s0 = prompts.shape
     cache = make_cache(arch, b, s0 + n_new, torch.float32, prompts.device)
-    prefill_fn = make_prefill_fn(arch, attn_mode)
     decode_fn = make_decode_fn(arch)
-    logits, cache = prefill_fn(params, {"tokens": prompts}, cache)
-    tok = greedy_token(logits[:, -1])
+    if arch.module == "lm":
+        prefill_fn = make_prefill_fn(arch, attn_mode)
+        logits, cache = prefill_fn(params, {"tokens": prompts}, cache)
+        tok = greedy_token(logits[:, -1])
+    else:
+        for t in range(s0):
+            logits, cache = decode_fn(params, prompts[:, t:t + 1], cache, t)
+        tok = greedy_token(logits)
     new = [tok]
     pos = s0
     for _ in range(n_new - 1):

@@ -31,8 +31,9 @@ from repro.models import layers as jlayers
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import build
 from repro_torch.kernels.build import LAUNCHES
-from repro_torch.kernels.flash_attention import flash_attention, \
-    flash_attention_plain, flash_plan, kernel_args
+from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS, \
+    flash_attention, flash_attention_plain, flash_plan, kernel_args
+from repro_torch.kernels.flash_attention import stages as flash_stages
 from repro_torch.models import layers
 
 TOL = dict(rtol=3e-5, atol=3e-5)
@@ -240,6 +241,11 @@ CHIP_PLANS = [
     ("decode", "decode", (8, 8, 1)),
     ("d128_mha", "prefill", (16, 2, 8)),
     ("decode4", "decode", (8, 8, 1)),
+    ("d256_prefill", "prefill", (16, 8, 1)),
+    ("d256_ragged", "prefill", (16, 2, 16)),
+    ("d256_decode4", "decode", (16, 8, 1)),
+    ("gqa7", "prefill", (56, 8, 1)),
+    ("qwen3_prefill", "prefill", (32, 8, 1)),
 ]
 
 
@@ -252,13 +258,15 @@ def test_flash_plan_at_chip_shapes(name, form, grid):
     assert (plan.form, plan.grid) == (form, grid)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("sq,hq,hkv", [(1, 32, 8), (4, 32, 8), (64, 32, 8),
                                        (2048, 32, 32)])
 def test_flash_plan_shared_memory_fits(sq, hq, hkv, d):
     plan = flash_plan(2, sq, 4096, hq, hkv, d)
     rows = 16 if plan.form == "decode" else 64
-    stages = 4 if plan.form == "decode" else 2
+    # the decode form's 4 stages at D=256 would take 264 KiB: it has 3
+    stages = {"prefill": 2, "decode": 3 if d == 256 else 4}[plan.form]
+    assert stages == flash_stages(plan.form, d)
     # the bf16 Q tile and the ring of [K, V] 64-key tile stages, within
     # the 227 KB of dynamic shared memory an H100 block may take
     assert plan.smem == 2 * d * (rows + stages * 2 * 64)
@@ -298,14 +306,15 @@ def test_kernel_parts_flash_variants_edit_the_source():
     parts = _load("kernel_parts")
     text = (parts.CSRC / "flash_attention.cu").read_text()
     assert set(parts.FLASH_VARIANTS) == {"full", "no_mma", "copies_only",
-                                         "empty"}
+                                         "empty", "one_pass"}
     for edits in parts.FLASH_VARIANTS.values():
         for old, new in edits:
             assert text.count(old) == 1, old
             assert old != new
 
 
-@pytest.mark.parametrize("name", ["offset", "decode", "decode4"])
+@pytest.mark.parametrize("name", ["offset", "decode", "decode4",
+                                  "d256_decode4"])
 def test_flash_row_check_sees_a_dropped_key(name):
     """``chip_smoke.py``'s per-row check passes a schedule that rounds p
     at other running maxima (64-key chunks, as the kernel's tiles) and
@@ -344,6 +353,8 @@ ON_CARD = [
     ("prefill", 128, (1, 4, 4, 130, 130), 0),
     ("decode", 64, (2, 8, 2, 4, 100), 96),
     ("decode", 128, (2, 8, 2, 1, 77), 76),
+    ("prefill", 256, (1, 4, 4, 130, 130), 0),
+    ("decode", 256, (2, 4, 4, 3, 150), 147),
 ]
 
 
@@ -367,3 +378,19 @@ def test_kernel_matches_plain_on_card(cuda, form, d, dims, off):
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(shifted.view(q.shape), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 96])
+def test_kernel_refuses_head_sizes_it_lacks(cuda, d):
+    """The smoke configs' head sizes (8-32) and any other size outside
+    ``KERNEL_HEAD_DIMS`` raise on the card, naming the sizes the kernel
+    has; they never fall back to the plain version."""
+    assert d not in KERNEL_HEAD_DIMS == (64, 128, 256)
+    q = torch.zeros((1, 4, 2, d), device=cuda, dtype=torch.bfloat16)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(NotImplementedError,
+                       match=r"head size %d is not instantiated "
+                             r"\(\(64, 128, 256\)\)" % d):
+        flash_attention(q, q, q)
+    assert LAUNCHES["flash_attention"] == before

@@ -40,7 +40,7 @@ COPIED = [
     "core/latency_model.py", "core/split.py",
     "compiler/program.py", "compiler/lower.py", "compiler/passes.py",
     "compiler/networks.py", "compiler/asm.py", "compiler/partition.py",
-    "obs/counters.py", "obs/trace.py", "obs/metrics.py",
+    "obs/counters.py", "obs/trace.py", "obs/metrics.py", "obs/report.py",
     "serve/protocol.py", "core/cost_model.py", "dse/search.py",
 ]
 
@@ -202,7 +202,7 @@ def test_networks_are_the_cnn_workloads():
             assert _gemm_view(network_layers(name, smoke=False)) == \
                 _gemm_view(jax_network_layers(name, smoke=False)), name
     with pytest.raises(KeyError, match="later slices"):
-        network_layers("qwen3-8b")
+        network_layers("qwen3-moe-235b-a22b")
 
 
 def test_cli_summary_and_errors(capsys):
@@ -218,7 +218,11 @@ def test_cli_summary_and_errors(capsys):
         assert jcli.main(argv) == 0
         assert got == capsys.readouterr().out
     assert "layers    9" in got and "decode    family=ssm batch=2" in got
-    assert cli.main(["qwen3-8b"]) == 2
+    assert cli.main(["qwen3-8b"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(["qwen3-8b"]) == 0
+    assert got == capsys.readouterr().out
+    assert cli.main(["qwen3-moe-235b-a22b"]) == 2
     assert "later slices" in capsys.readouterr().err
     assert cli.main(["resnet18", "--ratio", "2"]) == 2
     assert cli.main(["--list"]) == 0

@@ -64,8 +64,9 @@ def _close(got, want):
 
 
 def test_registry_and_config():
-    assert registry.list_archs() == ["jamba-v0.1-52b", "llama3.2-1b",
-                                     "mamba2-780m"]
+    assert registry.list_archs() == ["gemma-7b", "jamba-v0.1-52b",
+                                     "llama3.2-1b", "mamba2-780m",
+                                     "qwen3-8b", "yi-34b"]
     arch = registry.get("llama3.2-1b")
     want = jregistry.get("llama3.2-1b")
     for cfg, ref_cfg in ((arch.model, want.model), (arch.smoke, want.smoke)):
@@ -79,13 +80,12 @@ def test_registry_and_config():
         assert lm.param_count(cfg) == jlm.param_count(ref_cfg)
     assert arch.model_module() is lm
     with pytest.raises(KeyError, match="later slices"):
-        registry.get("qwen3-8b")
+        registry.get("qwen3-moe-235b-a22b")
 
 
 @pytest.mark.parametrize("field,value", [
-    ("moe", object()), ("mla", object()), ("qk_norm", True),
-    ("mrope_sections", (2, 3, 3)), ("kv_cache_quant", True),
-    ("act", "gelu")])
+    ("moe", object()), ("mla", object()), ("mrope_sections", (2, 3, 3)),
+    ("n_dense_prefix", 1)])
 def test_other_configs_name_their_slice(field, value):
     cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
                               **{field: value})
@@ -283,9 +283,11 @@ def test_serve_quantize_refuses_other_families():
 
 
 def test_other_families_raise():
-    arch = dataclasses.replace(registry.get("llama3.2-1b"), module="ssm")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.make_prefill_fn(arch)
+    arch = registry.get("jamba-v0.1-52b")
+    assert arch.module == "hybrid"
+    for factory in (engine.make_prefill_fn, engine.make_decode_fn):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            factory(arch)
 
 
 def test_serve_launcher_on_cpu(capsys, tmp_path):
@@ -323,19 +325,46 @@ def test_serve_smoke_refuses_the_card(capsys, monkeypatch, device):
     assert "head_dim 16" in err and "fp32" in err and "--device cpu" in err
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
 def test_serve_refuses_archs_without_a_forward(capsys, arch):
-    """The registry has the ssm and hybrid configs for the compiler and
-    the decode sessions, but the port has no forward for them: the
-    launcher exits 2 naming the queue item, before anything is built,
-    card or no card."""
-    assert registry.get(arch).module != "lm"
+    """The registry has the hybrid config for the compiler and the
+    decode sessions, but the port has no forward for it: the launcher
+    exits 2 naming the queue item, before anything is built, card or no
+    card."""
+    assert registry.get(arch).module not in engine.SERVED
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", arch])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert err.startswith(f"error: {arch} is a")
-    assert "queue 1, item 7" in err and "--decode --execute" in err
+    assert "queue 1, item 1" in err and "--decode --execute" in err
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-8b", "gemma-7b",
+                                  "yi-34b"])
+def test_serve_launcher_serves_the_other_archs_on_cpu(capsys, arch):
+    """The archs whose refusals this slice removed: their smoke configs
+    served end to end on the plain versions (prompts the reference's)."""
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--new-tokens",
+                      "3"])
+    text = capsys.readouterr().out
+    assert f"# arch={arch}-smoke layers=2" in text and "sample tokens:" in text
+    assert out["tokens"].shape == (2, 3)
+    np.testing.assert_array_equal(
+        out["prompts"].numpy(),
+        np.asarray(JSyntheticTokens(512, 2, 8, seed=0).next_batch()["tokens"]))
+
+
+def test_serve_layers_cuts_the_depth(capsys):
+    out = serve.main(["--arch", "yi-34b", "--smoke", "--device", "cpu",
+                      "--layers", "1", "--batch", "1", "--prompt-len", "4",
+                      "--new-tokens", "2"])
+    assert "# arch=yi-34b-smoke layers=1" in capsys.readouterr().out
+    assert out["tokens"].shape == (1, 2)
+    with pytest.raises(SystemExit, match=r"--layers must be in \[1, 2\]"):
+        serve.main(["--arch", "yi-34b", "--smoke", "--device", "cpu",
+                    "--layers", "3"])
 
 
 def test_serve_imports_pull_in_no_jax():

@@ -63,15 +63,15 @@ Phases, each printing its lines before the last:
    below 2^24), beside the bytes bound; ``fused_conv_gemm`` over the 36
    dense layers beside its plain version, ``_int_mm`` and the bound.
 5. flash: the flash-attention kernel against its plain version in bf16
-   at thirteen shapes: the serving prefill (B=8, S=64, 32 query heads
+   at fourteen shapes: the serving prefill (B=8, S=64, 32 query heads
    over 8 KV heads, D=64, causal), S=2048 causal, S=1000 causal
    (ragged), S=333 non-causal, 64 queries at offset 960 of 1024 keys,
    one query at offset 1023 (decode), S=512 causal at D=128 with 16
    query and 16 KV heads, 4 queries at offset 997 of 1001 keys (the
    decode form's 16-row edge), and the archs phase's: D=256 at gemma-7b's
    prefill (16/16 heads), ragged at S=1000 and in the decode form,
-   yi-34b's GQA 56/8 and qwen3-8b's 32/8 at D=128, each with the plan it
-   ran under
+   yi-34b's GQA 56/8, qwen3-8b's 32/8 and qwen3-moe-235b-a22b's 64/4 at
+   D=128, each with the plan it ran under
    (``flash_attention.flash_plan``: form and grid). Required: max |err|
    within :func:`flash_tol`, and every output row within
    :data:`FLASH_ROW_TOL` of its plain row's norm (:func:`flash_row_err`).
@@ -101,13 +101,21 @@ Phases, each printing its lines before the last:
    (:data:`ARCHS`): qwen3-8b (36 layers, GQA 32/8, qk-norm), gemma-7b
    (28 layers, head size 256, GeGLU, tied 256000-token vocabulary) and
    mamba2-780m (48 layers) at published width and depth, yi-34b at
-   published widths cut to 32 of its 60 layers. Each runs once through
-   ``launch.serve.main`` and once through the engine, each in launch
-   windows of its own. Required: exactly ``n_layers``
+   published widths cut to 32 of its 60 layers, qwen3-moe-235b-a22b
+   (128 experts top 8 on every layer, GQA 64/4) cut to 8 of its 94
+   layers and jamba-v0.1-52b cut to one period of 8 layers (7 Mamba, 1
+   attention, 4 MoE of 16 experts top 2, 4 dense FFNs). Each runs once
+   through ``launch.serve.main`` and once through the engine, each in
+   launch windows of its own. Required: exactly ``n_layers``
    ``flash_attention`` launches per prefill for the LMs and none in
-   decode or with ``mode="ref"``; none at all for mamba2-780m (no
-   kernel, no fallback); the checks and times of phase 6 (the same
-   function, :func:`serve_arch`). qwen3-8b also decodes
+   decode or with ``mode="ref"``; none at all for mamba2-780m and
+   jamba-v0.1-52b (whose prompt attention is ``dense_attention``, as in
+   the reference; no kernel, no fallback); the checks and times of phase
+   6 (the same function, :func:`serve_arch`). For the MoE archs the
+   (token, expert) slot assignments of every MoE layer in the kernel
+   prefill and the ``mode="ref"`` one are recorded
+   (:func:`recorded_routing`) and their differences printed before the
+   logits check. qwen3-8b also decodes
    :data:`KV_QUANT_STEPS` steps with the int8 KV cache beside the bf16
    one on the same tokens (relative logit difference printed). Times:
    prefill (median of 3), decode per step, their busy shares, peak
@@ -233,6 +241,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import itertools
 import json
 import re
@@ -317,11 +326,12 @@ SINGLE_COLUMNS = [(33, 23), (100, 77), (680, 5)]
 #: serving prefill's shape, the one the kernel's row reports; d128_mha
 #: runs the D=128 instantiation with one query head per KV head, decode4
 #: the decode form at Sq * Hq / Hkv = 16 over a KV length that does not
-#: split evenly over its 4 warps. The last five are the archs phase's:
+#: split evenly over its 4 warps. The last six are the archs phase's:
 #: gemma-7b's serving prefill at D=256 (d256_prefill), D=256 with tiles
 #: that cross the diagonal (d256_ragged) and in the decode form
 #: (d256_decode4, 3 ring stages), yi-34b's 7 query heads a KV head
-#: (gqa7) and qwen3-8b's serving prefill
+#: (gqa7), qwen3-8b's serving prefill, and qwen3-moe-235b-a22b's
+#: (moe_prefill: 16 query heads a KV head, 64 over 4)
 FLASH_SHAPES = [
     ("prefill", 8, 64, 64, 32, 8, 64, True, 0),
     ("s2048", 1, 2048, 2048, 32, 8, 64, True, 0),
@@ -336,6 +346,7 @@ FLASH_SHAPES = [
     ("d256_decode4", 8, 4, 1001, 16, 16, 256, True, 997),
     ("gqa7", 8, 64, 64, 56, 8, 128, True, 0),
     ("qwen3_prefill", 8, 64, 64, 32, 8, 128, True, 0),
+    ("moe_prefill", 8, 64, 64, 64, 4, 128, True, 0),
 ]
 #: the serving run: llama3.2-1b at batch 8, prompt 64, 32 new tokens
 SERVE = dict(arch="llama3.2-1b", batch=8, prompt=64, new=32, seed=0)
@@ -1329,6 +1340,48 @@ def read_window(launches, want: dict, what: str) -> dict:
     return got
 
 
+@contextlib.contextmanager
+def recorded_routing(torch):
+    """Record, for each call of ``layers._top_k_dispatch`` (one per MoE
+    layer) while the block runs, the capacity slot each (token, expert)
+    pair took, -1 where the expert was not chosen or the token was
+    dropped; the dispatch itself is returned unchanged."""
+    from repro_torch.models import layers
+    original = layers._top_k_dispatch
+    calls = []
+
+    def recording(probs, top_k, capacity):
+        dispatch, combine = original(probs, top_k, capacity)
+        calls.append(torch.where(dispatch.sum(-1) > 0, dispatch.argmax(-1),
+                                 -1))
+        return dispatch, combine
+
+    layers._top_k_dispatch = recording
+    try:
+        yield calls
+    finally:
+        layers._top_k_dispatch = original
+
+
+def routing_diff(got: list, want: list) -> dict:
+    """Per MoE layer, between two recorded runs: the (token, expert)
+    pairs kept in one run only (``pairs``), the tokens whose kept experts
+    differ (``tokens``), the pairs kept in both at another capacity slot
+    (``slots``: a shift of the cumulative count, the same product), and
+    the pairs the second run kept (``kept``)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} MoE layers recorded vs "
+                             f"{len(want)}")
+    out = {"pairs": [], "tokens": [], "slots": [], "kept": []}
+    for a, b in zip(got, want):
+        one = (a >= 0) != (b >= 0)
+        out["pairs"].append(int(one.sum()))
+        out["tokens"].append(int(one.any(-1).sum()))
+        out["slots"].append(int(((a != b) & (a >= 0) & (b >= 0)).sum()))
+        out["kept"].append(int((b >= 0).sum()))
+    return out
+
+
 def serve_arch(torch, arch_id: str, out: dict, layers=None,
                prefill_runs: int = 3) -> int:
     """One arch at :data:`SERVE`'s batch, prompt, new tokens and seed
@@ -1404,7 +1457,8 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
 
         run_prefill(prefill)                                    # warm-up
         LAUNCHES.clear()
-        logits, cache, _ = run_prefill(prefill)
+        with recorded_routing(torch) as routes:
+            logits, cache, _ = run_prefill(prefill)
         windows["prefill"] = read_window(LAUNCHES, per_prefill,
                                          f"{arch_id} prefill")
         LAUNCHES.clear()
@@ -1412,7 +1466,8 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
         windows["decode"] = read_window(LAUNCHES, {}, f"{arch_id} "
                                         f"{n_new - 1} decode steps")
         LAUNCHES.clear()
-        ref_logits, ref_cache, _ = run_prefill(prefill_ref)
+        with recorded_routing(torch) as ref_routes:
+            ref_logits, ref_cache, _ = run_prefill(prefill_ref)
         ref_tokens, _ = run_decode(ref_logits, ref_cache)
         windows["mode=ref"] = read_window(LAUNCHES, {}, f"{arch_id} "
                                           f"mode=ref prefill + decode")
@@ -1435,6 +1490,18 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
                              f"{want_shape}")
     err = float((logits - ref_logits).abs().max())
     tol = LOGIT_TOL * float(ref_logits.abs().max())
+    routing = routing_diff(routes, ref_routes)
+    if routes:
+        # routing is discontinuous: where an attention output differs in
+        # its last bf16 bit, a token can swap its last expert for the
+        # next, or take a capacity slot another token then loses; printed
+        # before the logits check so that a failure shows its count
+        print(f"serve: {arch_id} prefill routing kernel vs mode=ref, per "
+              f"MoE layer: (token, expert) pairs kept in one run only "
+              f"{routing['pairs']} of {routing['kept']} kept; tokens "
+              f"whose kept experts differ {routing['tokens']} of "
+              f"{b * s0}; pairs kept in both at another slot "
+              f"{routing['slots']}")
     if not err <= tol:
         raise AssertionError(f"{arch_id}: prefill logits kernel vs "
                              f"mode=ref: max |err| {err} > {tol}")
@@ -1481,13 +1548,15 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
         ref_tokens.cpu().tolist(), "prefill_ms": prefill_ms,
         "decode_ms_per_step": per_step, "logits_bitwise_equal":
         logits_equal, "tokens_equal_launcher": same_as_launcher,
+        "routing_diff": routing,
         "prefill_device_ms": prefill_dev, "decode_step_device_ms":
         decode_dev, "launcher_peak_bytes": launcher_peak,
         "engine_peak_bytes": peak, "launcher": {
             k: summary[k] for k in ("prefill_ms", "decode_ms",
                                     "decode_ms_per_step")},
         "logits_abs_sum": float(np.abs(logits.float().cpu().numpy()).sum())}
-    del params, cache, cache_d, ref_cache, logits, ref_logits
+    del params, cache, cache_d, ref_cache, logits, ref_logits, routes, \
+        ref_routes
     torch.cuda.empty_cache()
     return windows["prefill"].get("flash_attention", 0)
 
@@ -1508,9 +1577,18 @@ def phase_serve(torch, details: dict) -> int:
 #: GB, and init_params draws each stacked leaf in fp32 first (its MLP's
 #: [60, 7168, 20480] alone 35 GB), so the whole model does not fit the
 #: 80 GB card; at 32 layers the parameters take 37.5 GB and the fp32
-#: draw of one MLP leaf 18.8 GB more
+#: draw of one MLP leaf 18.8 GB more. qwen3-moe-235b-a22b (467 GB in
+#: bf16) keeps its widths at 8 of its 94 layers: 4.98 GB a layer (128
+#: experts x 3 x 4096 x 1536, and 71 M of attention), 39.8 GB for 8 and
+#: 2.5 GB of embedding tables, plus the fp32 draw of one stacked expert
+#: leaf [8, 128, 4096, 1536], 25.8 GB. jamba-v0.1-52b (103 GB) keeps its
+#: widths at one period of 8 layers (7 Mamba, 1 attention, 4 MoE and 4
+#: dense FFNs, so every kind of sublayer runs): 25.5 GB and 1.1 GB of
+#: embeddings, plus the fp32 draw of its MoE leaf [1, 4, 16, 4096,
+#: 14336], 15 GB; two periods would need about 83 GB
 ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 32),
-         ("mamba2-780m", None)]
+         ("mamba2-780m", None), ("qwen3-moe-235b-a22b", 8),
+         ("jamba-v0.1-52b", 8)]
 #: decode steps of qwen3-8b with the int8 KV cache against the bf16 one
 KV_QUANT_STEPS = 8
 

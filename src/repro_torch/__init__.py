@@ -8,10 +8,10 @@ held to their originals by ``tests/test_torch_compiler.py``.
   core      — unified ISA, event-driven scheduler, workloads, split solver,
               resource and chip cost models, the deployable HeteroLinear
   models    — CNN configurations (resnet18 / mobilenet_v2 specs); the
-              dense decoder-only LM (``layers``, ``lm``) and Mamba2
-              (``ssm``)
+              dense and MoE decoder-only LM (``layers``, ``lm``), Mamba2
+              (``ssm``) and the Jamba hybrid (``hybrid``)
   configs   — architecture registry (llama3.2-1b, qwen3-8b, gemma-7b,
-              yi-34b, mamba2-780m, jamba-v0.1-52b)
+              yi-34b, qwen3-moe-235b-a22b, mamba2-780m, jamba-v0.1-52b)
   compiler  — lowering to ISA programs, passes, CLI, executor backends
   kernels   — split-GEMM, depthwise and flash-attention CUDA kernels for
               Hopper and their plain versions

@@ -3,8 +3,8 @@ vocab=65536, MoE 16e top-2, Mamba+attn 1:7 interleave.
 [arXiv:2403.19887; hf]
 
 SSM head layout: d_inner = 2*d_model = 8192, head_dim 64 -> 128 SSD
-heads, d_state 64. The port has this config for the compiler and the
-decode sessions; its forward (``models/hybrid.py``) is a later slice.
+heads, d_state 64 (Jamba v0.1 uses Mamba-1 with N=16; the SSD
+formulation keeps a larger state, as in the reference).
 """
 import torch
 

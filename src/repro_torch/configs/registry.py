@@ -52,10 +52,8 @@ def list_archs() -> list[str]:
 
 
 #: config modules under ``repro_torch.configs``: the archs ported so far
-#: (jamba-v0.1-52b as a config only: the compiler and the decode
-#: sessions read it; its forward is a later slice)
 _ARCH_MODULES = ["yi_34b", "gemma_7b", "llama32_1b", "qwen3_8b",
-                 "mamba2_780m", "jamba_v01_52b"]
+                 "mamba2_780m", "jamba_v01_52b", "qwen3_moe_235b_a22b"]
 
 _loaded = False
 

@@ -7,23 +7,33 @@ accelerator program served through decode sessions and the fleet.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b --layers 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-235b-a22b --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --layers 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --quantize --accel-devices 2 --accel-partition filter --fleet 2
 
 The counterpart of ``repro.launch.serve``. Weights are random, made on
 the device from ``--seed``; prompts come from ``SyntheticTokens`` with
 the same seed, so they are the reference's. The LMs (llama3.2-1b,
-qwen3-8b, gemma-7b, yi-34b) run every prefill attention as one
-flash-attention kernel launch on the card (``--device cpu`` runs the
-plain versions); an LM's ``--smoke`` takes ``--device cpu``, since the
-flash kernel is not built for the smoke configs' head sizes and fp32
-params. mamba2-780m (module ``ssm``) launches no kernel of the port;
-as in the reference, its prefill scores the prompt and decode starts
-from the empty state. Prefill and decode times go to ``obs.METRICS`` as
+qwen3-8b, gemma-7b, yi-34b, and qwen3-moe-235b-a22b with its MoE layer
+in plain torch) run every prefill attention as one flash-attention
+kernel launch on the card (``--device cpu`` runs the plain versions);
+an LM's ``--smoke`` takes ``--device cpu``, since the flash kernel is
+not built for the smoke configs' head sizes and fp32 params.
+mamba2-780m (module ``ssm``) and jamba-v0.1-52b (module ``hybrid``)
+launch no kernel of the port: jamba's prompt attention is the
+full-softmax ``dense_attention`` below 8192 tokens, as in the
+reference, so its ``--smoke`` runs on the card too. As in the
+reference, their prefill scores the prompt and decode starts from the
+empty state (and, for jamba, an empty KV cache). A hybrid's
+``--layers`` must be a multiple of its 8-layer period. ``--layers N``
+serves the first N layers at the published widths: qwen3-moe-235b-a22b
+(467 GB in bf16) and jamba-v0.1-52b (103 GB) take ``--layers 8`` on an
+80 GB card. Prefill and decode times go to ``obs.METRICS`` as
 ``serve.request.*``; each timed region ends in
-``torch.cuda.synchronize()`` on the card. jamba-v0.1-52b (module
-``hybrid``) is refused with exit code 2: the port has its config but
-not its forward yet.
+``torch.cuda.synchronize()`` on the card.
 
 ``--quantize`` fake-quantizes every attention projection (the LM's
 ``HeteroQuantConfig``: ``--w-bits`` LUT columns at ``--ratio``, 8-bit
@@ -57,6 +67,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
+from repro_torch.models.hybrid import PERIOD
 from repro_torch.models.lm import HeteroQuantConfig
 from repro_torch.obs import METRICS
 from repro_torch.serve.engine import SERVED, greedy_token, make_cache, \
@@ -228,13 +239,8 @@ def main(argv=None) -> dict:
         raise SystemExit("--quantize drives the lm family here; other "
                          "families quantize via HeteroLinear directly")
     if arch.module not in SERVED:
-        # the registry has this arch's config (the compiler and the
-        # decode sessions read it) but the port has no forward for it
         print(f"error: {args.arch} is a {arch.module!r} arch; the port "
-              f"has its config only (compile and decode it through a "
-              f"session with python -m repro_torch.compiler {args.arch} "
-              f"--decode --execute); its forward comes with ROADMAP queue "
-              f"1, item 1 (MoE, then the hybrid family)", file=sys.stderr)
+              f"serves the modules {SERVED}", file=sys.stderr)
         raise SystemExit(2)
     device = torch.device(args.device)
     smoke = arch.smoke
@@ -250,17 +256,21 @@ def main(argv=None) -> dict:
               f"flash-attention kernel is not instantiated for; the smoke "
               f"run takes --device cpu", file=sys.stderr)
         raise SystemExit(2)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("error: CUDA is not available; pass --device cpu "
-                         "to serve on the CPU")
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
     if args.layers is not None:
         if not 0 < args.layers <= arch.model.n_layers:
             raise SystemExit(f"error: --layers must be in [1, "
                              f"{arch.model.n_layers}], got {args.layers}")
+        if arch.module == "hybrid" and args.layers % PERIOD:
+            print(f"error: --layers {args.layers}: a hybrid serves whole "
+                  f"periods of {PERIOD} layers", file=sys.stderr)
+            raise SystemExit(2)
         arch = dataclasses.replace(arch, model=dataclasses.replace(
             arch.model, n_layers=args.layers))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("error: CUDA is not available; pass --device cpu "
+                         "to serve on the CPU")
     if args.quantize:
         arch = dataclasses.replace(
             arch, model=dataclasses.replace(

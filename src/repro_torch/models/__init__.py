@@ -2,11 +2,13 @@
 
   layers  — shared blocks: ParamSpec machinery, RMSNorm, RoPE, the
             attention forms (prefill on the flash-attention kernel),
-            the gated MLPs, the int8 KV-cache quantizer
-  lm      — decoder-only LM of the dense family (llama3.2-1b, qwen3-8b,
-            gemma-7b, yi-34b): forward, prefill and decode
+            the gated MLPs, the MoE layer, the int8 KV-cache quantizer
+  lm      — decoder-only LM of the dense and MoE families (llama3.2-1b,
+            qwen3-8b, gemma-7b, yi-34b, qwen3-moe-235b-a22b): forward,
+            prefill and decode
   ssm     — Mamba2 SSD (chunked state-space duality): forward and decode
-  hybrid  — the Jamba config the compiler and the decode sessions read
+  hybrid  — the Jamba hybrid (Mamba + attention 7:1, MoE every second
+            layer): forward and decode
   cnn     — ResNet-18 / MobileNet-V2: the configs the compiler scales and
             the fp32 and QAT networks the accuracy harness trains
 """

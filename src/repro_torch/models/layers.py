@@ -1,10 +1,12 @@
 """Model building blocks of the dense LM's serving path, in PyTorch.
 
-The counterpart of ``repro.models.layers`` for what the dense LMs and
-Mamba2 serve with: parameter declarations and their initialisation,
-RMSNorm, rotary embeddings, the gated MLPs (silu, and gemma's
-tanh-approximate gelu), the KV-cache write and its int8 quantizer, and
-the three attention forms. There is one device, so the reference's logical
+The counterpart of ``repro.models.layers`` for what the dense and MoE
+LMs, Mamba2 and the Jamba hybrid serve with: parameter declarations and
+their initialisation, RMSNorm, rotary embeddings, the gated MLPs (silu,
+and gemma's tanh-approximate gelu), the GShard-style MoE layer (plain
+torch einsums, as in the reference, which computes it outside any
+Pallas kernel), the KV-cache write and its int8 quantizer, and the
+three attention forms. There is one device, so the reference's logical
 sharding annotations have no counterpart. Parameters are nested dicts
 of tensors; a layer-stacked leaf carries a leading "layers" axis, which
 the model walks with a Python loop where the reference scans.
@@ -16,6 +18,7 @@ and probabilities rounded to the value type before ``p . v``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable
@@ -292,16 +295,12 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts (config only: the forward is a later slice)
+# Mixture of Experts (GShard-style grouped dispatch, token dropping)
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """The reference's ``MoEConfig``: what the compiler's layer walk and
-    the decode sessions read (``n_experts``, ``top_k``, ``d_ff``,
-    ``n_shared``); the dispatch fields belong to the MoE forward, which
-    the port does not have yet."""
     n_experts: int
     top_k: int
     d_ff: int                       # per-expert hidden
@@ -309,3 +308,119 @@ class MoEConfig:
     capacity_factor: float = 1.25
     group_size: int = 512           # tokens per dispatch group
     router_z_loss: float = 1e-3
+
+
+def moe_specs(d_model: int, cfg: MoEConfig, dtype=torch.bfloat16) -> dict:
+    specs = {
+        "router": ParamSpec((d_model, cfg.n_experts), torch.float32,
+                            fan_in=d_model),
+        "gate": ParamSpec((cfg.n_experts, d_model, cfg.d_ff), dtype,
+                          fan_in=d_model),
+        "up": ParamSpec((cfg.n_experts, d_model, cfg.d_ff), dtype,
+                        fan_in=d_model),
+        "down": ParamSpec((cfg.n_experts, cfg.d_ff, d_model), dtype,
+                          fan_in=cfg.d_ff),
+    }
+    if cfg.n_shared:
+        specs["shared"] = mlp_specs(d_model, cfg.d_ff * cfg.n_shared, dtype)
+    return specs
+
+
+def _top_k_dispatch(probs: torch.Tensor, top_k: int, capacity: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """GShard dispatch/combine tensors with capacity-based token dropping.
+
+    probs: [G, S, E] router probabilities.
+    Returns (dispatch [G,S,E,C] 0/1 in probs' dtype, combine [G,S,E,C]).
+
+    The top k come from a stable descending sort, so among equal
+    probabilities the lower expert index comes first, as in
+    ``jax.lax.top_k`` (``torch.topk`` leaves the order of ties
+    unspecified). Ties are not rare: a padded tail group's zero rows
+    have uniform probabilities, pick experts 0..k-1 and take capacity
+    slots there. A dropped assignment's one-hot row is all zero: it is
+    one-hot over ``capacity + 1`` classes with the last one cut off.
+    """
+    g, s, e = probs.shape
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :top_k], topi[..., :top_k]       # [G, S, k]
+    prev_counts = torch.zeros((g, e), dtype=torch.int64, device=probs.device)
+    dispatch = torch.zeros((g, s, e, capacity), dtype=probs.dtype,
+                           device=probs.device)
+    combine = torch.zeros_like(dispatch)
+    for slot in range(top_k):
+        sel = F.one_hot(topi[:, :, slot], e)                 # [G, S, E]
+        pos = torch.cumsum(sel, dim=1) - 1 + prev_counts[:, None, :]
+        prev_counts = prev_counts + torch.sum(sel, dim=1)
+        keep = (pos < capacity) & (sel > 0)
+        pos_c = F.one_hot(torch.where(keep, pos, capacity),
+                          capacity + 1)[..., :capacity].to(probs.dtype)
+        d_slot = sel.to(probs.dtype)[..., None] * pos_c      # [G,S,E,C]
+        dispatch = dispatch + d_slot
+        combine = combine + d_slot * topv[:, :, slot][:, :, None, None]
+    return dispatch, combine
+
+
+@contextlib.contextmanager
+def _ieee_fp32_matmul():
+    """fp32 matmuls in IEEE fp32 for the duration, whatever the process's
+    ``torch.set_float32_matmul_precision`` (TF32 on the card rounds the
+    operands to 10 mantissa bits, which would move router logits and so
+    routing); the setting is restored after."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str = "silu"
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, M] -> (out [B, S, M], aux_loss scalar fp32).
+
+    Tokens are regrouped into dispatch groups of ``group_size`` so the
+    dispatch tensors stay O(T * E * C / E) rather than O(T * E * S).
+    Tokens beyond a group's ``capacity`` slots at an expert are dropped
+    (a decode step at batch 8 has capacity 1 at 128 experts top 8), as
+    in the reference. The router product runs in IEEE fp32; the expert
+    products in the parameters' dtype, as plain torch einsums.
+    """
+    b, s, m = x.shape
+    tokens = b * s
+    gs = min(cfg.group_size, tokens)
+    g = tokens // gs
+    xt = x.reshape(tokens, m)
+    # Tail tokens beyond g*gs fall into the last group via padding.
+    if g * gs < tokens:
+        g += 1
+        xt = F.pad(xt, (0, 0, 0, g * gs - tokens))
+    xg = xt.reshape(g, gs, m)
+
+    with _ieee_fp32_matmul():
+        logits = xg.float() @ p["router"]                  # [G, S, E]
+    probs = torch.softmax(logits, dim=-1)
+    z_loss = cfg.router_z_loss * torch.mean(
+        torch.square(torch.logsumexp(logits, dim=-1)))
+    # load-balance auxiliary loss (Switch style)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(F.one_hot(torch.argmax(probs, dim=-1),
+                              cfg.n_experts).float(), dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(me * ce) + z_loss
+
+    capacity = max(1, int(math.ceil(gs * cfg.top_k * cfg.capacity_factor
+                                    / cfg.n_experts)))
+    dispatch, combine = _top_k_dispatch(probs, cfg.top_k, capacity)
+    dispatch = dispatch.to(x.dtype)
+    combine = combine.to(x.dtype)
+
+    xe = torch.einsum("gsm,gsec->gecm", xg, dispatch)      # [G, E, C, M]
+    h = ACTIVATIONS[act](torch.einsum("gecm,emf->gecf", xe, p["gate"])) \
+        * torch.einsum("gecm,emf->gecf", xe, p["up"])
+    ye = torch.einsum("gecf,efm->gecm", h, p["down"])
+    yg = torch.einsum("gecm,gsec->gsm", ye, combine)       # [G, S, M]
+
+    y = yg.reshape(g * gs, m)[:tokens].reshape(b, s, m)
+    if cfg.n_shared:
+        y = y + mlp_apply(p["shared"], x, act)
+    return y, aux

@@ -1,12 +1,14 @@
-"""Decoder-only LM of the dense llama family, in PyTorch.
+"""Decoder-only LM of the dense and MoE families, in PyTorch.
 
-The counterpart of ``repro.models.lm`` for a dense config
-(llama3.2-1b, qwen3-8b, gemma-7b, yi-34b): GQA or MHA, qk-norm after
-the head split (qwen3), the silu or gelu gated MLP (gemma's GeGLU),
-tied embeddings and the int8 KV cache (``kv_cache_quant``: prefill
-calibrates per-head scales, decode clips into them). MoE, MLA, M-RoPE
-and a dense prefix raise ``NotImplementedError`` naming their later
-slice. With ``hetero_quant`` set, every attention projection runs the
+The counterpart of ``repro.models.lm`` for a dense or MoE config
+(llama3.2-1b, qwen3-8b, gemma-7b, yi-34b, qwen3-moe-235b-a22b): GQA or
+MHA, qk-norm after the head split (qwen3), the silu or gelu gated MLP
+(gemma's GeGLU) or, with ``moe`` set, the MoE layer on every layer
+(``layers.moe_apply``; ``forward`` sums its load-balance and z-loss
+``aux``), tied embeddings and the int8 KV cache (``kv_cache_quant``:
+prefill calibrates per-head scales, decode clips into them). MLA,
+M-RoPE and a dense prefix raise ``NotImplementedError`` naming their
+later slice. With ``hetero_quant`` set, every attention projection runs the
 reference's hybrid fake-quant forward (paper §4, QAT form; the
 launcher's ``--quantize``). Layers are stacked as in the reference (a
 leading "layers" axis on every leaf) and walked by a Python loop where
@@ -15,6 +17,7 @@ kernel; decode attention is plain torch over the cache.
 
 Entry points:
   param_specs / init / params_from_jax  — parameters
+  param_count / active_param_count      — sizes (from the specs alone)
   forward(params, tokens, cfg)          — causal logits over a prompt
   init_cache / prefill / decode_step    — KV-cache serving
 """
@@ -93,7 +96,6 @@ class LMConfig:
 #: config features of the reference the port does not have yet, and
 #: the slice each waits for
 _LATER = {
-    "moe": "the MoE slice (qwen3-moe, deepseek-v2)",
     "mla": "the MLA slice (deepseek-v2)",
     "mrope_sections": "the VLM slice (qwen2-vl)",
     "n_dense_prefix": "the MLA slice (deepseek-v2)",
@@ -117,24 +119,33 @@ def check_supported(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _layer_specs(cfg: LMConfig) -> dict:
+def _attn_specs(cfg: LMConfig) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    attn = {
+    specs = {
         "wq": ParamSpec((d, hq * hd), dt),
         "wk": ParamSpec((d, hkv * hd), dt),
         "wv": ParamSpec((d, hkv * hd), dt),
         "wo": ParamSpec((hq * hd, d), dt),
     }
     if cfg.qk_norm:
-        attn["q_norm"] = L.rmsnorm_spec(hd, dt)
-        attn["k_norm"] = L.rmsnorm_spec(hd, dt)
-    return {
+        specs["q_norm"] = L.rmsnorm_spec(hd, dt)
+        specs["k_norm"] = L.rmsnorm_spec(hd, dt)
+    return specs
+
+
+def _layer_specs(cfg: LMConfig, moe_layer: bool) -> dict:
+    d, dt = cfg.d_model, cfg.param_dtype
+    specs = {
         "ln_attn": L.rmsnorm_spec(d, dt),
-        "attn": attn,
+        "attn": _attn_specs(cfg),
         "ln_mlp": L.rmsnorm_spec(d, dt),
-        "mlp": L.mlp_specs(d, cfg.d_ff, dt),
     }
+    if moe_layer and cfg.moe is not None:
+        specs["moe"] = L.moe_specs(d, cfg.moe, dt)
+    else:
+        specs["mlp"] = L.mlp_specs(d, cfg.d_ff_dense or cfg.d_ff, dt)
+    return specs
 
 
 def param_specs(cfg: LMConfig) -> dict:
@@ -142,7 +153,8 @@ def param_specs(cfg: LMConfig) -> dict:
     dt = cfg.param_dtype
     specs: dict[str, Any] = {
         "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
-        "layers": L.stack_specs(_layer_specs(cfg), cfg.n_layers),
+        "layers": L.stack_specs(_layer_specs(cfg, moe_layer=True),
+                                cfg.n_layers),
         "ln_f": L.rmsnorm_spec(cfg.d_model, dt),
     }
     if not cfg.tie_embeddings:
@@ -160,10 +172,21 @@ def param_count(cfg: LMConfig) -> int:
     return L.param_count(param_specs(cfg))
 
 
+def active_param_count(cfg: LMConfig) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    expert_params = 3 * cfg.d_model * cfg.moe.d_ff     # gate/up/down
+    return total - cfg.n_layers * (e - k) * expert_params
+
+
 def params_from_jax(tree: Any, device=torch.device("cuda"),
                     dtype: torch.dtype | None = None) -> dict:
     """The reference's ``lm.init`` pytree (nested dicts of numpy or JAX
-    arrays, the layer axis stacked) as the port's parameters on
+    arrays, the layer axis stacked; an MoE layer's ``moe`` subtree with
+    its fp32 router) as the port's parameters on
     ``device``: the same structure and, unless ``dtype`` casts the
     floating leaves, the same bits."""
     return L.tree_from_numpy(tree, device, dtype)
@@ -265,13 +288,19 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def _layer_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: LMConfig, cache: dict | None = None, cache_len=None,
-                 attn_mode: str = "auto") -> torch.Tensor:
-    """Pre-norm block; the layer's cache, if any, is updated in place."""
+                 attn_mode: str = "auto"
+                 ) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """Pre-norm block. Returns (x, aux loss: the MoE layer's, else 0);
+    the layer's cache, if any, is updated in place."""
     h_attn = _attention(p["attn"], L.rmsnorm(x, p["ln_attn"], cfg.norm_eps),
                         positions, cfg, cache, cache_len, attn_mode)
     x = x + h_attn
     h_norm = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h_norm, cfg.act)
+    if "moe" in p:
+        h_ffn, aux = L.moe_apply(p["moe"], h_norm, cfg.moe, cfg.act)
+    else:
+        h_ffn, aux = L.mlp_apply(p["mlp"], h_norm, cfg.act), 0.0
+    return x + h_ffn, aux
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -291,14 +320,17 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal logits over a prompt, no cache. tokens: [B, S] int.
-    Returns (logits [B, S, vocab] fp32, aux loss 0)."""
+    Returns (logits [B, S, vocab] fp32, aux loss: the MoE layers' load
+    balance and z-loss summed, 0 for a dense config)."""
     check_supported(cfg)
     b, s = tokens.shape
     positions = _positions(b, s, 0, tokens.device)
     x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
-        x = _layer_apply(_layer(params["layers"], i), x, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        x, aux_i = _layer_apply(_layer(params["layers"], i), x, positions,
+                                cfg)
+        aux = aux + aux_i
     return _logits(params, x, cfg), aux
 
 
@@ -341,9 +373,9 @@ def prefill(params: dict, tokens: torch.Tensor, cache: dict, cfg: LMConfig,
     positions = _positions(b, s, 0, tokens.device)
     x = params["embed"][tokens]
     for i in range(cfg.n_layers):
-        x = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
-                         cache=_layer(cache["layers"], i), cache_len=0,
-                         attn_mode=attn_mode)
+        x, _ = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
+                            cache=_layer(cache["layers"], i), cache_len=0,
+                            attn_mode=attn_mode)
     return _logits(params, x, cfg), cache
 
 
@@ -358,6 +390,6 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
     positions = _positions(b, 1, idx, token.device)
     x = params["embed"][token]
     for i in range(cfg.n_layers):
-        x = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
-                         cache=_layer(cache["layers"], i), cache_len=idx)
+        x, _ = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
+                            cache=_layer(cache["layers"], i), cache_len=idx)
     return _logits(params, x, cfg)[:, 0], cache

@@ -9,7 +9,7 @@ mlp / experts / vocab -> model; everything else replicated.
 The counterpart of the table half of ``repro.parallel.sharding``: the
 rule tables the NN->ISA compiler reads (``compiler/partition.py``).
 Resolving rules onto a device mesh comes with the parallel slice
-(ROADMAP queue 1, item 8).
+(ROADMAP queue 1, "Parallel, then the dry-run").
 """
 from __future__ import annotations
 

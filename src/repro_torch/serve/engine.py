@@ -1,8 +1,8 @@
 """Inference engine: prefill / decode step factories + generation loop.
 
-The counterpart of ``repro.serve.engine`` for the LM and SSM families
-(the others raise ``NotImplementedError``). The factories give the
-launcher one signature whatever the model:
+The counterpart of ``repro.serve.engine`` for the LM (dense and MoE),
+SSM and hybrid families (encdec raises ``NotImplementedError``). The
+factories give the launcher one signature whatever the model:
 
     prefill_fn(params, batch, cache)       -> (logits, cache)
     decode_fn(params, token, cache, pos)   -> (logits, cache)
@@ -12,6 +12,9 @@ Family notes, as in the reference:
   * ssm  — decode carries the recurrent state; "prefill" scores the
            prompt with the chunked forward and returns the cache as it
            was (``greedy_generate`` builds the state token by token).
+  * hybrid — like ssm for the Mamba sublayers, plus a KV cache for the
+           attention sublayer: "prefill" is ``forward`` and returns the
+           cache as it was.
 
 PyTorch runs eagerly, so there is no ``jit``; the cache is written in
 place and returned. ``attn_mode="ref"`` runs prefill attention on the
@@ -40,7 +43,7 @@ class ServeState:
 
 
 #: the model modules the port serves
-SERVED = ("lm", "ssm")
+SERVED = ("lm", "ssm", "hybrid")
 
 
 def _check_family(arch: ArchConfig) -> None:
@@ -56,6 +59,7 @@ def make_cache(arch: ArchConfig, batch: int, max_seq: int,
     mod = arch.model_module()
     if arch.module == "ssm":       # the recurrent state takes no max_seq
         return mod.init_cache(arch.model, batch, dtype=dtype, device=device)
+    # lm, and hybrid: its attention sublayers' KV caches take max_seq
     return mod.init_cache(arch.model, batch, max_seq, dtype, device)
 
 
@@ -69,8 +73,9 @@ def make_prefill_fn(arch: ArchConfig, attn_mode: str = "auto") -> Callable:
                                attn_mode=attn_mode)
         return prefill_fn
 
-    # ssm: forward scores the prompt; the recurrent state accrues during
-    # generation (see greedy_generate)
+    # ssm / hybrid: forward scores the prompt; the recurrent state (and
+    # the hybrid's KV cache) accrues during generation (see
+    # greedy_generate)
     def prefill_fn(params, batch, cache):
         logits, _ = mod.forward(params, batch["tokens"], cfg)
         return logits, cache
@@ -95,10 +100,10 @@ def greedy_generate(arch: ArchConfig, params: Any, prompts: torch.Tensor,
                     n_new: int, attn_mode: str = "auto") -> torch.Tensor:
     """Greedy batched generation (the end-to-end serving path) with an
     fp32 cache (the reference's default). For the LM, one prefill scores
-    the prompt and fills the KV cache; the recurrent family (ssm) builds
-    its state token by token through ``decode_fn``, since its prefill
-    scores the prompt but does not advance the state. Then ``n_new - 1``
-    decode steps.
+    the prompt and fills the KV cache; the recurrent families (ssm,
+    hybrid) build their state token by token through ``decode_fn``,
+    since their prefill scores the prompt but does not advance the
+    state. Then ``n_new - 1`` decode steps.
 
     prompts: [B, S0] int on the parameters' device. Returns
     [B, S0 + n_new].
@@ -110,7 +115,7 @@ def greedy_generate(arch: ArchConfig, params: Any, prompts: torch.Tensor,
         prefill_fn = make_prefill_fn(arch, attn_mode)
         logits, cache = prefill_fn(params, {"tokens": prompts}, cache)
         tok = greedy_token(logits[:, -1])
-    else:
+    else:                          # recurrent: ssm, hybrid
         for t in range(s0):
             logits, cache = decode_fn(params, prompts[:, t:t + 1], cache, t)
         tok = greedy_token(logits)

@@ -246,6 +246,7 @@ CHIP_PLANS = [
     ("d256_decode4", "decode", (16, 8, 1)),
     ("gqa7", "prefill", (56, 8, 1)),
     ("qwen3_prefill", "prefill", (32, 8, 1)),
+    ("moe_prefill", "prefill", (64, 8, 1)),
 ]
 
 

@@ -202,7 +202,7 @@ def test_networks_are_the_cnn_workloads():
             assert _gemm_view(network_layers(name, smoke=False)) == \
                 _gemm_view(jax_network_layers(name, smoke=False)), name
     with pytest.raises(KeyError, match="later slices"):
-        network_layers("qwen3-moe-235b-a22b")
+        network_layers("deepseek-v2-236b")
 
 
 def test_cli_summary_and_errors(capsys):
@@ -222,7 +222,13 @@ def test_cli_summary_and_errors(capsys):
     got = capsys.readouterr().out
     assert jcli.main(["qwen3-8b"]) == 0
     assert got == capsys.readouterr().out
-    assert cli.main(["qwen3-moe-235b-a22b"]) == 2
+    # the MoE arch: its smoke config's 8 experts a layer walked as the
+    # JAX CLI walks them
+    assert cli.main(["qwen3-moe-235b-a22b"]) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(["qwen3-moe-235b-a22b"]) == 0
+    assert got == capsys.readouterr().out
+    assert cli.main(["deepseek-v2-236b"]) == 2
     assert "later slices" in capsys.readouterr().err
     assert cli.main(["resnet18", "--ratio", "2"]) == 2
     assert cli.main(["--list"]) == 0

@@ -81,10 +81,11 @@ def _tokens(shape, vocab=300, seed=1):
 def test_registry_lists_the_six_archs():
     assert registry.list_archs() == ["gemma-7b", "jamba-v0.1-52b",
                                      "llama3.2-1b", "mamba2-780m",
-                                     "qwen3-8b", "yi-34b"]
+                                     "qwen3-8b", "qwen3-moe-235b-a22b",
+                                     "yi-34b"]
     assert set(registry.list_archs()) < set(jregistry.list_archs())
     with pytest.raises(KeyError, match="later slices"):
-        registry.get("qwen3-moe-235b-a22b")
+        registry.get("deepseek-v2-236b")
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)

@@ -66,7 +66,8 @@ def _close(got, want):
 def test_registry_and_config():
     assert registry.list_archs() == ["gemma-7b", "jamba-v0.1-52b",
                                      "llama3.2-1b", "mamba2-780m",
-                                     "qwen3-8b", "yi-34b"]
+                                     "qwen3-8b", "qwen3-moe-235b-a22b",
+                                     "yi-34b"]
     arch = registry.get("llama3.2-1b")
     want = jregistry.get("llama3.2-1b")
     for cfg, ref_cfg in ((arch.model, want.model), (arch.smoke, want.smoke)):
@@ -80,15 +81,18 @@ def test_registry_and_config():
         assert lm.param_count(cfg) == jlm.param_count(ref_cfg)
     assert arch.model_module() is lm
     with pytest.raises(KeyError, match="later slices"):
-        registry.get("qwen3-moe-235b-a22b")
+        registry.get("deepseek-v2-236b")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("moe", object()), ("mla", object()), ("mrope_sections", (2, 3, 3)),
-    ("n_dense_prefix", 1)])
-def test_other_configs_name_their_slice(field, value):
-    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
-                              **{field: value})
+@pytest.mark.parametrize("fields", [
+    {"moe": layers.MoEConfig(n_experts=4, top_k=2, d_ff=32),
+     "n_dense_prefix": 1},
+    {"mla": object()}, {"mrope_sections": (2, 3, 3)},
+    {"n_dense_prefix": 1}], ids=["moe-dense-prefix", "mla", "mrope",
+                                 "dense-prefix"])
+def test_other_configs_name_their_slice(fields):
+    """MoE is served; deepseek-v2's MoE behind a dense prefix is not."""
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke, **fields)
     with pytest.raises(NotImplementedError, match="slice"):
         lm.param_specs(cfg)
 
@@ -282,12 +286,25 @@ def test_serve_quantize_refuses_other_families():
                               "directly")
 
 
+def _encdec_arch():
+    """An arch of a module the port does not serve yet (the reference's
+    encoder-decoder), on llama3.2-1b's smoke config."""
+    return dataclasses.replace(registry.get("llama3.2-1b"), module="encdec",
+                               arch_id="encdec-test")
+
+
 def test_other_families_raise():
-    arch = registry.get("jamba-v0.1-52b")
-    assert arch.module == "hybrid"
+    arch = _encdec_arch()
+    assert arch.module not in engine.SERVED
     for factory in (engine.make_prefill_fn, engine.make_decode_fn):
         with pytest.raises(NotImplementedError, match="later slice"):
             factory(arch)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        engine.make_cache(arch, 1, 8, device=CPU)
+    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
+                              mla=object())
+    with pytest.raises(NotImplementedError, match="LMConfig.mla"):
+        lm.check_supported(cfg)
 
 
 def test_serve_launcher_on_cpu(capsys, tmp_path):
@@ -325,19 +342,20 @@ def test_serve_smoke_refuses_the_card(capsys, monkeypatch, device):
     assert "head_dim 16" in err and "fp32" in err and "--device cpu" in err
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
-def test_serve_refuses_archs_without_a_forward(capsys, arch):
-    """The registry has the hybrid config for the compiler and the
-    decode sessions, but the port has no forward for it: the launcher
-    exits 2 naming the queue item, before anything is built, card or no
-    card."""
-    assert registry.get(arch).module not in engine.SERVED
+@pytest.mark.parametrize("arch", ["encdec-test"])
+def test_serve_refuses_archs_without_a_forward(capsys, monkeypatch, arch):
+    """Every arch of the port's registry is served now; an arch of a
+    module the port has no forward for (an encoder-decoder) makes the
+    launcher exit 2 naming the modules it serves, before anything is
+    built, card or no card."""
+    encdec = _encdec_arch()
+    monkeypatch.setattr(registry, "get", lambda name: encdec)
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", arch])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert err.startswith(f"error: {arch} is a")
-    assert "queue 1, item 1" in err and "--decode --execute" in err
+    assert err.startswith(f"error: {arch} is a 'encdec' arch")
+    assert str(engine.SERVED) in err
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-8b", "gemma-7b",

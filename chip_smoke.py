@@ -63,7 +63,8 @@ Phases, each printing its lines before the last:
    below 2^24), beside the bytes bound; ``fused_conv_gemm`` over the 36
    dense layers beside its plain version, ``_int_mm`` and the bound.
 5. flash: the flash-attention kernel against its plain version in bf16
-   at fourteen shapes: the serving prefill (B=8, S=64, 32 query heads
+   at nineteen shapes (:data:`FLASH_SHAPES`): the serving prefill (B=8,
+   S=64, 32 query heads
    over 8 KV heads, D=64, causal), S=2048 causal, S=1000 causal
    (ragged), S=333 non-causal, 64 queries at offset 960 of 1024 keys,
    one query at offset 1023 (decode), S=512 causal at D=128 with 16
@@ -71,8 +72,13 @@ Phases, each printing its lines before the last:
    decode form's 16-row edge), and the archs phase's: D=256 at gemma-7b's
    prefill (16/16 heads), ragged at S=1000 and in the decode form,
    yi-34b's GQA 56/8, qwen3-8b's 32/8 and qwen3-moe-235b-a22b's 64/4 at
-   D=128, each with the plan it ran under
-   (``flash_attention.flash_plan``: form and grid). Required: max |err|
+   D=128, deepseek-v2's MLA with keys of 192 over values of 128 (its
+   prefill at 128/128 heads, ragged at S=1000, and the decode form), and
+   seamless-m4t's non-causal encoder / cross-attention prefill and its
+   decode step's cross-attention (Sq=1 over 64 keys, the decode form
+   without a causal mask), each with the plan it ran under
+   (``flash_attention.flash_plan``: form, grid, shared memory). Required:
+   max |err|
    within :func:`flash_tol`, and every output row within
    :data:`FLASH_ROW_TOL` of its plain row's norm (:func:`flash_row_err`).
    Times of the kernel, the plain version and
@@ -81,7 +87,7 @@ Phases, each printing its lines before the last:
    kernels' row reports these), and CUDA
    events over back-to-back calls, which at small shapes measure the
    host's launch rate. The bound: q, k, v and out once over 3.35 TB/s
-   vs 4·B·Hq·D·(unmasked pairs) over 989 TFLOP/s bf16.
+   vs 2·B·Hq·(D + DV)·(unmasked pairs) over 989 TFLOP/s bf16.
 6. serve: full-width llama3.2-1b (16 layers, bf16, weights from
    ``torch.Generator`` seed 0 on the card) through the port's launcher
    ``repro_torch.launch.serve.main`` (batch 8, prompt 64, 32 new
@@ -103,12 +109,19 @@ Phases, each printing its lines before the last:
    mamba2-780m (48 layers) at published width and depth, yi-34b at
    published widths cut to 32 of its 60 layers, qwen3-moe-235b-a22b
    (128 experts top 8 on every layer, GQA 64/4) cut to 8 of its 94
-   layers and jamba-v0.1-52b cut to one period of 8 layers (7 Mamba, 1
-   attention, 4 MoE of 16 experts top 2, 4 dense FFNs). Each runs once
-   through ``launch.serve.main`` and once through the engine, each in
-   launch windows of its own. Required: exactly ``n_layers``
-   ``flash_attention`` launches per prefill for the LMs and none in
-   decode or with ``mode="ref"``; none at all for mamba2-780m and
+   layers, jamba-v0.1-52b cut to one period of 8 layers (7 Mamba, 1
+   attention, 4 MoE of 16 experts top 2, 4 dense FFNs), deepseek-v2-236b
+   (MLA, 160 experts top 6 + 2 shared) cut to 6 of its 60 layers (the
+   dense first layer and 5 MoE layers), and qwen2-vl-2b (28 layers,
+   M-RoPE over text positions, tied embeddings) and
+   seamless-m4t-large-v2 (24 encoder + 24 decoder layers, fed the
+   launcher's seeded frames, ``launch.serve.encdec_frames``) whole. Each
+   runs once through ``launch.serve.main`` and once through the engine,
+   each in launch windows of its own. Required: exactly the
+   ``flash_attention`` launches :func:`flash_per_call` reads from the
+   code, per prefill and per decode step (``n_layers`` a prefill and none
+   a decode step for the LMs, 96 and 24 for seamless), and none with
+   ``mode="ref"`` (its decode too); none at all for mamba2-780m and
    jamba-v0.1-52b (whose prompt attention is ``dense_attention``, as in
    the reference; no kernel, no fallback); the checks and times of phase
    6 (the same function, :func:`serve_arch`). For the MoE archs the
@@ -250,6 +263,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -322,31 +336,59 @@ CONV_CORNERS = [(15, 3, 7, 2, 3, 4, 48, 16), (14, 48, 3, 2, 1, 5, 30, 50),
 #: turn from SINGLE_COLUMNS
 SINGLE_CORNERS = [(m, k) for m in (1, 13, 49) for k in (31, 33, 147, 4608)]
 SINGLE_COLUMNS = [(33, 23), (100, 77), (680, 5)]
-#: (name, B, Sq, Skv, Hq, Hkv, D, causal, kv_offset); the first is the
-#: serving prefill's shape, the one the kernel's row reports; d128_mha
-#: runs the D=128 instantiation with one query head per KV head, decode4
-#: the decode form at Sq * Hq / Hkv = 16 over a KV length that does not
-#: split evenly over its 4 warps. The last six are the archs phase's:
-#: gemma-7b's serving prefill at D=256 (d256_prefill), D=256 with tiles
-#: that cross the diagonal (d256_ragged) and in the decode form
-#: (d256_decode4, 3 ring stages), yi-34b's 7 query heads a KV head
-#: (gqa7), qwen3-8b's serving prefill, and qwen3-moe-235b-a22b's
-#: (moe_prefill: 16 query heads a KV head, 64 over 4)
+class FlashShape(NamedTuple):
+    """One flash shape: q [B, Sq, Hq, D], k [B, Skv, Hkv, D], v [B, Skv,
+    Hkv, DV] with DV = ``dv``, or D where ``dv`` is None."""
+    name: str
+    b: int
+    sq: int
+    skv: int
+    hq: int
+    hkv: int
+    d: int
+    causal: bool
+    kv_offset: int
+    dv: int | None = None
+
+    @property
+    def v_dim(self) -> int:
+        return self.d if self.dv is None else self.dv
+
+
+#: the first is the serving prefill's shape, the one the kernel's row
+#: reports; d128_mha runs the D=128 instantiation with one query head per
+#: KV head, decode4 the decode form at Sq * Hq / Hkv = 16 over a KV
+#: length that does not split evenly over its 4 warps. Then the archs
+#: phase's: gemma-7b's serving prefill at D=256 (d256_prefill), D=256
+#: with tiles that cross the diagonal (d256_ragged) and in the decode
+#: form (d256_decode4, 3 ring stages), yi-34b's 7 query heads a KV head
+#: (gqa7), qwen3-8b's serving prefill, qwen3-moe-235b-a22b's
+#: (moe_prefill: 16 query heads a KV head, 64 over 4), deepseek-v2's MLA
+#: at keys 192 over values 128 (its serving prefill, tiles across the
+#: diagonal, and the decode form), and seamless-m4t's non-causal
+#: attention: its encoder and prefill cross-attention (cross_prefill) and
+#: a decode step's cross-attention over the 64-frame memory
+#: (cross_decode, the decode form without a causal mask)
 FLASH_SHAPES = [
-    ("prefill", 8, 64, 64, 32, 8, 64, True, 0),
-    ("s2048", 1, 2048, 2048, 32, 8, 64, True, 0),
-    ("ragged", 2, 1000, 1000, 32, 8, 64, True, 0),
-    ("noncausal", 2, 333, 333, 32, 8, 64, False, 0),
-    ("offset", 8, 64, 1024, 32, 8, 64, True, 960),
-    ("decode", 8, 1, 1024, 32, 8, 64, True, 1023),
-    ("d128_mha", 2, 512, 512, 16, 16, 128, True, 0),
-    ("decode4", 8, 4, 1001, 32, 8, 64, True, 997),
-    ("d256_prefill", 8, 64, 64, 16, 16, 256, True, 0),
-    ("d256_ragged", 2, 1000, 1000, 16, 16, 256, True, 0),
-    ("d256_decode4", 8, 4, 1001, 16, 16, 256, True, 997),
-    ("gqa7", 8, 64, 64, 56, 8, 128, True, 0),
-    ("qwen3_prefill", 8, 64, 64, 32, 8, 128, True, 0),
-    ("moe_prefill", 8, 64, 64, 64, 4, 128, True, 0),
+    FlashShape("prefill", 8, 64, 64, 32, 8, 64, True, 0),
+    FlashShape("s2048", 1, 2048, 2048, 32, 8, 64, True, 0),
+    FlashShape("ragged", 2, 1000, 1000, 32, 8, 64, True, 0),
+    FlashShape("noncausal", 2, 333, 333, 32, 8, 64, False, 0),
+    FlashShape("offset", 8, 64, 1024, 32, 8, 64, True, 960),
+    FlashShape("decode", 8, 1, 1024, 32, 8, 64, True, 1023),
+    FlashShape("d128_mha", 2, 512, 512, 16, 16, 128, True, 0),
+    FlashShape("decode4", 8, 4, 1001, 32, 8, 64, True, 997),
+    FlashShape("d256_prefill", 8, 64, 64, 16, 16, 256, True, 0),
+    FlashShape("d256_ragged", 2, 1000, 1000, 16, 16, 256, True, 0),
+    FlashShape("d256_decode4", 8, 4, 1001, 16, 16, 256, True, 997),
+    FlashShape("gqa7", 8, 64, 64, 56, 8, 128, True, 0),
+    FlashShape("qwen3_prefill", 8, 64, 64, 32, 8, 128, True, 0),
+    FlashShape("moe_prefill", 8, 64, 64, 64, 4, 128, True, 0),
+    FlashShape("mla_prefill", 8, 64, 64, 128, 128, 192, True, 0, 128),
+    FlashShape("mla_ragged", 2, 1000, 1000, 16, 16, 192, True, 0, 128),
+    FlashShape("mla_decode4", 8, 4, 1001, 4, 4, 192, True, 997, 128),
+    FlashShape("cross_prefill", 8, 64, 64, 16, 16, 64, False, 0),
+    FlashShape("cross_decode", 8, 1, 64, 16, 16, 64, False, 0),
 ]
 #: the serving run: llama3.2-1b at batch 8, prompt 64, 32 new tokens
 SERVE = dict(arch="llama3.2-1b", batch=8, prompt=64, new=32, seed=0)
@@ -1237,17 +1279,20 @@ def flash_row_err(got, want) -> float:
     return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def flash_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset):
-    """Least time for one attention call: q, k, v (at the KV heads) and
-    out in bf16 read / written once over the HBM rate, vs 4·B·Hq·D FLOP
-    per unmasked (query, key) pair over the bf16 tensor-core rate."""
-    nbytes = 2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+def flash_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset, dv=None):
+    """Least time for one attention call: q and k (head size D), v and
+    out (head size DV, default D), k and v at the KV heads, in bf16 read
+    / written once over the HBM rate, vs 2·B·Hq·(D + DV) FLOP per
+    unmasked (query, key) pair (q·k and p·v) over the bf16 tensor-core
+    rate."""
+    dv = d if dv is None else dv
+    nbytes = 2 * (b * sq * hq + b * skv * hkv) * (d + dv)
     if causal:
         pairs = sum(min(skv, r + kv_offset + 1) for r in range(sq))
     else:
         pairs = sq * skv
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 4 * b * hq * d * pairs / BF16_FLOP_PER_S
+    t_ops = 2 * b * hq * (d + dv) * pairs / BF16_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -1282,10 +1327,13 @@ def phase_flash(torch, details: dict) -> dict:
         flash_attention_plain, flash_plan
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = details.setdefault("flash", [])
-    for name, b, sq, skv, hq, hkv, d, causal, off in FLASH_SHAPES:
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+    for shape in FLASH_SHAPES:
+        name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+        dv = shape.v_dim
+        q, k, v = (torch.randn((b, s, h, e), generator=gen, device="cuda",
                                dtype=torch.bfloat16)
-                   for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+                   for s, h, e in ((sq, hq, d), (skv, hkv, d),
+                                   (skv, hkv, dv)))
         kw = dict(causal=causal, kv_offset=off)
         kern = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
         plain = lambda: flash_attention_plain(q, k, v, **kw)  # noqa: E731
@@ -1303,10 +1351,11 @@ def phase_flash(torch, details: dict) -> dict:
                 f"row error {row_err} (tol {FLASH_ROW_TOL})")
         lib = sdpa_fn(torch, q, k, v, causal, off)
         lib_err = float((lib().float() - want.float()).abs().max())
-        b_ms, b_by = flash_bound_ms(b, sq, skv, hq, hkv, d, causal, off)
-        plan = flash_plan(b, sq, skv, hq, hkv, d)
+        b_ms, b_by = flash_bound_ms(b, sq, skv, hq, hkv, d, causal, off, dv)
+        plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
-               "hkv": hkv, "d": d, "causal": causal, "kv_offset": off,
+               "hkv": hkv, "d": d, "dv": dv, "causal": causal,
+               "kv_offset": off,
                "form": plan.form, "grid": list(plan.grid),
                "smem": plan.smem,
                "max_abs_err": err, "tol": tol, "row_err": row_err,
@@ -1320,7 +1369,8 @@ def phase_flash(torch, details: dict) -> dict:
                "events_library_ms": cuda_ms(torch, lib)}
         rows.append(row)
         print(f"flash {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
-              f"D={d} causal={causal} kv_offset={off}, {plan.form} form, "
+              f"D={d} DV={dv} causal={causal} kv_offset={off}, "
+              f"{plan.form} form, smem {plan.smem} B, "
               f"grid {plan.grid}: max |err| {err:.3g} "
               f"(tol {tol:.3g}; sdpa {lib_err:.3g}), row error "
               f"{row_err:.3g} (tol {FLASH_ROW_TOL}); device {row['ms']:.4f} "
@@ -1382,13 +1432,33 @@ def routing_diff(got: list, want: list) -> dict:
     return out
 
 
+def flash_per_call(arch) -> tuple[dict, dict]:
+    """The flash launches of one prefill and of one decode step, read
+    from the code: an LM's prefill launches once a layer (its decode
+    attention, MLA's absorbed form included, is plain torch); the
+    encoder-decoder's prefill encodes twice (``encode`` for the cross
+    cache, then ``forward``) and runs each decoder layer's causal self-
+    and non-causal cross-attention, and its decode step runs each
+    layer's cross-attention; the ssm and the hybrid launch none."""
+    cfg = arch.model
+    if arch.module == "lm":
+        return {"flash_attention": cfg.n_layers}, {}
+    if arch.module == "encdec":
+        return ({"flash_attention": 2 * cfg.n_enc_layers
+                 + 2 * cfg.n_dec_layers},
+                {"flash_attention": cfg.n_dec_layers})
+    return {}, {}
+
+
 def serve_arch(torch, arch_id: str, out: dict, layers=None,
                prefill_runs: int = 3) -> int:
     """One arch at :data:`SERVE`'s batch, prompt, new tokens and seed
     (``layers`` cuts its depth), through the launcher and then through
-    the engine with prefill, decode and the ``mode="ref"`` run each in a
-    launch window of its own; the model is freed before returning.
-    Returns the flash launches of the engine's counted prefill."""
+    the engine with prefill, decode and the ``mode="ref"`` run (prefill
+    and decode) each in a launch window of its own; an encoder-decoder
+    gets the launcher's frames. The model is freed before returning.
+    Returns the flash launches of the engine's counted prefill and
+    decode steps."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import registry
@@ -1406,8 +1476,8 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
             arch.model, n_layers=layers))
         argv += ["--layers", str(layers)]
     cfg, dev = arch.model, torch.device("cuda")
-    per_prefill = {"flash_attention": cfg.n_layers} \
-        if arch.module == "lm" else {}
+    per_prefill, per_step = flash_per_call(arch)
+    per_decode = {k: (n_new - 1) * n for k, n in per_step.items()}
 
     # the user's entry point: one batch of requests, one prefill
     torch.cuda.empty_cache()
@@ -1415,9 +1485,10 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
     LAUNCHES.clear()
     summary = serve.main(argv)
     torch.cuda.synchronize()
-    windows = {"launcher": read_window(LAUNCHES, per_prefill,
-                                       f"{arch_id} launcher (1 prefill + "
-                                       f"decode)")}
+    windows = {"launcher": read_window(
+        LAUNCHES, {k: n + per_decode.get(k, 0)
+                   for k, n in per_prefill.items()},
+        f"{arch_id} launcher (1 prefill + decode)")}
     launcher_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1430,26 +1501,30 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
         if not torch.equal(prompts.cpu(), summary["prompts"]):
             raise AssertionError(f"{arch_id}: engine prompts != the "
                                  f"launcher's")
+        batch = {"tokens": prompts}
+        if arch.module == "encdec":
+            batch["frames"] = serve.encdec_frames(b, s0, cfg.d_model, dev)
         prefill = engine.make_prefill_fn(arch)
         prefill_ref = engine.make_prefill_fn(arch, attn_mode="ref")
         decode = engine.make_decode_fn(arch)
+        decode_ref = engine.make_decode_fn(arch, attn_mode="ref")
 
         def run_prefill(fn):
             cache = engine.make_cache(arch, b, s0 + n_new, cfg.param_dtype,
                                       dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = fn(params, {"tokens": prompts}, cache)
+            logits, cache = fn(params, batch, cache)
             torch.cuda.synchronize()
             return logits, cache, 1e3 * (time.perf_counter() - t0)
 
-        def run_decode(logits, cache):
+        def run_decode(logits, cache, fn=decode):
             tok = engine.greedy_token(logits[:, -1])
             toks = [tok]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(n_new - 1):
-                step, cache = decode(params, tok, cache, s0 + i)
+                step, cache = fn(params, tok, cache, s0 + i)
                 tok = engine.greedy_token(step)
                 toks.append(tok)
             torch.cuda.synchronize()
@@ -1463,12 +1538,12 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
                                          f"{arch_id} prefill")
         LAUNCHES.clear()
         tokens, t_decode = run_decode(logits, cache)
-        windows["decode"] = read_window(LAUNCHES, {}, f"{arch_id} "
+        windows["decode"] = read_window(LAUNCHES, per_decode, f"{arch_id} "
                                         f"{n_new - 1} decode steps")
         LAUNCHES.clear()
         with recorded_routing(torch) as ref_routes:
             ref_logits, ref_cache, _ = run_prefill(prefill_ref)
-        ref_tokens, _ = run_decode(ref_logits, ref_cache)
+        ref_tokens, _ = run_decode(ref_logits, ref_cache, decode_ref)
         windows["mode=ref"] = read_window(LAUNCHES, {}, f"{arch_id} "
                                           f"mode=ref prefill + decode")
         prefill_ms = [run_prefill(prefill)[2] for _ in range(prefill_runs)]
@@ -1520,7 +1595,8 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
     per_step = t_decode / (n_new - 1)
     cut = f" (cut from {registry.get(arch_id).model.n_layers})" \
         if layers else ""
-    print(f"serve: {cfg.name} {cfg.n_layers} layers{cut} d_model "
+    depth = serve.model_depth(cfg)
+    print(f"serve: {cfg.name} {depth} layers{cut} d_model "
           f"{cfg.d_model} {cfg.param_dtype}, batch {b} prompt {s0} new "
           f"{n_new}: launches per window {windows}; peak memory "
           f"{launcher_peak / 2**30:.2f} GiB launcher, {peak / 2**30:.2f} "
@@ -1541,7 +1617,7 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
           f"{busy_text(prefill_dev, med)} of the median, per decode step "
           f"{busy_text(decode_dev, per_step)}")
     out[arch_id] = {
-        "layers": cfg.n_layers, "windows": windows, "logit_err": err,
+        "layers": depth, "windows": windows, "logit_err": err,
         "logit_tol": tol, "first_tokens_equal": int(first_same.sum()),
         "rows_above_tol": int(clear.sum()), "tokens_equal": agree,
         "tokens": tokens.cpu().tolist(), "ref_tokens":
@@ -1556,9 +1632,10 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
                                     "decode_ms_per_step")},
         "logits_abs_sum": float(np.abs(logits.float().cpu().numpy()).sum())}
     del params, cache, cache_d, ref_cache, logits, ref_logits, routes, \
-        ref_routes
+        ref_routes, batch
     torch.cuda.empty_cache()
-    return windows["prefill"].get("flash_attention", 0)
+    return sum(windows[w].get("flash_attention", 0)
+               for w in ("prefill", "decode"))
 
 
 def phase_serve(torch, details: dict) -> int:
@@ -1585,10 +1662,18 @@ def phase_serve(torch, details: dict) -> int:
 #: widths at one period of 8 layers (7 Mamba, 1 attention, 4 MoE and 4
 #: dense FFNs, so every kind of sublayer runs): 25.5 GB and 1.1 GB of
 #: embeddings, plus the fp32 draw of its MoE leaf [1, 4, 16, 4096,
-#: 14336], 15 GB; two periods would need about 83 GB
+#: 14336], 15 GB; two periods would need about 83 GB. deepseek-v2-236b
+#: (471.6 GB in bf16) keeps its widths at 6 of its 60 layers, its dense
+#: first layer and 5 MoE layers (160 experts x 3 x 5120 x 1536, 7.55 GB
+#: each, and MLA's 149 M): 42.5 GB with the 2.1 GB of embedding tables,
+#: plus the fp32 draw of one stacked expert leaf [5, 160, 5120, 1536],
+#: 25.2 GB, about 63 GiB at peak; 7 layers would need 80.6 GB.
+#: qwen2-vl-2b (3.1 GB, text only as the launcher serves it) and
+#: seamless-m4t-large-v2 (4.1 GB, 24 + 24 layers) run whole
 ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 32),
          ("mamba2-780m", None), ("qwen3-moe-235b-a22b", 8),
-         ("jamba-v0.1-52b", 8)]
+         ("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 6),
+         ("qwen2-vl-2b", None), ("seamless-m4t-large-v2", None)]
 #: decode steps of qwen3-8b with the int8 KV cache against the bf16 one
 KV_QUANT_STEPS = 8
 

@@ -46,7 +46,7 @@ its one-sided shape (:data:`SPLIT_VARIANTS`):
                  (no fragments, no mma, no softmax)
     empty        no copies either: launch, the KV loop's barriers and the
                  epilogue
-    one_pass     D=256 in one pass over the KV tiles, acc for all 256
+    one_pass     DV=256 in one pass over the KV tiles, acc for all 256
                  output columns in registers (the kernel takes two passes
                  of 128 columns, which spill nothing)
 
@@ -126,8 +126,9 @@ _FLASH_NO_MMA = (
 _FLASH_NO_COMPUTE = ("      if (skip) continue;\n", "      continue;\n")
 _FLASH_NO_COPIES = [
     ("      issue_q();\n", ""),
-    ("    load_tile<D, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, tid);\n"
-     "    load_tile<D, BKV>(ks + TILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, "
+    ("    load_tile<DQK, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, "
+     "tid);\n"
+     "    load_tile<DV, BKV>(ks + KTILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, "
      "tid);\n", "")]
 #: flash_attention.cu: variant -> (statement, replacement) edits
 FLASH_VARIANTS = {
@@ -135,13 +136,14 @@ FLASH_VARIANTS = {
     "no_mma": [_FLASH_NO_MMA],
     "copies_only": [_FLASH_NO_COMPUTE],
     "empty": [_FLASH_NO_COMPUTE, *_FLASH_NO_COPIES],
-    "one_pass": [("  constexpr int NPASS = D >= 256 ? 2 : 1;\n",
+    "one_pass": [("  constexpr int NPASS = DV >= 256 ? 2 : 1;\n",
                   "  constexpr int NPASS = 1;\n")],
 }
 #: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048,
-#: the two decode-form shapes and the three at D=256
+#: the two decode-form shapes, the three at D=256 and deepseek-v2's MLA
+#: prefill (keys 192 wide, values 128)
 FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4", "d256_prefill",
-                "d256_ragged", "d256_decode4")
+                "d256_ragged", "d256_decode4", "mla_prefill")
 #: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
@@ -221,15 +223,18 @@ def time_flash(torch, device_times) -> list[dict]:
     libs = build_variants("flash_attention", FLASH_VARIANTS)
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = []
-    for name, b, sq, skv, hq, hkv, d, causal, off in SMOKE_SHAPES:
+    for shape in SMOKE_SHAPES:
+        name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
         if name not in FLASH_SHAPES:
             continue
-        q, k, v = (torch.randn((bb, s, h, d), generator=gen, device="cuda",
+        dv = shape.v_dim
+        q, k, v = (torch.randn((b, s, h, e), generator=gen, device="cuda",
                                dtype=torch.bfloat16)
-                   for bb, s, h in ((b, sq, hq), (b, skv, hkv),
-                                    (b, skv, hkv)))
-        out = torch.empty_like(q)
-        plan = flash_plan(b, sq, skv, hq, hkv, d)
+                   for s, h, e in ((sq, hq, d), (skv, hkv, d),
+                                   (skv, hkv, dv)))
+        out = torch.empty((b, sq, hq, dv), device="cuda",
+                          dtype=torch.bfloat16)
+        plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
         cargs = {form: kernel_args(q, k, v, out, d ** -0.5, causal, off,
                                    plan._replace(form=form))
                  for form in {plan.form, "prefill"}}
@@ -247,9 +252,11 @@ def time_flash(torch, device_times) -> list[dict]:
               for vname, t in device_times(torch, fns).items()}
         rows.append({"kernel": "flash_attention", "shape": name, "b": b,
                      "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d,
-                     "form": plan.form, "grid": list(plan.grid), "us": us})
+                     "dv": dv, "form": plan.form, "grid": list(plan.grid),
+                     "us": us})
         print(f"flash_attention {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
-              f"Hkv={hkv} D={d} {plan.form} grid {plan.grid}: " + "; ".join(
+              f"Hkv={hkv} D={d} DV={dv} {plan.form} grid {plan.grid}: "
+              + "; ".join(
                   f"{vname} {t:.2f} us" for vname, t in us.items()))
     return rows
 

@@ -2,10 +2,11 @@
 model config, and a reduced same-family smoke config for CPU tests, to
 one model module of ``repro_torch.models``.
 
-The counterpart of ``repro.configs.registry`` for the archs the port
-has. Sharding-rule overrides (yi-34b's) and the dry-run shape sets
-belong to the ``parallel`` slice and are not here. Modules are named as strings and
-imported on first use, only from ``repro_torch``.
+The counterpart of ``repro.configs.registry``, with all ten of its
+archs. Sharding-rule overrides (yi-34b's and qwen2-vl-2b's) and the
+dry-run shape sets belong to the ``parallel`` slice and are not here:
+the port serves on one card. Modules are named as strings and imported
+on first use, only from ``repro_torch``.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ from typing import Any
 class ArchConfig:
     arch_id: str
     family: str                        # dense | moe | ssm | hybrid | audio | vlm
-    model: Any                         # LMConfig / SSMLMConfig / HybridConfig
-    module: str                        # repro_torch.models.{lm,ssm,hybrid}
+    model: Any                         # LMConfig / SSMLMConfig / ...
+    module: str                        # repro_torch.models.{lm,ssm,hybrid,encdec}
+    frontend: str | None = None        # audio | vision (stubbed embeddings)
     smoke: Any = None                  # reduced same-family config
     notes: str = ""
 
@@ -40,9 +42,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get(arch_id: str) -> ArchConfig:
     _load_all()
     if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has "
-                       f"{sorted(_REGISTRY)} (the other archs are later "
-                       f"slices)")
+        raise KeyError(f"unknown arch {arch_id!r}; have "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
 
 
@@ -51,9 +52,10 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-#: config modules under ``repro_torch.configs``: the archs ported so far
+#: config modules under ``repro_torch.configs``, one per arch
 _ARCH_MODULES = ["yi_34b", "gemma_7b", "llama32_1b", "qwen3_8b",
-                 "mamba2_780m", "jamba_v01_52b", "qwen3_moe_235b_a22b"]
+                 "mamba2_780m", "jamba_v01_52b", "qwen3_moe_235b_a22b",
+                 "deepseek_v2_236b", "qwen2_vl_2b", "seamless_m4t_large_v2"]
 
 _loaded = False
 

@@ -53,7 +53,7 @@ SOURCES = {
         "grouped_gemm": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P],
     },
     "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             *[_L] * 12, _F, _I, _I, _I, _P],
     },
 }

@@ -7,13 +7,15 @@
 // an fp32 running max m, normaliser l and accumulator, a causal mask
 // offset by kv_offset, and ragged Sq / Skv masked in the kernel.
 //
-// Layout. q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], out [B, Sq, Hq, D],
-// all bf16, D in {64, 128, 256}, given by element strides (batch, sequence,
-// head) that are multiples of 8 with the last dimension contiguous and
-// 16-byte aligned rows, so blockwise_attention's [B, S, H, D] and
-// ops.attention's [B, H, S, D] both arrive without a copy. Query head h
-// reads KV head h / (Hq / Hkv): grouped-query attention with no repeated
-// K or V.
+// Layout. q [B, Sq, Hq, DQK], k [B, Skv, Hkv, DQK], v [B, Skv, Hkv, DV],
+// out [B, Sq, Hq, DV], all bf16, (DQK, DV) in {(64, 64), (128, 128),
+// (256, 256), (192, 128)} (the last is DeepSeek-V2's MLA: 128 + 64 rotary
+// key columns over 128 value columns), given by element strides (batch,
+// sequence, head) that are multiples of 8 with the last dimension
+// contiguous and 16-byte aligned rows, so blockwise_attention's
+// [B, S, H, D] and ops.attention's [B, H, S, D] both arrive without a
+// copy. Query head h reads KV head h / (Hq / Hkv): grouped-query
+// attention with no repeated K or V.
 //
 // Numerics, as blockwise_attention:
 //   s   = (q . k) * scale in fp32, the scale applied after the dot (bf16
@@ -41,23 +43,26 @@
 // latency are what it costs. At S=2048 the 17 GFLOP of the causal
 // product bound it (~17 us at 989 TFLOP/s). At decode (Sq=1, Skv=1024)
 // the KV bytes bound it (~5 us). At gemma-7b's prefill (B=8, S=64, 16
-// heads of D=256) the 16.8 MB bound it (~5 us).
+// heads of D=256) the 16.8 MB bound it (~5 us), and at DeepSeek-V2's
+// (B=8, S=64, 128 heads, DQK 192, DV 128) its 84 MB (~25 us).
 //
 // Design (FlashAttention-2 shape on mma.sync; wgmma and TMA are later
 // work):
 //   * prefill form: one block of 4 warps per (64-row query tile, query
-//     head, batch). Each warp owns 16 query rows; at D <= 128 their Q
+//     head, batch). Each warp owns 16 query rows; at DQK <= 128 their Q
 //     fragments are read once by ldmatrix and stay in registers for the
-//     whole KV loop (acc and Q take 16 * D / 32 + 16 * D / 64 registers
-//     a thread). At D = 256 acc alone would take 128 and Q 64 more, and
-//     with the score tile the kernel spilled. So at D = 256 Q stays in
-//     shared memory, each k-step of q . k reading its A fragment by
-//     ldmatrix (QREG false), and the block makes two passes over the KV
-//     tiles (NPASS), each accumulating 128 of the 256 output columns:
-//     q . k and the softmax are done twice and K is read twice, for no
-//     spill (kernel_parts.py's one_pass variant keeps the single pass);
+//     whole KV loop (acc and Q take 16 * DV / 32 + 16 * DQK / 64
+//     registers a thread). At DV = 256 acc alone would take 128 and Q 64
+//     more, and with the score tile the kernel spilled. So past DQK = 128
+//     Q stays in shared memory, each k-step of q . k reading its A
+//     fragment by ldmatrix (QREG false), and at DV = 256 the block makes
+//     two passes over the KV tiles (NPASS), each accumulating 128 of the
+//     256 output columns: q . k and the softmax are done twice and K is
+//     read twice, for no spill (kernel_parts.py's one_pass variant keeps
+//     the single pass). At (192, 128) q . k takes 12 k-steps from shared
+//     memory and one pass accumulates the 128 value columns;
 //     S = Q K^T is mma.sync m16n8k16 bf16 -> fp32 with K's B fragments
-//     from ldmatrix.x4 on the row-major [64][D] K tile; the row max and
+//     from ldmatrix.x4 on the row-major [64][DQK] K tile; the row max and
 //     row sum take two quad shuffles (l is summed per thread and reduced
 //     once at the end); P goes from the C fragments to A fragments in
 //     registers (cvt.rn.bf16x2.f32) and P V is the same mma with V's B
@@ -76,8 +81,9 @@
 //     into the 16 rows of one mma tile (row r: position r / rep, head
 //     hk * rep + r % rep), so each K and V tile is read once for all of
 //     them, and a 4-stage ring keeps three tiles in flight (3 stages at
-//     D = 256, whose 4 would need 264 KiB of shared memory; two passes
-//     of 128 columns there too). Each warp
+//     (256, 256), whose 4 would need 264 KiB of shared memory; two
+//     passes of 128 columns there too; (192, 128) keeps 4, 166 KiB).
+//     Each warp
 //     takes a quarter of every 64-key tile (16 keys); the four (m, l,
 //     acc) merge through shared memory at the end with the usual
 //     rescaling, and each row goes back to its (position, head) by
@@ -117,24 +123,28 @@ struct Args {
 };
 
 // K / V ring stages: 2 in the prefill form; 4 in the decode form, 3 at
-// D = 256, where 4 stages and the Q tile would take 264 KiB of the 227 KiB
-// a block may have (kernels/flash_attention.py stages).
-template <int D, bool DEC>
+// (256, 256), where 4 stages and the Q tile would take 264 KiB of the 227
+// KiB a block may have (kernels/flash_attention.py stages).
+template <int DQK, int DV, bool DEC>
 __host__ __device__ constexpr int stages() {
-  return DEC ? (D >= 256 ? 3 : 4) : 2;
+  return DEC ? (DQK + DV > 384 ? 3 : 4) : 2;
 }
 
-// Q tile, then the ring of [K tile, V tile] stages, all bf16.
-template <int D, bool DEC>
+// Q tile [rows][DQK], then the ring of [K tile [64][DQK], V tile [64][DV]]
+// stages, all bf16.
+template <int DQK, int DV, bool DEC>
 constexpr int smem_bytes() {
-  return 2 * ((DEC ? ROWS : BQ) * D + stages<D, DEC>() * 2 * BKV * D);
+  return 2 * ((DEC ? ROWS : BQ) * DQK +
+              stages<DQK, DV, DEC>() * BKV * (DQK + DV));
 }
-static_assert(smem_bytes<256, false>() <= 232448 &&
-                  smem_bytes<256, true>() <= 232448,
+static_assert(smem_bytes<256, 256, false>() <= 232448 &&
+                  smem_bytes<256, 256, true>() <= 232448 &&
+                  smem_bytes<192, 128, true>() <= 232448,
               "a block may take 227 KiB of shared memory");
 
 // Element offset of 16-byte chunk `chunk` of row `row` in a [rows][D]
-// tile whose chunks are swizzled by (row & 7).
+// tile whose chunks are swizzled by (row & 7). Every D here is a multiple
+// of 64, so a row starts on bank 0 and the swizzle stays within the row.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * D + ((chunk ^ (row & 7)) << 3);
@@ -240,27 +250,28 @@ __device__ __forceinline__ void load_q_packed(bf16* s, const Args& a, int b,
   }
 }
 
-template <int D, bool DEC>
+template <int DQK, int DV, bool DEC>
 __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
-  constexpr int NST = stages<D, DEC>();
-  constexpr bool QREG = D <= 128;              // Q fragments in registers
+  constexpr int NST = stages<DQK, DV, DEC>();
+  constexpr bool QREG = DQK <= 128;            // Q fragments in registers
   constexpr int KW = DEC ? BKV / WARPS : BKV;  // keys of a tile per warp
   constexpr int NB = KW / 8;                   // n-blocks of a score tile
-  constexpr int DK = D / 16;                   // k-steps of q . k
-  // output columns in NPASS passes: at D = 256 acc for all 256 would take
+  constexpr int DK = DQK / 16;                 // k-steps of q . k
+  // output columns in NPASS passes: at DV = 256 acc for all 256 would take
   // 128 registers a thread, so each pass accumulates 128 of them
-  constexpr int NPASS = D >= 256 ? 2 : 1;
-  constexpr int DV = D / NPASS;                // output columns of a pass
-  constexpr int DN = DV / 8;                   // n-blocks of a pass's output
-  constexpr int TILE = BKV * D;                // elements of a K or V tile
-  static_assert(!DEC || 4 * (2 * WARPS * ROWS + WARPS * ROWS * DV) <=
-                            2 * NST * 2 * TILE,
+  constexpr int NPASS = DV >= 256 ? 2 : 1;
+  constexpr int PW = DV / NPASS;               // output columns of a pass
+  constexpr int DN = PW / 8;                   // n-blocks of a pass's output
+  constexpr int KTILE = BKV * DQK;             // elements of a K tile
+  constexpr int STAGE = KTILE + BKV * DV;      // ... of a [K, V] stage
+  static_assert(!DEC || 4 * (2 * WARPS * ROWS + WARPS * ROWS * PW) <=
+                            2 * NST * STAGE,
                 "the decode merge reuses the ring");
-  static_assert(DV % 64 == 0 || NPASS == 1,
+  static_assert(PW % 64 == 0 || NPASS == 1,
                 "a pass's columns start on a whole swizzle period");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = Qs + (DEC ? ROWS : BQ) * D;
+  bf16* ring = Qs + (DEC ? ROWS : BQ) * DQK;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -301,23 +312,23 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
 
   auto issue_q = [&]() {
     if (DEC)
-      load_q_packed<D>(Qs, a, b, hk, tid);
+      load_q_packed<DQK>(Qs, a, b, hk, tid);
     else
-      load_tile<D, BQ>(Qs, a.q + b * a.q_sb + h * a.q_sh + q0 * a.q_ss,
-                       a.q_ss, a.Sq - q0, tid);
+      load_tile<DQK, BQ>(Qs, a.q + b * a.q_sb + h * a.q_sh + q0 * a.q_ss,
+                         a.q_ss, a.Sq - q0, tid);
   };
   auto issue_tile = [&](int t) {
-    bf16* ks = ring + (t % NST) * 2 * TILE;
+    bf16* ks = ring + (t % NST) * STAGE;
     const int k0 = t * BKV;
-    load_tile<D, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, tid);
-    load_tile<D, BKV>(ks + TILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, tid);
+    load_tile<DQK, BKV>(ks, kg + k0 * a.k_ss, a.k_ss, a.Skv - k0, tid);
+    load_tile<DV, BKV>(ks + KTILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, tid);
   };
 
   // the lane's ldmatrix rows: its Q row, K rows krow + 16 jj, V rows
   // vrow + 16 kk; each is lane & 7 modulo 8, so one swizzle constant zq
   // (chunk 2 kk + (lane >> 4), as V's chunks) and zk (chunk 2 kk +
   // ((lane >> 3) & 1)) serve all of them
-  const bf16* qs_lane = Qs + ((DEC ? 0 : ROWS * warp) + (lane & 15)) * D;
+  const bf16* qs_lane = Qs + ((DEC ? 0 : ROWS * warp) + (lane & 15)) * DQK;
   const int krow = key0 + (lane & 7) + ((lane >> 4) << 3);
   const int vrow = key0 + (lane & 15);
   const int zq = (lane >> 4) ^ (lane & 7);
@@ -326,10 +337,10 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
 
 #pragma unroll 1
   for (int pass = 0; pass < NPASS; ++pass) {
-    // output columns [c0, c0 + DV) of this pass; a later pass walks the KV
+    // output columns [c0, c0 + PW) of this pass; a later pass walks the KV
     // tiles again, so the ring (and the decode merge's use of it) must be
     // free first
-    const int c0 = pass * DV;
+    const int c0 = pass * PW;
     if (pass == 0) {
       issue_q();
     } else {
@@ -360,8 +371,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
             ldsm_x4(qf[kk], qs_lane + swz_step(kk, zq));
         }
       }
-      const bf16* ks = ring + (t % NST) * 2 * TILE;
-      const bf16* vs = ks + TILE;
+      const bf16* ks = ring + (t % NST) * STAGE;
+      const bf16* vs = ks + KTILE;
       const int kw0 = t * BKV + key0;
       const bool skip =
           qhi < qlo || kw0 >= a.Skv || (a.causal && kw0 > qhi);
@@ -384,7 +395,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
 #pragma unroll
         for (int jj = 0; jj < NB / 2; ++jj) {
           uint32_t kf[4];
-          ldsm_x4(kf, ks + (krow + 16 * jj) * D + swz_step(kk, zk));
+          ldsm_x4(kf, ks + (krow + 16 * jj) * DQK + swz_step(kk, zk));
           mma_bf16(s[2 * jj], qa, kf[0], kf[1]);
           mma_bf16(s[2 * jj + 1], qa, kf[2], kf[3]);
         }
@@ -446,7 +457,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
 #pragma unroll
         for (int jj = 0; jj < DN / 2; ++jj) {
           uint32_t vf[4];
-          ldsm_x4_trans(vf, vs + c0 + (vrow + 16 * kk) * D +
+          ldsm_x4_trans(vf, vs + c0 + (vrow + 16 * kk) * DV +
                                 swz_step(jj, zq));
           mma_bf16(acc[2 * jj], pa, vf[0], vf[1]);
           mma_bf16(acc[2 * jj + 1], pa, vf[2], vf[3]);
@@ -482,7 +493,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
     __syncthreads();  // every warp is done with the ring
     float* ms = reinterpret_cast<float*>(ring);
     float* ls = ms + WARPS * ROWS;
-    float* as = ls + WARPS * ROWS;  // [WARPS][ROWS][DV]
+    float* as = ls + WARPS * ROWS;  // [WARPS][ROWS][PW]
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = warp * ROWS + g + 8 * i;
@@ -492,8 +503,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
       }
 #pragma unroll
       for (int n = 0; n < DN; ++n) {
-        as[r * DV + 8 * n + 2 * t4] = acc[n][2 * i];
-        as[r * DV + 8 * n + 2 * t4 + 1] = acc[n][2 * i + 1];
+        as[r * PW + 8 * n + 2 * t4] = acc[n][2 * i];
+        as[r * PW + 8 * n + 2 * t4 + 1] = acc[n][2 * i + 1];
       }
     }
     __syncthreads();
@@ -519,7 +530,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
         o[e] = 0.f;
 #pragma unroll
         for (int w = 0; w < WARPS; ++w)
-          o[e] += as[(w * ROWS + r) * DV + 8 * c + e] * sc[w];
+          o[e] += as[(w * ROWS + r) * PW + 8 * c + e] * sc[w];
       }
       uint4 pk;
       pk.x = pack_bf16(o[0] / norm, o[1] / norm);
@@ -531,30 +542,38 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
   }
 }
 
-template <int D, bool DEC>
+template <int DQK, int DV, bool DEC>
 int launch(const Args& a, dim3 grid, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D, DEC>();
+  constexpr int smem = smem_bytes<DQK, DV, DEC>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, DEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_kernel<DQK, DV, DEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_kernel<D, DEC><<<grid, THREADS, smem, stream>>>(a);
+  flash_kernel<DQK, DV, DEC><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Both forms of the (DQK, DV) instantiation.
+template <int DQK, int DV>
+int launch_form(const Args& a, dim3 grid, bool dec, cudaStream_t stream) {
+  return dec ? launch<DQK, DV, true>(a, grid, stream)
+             : launch<DQK, DV, false>(a, grid, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D] -> out [B, Sq, Hq, D], all
-// bf16, given by element strides (batch, sequence, head), multiples of 8,
-// with the last dimension contiguous and 16-byte aligned bases. D in
-// {64, 128, 256}; Hq a multiple of Hkv; kv_offset >= 0. Form 0 (prefill) runs
+// q [B, Sq, Hq, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, DV] -> out
+// [B, Sq, Hq, DV], all bf16, given by element strides (batch, sequence,
+// head), multiples of 8, with the last dimension contiguous and 16-byte
+// aligned bases. (D, DV) in {(64, 64), (128, 128), (256, 256), (192, 128)};
+// Hq a multiple of Hkv; kv_offset >= 0. Form 0 (prefill) runs
 // on a grid (Hq, B, ceil(Sq / 64)), form 1 (decode, only where
 // Sq * Hq / Hkv <= 16) on a grid (Hkv, B, 1); kernels/flash_attention.py
 // flash_plan picks the form and describes the same launch.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                    int B, int Sq, int Skv, int Hq, int Hkv, int D, int DV,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
@@ -574,19 +593,11 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * LOG2E,
                causal, kv_offset};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return dec ? launch<64, true>(a, grid, s)
-                 : launch<64, false>(a, grid, s);
-    case 128:
-      return dec ? launch<128, true>(a, grid, s)
-                 : launch<128, false>(a, grid, s);
-    case 256:
-      return dec ? launch<256, true>(a, grid, s)
-                 : launch<256, false>(a, grid, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (D == 64 && DV == 64) return launch_form<64, 64>(a, grid, dec, s);
+  if (D == 128 && DV == 128) return launch_form<128, 128>(a, grid, dec, s);
+  if (D == 256 && DV == 256) return launch_form<256, 256>(a, grid, dec, s);
+  if (D == 192 && DV == 128) return launch_form<192, 128>(a, grid, dec, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

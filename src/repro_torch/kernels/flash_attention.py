@@ -7,8 +7,10 @@ blockwise_attention`` computes there: online-softmax attention with fp32
 running statistics, a causal mask offset by ``kv_offset``, ragged
 sequence lengths masked in the kernel, and grouped-query attention by
 mapping query head ``h`` to KV head ``h // (Hq // Hkv)`` (no repeated
-K or V). Both products are bf16 tensor-core ``mma.sync`` with fp32
-accumulators; K and V tiles stream through a ``cp.async`` ring.
+K or V). The value head size may differ from the key's: MLA's 192-wide
+keys (128 + 64 rotary columns) over 128-wide values. Both products are
+bf16 tensor-core ``mma.sync`` with fp32 accumulators; K and V tiles
+stream through a ``cp.async`` ring.
 
 :func:`flash_plan` picks the launch. The prefill form runs one block per
 (64-row query tile, query head, batch) and walks the KV tiles in a loop,
@@ -33,8 +35,10 @@ from repro_torch.kernels.build import launch
 
 NEG_INF = -1e30
 MODES = ("auto", "ref")
-#: the head sizes the kernel is instantiated for (it takes bf16)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+#: the (key, value) head sizes the kernel is instantiated for (it takes
+#: bf16): three with equal sizes, and MLA's 192-wide keys over 128-wide
+#: values
+KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 #: the kernel's launch forms, in the order of the entry point's ``form``
 FORMS = ("prefill", "decode")
 BLOCK_Q = 64                # prefill: query rows per block (4 warps x 16)
@@ -42,12 +46,14 @@ BLOCK_KV = 64               # keys per staged K or V tile
 DECODE_ROWS = 16            # decode: packed (position, head) rows a block
 
 
-def stages(form: str, d: int) -> int:
-    """K / V ring stages of ``form`` at head size ``d``, as the kernel's
-    ``stages<D, DEC>()``: 2 in the prefill form, 4 in the decode form
-    but 3 at D = 256, where 4 stages and its Q tile would need 264 KiB
-    of shared memory."""
-    return {"prefill": 2, "decode": 3 if d >= 256 else 4}[form]
+def stages(form: str, d: int, dv: int | None = None) -> int:
+    """K / V ring stages of ``form`` at key head size ``d`` and value
+    head size ``dv`` (default ``d``), as the kernel's ``stages<DQK, DV,
+    DEC>()``: 2 in the prefill form, 4 in the decode form but 3 where
+    ``d + dv`` exceeds 384 (at (256, 256) 4 stages and the Q tile would
+    need 264 KiB of shared memory)."""
+    dv = d if dv is None else dv
+    return {"prefill": 2, "decode": 3 if d + dv > 384 else 4}[form]
 
 
 class FlashPlan(NamedTuple):
@@ -59,22 +65,24 @@ class FlashPlan(NamedTuple):
 
 
 def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
-               d: int) -> FlashPlan:
-    """The launch of one call: the decode form when the ``Hq / Hkv``
-    query heads of a KV head times the ``Sq`` positions fill at most one
+               d: int, dv: int | None = None) -> FlashPlan:
+    """The launch of one call at key head size ``d`` and value head size
+    ``dv`` (default ``d``): the decode form when the ``Hq / Hkv`` query
+    heads of a KV head times the ``Sq`` positions fill at most one
     16-row tile (grid (Hkv, B, 1)), else the prefill form (grid (Hq, B,
     ceil(Sq / 64)), the query tile slowest). Shared memory holds the bf16
-    Q tile and the ring of :func:`stages` [K, V] tile stages. The wrapper
-    passes only the form; the C entry point works out the same grid and
-    shared memory itself."""
-    if min(b, sq, skv, hq, hkv, d) <= 0 or hq % hkv:
+    Q tile [rows, d] and the ring of :func:`stages` stages of a K tile
+    [64, d] and a V tile [64, dv]. The wrapper passes only the form; the
+    C entry point works out the same grid and shared memory itself."""
+    dv = d if dv is None else dv
+    if min(b, sq, skv, hq, hkv, d, dv) <= 0 or hq % hkv:
         raise ValueError(f"flash_plan: no launch for B={b} Sq={sq} "
-                         f"Skv={skv} Hq={hq} Hkv={hkv} D={d}")
+                         f"Skv={skv} Hq={hq} Hkv={hkv} D={d} DV={dv}")
     if sq * (hq // hkv) <= DECODE_ROWS:
         form, grid, rows = "decode", (hkv, b, 1), DECODE_ROWS
     else:
         form, grid, rows = "prefill", (hq, b, -(-sq // BLOCK_Q)), BLOCK_Q
-    smem = 2 * d * (rows + stages(form, d) * 2 * BLOCK_KV)
+    smem = 2 * (rows * d + stages(form, d, dv) * BLOCK_KV * (d + dv))
     return FlashPlan(form, grid, smem)
 
 
@@ -86,7 +94,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     schedule, an online softmax over ``kv_chunk`` keys for each
     ``q_chunk`` of queries.
 
-    q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], Hq % Hkv == 0. Scores,
+    q: [B, Sq, Hq, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, DV], Hq %
+    Hkv == 0; the output is [B, Sq, Hq, DV]. Scores,
     statistics and the accumulator are fp32 (bf16 operands are widened
     before each product, which is exact); p is rounded to the value
     type before ``p . v``, as the reference does. A ragged last chunk
@@ -141,7 +150,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: kv_offset {kv_offset} < 0")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    if not (q.dtype == k.dtype == v.dtype):
+    # k and v share a dtype; q has it too, or is fp32 over a narrower
+    # cache (the reference's encoder-decoder decodes fp32 queries over
+    # its bf16 cross cache: the plain version widens each operand, the
+    # kernel refuses anything but bf16)
+    if k.dtype != v.dtype or q.dtype not in (k.dtype, torch.float32):
         raise ValueError("flash_attention: q, k, v of different dtypes")
 
 
@@ -150,33 +163,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, q_chunk: int = 512,
                     kv_chunk: int = 1024, mode: str = "auto"
                     ) -> torch.Tensor:
-    """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D].
+    """q: [B, Sq, Hq, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, DV] ->
+    [B, Sq, Hq, DV].
 
     Any strides with the last dimension contiguous (``[B, H, S, D]``
     tensors transposed to ``[B, S, H, D]`` views need no copy). The
-    kernel takes bf16 with D in :data:`KERNEL_HEAD_DIMS` and ``v``'s
-    head size equal to D; ``q_chunk`` / ``kv_chunk`` set only the plain
-    version's schedule.
+    kernel takes bf16 with (D, DV) in :data:`KERNEL_HEAD_DIMS`; any
+    other pair raises on the card. ``q_chunk`` / ``kv_chunk`` set only
+    the plain version's schedule.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     _check(q, k, v, kv_offset)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     if mode == "ref" or not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal,
                                      kv_offset=kv_offset, scale=scale,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
-    if v.shape[-1] != d:
+    if (d, dv) not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            "flash_attention: a value head size other than the key's "
-            "(MLA) is for the later slice that ports deepseek-v2")
-    if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention: head size {d} is not instantiated "
-            f"({KERNEL_HEAD_DIMS}); other sizes (the smoke configs' 8-32) "
-            f"are for a later slice")
+            f"flash_attention: head sizes (key, value) {(d, dv)} are not "
+            f"instantiated {KERNEL_HEAD_DIMS}; other sizes (the smoke "
+            f"configs' 8-32) are for a later slice")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: the kernel takes bf16, got "
                          f"{q.dtype}")
@@ -191,10 +202,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "the data 16-byte aligned")
     if skv == 0:
         raise ValueError("flash_attention: no keys")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    plan = flash_plan(b, sq, skv, hq, hkv, d)
+    plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
     launch("flash_attention", q,
            *kernel_args(q, k, v, out, scale, causal, kv_offset, plan))
     return out
@@ -207,6 +218,7 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     form."""
     b, sq, hq, d = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            k.shape[1], hq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], float(scale), int(causal),
-            int(kv_offset), FORMS.index(plan.form))
+            k.shape[1], hq, k.shape[2], d, v.shape[-1], *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), int(causal), int(kv_offset),
+            FORMS.index(plan.form))

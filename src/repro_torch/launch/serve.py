@@ -11,28 +11,43 @@ accelerator program served through decode sessions and the fleet.
       --arch qwen3-moe-235b-a22b --layers 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --layers 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --quantize --accel-devices 2 --accel-partition filter --fleet 2
 
 The counterpart of ``repro.launch.serve``. Weights are random, made on
 the device from ``--seed``; prompts come from ``SyntheticTokens`` with
 the same seed, so they are the reference's. The LMs (llama3.2-1b,
-qwen3-8b, gemma-7b, yi-34b, and qwen3-moe-235b-a22b with its MoE layer
-in plain torch) run every prefill attention as one flash-attention
-kernel launch on the card (``--device cpu`` runs the plain versions);
-an LM's ``--smoke`` takes ``--device cpu``, since the flash kernel is
-not built for the smoke configs' head sizes and fp32 params.
+qwen3-8b, gemma-7b, yi-34b, qwen2-vl-2b with its M-RoPE over text
+positions, and qwen3-moe-235b-a22b and deepseek-v2-236b with their MoE
+layers in plain torch) run every prefill attention as one
+flash-attention kernel launch on the card (deepseek's MLA at key size
+192 over value size 128; ``--device cpu`` runs the plain versions).
+seamless-m4t-large-v2 (module ``encdec``) encodes :func:`encdec_frames`
+(the stub audio frontend's 0.1 N(0, 1) frame embeddings, one per prompt
+position) twice in its prefill and launches the kernel for every
+encoder, decoder and cross attention, and in every decode step for each
+layer's cross-attention; as in the reference its prefill leaves the
+decoder's self cache empty. A family whose smoke config the kernel is
+not built for (head sizes 8-32, fp32 params: the LMs and the
+encoder-decoder) takes ``--smoke`` only with ``--device cpu``.
 mamba2-780m (module ``ssm``) and jamba-v0.1-52b (module ``hybrid``)
 launch no kernel of the port: jamba's prompt attention is the
 full-softmax ``dense_attention`` below 8192 tokens, as in the
 reference, so its ``--smoke`` runs on the card too. As in the
 reference, their prefill scores the prompt and decode starts from the
-empty state (and, for jamba, an empty KV cache). A hybrid's
-``--layers`` must be a multiple of its 8-layer period. ``--layers N``
-serves the first N layers at the published widths: qwen3-moe-235b-a22b
-(467 GB in bf16) and jamba-v0.1-52b (103 GB) take ``--layers 8`` on an
-80 GB card. Prefill and decode times go to ``obs.METRICS`` as
-``serve.request.*``; each timed region ends in
+empty state (and, for jamba, an empty KV cache). ``--layers N`` serves
+the first N layers at the published widths: qwen3-moe-235b-a22b (467 GB
+in bf16) and jamba-v0.1-52b (103 GB) take ``--layers 8`` on an 80 GB
+card, deepseek-v2-236b (472 GB) ``--layers 6`` (its dense first layer
+and 5 MoE layers; N must exceed the dense prefix). A hybrid's
+``--layers`` must be a multiple of its 8-layer period; the
+encoder-decoder, which fits whole, takes none. Prefill and decode times
+go to ``obs.METRICS`` as ``serve.request.*``; each timed region ends in
 ``torch.cuda.synchronize()`` on the card.
 
 ``--quantize`` fake-quantizes every attention projection (the LM's
@@ -186,6 +201,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+#: the seed of the encoder-decoder's stub frames (the reference draws
+#: them from ``jax.random.key(1)``, whatever ``--seed``)
+FRAMES_SEED = 1
+
+
+def encdec_frames(batch: int, seq: int, d_model: int,
+                  device) -> torch.Tensor:
+    """The stub audio frontend's frame embeddings for an encoder-decoder
+    request: 0.1 N(0, 1) of shape [batch, seq, d_model] in fp32, drawn
+    on ``device`` from a generator seeded with :data:`FRAMES_SEED`."""
+    gen = torch.Generator(device=device).manual_seed(FRAMES_SEED)
+    return 0.1 * torch.randn((batch, seq, d_model), generator=gen,
+                             device=device)
+
+
+def flash_heads(arch) -> tuple[int, int] | None:
+    """The (key, value) head sizes of the flash launches that serving
+    ``arch`` makes, None for a family that makes none (ssm; the hybrid,
+    whose prompt attention is ``dense_attention``)."""
+    cfg = arch.model
+    if arch.module == "lm":
+        return cfg.qk_dim, cfg.v_head_dim
+    if arch.module == "encdec":
+        return cfg.head_dim, cfg.head_dim
+    return None
+
+
+def model_depth(cfg) -> str:
+    """Layers of a config as the launcher prints them: ``n_layers``, or
+    encoder + decoder layers."""
+    if hasattr(cfg, "n_enc_layers"):
+        return f"{cfg.n_enc_layers}+{cfg.n_dec_layers}"
+    return str(cfg.n_layers)
+
+
 def main(argv=None) -> dict:
     """Serve one batch of requests; returns the tokens and timings."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -243,28 +293,39 @@ def main(argv=None) -> dict:
               f"serves the modules {SERVED}", file=sys.stderr)
         raise SystemExit(2)
     device = torch.device(args.device)
-    smoke = arch.smoke
-    if args.smoke and device.type == "cuda" and arch.module == "lm" and (
-            smoke.head_dim not in KERNEL_HEAD_DIMS
-            or smoke.param_dtype != torch.bfloat16):
-        # no silent fallback to plain attention: the flash kernel is
-        # built for the head sizes KERNEL_HEAD_DIMS in bf16 only
-        dtype = str(smoke.param_dtype).split(".")[-1].replace("float32",
-                                                             "fp32")
-        print(f"error: --smoke serves the smoke config (head_dim "
-              f"{smoke.head_dim}, {dtype} params), which the "
-              f"flash-attention kernel is not instantiated for; the smoke "
-              f"run takes --device cpu", file=sys.stderr)
-        raise SystemExit(2)
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
+        heads = flash_heads(arch)
+        dtype = arch.model.param_dtype
+        if device.type == "cuda" and heads is not None and (
+                heads not in KERNEL_HEAD_DIMS or dtype != torch.bfloat16):
+            # no silent fallback to plain attention: the flash kernel is
+            # built for the head sizes KERNEL_HEAD_DIMS in bf16 only
+            qk, v = heads
+            sizes = f"head_dim {qk}" + (f" (values {v})" if v != qk else "")
+            name = str(dtype).split(".")[-1].replace("float32", "fp32")
+            print(f"error: --smoke serves the smoke config ({sizes}, "
+                  f"{name} params), which the flash-attention kernel is "
+                  f"not instantiated for; the smoke run takes --device cpu",
+                  file=sys.stderr)
+            raise SystemExit(2)
     if args.layers is not None:
+        if arch.module == "encdec":
+            print(f"error: --layers: {args.arch} is an encoder-decoder, "
+                  f"served whole", file=sys.stderr)
+            raise SystemExit(2)
         if not 0 < args.layers <= arch.model.n_layers:
             raise SystemExit(f"error: --layers must be in [1, "
                              f"{arch.model.n_layers}], got {args.layers}")
         if arch.module == "hybrid" and args.layers % PERIOD:
             print(f"error: --layers {args.layers}: a hybrid serves whole "
                   f"periods of {PERIOD} layers", file=sys.stderr)
+            raise SystemExit(2)
+        n_dense = getattr(arch.model, "n_dense_prefix", 0)
+        if args.layers <= n_dense:
+            print(f"error: --layers {args.layers}: the first {n_dense} "
+                  f"layer(s) are the dense prefix; keep them and at least "
+                  f"one more", file=sys.stderr)
             raise SystemExit(2)
         arch = dataclasses.replace(arch, model=dataclasses.replace(
             arch.model, n_layers=args.layers))
@@ -285,6 +346,10 @@ def main(argv=None) -> dict:
         data = SyntheticTokens(cfg.vocab, args.batch, args.prompt_len,
                                seed=args.seed)
         prompts = data.next_batch()["tokens"].to(device)
+        batch = {"tokens": prompts}
+        if arch.module == "encdec":
+            batch["frames"] = encdec_frames(args.batch, args.prompt_len,
+                                            cfg.d_model, device)
         cache = make_cache(arch, args.batch, max_seq, cfg.param_dtype,
                            device)
         prefill_fn = make_prefill_fn(arch)
@@ -292,7 +357,7 @@ def main(argv=None) -> dict:
 
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill_fn(params, {"tokens": prompts}, cache)
+        logits, cache = prefill_fn(params, batch, cache)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         METRICS.observe("serve.request.prefill_ms", t_prefill * 1e3)
@@ -321,7 +386,7 @@ def main(argv=None) -> dict:
               "decode_ms_per_step": t_decode * 1e3 / n_steps}
     if args.quantize:
         result.update(_accel(args, prompts.cpu(), max_seq, device))
-    print(f"# arch={cfg.name} layers={cfg.n_layers} "
+    print(f"# arch={cfg.name} layers={model_depth(cfg)} "
           f"quantized={args.quantize} device={device}")
     print(f"prefill: {t_prefill * 1e3:8.1f} ms "
           f"({args.batch * args.prompt_len / max(t_prefill, 1e-9):.0f} "

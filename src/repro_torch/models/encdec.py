@@ -1,0 +1,331 @@
+"""Seamless-M4T-v2 backbone, an encoder-decoder transformer, in PyTorch.
+
+The counterpart of ``repro.models.encdec``. As there, the speech
+frontend is a stub: the encoder takes precomputed frame embeddings
+[B, S_src, d_model] (what the real model's conformer feature extractor
+would emit); the text decoder is a causal transformer with
+cross-attention to the encoder memory.
+
+Encoder: bidirectional self-attention + MLP. Decoder: causal
+self-attention + cross-attention + MLP. Layers are stacked as in the
+reference (a leading "layers" axis on every leaf) and walked by a
+Python loop where the reference scans. Every ``blockwise_attention``
+call is one flash-attention launch on the card: the encoder's
+bidirectional self-attention, the decoder's causal one, and the
+cross-attention (non-causal, Sq != Skv) both over the memory and, in a
+decode step, over the static cross cache (Sq = 1, the kernel's decode
+form). The decoder's self-attention in a decode step is the plain
+``decode_attention`` over its cache, as in the reference.
+
+Decode caches per decoder layer: self K/V (grows, written in place)
+and cross K/V (computed once from the encoder memory by
+``build_cross_cache``, static afterwards). As in the reference, the
+engine's prefill leaves the self cache empty, so decode starts from it.
+
+Entry points:
+  param_specs / init / params_from_jax  — parameters
+  encode / forward                      — memory, teacher-forced logits
+  init_cache / build_cross_cache / decode_step — decoding
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    """The reference's ``EncDecConfig`` fields, dtypes as torch dtypes;
+    ``remat`` and ``scan_unroll`` mean nothing at inference."""
+    name: str
+    n_enc_layers: int
+    n_dec_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    vocab_pad_multiple: int = 256
+    rope_theta: float = 10000.0
+    act: str = "relu"                    # seamless uses ReLU FFNs
+    param_dtype: torch.dtype = torch.bfloat16
+    norm_eps: float = 1e-6
+    remat: str = "none"
+    scan_unroll: bool = False
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _attn_specs(cfg: EncDecConfig) -> dict:
+    d, dt = cfg.d_model, cfg.param_dtype
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamSpec((d, hq * hd), dt),
+        "wk": ParamSpec((d, hkv * hd), dt),
+        "wv": ParamSpec((d, hkv * hd), dt),
+        "wo": ParamSpec((hq * hd, d), dt),
+    }
+
+
+def _enc_layer_specs(cfg: EncDecConfig) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "ln_attn": L.rmsnorm_spec(cfg.d_model, dt),
+        "attn": _attn_specs(cfg),
+        "ln_mlp": L.rmsnorm_spec(cfg.d_model, dt),
+        "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff, dt),
+    }
+
+
+def _dec_layer_specs(cfg: EncDecConfig) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "ln_self": L.rmsnorm_spec(cfg.d_model, dt),
+        "self_attn": _attn_specs(cfg),
+        "ln_cross": L.rmsnorm_spec(cfg.d_model, dt),
+        "cross_attn": _attn_specs(cfg),
+        "ln_mlp": L.rmsnorm_spec(cfg.d_model, dt),
+        "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff, dt),
+    }
+
+
+def param_specs(cfg: EncDecConfig) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
+        "enc_layers": L.stack_specs(_enc_layer_specs(cfg), cfg.n_enc_layers),
+        "ln_enc": L.rmsnorm_spec(cfg.d_model, dt),
+        "dec_layers": L.stack_specs(_dec_layer_specs(cfg), cfg.n_dec_layers),
+        "ln_dec": L.rmsnorm_spec(cfg.d_model, dt),
+        "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab), dt),
+    }
+
+
+def init(cfg: EncDecConfig, gen: torch.Generator) -> dict:
+    """Random weights by the reference's laws, made on ``gen``'s
+    device."""
+    return L.init_params(param_specs(cfg), gen)
+
+
+def param_count(cfg: EncDecConfig) -> int:
+    return L.param_count(param_specs(cfg))
+
+
+def params_from_jax(tree: Any, device=torch.device("cuda"),
+                    dtype: torch.dtype | None = None) -> dict:
+    """The reference's ``encdec.init`` pytree as the port's parameters on
+    ``device``, bit for bit unless ``dtype`` casts the floating
+    leaves."""
+    return L.tree_from_numpy(tree, device, dtype)
+
+
+def _layer(params: dict, i: int) -> dict:
+    return L.tree_map(lambda t: t[i], params)
+
+
+def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
+    return (start + torch.arange(s, dtype=torch.int32, device=device)
+            ).expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B, S, d_model]. The attention output is in the
+    values' dtype: over the bf16 cross cache of an fp32 model it is
+    bf16, and, as JAX's promotion does, it is widened before the
+    product."""
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1).to(torch.promote_types(out.dtype,
+                                                        wo.dtype)) @ wo
+
+
+def _self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: EncDecConfig, causal: bool,
+                    cache: dict | None = None, cache_len=None,
+                    attn_mode: str = "auto") -> torch.Tensor:
+    """Bidirectional (encoder) or causal (decoder) self-attention on the
+    flash kernel; with ``cache``, one decode step written in place at
+    ``cache_len`` and attended by the plain ``decode_attention``."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = L.blockwise_attention(q, k, v, causal=causal,
+                                    q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk, mode=attn_mode)
+    else:
+        idx = int(cache_len)
+        L.cache_write(cache["k"], k, idx)
+        L.cache_write(cache["v"], v, idx)
+        out = L.decode_attention(q, cache["k"], cache["v"], kv_len=idx + s)
+    return _out_proj(out, p["wo"])
+
+
+def _cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor | None,
+                     cfg: EncDecConfig, kv_cache: dict | None = None,
+                     attn_mode: str = "auto") -> torch.Tensor:
+    """Non-causal attention from the decoder to the encoder: K/V from
+    ``memory`` [B, S_src, M] (train / prefill), or precomputed in
+    ``kv_cache`` (decode). One flash launch either way."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    if kv_cache is not None:
+        k, v = kv_cache["k"], kv_cache["v"]
+    else:
+        src = memory.shape[1]
+        k = (memory @ p["wk"]).reshape(b, src, hkv, hd)
+        v = (memory @ p["wv"]).reshape(b, src, hkv, hd)
+    out = L.blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk, mode=attn_mode)
+    return _out_proj(out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Encoder / decoder stacks
+# ---------------------------------------------------------------------------
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: EncDecConfig,
+           attn_mode: str = "auto") -> torch.Tensor:
+    """frames: [B, S_src, d_model] precomputed frame embeddings (stub
+    frontend), cast to the model dtype. Returns the encoder memory
+    [B, S_src, d_model]."""
+    b, s, _ = frames.shape
+    positions = _positions(b, s, 0, frames.device)
+    x = frames.to(cfg.param_dtype)
+    for i in range(cfg.n_enc_layers):
+        p = _layer(params["enc_layers"], i)
+        x = x + _self_attention(p["attn"],
+                                L.rmsnorm(x, p["ln_attn"], cfg.norm_eps),
+                                positions, cfg, causal=False,
+                                attn_mode=attn_mode)
+        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
+                            cfg.act)
+    return L.rmsnorm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def _decoder_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                   memory: torch.Tensor, cfg: EncDecConfig,
+                   attn_mode: str = "auto") -> torch.Tensor:
+    for i in range(cfg.n_dec_layers):
+        p = _layer(params["dec_layers"], i)
+        x = x + _self_attention(p["self_attn"],
+                                L.rmsnorm(x, p["ln_self"], cfg.norm_eps),
+                                positions, cfg, causal=True,
+                                attn_mode=attn_mode)
+        x = x + _cross_attention(p["cross_attn"],
+                                 L.rmsnorm(x, p["ln_cross"], cfg.norm_eps),
+                                 memory, cfg, attn_mode=attn_mode)
+        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
+                            cfg.act)
+    return x
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: EncDecConfig) -> torch.Tensor:
+    x = L.rmsnorm(x, params["ln_dec"], cfg.norm_eps)
+    return (x @ params["unembed"]).float()[..., :cfg.vocab]
+
+
+def forward(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
+            cfg: EncDecConfig, attn_mode: str = "auto"
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward: encode ``frames``, then the decoder over
+    ``tokens`` [B, S]. Returns (logits [B, S, vocab] fp32, aux = 0)."""
+    memory = encode(params, frames, cfg, attn_mode)
+    b, s = tokens.shape
+    positions = _positions(b, s, 0, tokens.device)
+    x = _decoder_stack(params, params["embed"][tokens], positions, memory,
+                       cfg, attn_mode)
+    return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32,
+                                                device=tokens.device)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: EncDecConfig, batch: int, max_tgt: int, src: int,
+                dtype=torch.bfloat16) -> dict:
+    """Per decoder layer, self K/V [B, max_tgt, Hkv, D] and cross K/V
+    [B, src, Hkv, D] (which ``build_cross_cache`` replaces)."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    layer = {
+        name: {"k": ParamSpec((batch, n, hkv, hd), dtype, "zeros"),
+               "v": ParamSpec((batch, n, hkv, hd), dtype, "zeros")}
+        for name, n in (("self", max_tgt), ("cross", src))}
+    return {"layers": L.stack_specs(layer, cfg.n_dec_layers)}
+
+
+def init_cache(cfg: EncDecConfig, batch: int, max_tgt: int, src: int,
+               dtype=torch.bfloat16, device=torch.device("cuda")) -> dict:
+    return L.init_constants(cache_specs(cfg, batch, max_tgt, src, dtype),
+                            device)
+
+
+def build_cross_cache(params: dict, memory: torch.Tensor, cfg: EncDecConfig,
+                      cache: dict, dtype=torch.bfloat16) -> dict:
+    """The static cross-attention K/V of every decoder layer from the
+    encoder memory, in ``dtype`` (bf16 by default, as in the reference,
+    whatever the model's dtype). Returns a new cache whose cross K/V are
+    [n_dec, B, S_src, Hkv, D], the memory's length; the self K/V are the
+    given cache's tensors."""
+    b, src, _ = memory.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    p = params["dec_layers"]["cross_attn"]
+    ks, vs = ([(memory @ w[i]).reshape(b, src, hkv, hd).to(dtype)
+               for i in range(cfg.n_dec_layers)] for w in (p["wk"], p["wv"]))
+    layers = dict(cache["layers"])
+    layers["cross"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return {**cache, "layers": layers}
+
+
+def decode_step(params: dict, token: torch.Tensor, cache: dict, cache_len,
+                cfg: EncDecConfig, attn_mode: str = "auto"
+                ) -> tuple[torch.Tensor, dict]:
+    """One decoder token [B, 1]; the cross K/V must already be in the
+    cache. Returns (logits [B, vocab], cache), the self K/V written in
+    place at ``cache_len``. Each layer's cross-attention is one flash
+    launch (the decode form) on the card."""
+    b = token.shape[0]
+    idx = int(cache_len)
+    positions = _positions(b, 1, idx, token.device)
+    x = params["embed"][token]
+    for i in range(cfg.n_dec_layers):
+        p, c = _layer(params["dec_layers"], i), _layer(cache["layers"], i)
+        x = x + _self_attention(p["self_attn"],
+                                L.rmsnorm(x, p["ln_self"], cfg.norm_eps),
+                                positions, cfg, causal=True,
+                                cache=c["self"], cache_len=idx)
+        x = x + _cross_attention(p["cross_attn"],
+                                 L.rmsnorm(x, p["ln_cross"], cfg.norm_eps),
+                                 None, cfg, kv_cache=c["cross"],
+                                 attn_mode=attn_mode)
+        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
+                            cfg.act)
+    return _logits(params, x, cfg)[:, 0], cache

@@ -1,9 +1,11 @@
-"""Model building blocks of the dense LM's serving path, in PyTorch.
+"""Model building blocks of the serving path, in PyTorch.
 
-The counterpart of ``repro.models.layers`` for what the dense and MoE
-LMs, Mamba2 and the Jamba hybrid serve with: parameter declarations and
-their initialisation, RMSNorm, rotary embeddings, the gated MLPs (silu,
-and gemma's tanh-approximate gelu), the GShard-style MoE layer (plain
+The counterpart of ``repro.models.layers`` for what the LMs (dense, MoE,
+MLA, VLM), Mamba2, the Jamba hybrid and the encoder-decoder serve with:
+parameter declarations and their initialisation, RMSNorm and LayerNorm,
+rotary embeddings (standard, and Qwen2-VL's multimodal M-RoPE), the
+gated MLPs (silu, gemma's tanh-approximate gelu, seamless's relu), the
+GShard-style MoE layer (plain
 torch einsums, as in the reference, which computes it outside any
 Pallas kernel), the KV-cache write and its int8 quantizer, and the
 three attention forms. There is one device, so the reference's logical
@@ -136,6 +138,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return (out * scale.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
                      device=None) -> torch.Tensor:
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -156,6 +167,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the frequency bands of each head are
+    split into ``sections`` (t, h, w) groups, each rotated by its own
+    position component. x: [B, S, H, D]; positions: [3, B, S] int. With
+    all three components equal (text only) it is :func:`apply_rope`."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"sections {sections} must sum to head_dim/2="
+                         f"{d // 2}")
+    freqs = rope_frequencies(d, theta, x.device)           # [d/2]
+    # which position component drives each frequency band
+    comp = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                      for i, n in enumerate(sections)])
+    picked = torch.movedim(positions.float(), 0, -1)       # [B, S, 3]
+    angles = picked[..., comp] * freqs                     # [B, S, d/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -166,8 +201,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_chunk: int = 1024, kv_offset: int = 0,
                         softmax_scale: float | None = None,
                         mode: str = "auto") -> torch.Tensor:
-    """Online-softmax attention. q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv,
-    D], Hq % Hkv == 0.
+    """Online-softmax attention. q: [B, Sq, Hq, D]; k: [B, Skv, Hkv, D];
+    v: [B, Skv, Hkv, DV] (MLA's DV differs from D), Hq % Hkv == 0.
 
     On the card this is the flash-attention CUDA kernel (one launch);
     on CPU tensors, or with ``mode="ref"``, its plain version with the
@@ -278,6 +313,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 ACTIVATIONS: dict[str, Callable] = {
     "silu": F.silu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
 }
 
 

@@ -1,19 +1,27 @@
-"""Decoder-only LM of the dense and MoE families, in PyTorch.
+"""Decoder-only LM of the dense, MoE, MLA and VLM families, in PyTorch.
 
-The counterpart of ``repro.models.lm`` for a dense or MoE config
-(llama3.2-1b, qwen3-8b, gemma-7b, yi-34b, qwen3-moe-235b-a22b): GQA or
-MHA, qk-norm after the head split (qwen3), the silu or gelu gated MLP
-(gemma's GeGLU) or, with ``moe`` set, the MoE layer on every layer
+The counterpart of ``repro.models.lm`` (llama3.2-1b, qwen3-8b,
+gemma-7b, yi-34b, qwen3-moe-235b-a22b, deepseek-v2-236b, qwen2-vl-2b):
+GQA or MHA, qk-norm after the head split (qwen3), the silu or gelu
+gated MLP (gemma's GeGLU) or, with ``moe`` set, the MoE layer
 (``layers.moe_apply``; ``forward`` sums its load-balance and z-loss
-``aux``), tied embeddings and the int8 KV cache (``kv_cache_quant``:
-prefill calibrates per-head scales, decode clips into them). MLA,
-M-RoPE and a dense prefix raise ``NotImplementedError`` naming their
-later slice. With ``hetero_quant`` set, every attention projection runs the
-reference's hybrid fake-quant forward (paper §4, QAT form; the
-launcher's ``--quantize``). Layers are stacked as in the reference (a
-leading "layers" axis on every leaf) and walked by a Python loop where
-the reference scans. Prefill attention runs on the flash-attention
-kernel; decode attention is plain torch over the cache.
+``aux``) on every layer after an optional dense prefix
+(``n_dense_prefix`` layers of ``d_ff_dense``, deepseek's first),
+DeepSeek-V2's multi-head latent attention (``mla``: low-rank q and kv
+projections, 192-wide keys of 128 + 64 rotary columns over 128-wide
+values, a compressed cache of [B, S, kv_lora + rope] a layer and the
+absorbed decode), Qwen2-VL's M-RoPE (``mrope_sections``; text
+positions drive all three components), precomputed frontend
+embeddings added to the token embedding (``extra_embed``), tied
+embeddings and the int8 KV cache (``kv_cache_quant``: prefill
+calibrates per-head scales, decode clips into them). With
+``hetero_quant`` set, every attention projection runs the reference's
+hybrid fake-quant forward (paper §4, QAT form; the launcher's
+``--quantize``). Layers are stacked as in the reference (a leading
+"layers" axis on every leaf, the dense prefix a list of unstacked
+layers) and walked by a Python loop where the reference scans. Prefill
+attention runs on the flash-attention kernel (MLA's at key size 192,
+value size 128); decode attention is plain torch over the cache.
 
 Entry points:
   param_specs / init / params_from_jax  — parameters
@@ -37,6 +45,16 @@ from repro_torch.quant.uniform import fit_scale, qrange
 # ---------------------------------------------------------------------------
 # Configs
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora: int = 512
+    q_lora: int = 1536
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +91,8 @@ class LMConfig:
     act: str = "silu"                     # gemma: "gelu" (GeGLU)
     moe: Any = None
     n_dense_prefix: int = 0               # deepseek: 1 dense layer first
-    d_ff_dense: int | None = None
-    mla: Any = None
+    d_ff_dense: int | None = None         # ff of the dense-prefix layers
+    mla: MLAConfig | None = None
     mrope_sections: tuple[int, ...] | None = None   # qwen2-vl
     tie_embeddings: bool = False          # gemma / llama3.2 / qwen2-vl
     hetero_quant: Any = None
@@ -92,26 +110,15 @@ class LMConfig:
         m = self.vocab_pad_multiple
         return ((self.vocab + m - 1) // m) * m
 
+    @property
+    def qk_dim(self) -> int:
+        if self.mla:
+            return self.mla.qk_nope_dim + self.mla.qk_rope_dim
+        return self.head_dim
 
-#: config features of the reference the port does not have yet, and
-#: the slice each waits for
-_LATER = {
-    "mla": "the MLA slice (deepseek-v2)",
-    "mrope_sections": "the VLM slice (qwen2-vl)",
-    "n_dense_prefix": "the MLA slice (deepseek-v2)",
-}
-
-
-def check_supported(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this slice lacks."""
-    for field, later in _LATER.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: LMConfig.{field} is not ported yet; it "
-                f"comes with {later}")
-    if cfg.act not in L.ACTIVATIONS:
-        raise ValueError(f"{cfg.name}: unknown activation {cfg.act!r}; "
-                         f"have {sorted(L.ACTIVATIONS)}")
+    @property
+    def v_head_dim(self) -> int:
+        return self.mla.v_dim if self.mla else self.head_dim
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +128,19 @@ def check_supported(cfg: LMConfig) -> None:
 
 def _attn_specs(cfg: LMConfig) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
+    if cfg.mla:
+        a, h = cfg.mla, cfg.n_heads
+        return {
+            "wq_a": ParamSpec((d, a.q_lora), dt),
+            "q_norm": L.rmsnorm_spec(a.q_lora, dt),
+            "wq_b": ParamSpec((a.q_lora, h * (a.qk_nope_dim + a.qk_rope_dim)),
+                              dt, fan_in=a.q_lora),
+            "wkv_a": ParamSpec((d, a.kv_lora + a.qk_rope_dim), dt),
+            "kv_norm": L.rmsnorm_spec(a.kv_lora, dt),
+            "wkv_b": ParamSpec((a.kv_lora, h * (a.qk_nope_dim + a.v_dim)),
+                               dt, fan_in=a.kv_lora),
+            "wo": ParamSpec((h * a.v_dim, d), dt),
+        }
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     specs = {
         "wq": ParamSpec((d, hq * hd), dt),
@@ -149,16 +169,24 @@ def _layer_specs(cfg: LMConfig, moe_layer: bool) -> dict:
 
 
 def param_specs(cfg: LMConfig) -> dict:
-    check_supported(cfg)
+    """The reference's tree: the scanned stack holds the ``n_layers -
+    n_dense_prefix`` MoE (or dense) layers, ``dense_prefix`` a list of
+    the dense layers that run first."""
+    if cfg.act not in L.ACTIVATIONS:
+        raise ValueError(f"{cfg.name}: unknown activation {cfg.act!r}; "
+                         f"have {sorted(L.ACTIVATIONS)}")
     dt = cfg.param_dtype
     specs: dict[str, Any] = {
         "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
         "layers": L.stack_specs(_layer_specs(cfg, moe_layer=True),
-                                cfg.n_layers),
+                                cfg.n_layers - cfg.n_dense_prefix),
         "ln_f": L.rmsnorm_spec(cfg.d_model, dt),
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab), dt)
+    if cfg.n_dense_prefix:
+        specs["dense_prefix"] = [_layer_specs(cfg, moe_layer=False)
+                                 for _ in range(cfg.n_dense_prefix)]
     return specs
 
 
@@ -173,20 +201,22 @@ def param_count(cfg: LMConfig) -> int:
 
 
 def active_param_count(cfg: LMConfig) -> int:
-    """Parameters touched per token (MoE: top_k + shared experts only)."""
+    """Parameters touched per token (MoE: top_k + shared experts only;
+    the dense prefix has none to leave out)."""
     total = param_count(cfg)
     if cfg.moe is None:
         return total
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     expert_params = 3 * cfg.d_model * cfg.moe.d_ff     # gate/up/down
-    return total - cfg.n_layers * (e - k) * expert_params
+    n_scan = cfg.n_layers - cfg.n_dense_prefix
+    return total - n_scan * (e - k) * expert_params
 
 
 def params_from_jax(tree: Any, device=torch.device("cuda"),
                     dtype: torch.dtype | None = None) -> dict:
     """The reference's ``lm.init`` pytree (nested dicts of numpy or JAX
     arrays, the layer axis stacked; an MoE layer's ``moe`` subtree with
-    its fp32 router) as the port's parameters on
+    its fp32 router; a ``dense_prefix`` list) as the port's parameters on
     ``device``: the same structure and, unless ``dtype`` casts the
     floating leaves, the same bits."""
     return L.tree_from_numpy(tree, device, dtype)
@@ -241,6 +271,9 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """Self-attention: full causal when ``cache`` is None, else a
     prefill (S > 1) or one decode step writing at ``cache_len``; the
     cache (with an int8 cache, its scales too) is updated in place."""
+    if cfg.mla:
+        return _mla_attention(p, x, positions, cfg, cache, cache_len,
+                              attn_mode)
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -250,8 +283,14 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections:
+        # text positions drive all three (t, h, w) components
+        pos3 = positions[None].expand(3, *positions.shape)
+        q = L.apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = L.apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         if s <= cfg.dense_attn_max:
@@ -259,7 +298,8 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
         else:
             out = L.blockwise_attention(q, k, v, causal=True,
                                         q_chunk=cfg.q_chunk,
-                                        kv_chunk=cfg.kv_chunk)
+                                        kv_chunk=cfg.kv_chunk,
+                                        mode=attn_mode)
     else:
         idx = int(cache_len)
         k_sc = v_sc = None
@@ -284,6 +324,60 @@ def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
                                         kv_chunk=cfg.kv_chunk, kv_offset=0,
                                         mode=attn_mode)
     return _proj(out.reshape(b, s, hq * hd), p["wo"], cfg)
+
+
+def _mla_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: LMConfig, cache: dict | None, cache_len,
+                   attn_mode: str = "auto") -> torch.Tensor:
+    """DeepSeek-V2 MLA. The full form (no cache, and the prefill, which
+    first writes the compressed cache ``c`` / ``k_rope`` in place)
+    expands the latent into per-head keys [B, S, H, 192] and values
+    [B, S, H, 128] and attends on the flash kernel at scale 192^-0.5;
+    the absorbed decode scores and reads in the compressed space with
+    fp32 einsums over the cache, as the reference does (no kernel)."""
+    a = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
+
+    q = _proj(L.rmsnorm(_proj(x, p["wq_a"], cfg), p["q_norm"], cfg.norm_eps),
+              p["wq_b"], cfg).reshape(b, s, h, a.qk_nope_dim + a.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [a.qk_nope_dim, a.qk_rope_dim], dim=-1)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = _proj(x, p["wkv_a"], cfg)                        # [B,S,lora+rope]
+    c, k_rope = torch.split(ckv, [a.kv_lora, a.qk_rope_dim], dim=-1)
+    c = L.rmsnorm(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+    if cache is not None:
+        idx = int(cache_len)
+        L.cache_write(cache["c"], c, idx)
+        L.cache_write(cache["k_rope"], k_rope[:, :, 0, :], idx)
+    if cache is None or s > 1:
+        kv = (c @ p["wkv_b"]).reshape(b, s, h, a.qk_nope_dim + a.v_dim)
+        k_nope, v = torch.split(kv, [a.qk_nope_dim, a.v_dim], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, a.qk_rope_dim)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        out = L.blockwise_attention(qf, k, v, causal=True,
+                                    q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk,
+                                    softmax_scale=scale, mode=attn_mode)
+    else:
+        # Absorbed decode: score and read directly in the compressed space.
+        c_cache, r_cache = cache["c"].float(), cache["k_rope"].float()
+        wkv_b = p["wkv_b"].reshape(a.kv_lora, h, a.qk_nope_dim + a.v_dim)
+        wk, wv = torch.split(wkv_b.float(), [a.qk_nope_dim, a.v_dim], dim=-1)
+        q_c = torch.einsum("bqhd,chd->bqhc", q_nope.float(), wk)
+        s_c = torch.einsum("bqhc,bkc->bhqk", q_c, c_cache)
+        s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), r_cache)
+        logits = (s_c + s_r) * scale
+        mask = torch.arange(c_cache.shape[1], device=x.device) >= idx + s
+        pattn = torch.softmax(logits.masked_fill(mask, L.NEG_INF), dim=-1)
+        o_c = torch.einsum("bhqk,bkc->bqhc", pattn, c_cache)
+        out = torch.einsum("bqhc,chd->bqhd", o_c, wv).to(x.dtype)
+    return _proj(out.reshape(b, s, h * a.v_dim), p["wo"], cfg)
 
 
 def _layer_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -317,20 +411,49 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
             ).expand(b, s)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal logits over a prompt, no cache. tokens: [B, S] int.
+def _embed(params: dict, tokens: torch.Tensor,
+           extra_embed: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings, plus a frontend's precomputed [B, S, d_model]
+    embeddings (patches, frames) where given, cast to the model dtype."""
+    x = params["embed"][tokens]
+    if extra_embed is not None:
+        x = x + extra_embed.to(x.dtype)
+    return x
+
+
+def _stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
+           cfg: LMConfig, cache: dict | None = None, cache_len=None,
+           attn_mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense-prefix layers, then the stacked ones, each with its
+    cache if there is one. Returns (x, the MoE layers' aux loss summed)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = [(params["dense_prefix"][i],
+               None if cache is None else cache["dense_prefix"][i])
+              for i in range(cfg.n_dense_prefix)]
+    blocks += [(_layer(params["layers"], i),
+                None if cache is None else _layer(cache["layers"], i))
+               for i in range(cfg.n_layers - cfg.n_dense_prefix)]
+    for p_layer, c_layer in blocks:
+        x, aux_i = _layer_apply(p_layer, x, positions, cfg, c_layer,
+                                cache_len, attn_mode)
+        aux = aux + aux_i
+    return x, aux
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            extra_embed: torch.Tensor | None = None,
+            attn_mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal logits over a prompt, no cache. tokens: [B, S] int;
+    ``extra_embed`` [B, S, d_model] is added to the token embedding.
     Returns (logits [B, S, vocab] fp32, aux loss: the MoE layers' load
-    balance and z-loss summed, 0 for a dense config)."""
-    check_supported(cfg)
+    balance and z-loss summed, 0 for a dense config). Only MLA's
+    attention runs on the flash kernel here (the others' is the
+    full-softmax ``dense_attention`` below 8192 tokens, as in the
+    reference)."""
     b, s = tokens.shape
     positions = _positions(b, s, 0, tokens.device)
-    x = params["embed"][tokens]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, aux_i = _layer_apply(_layer(params["layers"], i), x, positions,
-                                cfg)
-        aux = aux + aux_i
+    x, aux = _stack(params, _embed(params, tokens, extra_embed), positions,
+                    cfg, attn_mode=attn_mode)
     return _logits(params, x, cfg), aux
 
 
@@ -342,17 +465,29 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig
 def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16) -> dict:
     """K / V [B, max_seq, Hkv, D] a layer; with ``kv_cache_quant`` int8
-    codes and fp32 per-(batch, head) scales [B, Hkv], initialised to 1."""
-    check_supported(cfg)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
-    layer = {"k": ParamSpec(shape, kv_dt, "zeros"),
-             "v": ParamSpec(shape, kv_dt, "zeros")}
-    if cfg.kv_cache_quant:
-        for name in ("k_scale", "v_scale"):
-            layer[name] = ParamSpec((batch, cfg.n_kv_heads), torch.float32,
-                                    "ones")
-    return {"layers": L.stack_specs(layer, cfg.n_layers)}
+    codes and fp32 per-(batch, head) scales [B, Hkv], initialised to 1;
+    with MLA the compressed latent ``c`` [B, max_seq, kv_lora] and the
+    rotary key ``k_rope`` [B, max_seq, rope]. The dense prefix's layers
+    are a list beside the stack, as in the parameters."""
+    if cfg.mla:
+        a = cfg.mla
+        layer = {"c": ParamSpec((batch, max_seq, a.kv_lora), dtype, "zeros"),
+                 "k_rope": ParamSpec((batch, max_seq, a.qk_rope_dim), dtype,
+                                     "zeros")}
+    else:
+        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
+        layer = {"k": ParamSpec(shape, kv_dt, "zeros"),
+                 "v": ParamSpec(shape, kv_dt, "zeros")}
+        if cfg.kv_cache_quant:
+            for name in ("k_scale", "v_scale"):
+                layer[name] = ParamSpec((batch, cfg.n_kv_heads),
+                                        torch.float32, "ones")
+    specs = {"layers": L.stack_specs(layer, cfg.n_layers - cfg.n_dense_prefix)}
+    if cfg.n_dense_prefix:
+        specs["dense_prefix"] = [dict(layer)
+                                 for _ in range(cfg.n_dense_prefix)]
+    return specs
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
@@ -361,6 +496,7 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 
 def prefill(params: dict, tokens: torch.Tensor, cache: dict, cfg: LMConfig,
+            extra_embed: torch.Tensor | None = None,
             attn_mode: str = "auto") -> tuple[torch.Tensor, dict]:
     """Score the prompt AND fill the KV cache (positions [0, S)).
 
@@ -368,28 +504,23 @@ def prefill(params: dict, tokens: torch.Tensor, cache: dict, cfg: LMConfig,
     place. Subsequent ``decode_step`` calls continue from cache_len = S.
     Each layer's attention is one flash-attention launch on the card.
     """
-    check_supported(cfg)
     b, s = tokens.shape
     positions = _positions(b, s, 0, tokens.device)
-    x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
-        x, _ = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
-                            cache=_layer(cache["layers"], i), cache_len=0,
-                            attn_mode=attn_mode)
+    x, _ = _stack(params, _embed(params, tokens, extra_embed), positions,
+                  cfg, cache, 0, attn_mode)
     return _logits(params, x, cfg), cache
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict,
-                cache_len: int, cfg: LMConfig) -> tuple[torch.Tensor, dict]:
+                cache_len: int, cfg: LMConfig,
+                extra_embed: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step. token: [B, 1] int; returns (logits [B, vocab],
     cache), the cache written in place at ``cache_len`` (the number of
     valid positions before this token)."""
-    check_supported(cfg)
     b = token.shape[0]
     idx = int(cache_len)
     positions = _positions(b, 1, idx, token.device)
-    x = params["embed"][token]
-    for i in range(cfg.n_layers):
-        x, _ = _layer_apply(_layer(params["layers"], i), x, positions, cfg,
-                            cache=_layer(cache["layers"], i), cache_len=idx)
+    x, _ = _stack(params, _embed(params, token, extra_embed), positions,
+                  cfg, cache, idx)
     return _logits(params, x, cfg)[:, 0], cache

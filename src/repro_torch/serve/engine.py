@@ -1,8 +1,8 @@
 """Inference engine: prefill / decode step factories + generation loop.
 
-The counterpart of ``repro.serve.engine`` for the LM (dense and MoE),
-SSM and hybrid families (encdec raises ``NotImplementedError``). The
-factories give the launcher one signature whatever the model:
+The counterpart of ``repro.serve.engine`` for the LM (dense, MoE, MLA
+and VLM), SSM, hybrid and encoder-decoder families. The factories give
+the launcher one signature whatever the model:
 
     prefill_fn(params, batch, cache)       -> (logits, cache)
     decode_fn(params, token, cache, pos)   -> (logits, cache)
@@ -15,10 +15,15 @@ Family notes, as in the reference:
   * hybrid — like ssm for the Mamba sublayers, plus a KV cache for the
            attention sublayer: "prefill" is ``forward`` and returns the
            cache as it was.
+  * encdec — prefill encodes ``batch["frames"]``, builds the static
+           cross cache from the memory, and scores the prompt with
+           ``forward`` (which encodes a second time, as the reference
+           does); decode is one decoder token.
 
 PyTorch runs eagerly, so there is no ``jit``; the cache is written in
-place and returned. ``attn_mode="ref"`` runs prefill attention on the
-flash kernel's plain version (the comparison run on the card).
+place and returned. ``attn_mode="ref"`` runs prefill attention (and the
+encoder-decoder's decode cross-attention) on the flash kernel's plain
+version (the comparison run on the card).
 
 The compiled (quantized) serving path drives a registry arch's
 decode-step program through a decode-resident ``ExecutorSession``
@@ -43,14 +48,14 @@ class ServeState:
 
 
 #: the model modules the port serves
-SERVED = ("lm", "ssm", "hybrid")
+SERVED = ("lm", "ssm", "hybrid", "encdec")
 
 
 def _check_family(arch: ArchConfig) -> None:
     if arch.module not in SERVED:
         raise NotImplementedError(
-            f"{arch.arch_id}: the {arch.module!r} family is served by a "
-            f"later slice of the port; this one serves modules {SERVED}")
+            f"{arch.arch_id}: the {arch.module!r} module has no serving "
+            f"path; the port serves modules {SERVED}")
 
 
 def make_cache(arch: ArchConfig, batch: int, max_seq: int,
@@ -59,6 +64,9 @@ def make_cache(arch: ArchConfig, batch: int, max_seq: int,
     mod = arch.model_module()
     if arch.module == "ssm":       # the recurrent state takes no max_seq
         return mod.init_cache(arch.model, batch, dtype=dtype, device=device)
+    if arch.module == "encdec":
+        return mod.init_cache(arch.model, batch, max_tgt=max_seq,
+                              src=max_seq, dtype=dtype, device=device)
     # lm, and hybrid: its attention sublayers' KV caches take max_seq
     return mod.init_cache(arch.model, batch, max_seq, dtype, device)
 
@@ -70,7 +78,17 @@ def make_prefill_fn(arch: ArchConfig, attn_mode: str = "auto") -> Callable:
     if arch.module == "lm":
         def prefill_fn(params, batch, cache):
             return mod.prefill(params, batch["tokens"], cache, cfg,
+                               extra_embed=batch.get("extra_embed"),
                                attn_mode=attn_mode)
+        return prefill_fn
+
+    if arch.module == "encdec":
+        def prefill_fn(params, batch, cache):
+            memory = mod.encode(params, batch["frames"], cfg, attn_mode)
+            cache = mod.build_cross_cache(params, memory, cfg, cache)
+            logits, _ = mod.forward(params, batch["frames"], batch["tokens"],
+                                    cfg, attn_mode)
+            return logits, cache
         return prefill_fn
 
     # ssm / hybrid: forward scores the prompt; the recurrent state (and
@@ -82,12 +100,15 @@ def make_prefill_fn(arch: ArchConfig, attn_mode: str = "auto") -> Callable:
     return prefill_fn
 
 
-def make_decode_fn(arch: ArchConfig) -> Callable:
+def make_decode_fn(arch: ArchConfig, attn_mode: str = "auto") -> Callable:
+    """The decode step; ``attn_mode`` reaches the one decode path that
+    launches the flash kernel, the encoder-decoder's cross-attention."""
     _check_family(arch)
     mod, cfg = arch.model_module(), arch.model
+    kw = {"attn_mode": attn_mode} if arch.module == "encdec" else {}
 
     def decode_fn(params, token, cache, pos):
-        return mod.decode_step(params, token, cache, pos, cfg)
+        return mod.decode_step(params, token, cache, pos, cfg, **kw)
     return decode_fn
 
 
@@ -106,8 +127,14 @@ def greedy_generate(arch: ArchConfig, params: Any, prompts: torch.Tensor,
     state. Then ``n_new - 1`` decode steps.
 
     prompts: [B, S0] int on the parameters' device. Returns
-    [B, S0 + n_new].
+    [B, S0 + n_new]. The encoder-decoder raises ``NotImplementedError``,
+    as in the reference (it needs frames to encode).
     """
+    if arch.module == "encdec":
+        raise NotImplementedError(
+            f"{arch.arch_id}: greedy_generate takes no frames to encode; "
+            f"serve an encoder-decoder through make_prefill_fn and "
+            f"make_decode_fn, as the launcher does")
     b, s0 = prompts.shape
     cache = make_cache(arch, b, s0 + n_new, torch.float32, prompts.device)
     decode_fn = make_decode_fn(arch)

@@ -48,12 +48,13 @@ def _load(name):
     return mod
 
 
-def _qkv(seed, b, hq, hkv, sq, skv, d):
-    """q [B, Hq, Sq, D], k / v [B, Hkv, Skv, D] fp32 numpy."""
+def _qkv(seed, b, hq, hkv, sq, skv, d, dv=None):
+    """q [B, Hq, Sq, D], k [B, Hkv, Skv, D], v [B, Hkv, Skv, DV] (DV = D
+    unless given) fp32 numpy."""
     rng = np.random.default_rng(seed)
     q = (rng.standard_normal((b, hq, sq, d)) * 0.3).astype(np.float32)
     k = (rng.standard_normal((b, hkv, skv, d)) * 0.3).astype(np.float32)
-    v = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, dv or d)).astype(np.float32)
     return q, k, v
 
 
@@ -247,16 +248,28 @@ CHIP_PLANS = [
     ("gqa7", "prefill", (56, 8, 1)),
     ("qwen3_prefill", "prefill", (32, 8, 1)),
     ("moe_prefill", "prefill", (64, 8, 1)),
+    ("mla_prefill", "prefill", (128, 8, 1)),
+    ("mla_ragged", "prefill", (16, 2, 16)),
+    ("mla_decode4", "decode", (4, 8, 1)),
+    ("cross_prefill", "prefill", (16, 8, 1)),
+    ("cross_decode", "decode", (16, 8, 1)),
 ]
+
+
+def _chip_shapes() -> dict:
+    """``chip_smoke.FLASH_SHAPES`` by name."""
+    return {row.name: row for row in _load("chip_smoke").FLASH_SHAPES}
 
 
 @pytest.mark.parametrize("name,form,grid", CHIP_PLANS)
 def test_flash_plan_at_chip_shapes(name, form, grid):
-    shapes = {row[0]: row[1:] for row in _load("chip_smoke").FLASH_SHAPES}
+    shapes = _chip_shapes()
     assert list(shapes) == [row[0] for row in CHIP_PLANS]
-    b, sq, skv, hq, hkv, d, _, _ = shapes[name]
-    plan = flash_plan(b, sq, skv, hq, hkv, d)
+    row = shapes[name]
+    plan = flash_plan(row.b, row.sq, row.skv, row.hq, row.hkv, row.d,
+                      row.v_dim)
     assert (plan.form, plan.grid) == (form, grid)
+    assert (row.d, row.v_dim) in KERNEL_HEAD_DIMS
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -267,11 +280,13 @@ def test_flash_plan_shared_memory_fits(sq, hq, hkv, d):
     rows = 16 if plan.form == "decode" else 64
     # the decode form's 4 stages at D=256 would take 264 KiB: it has 3
     stages = {"prefill": 2, "decode": 3 if d == 256 else 4}[plan.form]
-    assert stages == flash_stages(plan.form, d)
+    assert stages == flash_stages(plan.form, d) == \
+        flash_stages(plan.form, d, d)
     # the bf16 Q tile and the ring of [K, V] 64-key tile stages, within
     # the 227 KB of dynamic shared memory an H100 block may take
     assert plan.smem == 2 * d * (rows + stages * 2 * 64)
     assert plan.smem <= 227 * 1024
+    assert plan == flash_plan(2, sq, 4096, hq, hkv, d, d)
 
 
 def test_flash_plan_rejects_what_it_cannot_launch():
@@ -281,22 +296,27 @@ def test_flash_plan_rejects_what_it_cannot_launch():
         flash_plan(1, 4, 16, 6, 4, 64)
 
 
-@pytest.mark.parametrize("name", ["prefill", "decode4"])
+@pytest.mark.parametrize("name", ["prefill", "decode4", "mla_prefill"])
 def test_kernel_args_match_the_entry_point(name):
     """The wrapper's arguments fill the C entry point's signature in
-    ``build.SOURCES`` (the stream comes last), and carry the plan's form
-    (the entry point works out the grid and shared memory from it)."""
-    row = {r[0]: r[1:] for r in _load("chip_smoke").FLASH_SHAPES}[name]
-    b, sq, skv, hq, hkv, d, causal, off = row
+    ``build.SOURCES`` (the stream comes last): the key head size D, then
+    the value head size DV, then the strides; and they carry the plan's
+    form (the entry point works out the grid and shared memory from
+    it)."""
+    row = _chip_shapes()[name]
+    b, sq, skv, hq, hkv, d, causal, off = row[1:9]
+    dv = row.v_dim
     q = torch.zeros((b, hq, sq, d)).transpose(1, 2)
-    k = v = torch.zeros((b, skv, hkv, d))
-    out = torch.empty((b, sq, hq, d))
-    plan = flash_plan(b, sq, skv, hq, hkv, d)
+    k = torch.zeros((b, skv, hkv, d))
+    v = torch.zeros((b, skv, hkv, dv))
+    out = torch.empty((b, sq, hq, dv))
+    plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
     args = kernel_args(q, k, v, out, d ** -0.5, causal, off, plan)
     argtypes = build.SOURCES["flash_attention"]["flash_attention"]
     assert len(args) == len(argtypes) - 1
-    assert args[4:10] == (b, sq, skv, hq, hkv, d)
-    assert args[10:13] == (hq * sq * d, d, sq * d)      # [B, H, S, D] view
+    assert args[4:11] == (b, sq, skv, hq, hkv, d, dv)
+    assert args[11:14] == (hq * sq * d, d, sq * d)      # [B, H, S, D] view
+    assert args[17:20] == (skv * hkv * dv, hkv * dv, dv)
     assert args[-4:] == (d ** -0.5, int(causal), off,
                          ("prefill", "decode").index(plan.form))
 
@@ -323,7 +343,7 @@ def test_flash_row_check_sees_a_dropped_key(name):
     row sees ~1000 keys."""
     smoke = _load("chip_smoke")
     b, sq, skv, hq, hkv, d, causal, off = {
-        r[0]: r[1:] for r in smoke.FLASH_SHAPES}[name]
+        r.name: r[1:9] for r in smoke.FLASH_SHAPES}[name]
     gen = torch.Generator().manual_seed(11)
     q, k, v = (torch.randn((b, s, h, d), generator=gen).to(torch.bfloat16)
                for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
@@ -348,7 +368,7 @@ def cuda():
     return torch.device("cuda")
 
 
-# (form, D, (b, hq, hkv, sq, skv), kv_offset)
+# (form, D, (b, hq, hkv, sq, skv), kv_offset[, DV])
 ON_CARD = [
     ("prefill", 64, (2, 8, 2, 100, 100), 0),
     ("prefill", 128, (1, 4, 4, 130, 130), 0),
@@ -356,16 +376,19 @@ ON_CARD = [
     ("decode", 128, (2, 8, 2, 1, 77), 76),
     ("prefill", 256, (1, 4, 4, 130, 130), 0),
     ("decode", 256, (2, 4, 4, 3, 150), 147),
+    ("prefill", 192, (1, 4, 4, 130, 130), 0, 128),
+    ("decode", 192, (2, 4, 4, 3, 150), 147, 128),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form,d,dims,off", ON_CARD)
-def test_kernel_matches_plain_on_card(cuda, form, d, dims, off):
+@pytest.mark.parametrize("form,d,dims,off,dv",
+                         [(*c, None)[:5] for c in ON_CARD])
+def test_kernel_matches_plain_on_card(cuda, form, d, dims, off, dv):
     b, hq, hkv, sq, skv = dims
-    assert flash_plan(b, sq, skv, hq, hkv, d).form == form
+    assert flash_plan(b, sq, skv, hq, hkv, d, dv).form == form
     q, k, v = (_bshd(a).to(cuda, torch.bfloat16)
-               for a in _qkv(1, b, hq, hkv, sq, skv, d))
+               for a in _qkv(1, b, hq, hkv, sq, skv, d, dv))
     before = LAUNCHES["flash_attention"]
     got = flash_attention(q, k, v, causal=True, kv_offset=off)
     assert LAUNCHES["flash_attention"] == before + 1
@@ -385,13 +408,31 @@ def test_kernel_matches_plain_on_card(cuda, form, d, dims, off):
 @pytest.mark.parametrize("d", [16, 32, 96])
 def test_kernel_refuses_head_sizes_it_lacks(cuda, d):
     """The smoke configs' head sizes (8-32) and any other size outside
-    ``KERNEL_HEAD_DIMS`` raise on the card, naming the sizes the kernel
-    has; they never fall back to the plain version."""
-    assert d not in KERNEL_HEAD_DIMS == (64, 128, 256)
+    ``KERNEL_HEAD_DIMS`` raise on the card, naming the (key, value)
+    pairs the kernel has; they never fall back to the plain version."""
+    assert (d, d) not in KERNEL_HEAD_DIMS == ((64, 64), (128, 128),
+                                              (256, 256), (192, 128))
     q = torch.zeros((1, 4, 2, d), device=cuda, dtype=torch.bfloat16)
     before = LAUNCHES["flash_attention"]
     with pytest.raises(NotImplementedError,
-                       match=r"head size %d is not instantiated "
-                             r"\(\(64, 128, 256\)\)" % d):
+                       match=r"head sizes \(key, value\) \(%d, %d\) are "
+                             r"not instantiated \(\(64, 64\), " % (d, d)):
         flash_attention(q, q, q)
+    assert LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(192, 64), (128, 192), (64, 128),
+                                  (192, 192)])
+def test_kernel_refuses_pairs_it_lacks(cuda, d, dv):
+    """A key head size the kernel has, under a value head size it is not
+    paired with (or MLA's 192 with equal values), raises on the card; no
+    fallback, no launch."""
+    assert (d, dv) not in KERNEL_HEAD_DIMS
+    q = torch.zeros((1, 4, 2, d), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 4, 2, dv), device=cuda, dtype=torch.bfloat16)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(NotImplementedError,
+                       match=r"\(%d, %d\) are not instantiated" % (d, dv)):
+        flash_attention(q, q, v)
     assert LAUNCHES["flash_attention"] == before

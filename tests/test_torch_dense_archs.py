@@ -79,13 +79,13 @@ def _tokens(shape, vocab=300, seed=1):
 
 
 def test_registry_lists_the_six_archs():
-    assert registry.list_archs() == ["gemma-7b", "jamba-v0.1-52b",
-                                     "llama3.2-1b", "mamba2-780m",
-                                     "qwen3-8b", "qwen3-moe-235b-a22b",
-                                     "yi-34b"]
-    assert set(registry.list_archs()) < set(jregistry.list_archs())
-    with pytest.raises(KeyError, match="later slices"):
-        registry.get("deepseek-v2-236b")
+    """The registry lists the reference's archs, all ten of them now,
+    the dense ones among them; an unknown id raises naming them."""
+    assert registry.list_archs() == jregistry.list_archs()
+    assert set(ARCHS) < set(registry.list_archs())
+    assert registry.get("deepseek-v2-236b").module == "lm"
+    with pytest.raises(KeyError, match="unknown arch 'yi-35b'"):
+        registry.get("yi-35b")
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)

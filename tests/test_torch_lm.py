@@ -64,10 +64,11 @@ def _close(got, want):
 
 
 def test_registry_and_config():
-    assert registry.list_archs() == ["gemma-7b", "jamba-v0.1-52b",
-                                     "llama3.2-1b", "mamba2-780m",
+    assert registry.list_archs() == ["deepseek-v2-236b", "gemma-7b",
+                                     "jamba-v0.1-52b", "llama3.2-1b",
+                                     "mamba2-780m", "qwen2-vl-2b",
                                      "qwen3-8b", "qwen3-moe-235b-a22b",
-                                     "yi-34b"]
+                                     "seamless-m4t-large-v2", "yi-34b"]
     arch = registry.get("llama3.2-1b")
     want = jregistry.get("llama3.2-1b")
     for cfg, ref_cfg in ((arch.model, want.model), (arch.smoke, want.smoke)):
@@ -80,21 +81,43 @@ def test_registry_and_config():
         assert cfg.padded_vocab == ref_cfg.padded_vocab
         assert lm.param_count(cfg) == jlm.param_count(ref_cfg)
     assert arch.model_module() is lm
-    with pytest.raises(KeyError, match="later slices"):
-        registry.get("deepseek-v2-236b")
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        registry.get("no-such-arch")
+
+
+def _jax_fields(fields: dict) -> dict:
+    """``fields`` as the reference's config values."""
+    conv = {"moe": lambda m: jlayers.MoEConfig(**dataclasses.asdict(m)),
+            "mla": lambda m: jlm.MLAConfig(**dataclasses.asdict(m))}
+    return {k: conv.get(k, lambda v: v)(v) for k, v in fields.items()}
 
 
 @pytest.mark.parametrize("fields", [
     {"moe": layers.MoEConfig(n_experts=4, top_k=2, d_ff=32),
      "n_dense_prefix": 1},
-    {"mla": object()}, {"mrope_sections": (2, 3, 3)},
+    {"mla": lm.MLAConfig(kv_lora=16, q_lora=24, qk_nope_dim=8,
+                         qk_rope_dim=8, v_dim=8)},
+    {"mrope_sections": (2, 3, 3)},
     {"n_dense_prefix": 1}], ids=["moe-dense-prefix", "mla", "mrope",
                                  "dense-prefix"])
 def test_other_configs_name_their_slice(fields):
-    """MoE is served; deepseek-v2's MoE behind a dense prefix is not."""
+    """The config features that used to name their later slice (MLA,
+    M-RoPE, a dense prefix, deepseek-v2's MoE behind one) are served
+    now: the parameter tree, its count and the forward's logits equal
+    the reference's on its weights."""
     cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke, **fields)
-    with pytest.raises(NotImplementedError, match="slice"):
-        lm.param_specs(cfg)
+    jcfg = dataclasses.replace(jregistry.get("llama3.2-1b").smoke,
+                               **_jax_fields(fields))
+    jp = jlm.init(jcfg, jax.random.key(0))
+    tp = lm.params_from_jax(jax.tree.map(np.asarray, jp), CPU)
+    assert layers.tree_map(lambda s: s.shape, lm.param_specs(cfg)) == \
+        jax.tree.map(lambda a: tuple(a.shape), jp)
+    assert lm.param_count(cfg) == jlm.param_count(jcfg)
+    toks = np.random.default_rng(0).integers(0, 512, (2, 10)).astype(
+        np.int32)
+    want, _ = jlm.forward(jp, jnp.asarray(toks), jcfg)
+    got, _ = lm.forward(tp, torch.from_numpy(toks), cfg)
+    _close(got, want)
 
 
 def test_synthetic_tokens_are_the_references():
@@ -287,24 +310,40 @@ def test_serve_quantize_refuses_other_families():
 
 
 def _encdec_arch():
-    """An arch of a module the port does not serve yet (the reference's
-    encoder-decoder), on llama3.2-1b's smoke config."""
-    return dataclasses.replace(registry.get("llama3.2-1b"), module="encdec",
-                               arch_id="encdec-test")
+    """The reference's encoder-decoder (seamless-m4t-large-v2) at its
+    smoke config."""
+    arch = registry.get("seamless-m4t-large-v2")
+    return dataclasses.replace(arch, model=arch.smoke)
+
+
+def _unserved_arch():
+    """An arch of a model module with no serving path (the CNNs'), on
+    llama3.2-1b's smoke config."""
+    return dataclasses.replace(registry.get("llama3.2-1b"), module="cnn",
+                               arch_id="cnn-test")
 
 
 def test_other_families_raise():
+    """Every model module of the registry is served now, the
+    encoder-decoder included (its engine factories build and run on the
+    CPU); a module with no serving path still raises, naming the ones
+    the port serves."""
     arch = _encdec_arch()
-    assert arch.module not in engine.SERVED
+    assert arch.module in engine.SERVED == ("lm", "ssm", "hybrid", "encdec")
+    cache = engine.make_cache(arch, 1, 8, torch.float32, device=CPU)
+    params = arch.model_module().init(arch.model, torch.Generator())
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
+             "frames": torch.zeros((1, 8, arch.model.d_model))}
+    logits, cache = engine.make_prefill_fn(arch)(params, batch, cache)
+    step, _ = engine.make_decode_fn(arch)(
+        params, torch.zeros((1, 1), dtype=torch.int32), cache, 7)
+    assert logits.shape == (1, 8, 512) and step.shape == (1, 512)
+    other = _unserved_arch()
     for factory in (engine.make_prefill_fn, engine.make_decode_fn):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            factory(arch)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.make_cache(arch, 1, 8, device=CPU)
-    cfg = dataclasses.replace(registry.get("llama3.2-1b").smoke,
-                              mla=object())
-    with pytest.raises(NotImplementedError, match="LMConfig.mla"):
-        lm.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="no serving path"):
+            factory(other)
+    with pytest.raises(NotImplementedError, match="the port serves modules"):
+        engine.make_cache(other, 1, 8, device=CPU)
 
 
 def test_serve_launcher_on_cpu(capsys, tmp_path):
@@ -344,17 +383,22 @@ def test_serve_smoke_refuses_the_card(capsys, monkeypatch, device):
 
 @pytest.mark.parametrize("arch", ["encdec-test"])
 def test_serve_refuses_archs_without_a_forward(capsys, monkeypatch, arch):
-    """Every arch of the port's registry is served now; an arch of a
-    module the port has no forward for (an encoder-decoder) makes the
-    launcher exit 2 naming the modules it serves, before anything is
-    built, card or no card."""
-    encdec = _encdec_arch()
-    monkeypatch.setattr(registry, "get", lambda name: encdec)
+    """The encoder-decoder, refused before it was ported, is served: the
+    launcher runs it on the CPU. An arch of a module with no serving
+    path (the CNNs') makes the launcher exit 2 naming the modules it
+    serves, before anything is built, card or no card."""
+    out = serve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                      "--device", "cpu", "--batch", "2", "--prompt-len",
+                      "6", "--new-tokens", "3"])
+    assert out["tokens"].shape == (2, 3)
+    assert "# arch=seamless-smoke layers=2+2" in capsys.readouterr().out
+    other = dataclasses.replace(_unserved_arch(), arch_id=arch)
+    monkeypatch.setattr(registry, "get", lambda name: other)
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", arch])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert err.startswith(f"error: {arch} is a 'encdec' arch")
+    assert err.startswith(f"error: {arch} is a 'cnn' arch")
     assert str(engine.SERVED) in err
 
 

@@ -7,9 +7,10 @@ Phases, each printing its lines before the last:
 
 1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (``fused_split_gemm.cu``,
-   ``split_gemm.cu``, ``depthwise_gemm.cu`` and ``flash_attention.cu``,
-   one nvcc each, started together), time the build and print ptxas's
-   register, shared-memory and spill report.
+   ``split_gemm.cu``, ``depthwise_gemm.cu``, ``flash_attention.cu`` and
+   ``flash_attention_bwd.cu``, one nvcc each, started together), time
+   the build and print ptxas's register, shared-memory and spill
+   report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
@@ -243,6 +244,30 @@ Phases, each printing its lines before the last:
    most :data:`GOLDEN_VERIFY_S` there, else its program layer by layer
    on the kernels against ``mode="ref"``. :data:`QAT_STEPS` QAT steps of
    reduced resnet18 on the card: the loss falls.
+12. train: training on the card. The flash-attention backward kernel
+   (``flash_attention_bwd.cu``'s prep, dkdv and dq entry points, reached
+   through the autograd Function of ``flash_attention``) against
+   autograd through the plain version at :data:`BWD_SHAPES` (seamless's
+   encoder, decoder and cross shapes, llama3.2-1b's GQA 32/8 at S 2048,
+   a ragged causal shape, one with ``kv_offset`` > 0, and qwen2-vl's
+   (128, 128) at GQA 12/2): dq, dk and dv within :data:`BWD_TOL` of the
+   gradient's max |.| and every row within :data:`BWD_ROW_TOL`, the
+   forward's log-sum-exp within :data:`LSE_TOL` of the plain version's;
+   device ms per entry point, the bound, the plain backward's and SDPA's
+   backward's ms, and ptxas's registers and spills. Then
+   seamless-m4t-large-v2 whole at published widths in bf16 through
+   ``repro_torch.launch.train.main`` (:data:`TRAIN_SEAMLESS`): exactly
+   :func:`train_launches` a step (the forward kernel twice a layer's
+   attention with ``remat="full"``'s recompute, each backward entry point
+   once, no split GEMM), finite losses and gradient norms, ``state.step``
+   advancing; step 1 through the kernels against step 1 with
+   ``attn_mode="ref"`` from the same state (:func:`step_agreement`); host
+   ms a step, device ms and busy share, tokens/s and peak memory.
+   llama3.2-1b at published width and depth (:data:`TRAIN_LLAMA`) on the
+   reference's dense attention (no launch at all) with the same numbers.
+   Last, a checkpoint of llama3.2-1b's smoke config (fp32) on the card
+   saved at step 2 and restored into a fresh state: steps 3-4 bitwise
+   equal to steps 3-4 without the restart.
 
 Each phase prints its seconds ("time: phase ..."). The line before the
 last is the kernels' JSON summary; the last line
@@ -257,6 +282,7 @@ import collections
 import contextlib
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -282,6 +308,8 @@ SOURCE = {
     "int4_gemm": f"{CSRC}/split_gemm.cu",
     "flash_attention": f"{CSRC}/flash_attention.cu",
     "depthwise_gemm": f"{CSRC}/depthwise_gemm.cu",
+    **{f"flash_attention_bwd_{e}": f"{CSRC}/flash_attention_bwd.cu"
+       for e in ("prep", "dkdv", "dq")},
 }
 REPLACES = {
     "fused_conv_gemm": "src/repro/kernels/fused_hetero_gemm.py:232",
@@ -291,6 +319,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:78",
     "depthwise_gemm": "src/repro/kernels/ops.py:256 (int32 einsum, no "
                       "Pallas kernel)",
+    **{f"flash_attention_bwd_{e}": "the gradient of "
+       "src/repro/models/layers.py:188::blockwise_attention (XLA autodiff; "
+       "the Pallas kernel has none)" for e in ("prep", "dkdv", "dq")},
 }
 #: the executor path whose counted run each kernel's launches come from
 KERNEL_PATH = {
@@ -3402,6 +3433,520 @@ def phase_codesign(torch, details: dict) -> dict:
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training
+# ---------------------------------------------------------------------------
+
+#: the backward kernel's shapes: seamless-m4t-large-v2's training
+#: attentions at batch 8, sequence 256 (encoder self, decoder self,
+#: cross over a memory of another length), llama3.2-1b's GQA at S 2048, a
+#: ragged causal shape whose tiles cross the diagonal, kv_offset > 0, and
+#: qwen2-vl-2b's (128, 128) at 12 query heads over 2
+BWD_SHAPES = [
+    FlashShape("seamless_enc", 8, 256, 256, 16, 16, 64, False, 0),
+    FlashShape("seamless_dec", 8, 256, 256, 16, 16, 64, True, 0),
+    FlashShape("cross", 8, 200, 320, 16, 16, 64, False, 0),
+    FlashShape("llama_s2048", 2, 2048, 2048, 32, 8, 64, True, 0),
+    FlashShape("ragged", 2, 1000, 1000, 32, 8, 64, True, 0),
+    FlashShape("offset", 2, 300, 1000, 8, 8, 64, True, 700),
+    FlashShape("qwen2vl_d128", 2, 512, 512, 12, 2, 128, True, 0),
+]
+#: kernel vs plain backward, bf16: each of dq, dk, dv within 4 bf16 steps
+#: (2^-8 relative) of the gradient's max |.|. The two differ in where they
+#: round: the kernel rounds p and ds to bf16 before its products (half a
+#: step each), the plain version's autograd rounds dp to bf16 (the
+#: gradient of its p.to(bf16)) and sums dk and dv over its query chunks in
+#: bf16; both round the gradient itself (half a step)
+BWD_TOL = 4 * 2 ** -8
+#: kernel vs plain backward, per row of dq, dk and dv: |got - want| over
+#: |want| + :data:`BWD_ROW_FLOOR` times the largest row's |want| (L2 norms
+#: over the head dimension). On the CPU a causal limit one key short
+#: moves a row by 0.24 (dq) to 0.7 (dk, dv), the bf16 plain version
+#: against fp32 by 0.01 at most (tests/test_torch_train.py)
+BWD_ROW_TOL = 0.1
+#: the floor of the per-row check, for rows whose gradient vanishes: a
+#: causal query 0 sees one key, so its dq is 0, which the plain version's
+#: autograd computes as the difference of its bf16-rounded dp and an fp32
+#: delta (noise of 4e-4 of the largest row at seamless's decoder shape)
+BWD_ROW_FLOOR = 5e-2
+#: the forward's log-sum-exp against the plain version's: absolute (the
+#: kernel's exponents are ex2.approx, 2 ulp, and its maximum is taken
+#: in base 2)
+LSE_TOL = 1e-4
+#: the seamless run: whole, published widths, bf16
+TRAIN_SEAMLESS = ["--arch", "seamless-m4t-large-v2", "--batch", "8",
+                  "--seq", "256", "--steps", "5", "--seed", "0",
+                  "--log-every", "1"]
+#: llama3.2-1b at published width and depth, the reference's dense
+#: attention below 8192 tokens
+TRAIN_LLAMA = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "2048",
+               "--steps", "3", "--seed", "0", "--log-every", "1"]
+#: step 1 through the kernels vs with attn_mode="ref", same state and
+#: batch: the loss within 1e-3 of itself (the two runs' activations differ
+#: by bf16 roundings flipped where attention's fp32 sums are taken in
+#: another order, averaged over 2,040 predicted tokens), the gradient
+#: norm within 1e-2 of itself; each updated bf16 parameter within one
+#: bf16 step of the other run's (2^-7 of its |.|, plus 2 lr for values
+#: below a step of lr: step 1 moves a parameter by lr times the sign of
+#: its gradient, which can differ where it is near 0); the first moments
+#: (0.1 x the clipped gradient, fp32) within 0.1 in relative L2 over all
+#: leaves. Those flipped roundings move some of seamless's ReLU inputs
+#: across 0, which takes a token's whole term out of a weight's gradient
+#: sum: a fraction f of flips moves a leaf's gradient by about sqrt(f) in
+#: relative L2 (0.4% of them, one bf16 step's worth at the kink, give
+#: 6%). The first guess, 2e-2, was under the 4.9% measured (chip run 8,
+#: PR 24); the backward kernel itself is held per shape above
+STEP_TOL = dict(loss=1e-3, grad_norm=1e-2, moments=0.1)
+#: the resume check: llama3.2-1b's smoke config (fp32), batch 2, seq 64
+RESUME = dict(arch="llama3.2-1b", batch=2, seq=64, steps=4, save_at=2)
+
+
+def bwd_row_err(got, want) -> float:
+    """The largest relative error of a gradient row [..., D] (see
+    :data:`BWD_ROW_TOL`)."""
+    norm = want.float().norm(dim=-1)
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return float((diff / (norm + BWD_ROW_FLOOR * norm.max())).max())
+
+
+def bwd_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset,
+                 entry=None) -> tuple[float, str]:
+    """Least time for the backward of one attention call (``entry`` None),
+    or for one entry point: bytes of what it reads and writes (bf16 q, k,
+    v, out, dout, dq, dk, dv; fp32 lse and delta, [B, Hq, Sq]) once over
+    the HBM rate, vs its products over the bf16 rate, each 2·B·Hq·D per
+    unmasked (query, key) pair: five for the whole backward (s, dp, dv,
+    dk, dq), four for dkdv (s, dp, dv, dk), three for dq (s, dp, dq), and
+    prep's 2·B·Sq·Hq·D multiply-adds."""
+    q_b = 2 * b * sq * hq * d                 # q, out, dout, dq each
+    kv_b = 2 * b * skv * hkv * d              # k, v, dk, dv each
+    st_b = 4 * b * hq * sq                    # lse, delta each
+    if causal:
+        pairs = sum(min(skv, r + kv_offset + 1) for r in range(sq))
+    else:
+        pairs = sq * skv
+    prod = 2 * b * hq * d * pairs
+    nbytes, flops = {
+        None: (4 * q_b + 4 * kv_b + 2 * st_b, 5 * prod),
+        "flash_attention_bwd_prep": (2 * q_b + st_b, 2 * b * sq * hq * d),
+        "flash_attention_bwd_dkdv": (2 * q_b + 4 * kv_b + 2 * st_b,
+                                     4 * prod),
+        "flash_attention_bwd_dq": (3 * q_b + 2 * kv_b + 2 * st_b, 3 * prod),
+    }[entry]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def sdpa_bwd_fn(torch, q, k, v, dout, causal, kv_offset):
+    """The backward of ``F.scaled_dot_product_attention`` alone, on the
+    views :func:`sdpa_fn` makes (KV heads repeated outside the timed
+    call): one forward with grad, then ``torch.autograd.grad`` on its
+    retained graph per call."""
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = sdpa_fn(torch, qt, kt, vt, causal, kv_offset)()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dout,
+                                       retain_graph=True)
+
+
+def ptxas_usage(torch, source: str) -> list[str]:
+    """ptxas's registers and spills per kernel of ``source``."""
+    from repro_torch.kernels import build
+    lines, name = [], None
+    for ln in build.report_path(source).read_text().splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?(\w+?_kernel\w*?)E",
+                      ln)
+        if m:
+            name = m.group(1)
+        elif "Used" in ln or "spill" in ln:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def bwd_shapes(torch, details: dict) -> dict:
+    """The backward kernel against autograd through the plain version at
+    :data:`BWD_SHAPES`, each entry point timed; returns the first shape's
+    row per entry point (the kernels line's) with the largest errors."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _forward_kernel, \
+        flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention_bwd import ENTRY_POINTS, \
+        bwd_prep_plain, entry_args, flash_attention_bwd_plain
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = details.setdefault("bwd", [])
+    for shape in BWD_SHAPES:
+        name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+        q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda",
+                                     dtype=torch.bfloat16)
+                         for sh in ((b, sq, hq, d), (b, skv, hkv, d),
+                                    (b, skv, hkv, d), (b, sq, hq, d)))
+        scale = d ** -0.5
+        kw = dict(causal=causal, kv_offset=off)
+        # through the autograd Function, as the train step reaches it
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        build.LAUNCHES.clear()
+        with torch.enable_grad():
+            out = flash_attention(*leaves, **kw)
+            got = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        read_window(build.LAUNCHES, {"flash_attention": 1,
+                                     **{e: 1 for e in ENTRY_POINTS}},
+                    f"bwd {name} forward + backward")
+        want = flash_attention_bwd_plain(q, k, v, dout, **kw)
+        errs, row_errs, abs_errs = {}, {}, {}
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"bwd {name}: {what} not finite or "
+                                     f"not {tuple(w.shape)}")
+            abs_errs[what] = float((g.float() - w.float()).abs().max())
+            errs[what] = abs_errs[what] / float(w.float().abs().max())
+            row_errs[what] = bwd_row_err(g, w)
+        out_k, lse = _forward_kernel(q, k, v, scale, causal, off,
+                                     with_lse=True)
+        lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)[1]
+        lse_err = float((lse - lse_p).abs().max())
+        if not (max(errs.values()) <= BWD_TOL and
+                max(row_errs.values()) <= BWD_ROW_TOL and
+                lse_err <= LSE_TOL):
+            raise AssertionError(
+                f"bwd {name}: kernel vs plain, relative max |err| {errs} "
+                f"(tol {BWD_TOL}), row errors {row_errs} (tol "
+                f"{BWD_ROW_TOL}), lse max |err| {lse_err} (tol {LSE_TOL})")
+        # each entry point alone, on the kernel forward's out and lse
+        delta = torch.empty((b, hq, sq), device="cuda")
+        bufs = [torch.empty_like(t) for t in (q, k, v)]
+        args = entry_args(q, k, v, out_k, dout, lse, delta, *bufs, scale,
+                          causal, off)
+        fns = {e: ((lambda e=e: build.launch(e, q, *args[e])), 10)
+               for e in ENTRY_POINTS}
+        fns["plain_prep"] = (lambda: bwd_prep_plain(out_k, dout), 10)
+        fns["sdpa_bwd"] = (sdpa_bwd_fn(torch, q, k, v, dout, causal, off),
+                           10)
+        times = device_times(torch, fns)
+        # the plain backward's allocations can synchronise the host (its
+        # autograd graph outgrows the allocator's pool): CUDA events over
+        # back-to-back calls, which a slow yardstick barely notices
+        times["plain_bwd"] = cuda_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, dout, **kw), iters=3, warmup=1)
+        prep_err = float((delta - bwd_prep_plain(out_k, dout)).abs().max())
+        whole_ms, whole_by = bwd_bound_ms(b, sq, skv, hq, hkv, d, causal,
+                                          off)
+        row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
+               "hkv": hkv, "d": d, "causal": causal, "kv_offset": off,
+               "rel_err": errs, "abs_err": abs_errs, "row_err": row_errs,
+               "lse_err": lse_err,
+               "prep_err": prep_err, "times_ms": times,
+               "kernel_bwd_ms": sum(times[e] for e in ENTRY_POINTS),
+               "bound_ms": whole_ms, "bound_by": whole_by,
+               "entry_bounds": {e: bwd_bound_ms(b, sq, skv, hq, hkv, d,
+                                                causal, off, e)
+                                for e in ENTRY_POINTS}}
+        rows.append(row)
+        print(f"train bwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+              f"Hkv={hkv} D={d} causal={causal} kv_offset={off}: relative "
+              f"max |err| dq {errs['dq']:.3g} dk {errs['dk']:.3g} dv "
+              f"{errs['dv']:.3g} (tol {BWD_TOL:.3g}), row error dq "
+              f"{row_errs['dq']:.3g} dk {row_errs['dk']:.3g} dv "
+              f"{row_errs['dv']:.3g} (tol {BWD_ROW_TOL}), lse "
+              f"{lse_err:.3g} (tol {LSE_TOL}); device ms "
+              + ", ".join(f"{e.replace('flash_attention_bwd_', '')} "
+                          f"{times[e]:.4f}" for e in ENTRY_POINTS)
+              + f" (sum {row['kernel_bwd_ms']:.4f}; plain backward "
+              f"{times['plain_bwd']:.4f}, sdpa backward "
+              f"{times['sdpa_bwd']:.4f}; bound {whole_ms:.4f} by "
+              f"{whole_by})")
+        del q, k, v, dout, out, got, want, leaves, out_k, bufs
+    for ln in ptxas_usage(torch, "flash_attention_bwd"):
+        print(f"train bwd ptxas: {ln}")
+    details["bwd_ptxas"] = ptxas_usage(torch, "flash_attention_bwd")
+    first = rows[0]
+    grads = {"flash_attention_bwd_dkdv": ("dk", "dv"),
+             "flash_attention_bwd_dq": ("dq",)}
+    out = {}
+    for e in ENTRY_POINTS:
+        b_ms, b_by = first["entry_bounds"][e]
+        if e in grads:
+            err = max(r["abs_err"][g] for r in rows for g in grads[e])
+            plain, lib = first["times_ms"]["plain_bwd"], \
+                first["times_ms"]["sdpa_bwd"]
+        else:       # prep: delta against its plain version; no library call
+            err = max(r["prep_err"] for r in rows)
+            plain, lib = first["times_ms"]["plain_prep"], None
+        out[e] = {"max_abs_err": err, "ms": first["times_ms"][e],
+                  "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": lib}
+    return out
+
+
+def train_launches(arch, steps: int = 1) -> dict:
+    """The kernel launches of ``steps`` train steps of ``arch``, read from
+    the code: each ``blockwise_attention`` launches the forward once in
+    the forward pass and once more in ``remat="full"``'s recompute, and
+    each backward entry point once. An encoder-decoder makes one call
+    per encoder layer and two per decoder layer (self and cross); an LM
+    below ``dense_attn_max`` none."""
+    from repro_torch.kernels.flash_attention_bwd import ENTRY_POINTS
+    cfg = arch.model
+    if arch.module != "encdec":
+        return {}
+    n = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    fwd = 2 if cfg.remat == "full" else 1
+    return {"flash_attention": fwd * n * steps,
+            **{e: n * steps for e in ENTRY_POINTS}}
+
+
+def run_launcher(torch, argv: list, want: dict, what: str) -> dict:
+    """``repro_torch.launch.train.main(argv)`` in a launch window of its
+    own: exactly ``want``; finite losses and gradient norms, the step
+    count advanced; host seconds a step, tokens/s and peak memory."""
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    window = read_window(LAUNCHES, want, what)
+    steps = int(argv[argv.index("--steps") + 1])
+    if int(res["state"].step) != steps:
+        raise AssertionError(f"{what}: state.step {int(res['state'].step)} "
+                             f"!= {steps}")
+    losses = [float(m["loss"]) for m in res["metrics"]]
+    norms = [float(m["grad_norm"]) for m in res["metrics"]]
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"{what}: losses {losses}, |g| {norms}")
+    return {"window": window, "losses": losses, "grad_norms": norms,
+            "step_ms": [1e3 * t for t in res["step_s"]],
+            "tok_per_s": res["tok_per_s"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def first_batch(torch, arch, argv: list) -> dict:
+    """The launcher's first batch for ``argv`` (its tokens and, for an
+    encoder-decoder, its frames), on the card."""
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch import train
+    get = lambda f: int(argv[argv.index(f) + 1])  # noqa: E731
+    b, s, seed = get("--batch"), get("--seq"), get("--seed")
+    batch = {k: t.cuda() for k, t in SyntheticTokens(
+        arch.model.vocab, b, s, seed=seed).next_batch().items()}
+    if arch.module == "encdec":
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch["frames"] = train.step_frames(gen, b, s, arch.model.d_model,
+                                            "cuda")
+    return batch
+
+
+def step_agreement(torch, arch, argv: list) -> dict:
+    """Step 1 through the kernels and with ``attn_mode="ref"`` from one
+    state on one batch, held to :data:`STEP_TOL`; also the device time
+    of a step (profiler) and its busy share."""
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    steps = int(argv[argv.index("--steps") + 1])
+    seed = int(argv[argv.index("--seed") + 1])
+    opt_cfg = AdamWConfig(total_steps=steps)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_train_state(arch.model_module().init(arch.model, gen))
+    batch = first_batch(torch, arch, argv)
+    kern = make_train_step(arch, opt_cfg)
+    LAUNCHES.clear()
+    s_k, m_k = kern(state, batch)
+    torch.cuda.synchronize()
+    read_window(LAUNCHES, train_launches(arch), "train step 1 (kernels)")
+    new_k, mom_k = s_k.params, s_k.opt.m
+    del s_k
+    LAUNCHES.clear()
+    s_r, m_r = make_train_step(arch, opt_cfg, attn_mode="ref")(state, batch)
+    torch.cuda.synchronize()
+    read_window(LAUNCHES, {}, "train step 1 (attn_mode=ref)")
+    lr = float(m_r["lr"])
+    loss_err = abs(float(m_k["loss"]) - float(m_r["loss"]))
+    gn_err = abs(float(m_k["grad_norm"]) - float(m_r["grad_norm"]))
+    num = den = 0.0
+    per_leaf = []
+    for i, (a, b) in enumerate(zip(tree_leaves(mom_k),
+                                   tree_leaves(s_r.opt.m))):
+        n, dd = float(torch.sum(torch.square(a - b))), \
+            float(torch.sum(torch.square(b)))
+        num, den = num + n, den + dd
+        per_leaf.append((math.sqrt(n / max(dd, 1e-30)), i))
+    mom_err = math.sqrt(num / max(den, 1e-30))
+    worst = sorted(per_leaf, reverse=True)[:4]
+    p_bad, p_frac = 0, []
+    for a, b in zip(tree_leaves(new_k), tree_leaves(s_r.params)):
+        bf = b.float()
+        bound = 2 ** -7 * bf.abs() + 2 * lr * 1.01
+        p_bad += int(((a.float() - bf).abs() > bound).sum())
+        p_frac.append(float((a == b).float().mean()))
+    result = {"loss_kernel": float(m_k["loss"]),
+              "loss_ref": float(m_r["loss"]), "loss_err": loss_err,
+              "grad_norm_kernel": float(m_k["grad_norm"]),
+              "grad_norm_ref": float(m_r["grad_norm"]),
+              "grad_norm_err": gn_err, "moments_rel_l2": mom_err,
+              "params_outside": p_bad,
+              "params_bitwise_share": statistics.mean(p_frac),
+              "worst_leaves": worst}
+    del s_r, new_k, mom_k
+    print(f"train: {arch.arch_id} step 1 kernels vs attn_mode=ref: loss "
+          f"{result['loss_kernel']:.6f} vs {result['loss_ref']:.6f}, |g| "
+          f"{result['grad_norm_kernel']:.6f} vs "
+          f"{result['grad_norm_ref']:.6f}, moments relative L2 "
+          f"{mom_err:.4g}, updated params bitwise equal "
+          f"{100 * result['params_bitwise_share']:.3f}% (mean over "
+          f"leaves), {p_bad} outside one bf16 step; worst leaves' moments "
+          f"(relative L2, leaf index) {[(round(e, 4), i) for e, i in worst]}")
+    if not (loss_err <= STEP_TOL["loss"] * abs(result["loss_ref"]) and
+            gn_err <= STEP_TOL["grad_norm"] * result["grad_norm_ref"] and
+            mom_err <= STEP_TOL["moments"] and p_bad == 0):
+        raise AssertionError(f"{arch.arch_id}: step 1 kernels vs "
+                             f"attn_mode=ref outside {STEP_TOL}: {result}")
+    # device time of one step through the kernels, and its host time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern(state, batch)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    dev = busy_ms(torch, lambda: kern(state, batch), iters=1)
+    result.update(step_host_ms=host_ms, step_device_ms=dev)
+    del state, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_arch(torch, argv: list, out: dict) -> dict:
+    """One arch through the launcher at ``argv`` (published config), then
+    :func:`step_agreement` where the step launches kernels, else the
+    device time of one step."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import model_depth
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    arch = registry.get(argv[argv.index("--arch") + 1])
+    steps = int(argv[argv.index("--steps") + 1])
+    tokens = int(argv[argv.index("--batch") + 1]) * int(
+        argv[argv.index("--seq") + 1])
+    want = train_launches(arch, steps)
+    run = run_launcher(torch, argv, want, f"train {arch.arch_id} launcher "
+                       f"({steps} steps)")
+    per_step = train_launches(arch)
+    med = statistics.median(run["step_ms"][1:])
+    print(f"train: {arch.arch_id} {model_depth(arch.model)} layers d_model "
+          f"{arch.model.d_model} bf16, "
+          f"{arch.model_module().param_count(arch.model) / 1e9:.3f} B "
+          f"params, batch x seq {tokens}: launches per step "
+          f"{per_step or 'none'} (window of {steps} steps "
+          f"{run['window'] or 'empty'}); losses "
+          f"{[round(x, 4) for x in run['losses']]}, |g| "
+          f"{[round(x, 3) for x in run['grad_norms']]}; host ms a step "
+          f"{', '.join(f'{t:.1f}' for t in run['step_ms'])} (median of "
+          f"steps 2-{steps} {med:.1f} ms, {tokens / med * 1e3:.0f} tok/s; "
+          f"launcher {run['tok_per_s']:.0f} tok/s over its run); peak "
+          f"{run['peak_gib']:.2f} GiB")
+    if want:
+        step = step_agreement(torch, arch, argv)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = init_train_state(arch.model_module().init(arch.model, gen))
+        batch = first_batch(torch, arch, argv)
+        fn = make_train_step(arch, AdamWConfig(total_steps=steps))
+        fn(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(state, batch)
+        torch.cuda.synchronize()
+        step = {"step_host_ms": 1e3 * (time.perf_counter() - t0),
+                "step_device_ms": busy_ms(torch, lambda: fn(state, batch),
+                                          iters=1)}
+        del state, batch
+        torch.cuda.empty_cache()
+    print(f"train: {arch.arch_id} one step {step['step_host_ms']:.1f} ms "
+          f"host, device "
+          f"{busy_text(step['step_device_ms'], step['step_host_ms'])}")
+    out[arch.arch_id] = {**run, **step, "median_step_ms": med,
+                         "tokens_per_step": tokens,
+                         "launches_per_step": per_step}
+    return run["window"]
+
+
+def resume_check(torch, out: dict) -> None:
+    """:data:`RESUME`: save at step ``save_at``, restore into a fresh
+    state (other random weights), and steps after it bitwise equal to
+    the run without the restart; no kernel launches (fp32 smoke config,
+    dense attention)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    r = RESUME
+    arch = registry.get(r["arch"])
+    arch = dataclasses.replace(arch, model=arch.smoke)
+    mod, cfg = arch.model_module(), arch.model
+    data = SyntheticTokens(cfg.vocab, r["batch"], r["seq"], seed=0)
+    batches = [{k: t.cuda() for k, t in data.next_batch().items()}
+               for _ in range(r["steps"])]
+    fn = make_train_step(arch, AdamWConfig(total_steps=r["steps"]))
+    fresh = lambda seed: init_train_state(mod.init(  # noqa: E731
+        cfg, torch.Generator(device="cuda").manual_seed(seed)))
+
+    def leaves(st):
+        return tree_leaves(st.params) + tree_leaves(st.opt.m) + \
+            tree_leaves(st.opt.v) + [st.opt.count, st.step]
+
+    LAUNCHES.clear()
+    state, metrics = fresh(0), []
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        for i, batch in enumerate(batches):
+            if i == r["save_at"]:
+                mgr.save(i, state, blocking=True)
+            state, m = fn(state, batch)
+            metrics.append(m)
+        restored = mgr.restore(fresh(1))
+    if int(restored.step) != r["save_at"]:
+        raise AssertionError(f"resume: restored step {int(restored.step)}")
+    rmetrics = []
+    for batch in batches[r["save_at"]:]:
+        restored, m = fn(restored, batch)
+        rmetrics.append(m)
+    torch.cuda.synchronize()
+    read_window(LAUNCHES, {}, "resume (fp32 smoke, dense attention)")
+    same = all(torch.equal(a, b) for a, b in zip(leaves(state),
+                                                 leaves(restored)))
+    same_m = all(torch.equal(a[k], b[k]) for a, b in
+                 zip(metrics[r["save_at"]:], rmetrics)
+                 for k in ("loss", "grad_norm"))
+    print(f"train: resume {cfg.name} on the card: saved at step "
+          f"{r['save_at']}, restored into a fresh state, steps "
+          f"{r['save_at'] + 1}-{r['steps']} bitwise equal to the run "
+          f"without a restart: state {same}, losses and |g| {same_m}")
+    out["resume"] = {"state_bitwise": same, "metrics_bitwise": same_m}
+    if not (same and same_m):
+        raise AssertionError("resume: steps after the restore differ from "
+                             "the run without a restart")
+
+
+def phase_train(torch, details: dict) -> dict:
+    """Phase 12. Returns the backward entry points' rows for the kernels
+    line and the launches of the seamless run (the main path's)."""
+    out = details.setdefault("train", {})
+    rows = bwd_shapes(torch, out)
+    window = train_arch(torch, TRAIN_SEAMLESS, out)
+    llama = train_arch(torch, TRAIN_LLAMA, out)
+    if llama:
+        raise AssertionError(f"llama3.2-1b training launched {llama}")
+    resume_check(torch, out)
+    return {"rows": rows, "launches": window}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3468,6 +4013,9 @@ def main(argv=None) -> int:
     print(f"multi: launches over the phase's counted windows {multi}")
     codesign = phase("codesign", phase_codesign, torch, details)
     print(f"codesign: launches over the phase's counted windows {codesign}")
+    train = phase("train", phase_train, torch, details)
+    print(f"train: launches of the seamless run {train['launches']}")
+    counts["flash_attention"] += train["launches"]["flash_attention"]
     for name in ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
                  "int4_gemm"):
         if not codesign.get(name):
@@ -3481,6 +4029,8 @@ def main(argv=None) -> int:
                                  f"path ({multi})")
         counts["depthwise_gemm" if name == "depthwise_conv_gemm"
                else name] += multi[name]
+    for name, row in train["rows"].items():
+        tot[name], counts[name] = row, train["launches"][name]
     kernels = []
     for name, replaces in REPLACES.items():
         t = tot[name]

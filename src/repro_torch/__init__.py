@@ -17,7 +17,11 @@ held to their originals by ``tests/test_torch_compiler.py``.
               Hopper and their plain versions
   data      — seeded synthetic token batches
   serve     — prefill / decode factories and greedy generation
-  launch    — the serving launcher (``python -m repro_torch.launch.serve``)
+  train     — AdamW, the loss and the train-step factory
+  checkpoint — checkpoints in the reference's format, the step watchdog
+  parallel  — sharding rule tables, int8 gradient compression
+  launch    — the serving and training launchers (``python -m
+              repro_torch.launch.serve`` / ``.train``)
   quant     — uniform symmetric quantizer, filter-wise hybrid
               quantization, the straight-through fake quantizers
   dse       — the DDPG design-space search (``python -m repro_torch.dse``)

@@ -1,5 +1,7 @@
-"""Seeded synthetic data: ``SyntheticTokens`` for the LM serving path,
-``SyntheticImages`` for the CNN accuracy harness."""
-from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens
+"""Seeded synthetic data: ``SyntheticTokens`` for the LM serving and
+training paths, ``SyntheticImages`` for the CNN accuracy harness,
+``make_host_batch`` for the smoke tests."""
+from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens, \
+    make_host_batch
 
-__all__ = ["SyntheticImages", "SyntheticTokens"]
+__all__ = ["SyntheticImages", "SyntheticTokens", "make_host_batch"]

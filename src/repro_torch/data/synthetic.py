@@ -1,11 +1,13 @@
-"""Seeded synthetic batches: token streams for the LM serving path,
-class-conditioned images for the CNN accuracy harness.
+"""Seeded synthetic batches: token streams for the LM serving and
+training paths, class-conditioned images for the CNN accuracy harness,
+and the smoke tests' host batch.
 
-The counterparts of ``repro.data.synthetic``'s ``SyntheticTokens`` and
-``SyntheticImages``: the same numpy generators and the same draws, so
-both packages see identical prompts and images from one seed. Only the
-result's type differs: torch tensors on the CPU (the caller moves them
-to its device).
+The counterparts of ``repro.data.synthetic``'s ``SyntheticTokens``,
+``SyntheticImages`` and ``make_host_batch``: the same numpy generators
+and the same draws, so both packages see identical prompts and images
+from one seed. Only the result's type differs: torch tensors on the CPU
+(the caller moves them to its device). ``make_host_batch``'s frames and
+patch embeddings are the exception: see there.
 """
 from __future__ import annotations
 
@@ -76,3 +78,24 @@ class SyntheticImages:
     def __iter__(self):
         while True:
             yield self.next_batch()
+
+
+def make_host_batch(arch, batch: int, seq: int, seed: int = 0) -> dict:
+    """Small concrete batch for smoke tests (reduced configs): ``tokens``
+    from :class:`SyntheticTokens` at the smoke config's vocab (the
+    reference's draws), plus, for an encoder-decoder, ``frames`` and, for
+    a vision frontend, ``extra_embed``: 0.1 N(0, 1) of shape [batch, seq,
+    d_model] in fp32, drawn from a CPU ``torch.Generator`` seeded with
+    ``seed``. The reference draws them from ``jax.random.key(seed)``,
+    whose numbers differ, so a test that compares the packages hands
+    both the same numpy arrays."""
+    vocab = arch.smoke.vocab if arch.smoke is not None else arch.model.vocab
+    out = SyntheticTokens(vocab, batch, seq, seed).next_batch()
+    d = (arch.smoke or arch.model).d_model
+    name = {"encdec": "frames"}.get(arch.module)
+    if name is None and arch.frontend == "vision":
+        name = "extra_embed"
+    if name is not None:
+        gen = torch.Generator().manual_seed(seed)
+        out[name] = 0.1 * torch.randn((batch, seq, d), generator=gen)
+    return out

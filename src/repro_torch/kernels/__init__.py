@@ -5,7 +5,9 @@ plain PyTorch version beside it.
                       (dense + im2col-free conv variants)
   bitserial_gemm    — bitplane GEMM (the LUT-core side; cost ∝ bits)
   int4_gemm         — packed-int4 GEMM (the DSP-core side)
-  flash_attention   — online-softmax attention (the LM's prefill)
+  flash_attention   — online-softmax attention (the LM's prefill, every
+                      attention of a train step), with its gradient
+  flash_attention_bwd — the attention's backward (prep, dk/dv, dq)
   build             — nvcc build, ctypes loader, launch counters
   ref               — plain versions of the reference's oracles
   ops               — public wrappers (weight preparation, dispatch)

@@ -27,7 +27,11 @@
 //         a p below 2^-126 flushes to 0, which l >= 1 cannot see);
 //   l  += sum of the fp32 p;
 //   acc = acc * alpha + (p rounded to bf16) . v, in fp32;
-//   out = acc / max(l, 1e-30), rounded to bf16.
+//   out = acc / max(l, 1e-30), rounded to bf16;
+//   lse = m + log(l) in fp32 (natural log, [B, Hq, Sq]), written only
+//         when the caller passes a buffer for it: the training path's
+//         backward (flash_attention_bwd.cu) recomputes p = exp(s - lse)
+//         from it; serving passes null.
 // A kv tile that lies wholly above the causal diagonal (or past Skv) is
 // not visited: it would add exp(-1e30 - m) = 0 to l and acc with
 // alpha = 1, so the skip is exact. A row whose keys so far are all
@@ -105,6 +109,7 @@ constexpr int BQ = ROWS * WARPS;     // prefill: query rows per block
 constexpr int BKV = 64;              // keys per staged K or V tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -113,6 +118,7 @@ struct Args {
   const bf16* k;
   const bf16* v;
   bf16* out;
+  float* lse;  // [B, Hq, Sq] or null
   int Sq, Skv, rep;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -478,6 +484,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
         const int r = q0 + ROWS * warp + g + 8 * i;
         if (r >= a.Sq) continue;
         const float norm = fmaxf(l[i], 1e-30f);
+        if (a.lse != nullptr && pass == 0 && t4 == 0)
+          a.lse[((long long)b * gridDim.x + h) * a.Sq + r] =
+              (m[i] + log2f(norm)) * LN2;
         bf16* orow = og + r * a.o_ss + c0 + 2 * t4;
 #pragma unroll
         for (int n = 0; n < DN; ++n)
@@ -521,6 +530,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
       lsum += ls[w * ROWS + r] * sc[w];
     }
     const float norm = fmaxf(lsum, 1e-30f);
+    if (a.lse != nullptr && pass == 0 && tid % TPR == 0)
+      a.lse[((long long)b * gridDim.x * a.rep + hk * a.rep + r % a.rep) *
+                a.Sq + r / a.rep] = (mx + log2f(norm)) * LN2;
     bf16* orow = a.out + b * a.o_sb + (r / a.rep) * a.o_ss +
                  (hk * a.rep + r % a.rep) * a.o_sh + c0;
     for (int c = tid % TPR; c < DN; c += TPR) {
@@ -568,7 +580,8 @@ extern "C" {
 // [B, Sq, Hq, DV], all bf16, given by element strides (batch, sequence,
 // head), multiples of 8, with the last dimension contiguous and 16-byte
 // aligned bases. (D, DV) in {(64, 64), (128, 128), (256, 256), (192, 128)};
-// Hq a multiple of Hkv; kv_offset >= 0. Form 0 (prefill) runs
+// Hq a multiple of Hkv; kv_offset >= 0; lse, when not null, receives the
+// fp32 log-sum-exp [B, Hq, Sq] (contiguous) of every row. Form 0 (prefill) runs
 // on a grid (Hq, B, ceil(Sq / 64)), form 1 (decode, only where
 // Sq * Hq / Hkv <= 16) on a grid (Hkv, B, 1); kernels/flash_attention.py
 // flash_plan picks the form and describes the same launch.
@@ -578,8 +591,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
                     long long o_sb, long long o_ss, long long o_sh,
-                    float scale, int causal, int kv_offset, int form,
-                    void* stream) {
+                    void* lse, float scale, int causal, int kv_offset,
+                    int form, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || B <= 0)
     return cudaErrorInvalidValue;
   const int rep = Hq / Hkv;
@@ -589,6 +602,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   const dim3 grid = dec ? dim3(Hkv, B, 1) : dim3(Hq, B, (Sq + BQ - 1) / BQ);
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<bf16*>(out),
+               static_cast<float*>(lse),
                Sq,   Skv,  rep,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * LOG2E,
                causal, kv_offset};

@@ -23,7 +23,17 @@ once for all of them.
 :func:`flash_attention` launches the kernel on CUDA tensors and counts
 the launch, or raises; on CPU tensors, or with ``mode="ref"``, it
 computes :func:`flash_attention_plain`, the chunked online softmax of
-``blockwise_attention`` in plain PyTorch.
+``blockwise_attention`` in plain PyTorch, whose autograd is the
+gradient there.
+
+Training. On CUDA tensors that need a gradient (grad mode on and q, k or
+v requiring it) the call goes through :class:`FlashAttentionFn`: the
+forward launch also writes each row's log-sum-exp, and the backward is
+the hand-written kernel of ``flash_attention_bwd`` (three launches),
+for the (key, value) head sizes :data:`BWD_HEAD_DIMS`; any other pair
+raises at forward time (:func:`kernel_route`) rather than return an
+output without a ``grad_fn``. Under ``no_grad`` / ``inference_mode``
+serving launches the forward alone, with no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -39,6 +49,9 @@ MODES = ("auto", "ref")
 #: bf16): three with equal sizes, and MLA's 192-wide keys over 128-wide
 #: values
 KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+#: the (key, value) head sizes the backward kernel is instantiated for:
+#: those of every arch whose training fits one card
+BWD_HEAD_DIMS = ((64, 64), (128, 128))
 #: the kernel's launch forms, in the order of the entry point's ``form``
 FORMS = ("prefill", "decode")
 BLOCK_Q = 64                # prefill: query rows per block (4 warps x 16)
@@ -89,16 +102,21 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, kv_offset: int = 0,
                           scale: float | None = None, q_chunk: int = 512,
-                          kv_chunk: int = 1024) -> torch.Tensor:
+                          kv_chunk: int = 1024, return_lse: bool = False):
     """Plain version of :func:`flash_attention`: ``blockwise_attention``'s
     schedule, an online softmax over ``kv_chunk`` keys for each
-    ``q_chunk`` of queries.
+    ``q_chunk`` of queries. With ``return_lse`` it returns (out, lse):
+    each row's fp32 ``m + log(l)`` [B, Hq, Sq], what the kernel writes
+    for its backward.
 
     q: [B, Sq, Hq, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, DV], Hq %
     Hkv == 0; the output is [B, Sq, Hq, DV]. Scores,
     statistics and the accumulator are fp32 (bf16 operands are widened
     before each product, which is exact); p is rounded to the value
-    type before ``p . v``, as the reference does. A ragged last chunk
+    type before ``p . v``, as the reference does, and that rounding's
+    gradient is the identity in fp32 (the reference's autodiff rounds
+    the cotangent of p to bf16 there; the backward kernel does not, and
+    neither does this plain version). A ragged last chunk
     is sliced rather than padded: padded keys would be masked to
     -1e30 and add exactly 0.
     """
@@ -109,6 +127,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
     out = torch.empty((b, sq, hq, v.shape[-1]), dtype=v.dtype,
                       device=q.device)
+    lse = torch.empty((b, hq, sq), device=q.device) if return_lse else None
     for q0 in range(0, sq, q_chunk):
         qi = q[:, q0:q0 + q_chunk].float()
         rows = qi.shape[1]
@@ -127,12 +146,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
+            pv = p.to(v.dtype).float()
+            if pv.requires_grad:
+                # the same value, whose gradient is the identity in fp32:
+                # autograd through .to(bf16).float() would round the
+                # cotangent dp to bf16 before ds = p (dp - delta), which
+                # cancels (pv - p is exact, so p + (pv - p) is pv)
+                pv = p + (pv - p).detach()
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vj.float())
+                "bhqk,bkhd->bhqd", pv, vj.float())
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + rows] = o.permute(0, 2, 1, 3).to(v.dtype)
-    return out
+        if return_lse:
+            lse[:, :, q0:q0 + rows] = m + torch.log(torch.clamp(l, min=1e-30))
+    return (out, lse) if return_lse else out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,42 +211,113 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal,
                                      kv_offset=kv_offset, scale=scale,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    route = kernel_route(d, dv, q.dtype, needs_grad)
+    check_kernel_operands("flash_attention", q, k, v)
+    if skv == 0:
+        raise ValueError("flash_attention: no keys")
+    if route == "autograd":
+        return FlashAttentionFn.apply(q, k, v, float(scale), bool(causal),
+                                      int(kv_offset))
+    return _forward_kernel(q, k, v, scale, causal, kv_offset)[0]
+
+
+def kernel_route(d: int, dv: int, dtype: torch.dtype,
+                 needs_grad: bool) -> str:
+    """How a call on CUDA tensors runs: ``"forward"`` (one launch, no
+    gradient), or ``"autograd"`` (:class:`FlashAttentionFn`: the forward
+    with its log-sum-exp, and the backward kernel) where a gradient is
+    needed. Raises for head sizes or a dtype the kernels are not built
+    for: a gradient never falls back to the plain version, and is never
+    dropped."""
     if (d, dv) not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention: head sizes (key, value) {(d, dv)} are not "
             f"instantiated {KERNEL_HEAD_DIMS}; other sizes (the smoke "
             f"configs' 8-32) are for a later slice")
-    if q.dtype != torch.bfloat16:
+    if dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: the kernel takes bf16, got "
-                         f"{q.dtype}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the head dimension must be "
+                         f"{dtype}")
+    if not needs_grad:
+        return "forward"
+    if (d, dv) not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: a gradient is needed, and the backward "
+            f"kernel is not instantiated for head sizes (key, value) "
+            f"{(d, dv)} (it has {BWD_HEAD_DIMS}); the other pairs are for "
+            f"a later slice")
+    return "autograd"
+
+
+def check_kernel_operands(kernel: str, *ts: torch.Tensor) -> None:
+    """Raise unless every tensor is one the kernels copy by 16-byte rows:
+    the last dimension contiguous, the other strides multiples of 8
+    elements, the data 16-byte aligned."""
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError(f"{kernel}: the head dimension must be "
                          "contiguous")
-    if any(st % 8 for t in (q, k, v)
+    if any(st % 8 for t in ts
            for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1) or \
-            any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the kernel copies 16-byte rows: "
+            any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{kernel}: the kernel copies 16-byte rows: "
                          "strides must be multiples of 8 elements and "
                          "the data 16-byte aligned")
-    if skv == 0:
-        raise ValueError("flash_attention: no keys")
+
+
+def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool, kv_offset: int,
+                    with_lse: bool = False):
+    """One forward launch: (out, lse), lse [B, Hq, Sq] fp32 when
+    ``with_lse``, else None (the kernel is passed no buffer)."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
     launch("flash_attention", q,
-           *kernel_args(q, k, v, out, scale, causal, kv_offset, plan))
-    return out
+           *kernel_args(q, k, v, out, scale, causal, kv_offset, plan, lse))
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with its gradient: the forward launch writes the
+    log-sum-exp beside the output, and the backward launches
+    ``flash_attention_bwd``'s three entry points on the saved q, k, v,
+    output and log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, kv_offset):
+        out, lse = _forward_kernel(q, k, v, scale, causal, kv_offset,
+                                   with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn = (scale, causal, kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.flash_attention_bwd import \
+            flash_attention_bwd
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, *ctx.attn)
+        return dq, dk, dv, None, None, None
 
 
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor, scale: float, causal: bool,
-                kv_offset: int, plan: FlashPlan) -> tuple:
+                kv_offset: int, plan: FlashPlan,
+                lse: torch.Tensor | None = None) -> tuple:
     """The entry point's arguments before the stream, for ``plan``'s
-    form."""
+    form; ``lse`` (fp32 [B, Hq, Sq], contiguous) receives each row's
+    log-sum-exp, or None passes a null pointer."""
     b, sq, hq, d = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             k.shape[1], hq, k.shape[2], d, v.shape[-1], *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            None if lse is None else lse.data_ptr(),
             float(scale), int(causal), int(kv_offset),
             FORMS.index(plan.form))

@@ -1,0 +1,121 @@
+"""Flash attention (backward): the gradient of the training path's
+attention.
+
+The reference trains by XLA's derivative of ``models/layers.py::
+blockwise_attention`` (its Pallas kernel has no backward). In the port
+the forward of that schedule is the CUDA kernel of ``flash_attention``,
+so its gradient is the CUDA kernel of ``csrc/flash_attention_bwd.cu``,
+FlashAttention-2's three entry points:
+
+  flash_attention_bwd_prep — delta = rowsum(dout * out), fp32 [B, Hq, Sq];
+  flash_attention_bwd_dkdv — dk and dv, one block per (64-key tile, KV
+                             head, batch) over every query tile of the
+                             KV head's query heads (no atomics);
+  flash_attention_bwd_dq   — dq, one block per (64-row query tile, query
+                             head, batch) over the KV tiles.
+
+Each recomputes p = exp(s - lse) from the forward's log-sum-exp, with the
+forward's causal, ``kv_offset`` and ragged masks, for the (key, value)
+head sizes :data:`BWD_HEAD_DIMS`, bf16 in and out. :func:`flash_attention_bwd`
+launches them and counts each launch; ``FlashAttentionFn`` (in
+``flash_attention``) calls it. :func:`flash_attention_bwd_plain` is the
+plain version, autograd through ``flash_attention_plain``, and
+:func:`bwd_prep_plain` the plain version of the first entry point; the
+tests and ``chip_smoke.py`` compare the kernel with them, and no path of
+the port takes them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import launch
+from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, \
+    check_kernel_operands, flash_attention_plain
+
+ENTRY_POINTS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_dq")
+
+
+def bwd_prep_plain(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta [B, Hq, Sq] fp32: the sum over the head dimension of
+    ``dout * out`` ([B, Sq, Hq, D] each), widened to fp32 first."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, kv_offset: int = 0,
+                              scale: float | None = None, q_chunk: int = 512,
+                              kv_chunk: int = 1024
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_plain`` at ``dout``, by autograd
+    on detached copies of q, k and v (each gradient in its input's
+    dtype)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = flash_attention_plain(q, k, v, causal=causal,
+                                    kv_offset=kv_offset, scale=scale,
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+
+def entry_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+               delta: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+               dv: torch.Tensor, scale: float, causal: bool,
+               kv_offset: int) -> dict[str, tuple]:
+    """Each entry point's arguments before the stream: prep writes
+    ``delta`` from ``out`` and ``dout``; dkdv writes ``dk`` and ``dv``,
+    dq writes ``dq``, both reading ``lse`` and ``delta``."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *dout.stride()[:3])
+    tail = (float(scale), int(causal), int(kv_offset))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    return {
+        "flash_attention_bwd_prep": (
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), b, sq, hq,
+            v.shape[-1], *out.stride()[:3], *dout.stride()[:3]),
+        "flash_attention_bwd_dkdv": (
+            *ptrs, dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d,
+            *strides, *tail),
+        "flash_attention_bwd_dq": (
+            *ptrs, dq.data_ptr(), b, sq, skv, hq, hkv, d, *strides, *tail),
+    }
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, scale: float, causal: bool,
+                        kv_offset: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) on the card: the three entry points, each launch
+    counted. q [B, Sq, Hq, D], k / v [B, Skv, Hkv, D], out / dout
+    [B, Sq, Hq, D], bf16 (``dout`` is made contiguous, which autograd's
+    cotangent usually already is); ``lse`` [B, Hq, Sq] fp32 from the forward
+    launch. The gradients are contiguous bf16 in their inputs' shapes."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v.shape
+    if (d, dv) not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head sizes (key, value) {(d, dv)} are "
+            f"not instantiated {BWD_HEAD_DIMS}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, out, dout)) or \
+            lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: q, k, v, out and dout must "
+                         "be bf16 and lse fp32")
+    dout = dout.contiguous()
+    check_kernel_operands("flash_attention_bwd", q, k, v, out, dout)
+    lse = lse.contiguous()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
+    dvv = torch.empty((b, skv, hkv, dv), dtype=q.dtype, device=q.device)
+    args = entry_args(q, k, v, out, dout, lse, delta, dq, dk, dvv, scale,
+                      causal, kv_offset)
+    for name in ENTRY_POINTS:
+        launch(name, q, *args[name])
+    return dq, dk, dvv

@@ -1,0 +1,186 @@
+"""Training launcher: data -> train_step -> checkpoints, fault-tolerant.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless-m4t-large-v2 --batch 8 --seq 256 --steps 5
+
+The counterpart of ``repro.launch.train``, with its flags and log lines,
+plus ``--device`` (default ``cuda``). Weights are random, made on the
+device from ``--seed``; tokens come from ``SyntheticTokens`` with the
+same seed (the reference's stream); an encoder-decoder also gets
+:func:`step_frames`, the stub audio frontend's 0.1 N(0, 1) frames, new
+each step. Each step is ``make_train_step`` (forward under the config's
+``remat``, ``torch.autograd.grad``, optional int8 compression with error
+feedback, AdamW), timed by ``StepWatchdog`` (heartbeat in
+``--ckpt-dir``); ``CheckpointManager`` saves every ``--ckpt-every``
+steps and at the end, and a run finds the newest checkpoint in
+``--ckpt-dir`` and resumes from it. On the card every
+``blockwise_attention`` (the encoder-decoder's attentions, MLA's, a
+dense model's above 8192 tokens) runs on the flash kernel and its
+gradient on the backward kernel, which are built for (key, value) head
+sizes (64, 64) and (128, 128) in bf16: a config that would reach them
+at other sizes or in fp32 (the smoke configs of seamless and
+deepseek-v2) exits 2 before anything is built; ``--device cpu`` runs the
+plain versions. ``--production-mesh`` (the reference's 256-device mesh)
+belongs to the parallel layer, not ported yet: it exits 2.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager, StepWatchdog
+from repro_torch.configs import registry
+from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import init_train_state, make_train_step
+
+
+def train_flash_heads(arch, seq: int) -> tuple[int, int] | None:
+    """The (key, value) head sizes of the flash launches that a train
+    step of ``arch`` at sequence length ``seq`` makes, None where it
+    makes none: the encoder-decoder's attentions and MLA's always; a
+    dense LM's or the hybrid's above ``dense_attn_max`` tokens (below it
+    their attention is the full-softmax ``dense_attention``); the ssm
+    never."""
+    cfg = arch.model
+    if arch.module == "encdec":
+        return cfg.head_dim, cfg.head_dim
+    if arch.module == "lm" and cfg.mla is not None:
+        return cfg.qk_dim, cfg.v_head_dim
+    if arch.module in ("lm", "hybrid") and seq > getattr(
+            cfg, "dense_attn_max", 8192):
+        return cfg.head_dim, cfg.head_dim
+    return None
+
+
+def step_frames(gen: torch.Generator, batch: int, seq: int, d_model: int,
+                device) -> torch.Tensor:
+    """One step's stub frames for an encoder-decoder: 0.1 N(0, 1) of
+    shape [batch, seq, d_model] in fp32 from ``gen``."""
+    return 0.1 * torch.randn((batch, seq, d_model), generator=gen,
+                             device=device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    """Train; returns the final state, each step's metrics and host
+    seconds, and the run's tokens per second."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="(16,16) mesh — requires 256 devices (the parallel "
+                         "layer, not ported yet: exits 2)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    if args.production_mesh:
+        print("error: --production-mesh needs the parallel layer (ROADMAP "
+              "queue 1, item 2: meshes, sharding, the pod all-reduce), "
+              "which is not ported yet; the port trains on one device",
+              file=sys.stderr)
+        raise SystemExit(2)
+    arch = registry.get(args.arch)
+    if args.smoke:
+        arch = dataclasses.replace(arch, model=arch.smoke)
+    device = torch.device(args.device)
+    cfg = arch.model
+    heads = train_flash_heads(arch, args.seq)
+    if device.type == "cuda" and heads is not None and (
+            heads not in BWD_HEAD_DIMS or cfg.param_dtype != torch.bfloat16):
+        # no silent fallback to plain attention or a dropped gradient:
+        # the kernels train at BWD_HEAD_DIMS in bf16 only
+        qk, v = heads
+        sizes = f"head_dim {qk}" + (f" (values {v})" if v != qk else "")
+        name = str(cfg.param_dtype).split(".")[-1].replace("float32", "fp32")
+        print(f"error: {cfg.name} ({sizes}, {name} params) would train on "
+              f"the flash-attention kernels, which are not instantiated "
+              f"for it (they take {list(BWD_HEAD_DIMS)} in bf16); "
+              f"{'the smoke run' if args.smoke else 'it'} takes "
+              f"--device cpu", file=sys.stderr)
+        raise SystemExit(2)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("error: CUDA is not available; pass --device cpu "
+                         "to train on the CPU")
+
+    mod = arch.model_module()
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
+    train_step = make_train_step(arch, opt_cfg,
+                                 compress_grads=args.compress_grads)
+    data = SyntheticTokens(cfg.vocab, args.batch, args.seq, seed=args.seed)
+    frame_gen = (torch.Generator(device=device).manual_seed(args.seed + 1)
+                 if arch.module == "encdec" else None)
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    dog = StepWatchdog(
+        heartbeat_path=(f"{args.ckpt_dir}/heartbeat.json"
+                        if args.ckpt_dir else None))
+
+    params = mod.init(cfg, torch.Generator(device=device).manual_seed(
+        args.seed))
+    state = init_train_state(params, compress_grads=args.compress_grads)
+    del params
+    start = 0
+    if mgr is not None and mgr.latest_step() is not None:
+        start = mgr.latest_step()
+        state = mgr.restore(state, step=start)
+        print(f"# resumed from checkpoint step {start}")
+
+    metrics_log, step_s = [], []
+    _sync(device)
+    t0 = time.time()
+    for step in range(start, args.steps):
+        dog.start_step(step)
+        batch = {k: v.to(device) for k, v in data.next_batch().items()}
+        if frame_gen is not None:
+            batch["frames"] = step_frames(frame_gen, args.batch, args.seq,
+                                          cfg.d_model, device)
+        t_step = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        _sync(device)
+        step_s.append(time.perf_counter() - t_step)
+        metrics_log.append(metrics)
+        if dog.end_step():
+            print(f"# straggler flagged at step {step} "
+                  f"({dog.times[-1]:.2f}s vs median "
+                  f"{dog.median_step_s():.2f}s)")
+        if (step + 1) % args.log_every == 0:
+            print(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
+                  f"  |g| {float(metrics['grad_norm']):.3f}"
+                  f"  lr {float(metrics['lr']):.2e}")
+        if mgr is not None and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step + 1, state)
+    if mgr is not None:
+        mgr.save(args.steps, state, blocking=True)
+    dt = time.time() - t0
+    n = args.steps - start
+    tok_s = n * args.batch * args.seq / max(dt, 1e-9)
+    print(f"# {n} steps in {dt:.1f}s ({tok_s:.0f} tok/s)")
+    return {"state": state, "metrics": metrics_log, "step_s": step_s,
+            "start": start, "tok_per_s": tok_s, "seconds": dt}
+
+
+if __name__ == "__main__":
+    main()

@@ -40,8 +40,11 @@ from repro_torch.models.layers import ParamSpec
 
 @dataclasses.dataclass(frozen=True)
 class EncDecConfig:
-    """The reference's ``EncDecConfig`` fields, dtypes as torch dtypes;
-    ``remat`` and ``scan_unroll`` mean nothing at inference."""
+    """The reference's ``EncDecConfig`` fields, dtypes as torch dtypes.
+    ``remat="full"`` recomputes each encoder and decoder layer in the
+    backward pass of a forward under grad mode, as the reference's
+    ``jax.checkpoint`` does; serving runs the layers plainly.
+    ``scan_unroll`` means nothing here."""
     name: str
     n_enc_layers: int
     n_dec_layers: int
@@ -219,13 +222,16 @@ def encode(params: dict, frames: torch.Tensor, cfg: EncDecConfig,
     positions = _positions(b, s, 0, frames.device)
     x = frames.to(cfg.param_dtype)
     for i in range(cfg.n_enc_layers):
-        p = _layer(params["enc_layers"], i)
-        x = x + _self_attention(p["attn"],
-                                L.rmsnorm(x, p["ln_attn"], cfg.norm_eps),
-                                positions, cfg, causal=False,
-                                attn_mode=attn_mode)
-        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
-                            cfg.act)
+        def inner(x, p=_layer(params["enc_layers"], i)):
+            x = x + _self_attention(p["attn"],
+                                    L.rmsnorm(x, p["ln_attn"], cfg.norm_eps),
+                                    positions, cfg, causal=False,
+                                    attn_mode=attn_mode)
+            return x + L.mlp_apply(p["mlp"],
+                                   L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
+                                   cfg.act)
+        # the reference checkpoints a layer only for remat == "full"
+        x = L.remat(inner, "full" if cfg.remat == "full" else "none")(x)
     return L.rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -233,16 +239,20 @@ def _decoder_stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    memory: torch.Tensor, cfg: EncDecConfig,
                    attn_mode: str = "auto") -> torch.Tensor:
     for i in range(cfg.n_dec_layers):
-        p = _layer(params["dec_layers"], i)
-        x = x + _self_attention(p["self_attn"],
-                                L.rmsnorm(x, p["ln_self"], cfg.norm_eps),
-                                positions, cfg, causal=True,
-                                attn_mode=attn_mode)
-        x = x + _cross_attention(p["cross_attn"],
-                                 L.rmsnorm(x, p["ln_cross"], cfg.norm_eps),
-                                 memory, cfg, attn_mode=attn_mode)
-        x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
-                            cfg.act)
+        def inner(x, memory, p=_layer(params["dec_layers"], i)):
+            x = x + _self_attention(p["self_attn"],
+                                    L.rmsnorm(x, p["ln_self"], cfg.norm_eps),
+                                    positions, cfg, causal=True,
+                                    attn_mode=attn_mode)
+            x = x + _cross_attention(p["cross_attn"],
+                                     L.rmsnorm(x, p["ln_cross"],
+                                               cfg.norm_eps),
+                                     memory, cfg, attn_mode=attn_mode)
+            return x + L.mlp_apply(p["mlp"],
+                                   L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps),
+                                   cfg.act)
+        x = L.remat(inner, "full" if cfg.remat == "full" else "none")(
+            x, memory)
     return x
 
 

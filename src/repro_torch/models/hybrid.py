@@ -217,8 +217,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: HybridConfig
     x = params["embed"][tokens]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_periods):
-        x, aux_i = _period_apply(lm_mod._layer(params["periods"], i), x,
-                                 positions, cfg)
+        def inner(x, p=lm_mod._layer(params["periods"], i)):
+            return _period_apply(p, x, positions, cfg)
+        # the reference checkpoints a period only for remat == "full"
+        x, aux_i = L.remat(inner, "full" if cfg.remat == "full"
+                           else "none")(x)
         aux = aux + aux_i
     return _logits(params, x, cfg), aux
 

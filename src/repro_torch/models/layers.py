@@ -28,6 +28,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 
@@ -53,6 +55,33 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of nested dicts / lists in the reference's pytree order
+    (a dict's keys sorted, a list in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``leaves`` (in :func:`tree_leaves`' order) in the structure of
+    ``like``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
 
 
 def init_params(spec_tree: Any, gen: torch.Generator) -> Any:
@@ -119,6 +148,44 @@ def param_count(spec_tree: Any) -> int:
     specs: list[ParamSpec] = []
     tree_map(specs.append, spec_tree)
     return sum(math.prod(s.shape) for s in specs)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    matrix products without batch dimensions (``aten.mm`` / ``addmm``,
+    which ``x @ w`` becomes), recompute everything else; the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the reference's ``jax.checkpoint`` policy ``policy``:
+    ``"full"`` saves only its inputs and recomputes its forward in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant), ``"dots"``
+    also keeps the outputs of its matrix products, ``"none"`` is ``fn``.
+    Outside grad mode (serving) every policy is ``fn``: nothing is saved
+    for a backward there."""
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none | full | dots, got {policy!r}")
+    if policy == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if policy == "dots":
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

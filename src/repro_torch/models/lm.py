@@ -73,9 +73,11 @@ class HeteroQuantConfig:
 class LMConfig:
     """The reference's ``LMConfig`` fields, dtypes as torch dtypes.
 
-    ``remat``, ``scan_unroll``, ``dense_attn_max`` and the sharding-era
-    fields are kept so configs read the same; ``remat`` and
-    ``scan_unroll`` mean nothing at inference and are ignored.
+    ``remat`` ("none" | "full" | "dots") checkpoints each layer of a
+    forward under grad mode, as the reference's ``jax.checkpoint`` does
+    (:func:`_remat_wrap`); serving, outside grad mode, runs it plainly.
+    ``scan_unroll`` and ``dense_attn_max`` are kept so configs read the
+    same; ``scan_unroll`` means nothing here (layers are a Python loop).
     """
     name: str
     n_layers: int
@@ -421,11 +423,19 @@ def _embed(params: dict, tokens: torch.Tensor,
     return x
 
 
+def _remat_wrap(fn, cfg: LMConfig):
+    """A layer's body under ``cfg.remat``: ``"full"`` recomputes it in the
+    backward pass, ``"dots"`` keeps its matrix products' outputs and
+    recomputes the rest (``layers.remat``)."""
+    return L.remat(fn, cfg.remat)
+
+
 def _stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
            cfg: LMConfig, cache: dict | None = None, cache_len=None,
            attn_mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """The dense-prefix layers, then the stacked ones, each with its
-    cache if there is one. Returns (x, the MoE layers' aux loss summed)."""
+    cache if there is one, each under ``cfg.remat`` when there is none.
+    Returns (x, the MoE layers' aux loss summed)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = [(params["dense_prefix"][i],
                None if cache is None else cache["dense_prefix"][i])
@@ -434,8 +444,14 @@ def _stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 None if cache is None else _layer(cache["layers"], i))
                for i in range(cfg.n_layers - cfg.n_dense_prefix)]
     for p_layer, c_layer in blocks:
-        x, aux_i = _layer_apply(p_layer, x, positions, cfg, c_layer,
-                                cache_len, attn_mode)
+        if c_layer is None:
+            def body(x, p=p_layer):
+                return _layer_apply(p, x, positions, cfg,
+                                    attn_mode=attn_mode)
+            x, aux_i = _remat_wrap(body, cfg)(x)
+        else:
+            x, aux_i = _layer_apply(p_layer, x, positions, cfg, c_layer,
+                                    cache_len, attn_mode)
         aux = aux + aux_i
     return x, aux
 

@@ -342,10 +342,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: SSMLMConfig
     int. Returns (logits [B, S, vocab] fp32, aux loss 0)."""
     x = params["embed"][tokens]
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
-        y, _ = block_apply(p["ssm"], L.rmsnorm(x, p["ln"], cfg.norm_eps),
-                           cfg.ssm)
-        x = x + y
+        def inner(x, p=_layer(params["layers"], i)):
+            y, _ = block_apply(p["ssm"], L.rmsnorm(x, p["ln"], cfg.norm_eps),
+                               cfg.ssm)
+            return x + y
+        # the reference checkpoints a layer only for remat == "full"
+        x = L.remat(inner, "full" if cfg.remat == "full" else "none")(x)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return _logits(params, x, cfg), aux
 

@@ -42,6 +42,7 @@ COPIED = [
     "compiler/networks.py", "compiler/asm.py", "compiler/partition.py",
     "obs/counters.py", "obs/trace.py", "obs/metrics.py", "obs/report.py",
     "serve/protocol.py", "core/cost_model.py", "dse/search.py",
+    "checkpoint/watchdog.py", "configs/resnet18.py", "configs/mobilenet_v2.py",
 ]
 
 #: modules copied from ``src/repro`` with their imports rewritten and then

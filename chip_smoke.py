@@ -245,14 +245,17 @@ Phases, each printing its lines before the last:
    on the kernels against ``mode="ref"``. :data:`QAT_STEPS` QAT steps of
    reduced resnet18 on the card: the loss falls.
 12. train: training on the card. The flash-attention backward kernel
-   (``flash_attention_bwd.cu``'s prep, dkdv and dq entry points, reached
-   through the autograd Function of ``flash_attention``) against
-   autograd through the plain version at :data:`BWD_SHAPES` (seamless's
-   encoder, decoder and cross shapes, llama3.2-1b's GQA 32/8 at S 2048,
-   a ragged causal shape, one with ``kv_offset`` > 0, and qwen2-vl's
-   (128, 128) at GQA 12/2): dq, dk and dv within :data:`BWD_TOL` of the
-   gradient's max |.| and every row within :data:`BWD_ROW_TOL`, the
-   forward's log-sum-exp within :data:`LSE_TOL` of the plain version's;
+   (``flash_attention_bwd.cu``'s dq and dkdv entry points, wgmma and TMA,
+   reached through the autograd Function of ``flash_attention``, one
+   launch of each entry point) against autograd through the plain
+   version at :data:`BWD_SHAPES` (seamless's encoder, decoder and cross
+   shapes, llama3.2-1b's GQA 32/8 at S 2048, a ragged causal shape, one
+   with ``kv_offset`` > 0, qwen2-vl's (128, 128) at GQA 12/2, and a D=128
+   GQA shape whose tiles cross the diagonal): dq, dk and dv within
+   :data:`BWD_TOL` of the gradient's max |.| and every row within
+   :data:`BWD_ROW_TOL`, the forward's log-sum-exp within :data:`LSE_TOL`
+   of the plain version's, a second backward bitwise equal to the first,
+   the dq launch's delta within :data:`DELTA_TOL` of ``bwd_prep_plain``;
    device ms per entry point, the bound, the plain backward's and SDPA's
    backward's ms, and ptxas's registers and spills. Then
    seamless-m4t-large-v2 whole at published widths in bf16 through
@@ -309,7 +312,7 @@ SOURCE = {
     "flash_attention": f"{CSRC}/flash_attention.cu",
     "depthwise_gemm": f"{CSRC}/depthwise_gemm.cu",
     **{f"flash_attention_bwd_{e}": f"{CSRC}/flash_attention_bwd.cu"
-       for e in ("prep", "dkdv", "dq")},
+       for e in ("dq", "dkdv")},
 }
 REPLACES = {
     "fused_conv_gemm": "src/repro/kernels/fused_hetero_gemm.py:232",
@@ -321,7 +324,7 @@ REPLACES = {
                       "Pallas kernel)",
     **{f"flash_attention_bwd_{e}": "the gradient of "
        "src/repro/models/layers.py:188::blockwise_attention (XLA autodiff; "
-       "the Pallas kernel has none)" for e in ("prep", "dkdv", "dq")},
+       "the Pallas kernel has none)" for e in ("dq", "dkdv")},
 }
 #: the executor path whose counted run each kernel's launches come from
 KERNEL_PATH = {
@@ -3440,8 +3443,9 @@ def phase_codesign(torch, details: dict) -> dict:
 #: the backward kernel's shapes: seamless-m4t-large-v2's training
 #: attentions at batch 8, sequence 256 (encoder self, decoder self,
 #: cross over a memory of another length), llama3.2-1b's GQA at S 2048, a
-#: ragged causal shape whose tiles cross the diagonal, kv_offset > 0, and
-#: qwen2-vl-2b's (128, 128) at 12 query heads over 2
+#: ragged causal shape whose tiles cross the diagonal, kv_offset > 0,
+#: qwen2-vl-2b's (128, 128) at 12 query heads over 2, and a D=128 GQA
+#: shape whose tiles cross the diagonal
 BWD_SHAPES = [
     FlashShape("seamless_enc", 8, 256, 256, 16, 16, 64, False, 0),
     FlashShape("seamless_dec", 8, 256, 256, 16, 16, 64, True, 0),
@@ -3450,6 +3454,7 @@ BWD_SHAPES = [
     FlashShape("ragged", 2, 1000, 1000, 32, 8, 64, True, 0),
     FlashShape("offset", 2, 300, 1000, 8, 8, 64, True, 700),
     FlashShape("qwen2vl_d128", 2, 512, 512, 12, 2, 128, True, 0),
+    FlashShape("gqa_d128", 2, 1000, 1000, 32, 8, 128, True, 0),
 ]
 #: kernel vs plain backward, bf16: each of dq, dk, dv within 4 bf16 steps
 #: (2^-8 relative) of the gradient's max |.|. The two differ in where they
@@ -3473,6 +3478,11 @@ BWD_ROW_FLOOR = 5e-2
 #: kernel's exponents are ex2.approx, 2 ulp, and its maximum is taken
 #: in base 2)
 LSE_TOL = 1e-4
+#: the dq launch's delta against ``bwd_prep_plain``, relative to the row's
+#: sum of |dout * out|: both are fp32 sums of the same D <= 128 exact
+#: products in another order, which differ by at most ~D rounding steps
+#: of 2^-24 of that sum (2^-17 at D 128); twice that
+DELTA_TOL = 2 ** -16
 #: the seamless run: whole, published widths, bf16
 TRAIN_SEAMLESS = ["--arch", "seamless-m4t-large-v2", "--batch", "8",
                   "--seq", "256", "--steps", "5", "--seed", "0",
@@ -3516,8 +3526,9 @@ def bwd_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset,
     v, out, dout, dq, dk, dv; fp32 lse and delta, [B, Hq, Sq]) once over
     the HBM rate, vs its products over the bf16 rate, each 2·B·Hq·D per
     unmasked (query, key) pair: five for the whole backward (s, dp, dv,
-    dk, dq), four for dkdv (s, dp, dv, dk), three for dq (s, dp, dq), and
-    prep's 2·B·Sq·Hq·D multiply-adds."""
+    dk, dq), four for dkdv (s, dp, dv, dk), three for dq (s, dp, dq) and
+    delta's 2·B·Sq·Hq·D (dq reads out, dout, q, k, v and lse, writes dq and
+    delta; dkdv reads q, dout, k, v, lse and delta, writes dk and dv)."""
     q_b = 2 * b * sq * hq * d                 # q, out, dout, dq each
     kv_b = 2 * b * skv * hkv * d              # k, v, dk, dv each
     st_b = 4 * b * hq * sq                    # lse, delta each
@@ -3528,10 +3539,10 @@ def bwd_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset,
     prod = 2 * b * hq * d * pairs
     nbytes, flops = {
         None: (4 * q_b + 4 * kv_b + 2 * st_b, 5 * prod),
-        "flash_attention_bwd_prep": (2 * q_b + st_b, 2 * b * sq * hq * d),
+        "flash_attention_bwd_dq": (4 * q_b + 2 * kv_b + 2 * st_b,
+                                   3 * prod + 2 * b * sq * hq * d),
         "flash_attention_bwd_dkdv": (2 * q_b + 4 * kv_b + 2 * st_b,
                                      4 * prod),
-        "flash_attention_bwd_dq": (3 * q_b + 2 * kv_b + 2 * st_b, 3 * prod),
     }[entry]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
@@ -3583,16 +3594,22 @@ def bwd_shapes(torch, details: dict) -> dict:
                                     (b, skv, hkv, d), (b, sq, hq, d)))
         scale = d ** -0.5
         kw = dict(causal=causal, kv_offset=off)
-        # through the autograd Function, as the train step reaches it
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        build.LAUNCHES.clear()
-        with torch.enable_grad():
-            out = flash_attention(*leaves, **kw)
-            got = torch.autograd.grad(out, leaves, dout)
-        torch.cuda.synchronize()
-        read_window(build.LAUNCHES, {"flash_attention": 1,
-                                     **{e: 1 for e in ENTRY_POINTS}},
-                    f"bwd {name} forward + backward")
+
+        def grads():
+            # through the autograd Function, as the train step reaches it
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            build.LAUNCHES.clear()
+            with torch.enable_grad():
+                out = flash_attention(*leaves, **kw)
+                got = torch.autograd.grad(out, leaves, dout)
+            torch.cuda.synchronize()
+            read_window(build.LAUNCHES, {"flash_attention": 1,
+                                         **{e: 1 for e in ENTRY_POINTS}},
+                        f"bwd {name} forward + backward")
+            return got
+        got = grads()
+        again = grads()
+        bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
         want = flash_attention_bwd_plain(q, k, v, dout, **kw)
         errs, row_errs, abs_errs = {}, {}, {}
         for what, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -3606,21 +3623,18 @@ def bwd_shapes(torch, details: dict) -> dict:
                                      with_lse=True)
         lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)[1]
         lse_err = float((lse - lse_p).abs().max())
-        if not (max(errs.values()) <= BWD_TOL and
-                max(row_errs.values()) <= BWD_ROW_TOL and
-                lse_err <= LSE_TOL):
-            raise AssertionError(
-                f"bwd {name}: kernel vs plain, relative max |err| {errs} "
-                f"(tol {BWD_TOL}), row errors {row_errs} (tol "
-                f"{BWD_ROW_TOL}), lse max |err| {lse_err} (tol {LSE_TOL})")
-        # each entry point alone, on the kernel forward's out and lse
+        # each entry point alone, on the kernel forward's out and lse; dq
+        # writes delta
         delta = torch.empty((b, hq, sq), device="cuda")
         bufs = [torch.empty_like(t) for t in (q, k, v)]
         args = entry_args(q, k, v, out_k, dout, lse, delta, *bufs, scale,
                           causal, off)
         fns = {e: ((lambda e=e: build.launch(e, q, *args[e])), 10)
                for e in ENTRY_POINTS}
-        fns["plain_prep"] = (lambda: bwd_prep_plain(out_k, dout), 10)
+        # the backward as a train step runs it: the entry points back to
+        # back, dkdv's start overlapping dq's last blocks
+        fns["bwd"] = (lambda: [build.launch(e, q, *args[e])
+                               for e in ENTRY_POINTS], 10)
         fns["sdpa_bwd"] = (sdpa_bwd_fn(torch, q, k, v, dout, causal, off),
                            10)
         times = device_times(torch, fns)
@@ -3629,15 +3643,28 @@ def bwd_shapes(torch, details: dict) -> dict:
         # back-to-back calls, which a slow yardstick barely notices
         times["plain_bwd"] = cuda_ms(torch, lambda: flash_attention_bwd_plain(
             q, k, v, dout, **kw), iters=3, warmup=1)
-        prep_err = float((delta - bwd_prep_plain(out_k, dout)).abs().max())
+        prod = dout.float() * out_k.float()
+        delta_err = float(((delta - bwd_prep_plain(out_k, dout)).abs() /
+                           prod.abs().sum(-1).transpose(1, 2).clamp_min(
+                               1e-30)).max())
+        if not (max(errs.values()) <= BWD_TOL and
+                max(row_errs.values()) <= BWD_ROW_TOL and
+                lse_err <= LSE_TOL and bitwise and delta_err <= DELTA_TOL):
+            raise AssertionError(
+                f"bwd {name}: kernel vs plain, relative max |err| {errs} "
+                f"(tol {BWD_TOL}), row errors {row_errs} (tol "
+                f"{BWD_ROW_TOL}), lse max |err| {lse_err} (tol {LSE_TOL}), "
+                f"second call bitwise equal {bitwise}, delta relative "
+                f"error {delta_err} (tol {DELTA_TOL})")
         whole_ms, whole_by = bwd_bound_ms(b, sq, skv, hq, hkv, d, causal,
                                           off)
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
                "hkv": hkv, "d": d, "causal": causal, "kv_offset": off,
                "rel_err": errs, "abs_err": abs_errs, "row_err": row_errs,
-               "lse_err": lse_err,
-               "prep_err": prep_err, "times_ms": times,
-               "kernel_bwd_ms": sum(times[e] for e in ENTRY_POINTS),
+               "lse_err": lse_err, "bitwise_repeat": bitwise,
+               "delta_err": delta_err, "times_ms": times,
+               "kernel_bwd_ms": times["bwd"],
+               "entry_sum_ms": sum(times[e] for e in ENTRY_POINTS),
                "bound_ms": whole_ms, "bound_by": whole_by,
                "entry_bounds": {e: bwd_bound_ms(b, sq, skv, hq, hkv, d,
                                                 causal, off, e)
@@ -3649,14 +3676,17 @@ def bwd_shapes(torch, details: dict) -> dict:
               f"{errs['dv']:.3g} (tol {BWD_TOL:.3g}), row error dq "
               f"{row_errs['dq']:.3g} dk {row_errs['dk']:.3g} dv "
               f"{row_errs['dv']:.3g} (tol {BWD_ROW_TOL}), lse "
-              f"{lse_err:.3g} (tol {LSE_TOL}); device ms "
+              f"{lse_err:.3g} (tol {LSE_TOL}), delta {delta_err:.3g} (tol "
+              f"{DELTA_TOL:.3g}), second call bitwise equal {bitwise}; "
+              "device ms "
               + ", ".join(f"{e.replace('flash_attention_bwd_', '')} "
                           f"{times[e]:.4f}" for e in ENTRY_POINTS)
-              + f" (sum {row['kernel_bwd_ms']:.4f}; plain backward "
+              + f" (back to back {row['kernel_bwd_ms']:.4f}, sum "
+              f"{row['entry_sum_ms']:.4f}; plain backward "
               f"{times['plain_bwd']:.4f}, sdpa backward "
               f"{times['sdpa_bwd']:.4f}; bound {whole_ms:.4f} by "
               f"{whole_by})")
-        del q, k, v, dout, out, got, want, leaves, out_k, bufs
+        del q, k, v, dout, got, again, want, out_k, bufs
     for ln in ptxas_usage(torch, "flash_attention_bwd"):
         print(f"train bwd ptxas: {ln}")
     details["bwd_ptxas"] = ptxas_usage(torch, "flash_attention_bwd")
@@ -3666,16 +3696,12 @@ def bwd_shapes(torch, details: dict) -> dict:
     out = {}
     for e in ENTRY_POINTS:
         b_ms, b_by = first["entry_bounds"][e]
-        if e in grads:
-            err = max(r["abs_err"][g] for r in rows for g in grads[e])
-            plain, lib = first["times_ms"]["plain_bwd"], \
-                first["times_ms"]["sdpa_bwd"]
-        else:       # prep: delta against its plain version; no library call
-            err = max(r["prep_err"] for r in rows)
-            plain, lib = first["times_ms"]["plain_prep"], None
-        out[e] = {"max_abs_err": err, "ms": first["times_ms"][e],
-                  "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                  "library_ms": lib}
+        out[e] = {"max_abs_err": max(r["abs_err"][g] for r in rows
+                                     for g in grads[e]),
+                  "ms": first["times_ms"][e],
+                  "plain_ms": first["times_ms"]["plain_bwd"],
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": first["times_ms"]["sdpa_bwd"]}
     return out
 
 

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where a kernel launch spends its device time, on one NVIDIA card.
 
-    python3 kernel_parts.py [--out PATH]
+    python3 kernel_parts.py [--out PATH] [--only {split,flash,bwd}]
 
 Builds variants of the kernel sources into ``build/kernel_parts/``, each
 with parts of the main loop taken out, and times them: the split-GEMM
 kernels at resnet18's distinct layer shapes, each launch under
 ``fused_hetero_gemm.split_plan``'s tile and K split, and the flash kernel
 at the serving prefill, S=2048, decode, decode4 and the three D=256
-shapes (:data:`FLASH_SHAPES`), each under ``flash_attention.flash_plan``.
-Each variant's ptxas report (registers, spills) is printed as it is
+shapes (:data:`FLASH_SHAPES`), each under ``flash_attention.flash_plan``,
+and the flash backward's two entry points (:data:`BWD_SHAPES`). Each
+variant's ptxas report (registers, spills) is printed as it is
 built.
 
 ``src/repro_torch/kernels/csrc/fused_split_gemm.cu``, its
@@ -55,6 +56,24 @@ the full kernel launched in the prefill form instead (one 64-row block
 per query head), which computes the same output, to weigh the decode
 form against it.
 
+``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, each entry point
+alone and the two back to back (``pair``, as a train step runs them) at
+seamless's encoder shape, llama's S=2048, qwen2-vl's D=128 and the D=128
+GQA shape whose tiles cross the diagonal (:data:`BWD_SHAPES`), as
+variants (:data:`BWD_VARIANTS`):
+
+    full          the kernel as it is
+    no_mma        the tensor-core products taken out (the wgmma
+                  instructions commented out, their accumulators left
+                  as they are), so the tile loop, the softmax and the
+                  masks stay
+    copies_only   only the streamed tiles' copies and the epilogue (the
+                  consumers release each stage as it lands)
+    empty         no copies either: launch, the pipeline's barriers and
+                  the epilogue
+    no_pdl        dkdv launched as an ordinary launch, not as a
+                  programmatic dependent of dq (timed as the pair)
+
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
 is the difference between two variants; the variants compute wrong
@@ -66,6 +85,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -139,6 +159,27 @@ FLASH_VARIANTS = {
     "one_pass": [("  constexpr int NPASS = DV >= 256 ? 2 : 1;\n",
                   "  constexpr int NPASS = 1;\n")],
 }
+#: (statement, replacement, occurrences): the wgmma helpers, one per shape
+_BWD_NO_MMA = ('"wgmma.mma_async', '"// wgmma.mma_async', 3)
+_BWD_NO_COMPUTE = [("dkdv_tile<D>(", "if (false) dkdv_tile<D>("),
+                   ("dq_tile<D>(", "if (false) dq_tile<D>(")]
+_BWD_NO_COPIES = [
+    ('"cp.async.bulk.tensor', '"// cp.async.bulk.tensor'),
+    ('"mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;',
+     '"mbarrier.arrive.shared::cta.b64 _, [%0];')]
+#: flash_attention_bwd.cu (dq and dkdv on wgmma and TMA): variant ->
+#: edits
+BWD_VARIANTS = {
+    "full": [],
+    "no_mma": [_BWD_NO_MMA],
+    "copies_only": _BWD_NO_COMPUTE,
+    "empty": [*_BWD_NO_COMPUTE, *_BWD_NO_COPIES],
+    "no_pdl": [("m, a, true);", "m, a, false);", 2)],
+}
+#: chip_smoke.BWD_SHAPES rows timed here: seamless's encoder (the
+#: training path's), llama's GQA at S 2048, qwen2-vl's D=128 and the D=128
+#: GQA shape whose tiles cross the diagonal
+BWD_SHAPES = ("seamless_enc", "llama_s2048", "qwen2vl_d128", "gqa_d128")
 #: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048,
 #: the two decode-form shapes, the three at D=256 and deepseek-v2's MLA
 #: prefill (keys 192 wide, values 128)
@@ -156,7 +197,9 @@ SHAPES = {
 def build_variants(source: str, variants: dict) -> dict[str, ctypes.CDLL]:
     """One nvcc per variant of ``csrc/<source>.cu``, all started
     together; each library's entry points bound as ``build.SOURCES``
-    says."""
+    says. An edit is (statement, replacement), the statement found
+    exactly once, or (statement, replacement, n), found exactly n
+    times."""
     from repro_torch.kernels import build
     path = CSRC / f"{source}.cu"
     text = path.read_text()
@@ -164,10 +207,11 @@ def build_variants(source: str, variants: dict) -> dict[str, ctypes.CDLL]:
     procs = {}
     for name, edits in variants.items():
         src = text
-        for old, new in edits:
-            if src.count(old) != 1:
+        for old, new, *n in edits:
+            if src.count(old) != (n[0] if n else 1):
                 raise SystemExit(f"error: variant {name}: {old!r} is not "
-                                 f"in {path.name} exactly once")
+                                 f"in {path.name} {n[0] if n else 1} "
+                                 f"time(s)")
             src = src.replace(old, new)
         stem = OUT_DIR / f"{source}-{name}"
         stem.with_suffix(".cu").write_text(src)
@@ -198,6 +242,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the times as "
                     "JSON here")
+    ap.add_argument("--only", choices=("split", "flash", "bwd"),
+                    default=None, help="time one kernel family only")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -207,7 +253,11 @@ def main(argv=None) -> int:
     from chip_smoke import device_times, nvidia_smi
 
     print(f"card: {nvidia_smi()}")
-    rows = time_split(torch, device_times) + time_flash(torch, device_times)
+    rows = []
+    for family, fn in (("split", time_split), ("flash", time_flash),
+                       ("bwd", time_bwd)):
+        if args.only in (None, family):
+            rows += fn(torch, device_times)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
@@ -258,6 +308,61 @@ def time_flash(torch, device_times) -> list[dict]:
               f"Hkv={hkv} D={d} DV={dv} {plan.form} grid {plan.grid}: "
               + "; ".join(
                   f"{vname} {t:.2f} us" for vname, t in us.items()))
+    return rows
+
+
+def time_bwd(torch, device_times) -> list[dict]:
+    """The backward's variants at :data:`BWD_SHAPES`, each entry point
+    timed alone and the two as a pair."""
+    from chip_smoke import BWD_SHAPES as SMOKE_SHAPES
+    from repro_torch.kernels import flash_attention_bwd as fab
+    libs = build_variants("flash_attention_bwd", BWD_VARIANTS)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for shape in SMOKE_SHAPES:
+        name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+        if name not in BWD_SHAPES:
+            continue
+        q, k, v, out, dout = (
+            torch.randn(sh, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+            for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                       (b, sq, hq, d), (b, sq, hq, d)))
+        # the row statistics of a softmax over ~Skv keys of unit scores
+        lse = torch.full((b, hq, sq), math.log(skv), device="cuda")
+        delta = torch.empty((b, hq, sq), device="cuda")
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        args = fab.entry_args(q, k, v, out, dout, lse, delta, *grads,
+                              d ** -0.5, causal, off)
+
+        def run(lib, entry):
+            rc = getattr(lib, entry)(*args[entry], stream)
+            if rc:
+                raise RuntimeError(f"{entry} failed with error {rc}")
+
+        def pair(lib):
+            for entry in fab.ENTRY_POINTS:
+                run(lib, entry)
+        fns = {}
+        for vname, lib in libs.items():
+            if vname != "no_pdl":
+                for entry in fab.ENTRY_POINTS:
+                    short = entry.replace("flash_attention_bwd_", "")
+                    fns[f"{vname}/{short}"] = (
+                        lambda lib=lib, entry=entry: run(lib, entry), 20)
+            if vname in ("full", "no_pdl"):
+                fns[f"{vname}/pair"] = (lambda lib=lib: pair(lib), 20)
+        # dkdv alone reads the delta dq writes
+        run(libs["full"], "flash_attention_bwd_dq")
+        us = {key: 1e3 * t for key, t in device_times(torch, fns).items()}
+        rows.append({"kernel": "flash_attention_bwd", "shape": name, "b": b,
+                     "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d,
+                     "causal": causal, "kv_offset": off, "us": us})
+        print(f"flash_attention_bwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+              f"Hkv={hkv} D={d} causal={causal}: " + "; ".join(
+                  f"{key} {t:.2f} us" for key, t in us.items()))
+        del q, k, v, out, dout, lse, delta, grads
     return rows
 
 

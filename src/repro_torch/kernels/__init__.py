@@ -7,7 +7,7 @@ plain PyTorch version beside it.
   int4_gemm         — packed-int4 GEMM (the DSP-core side)
   flash_attention   — online-softmax attention (the LM's prefill, every
                       attention of a train step), with its gradient
-  flash_attention_bwd — the attention's backward (prep, dk/dv, dq)
+  flash_attention_bwd — the attention's backward (dq with delta, then dk/dv)
   build             — nvcc build, ctypes loader, launch counters
   ref               — plain versions of the reference's oracles
   ops               — public wrappers (weight preparation, dispatch)

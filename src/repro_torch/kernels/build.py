@@ -57,12 +57,10 @@ SOURCES = {
                             *[_L] * 12, _P, _F, _I, _I, _I, _P],
     },
     "flash_attention_bwd": {
-        "flash_attention_bwd_prep": [_P, _P, _P, _I, _I, _I, _I, *[_L] * 6,
-                                     _P],
+        "flash_attention_bwd_dq": [*[_P] * 8, *[_I] * 6, *[_L] * 15, _F, _I,
+                                   _I, _P],
         "flash_attention_bwd_dkdv": [*[_P] * 8, *[_I] * 6, *[_L] * 12, _F,
                                      _I, _I, _P],
-        "flash_attention_bwd_dq": [*[_P] * 7, *[_I] * 6, *[_L] * 12, _F, _I,
-                                   _I, _P],
     },
 }
 #: the source that defines each entry point

@@ -29,7 +29,7 @@ gradient there.
 Training. On CUDA tensors that need a gradient (grad mode on and q, k or
 v requiring it) the call goes through :class:`FlashAttentionFn`: the
 forward launch also writes each row's log-sum-exp, and the backward is
-the hand-written kernel of ``flash_attention_bwd`` (three launches),
+the hand-written kernel of ``flash_attention_bwd`` (two launches),
 for the (key, value) head sizes :data:`BWD_HEAD_DIMS`; any other pair
 raises at forward time (:func:`kernel_route`) rather than return an
 output without a ``grad_fn``. Under ``no_grad`` / ``inference_mode``
@@ -287,7 +287,7 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel with its gradient: the forward launch writes the
     log-sum-exp beside the output, and the backward launches
-    ``flash_attention_bwd``'s three entry points on the saved q, k, v,
+    ``flash_attention_bwd``'s two entry points on the saved q, k, v,
     output and log-sum-exp."""
 
     @staticmethod

@@ -5,14 +5,19 @@ The reference trains by XLA's derivative of ``models/layers.py::
 blockwise_attention`` (its Pallas kernel has no backward). In the port
 the forward of that schedule is the CUDA kernel of ``flash_attention``,
 so its gradient is the CUDA kernel of ``csrc/flash_attention_bwd.cu``,
-FlashAttention-2's three entry points:
+FlashAttention-2's backward on Hopper's wgmma and TMA in two entry
+points, launched in this order:
 
-  flash_attention_bwd_prep — delta = rowsum(dout * out), fp32 [B, Hq, Sq];
-  flash_attention_bwd_dkdv — dk and dv, one block per (64-key tile, KV
-                             head, batch) over every query tile of the
-                             KV head's query heads (no atomics);
   flash_attention_bwd_dq   — dq, one block per (64-row query tile, query
-                             head, batch) over the KV tiles.
+                             head, batch) over the KV tiles; it also
+                             computes its rows' delta = rowsum(dout *
+                             out), fp32 [B, Hq, Sq], and writes it for
+                             dkdv;
+  flash_attention_bwd_dkdv — dk and dv, one block per (64-key tile, KV
+                             head, batch) over the query tiles of the KV
+                             head's query heads (no two blocks add into
+                             one dk or dv, and no floating-point atomics,
+                             so the gradients are bitwise repeatable).
 
 Each recomputes p = exp(s - lse) from the forward's log-sum-exp, with the
 forward's causal, ``kv_offset`` and ragged masks, for the (key, value)
@@ -20,9 +25,9 @@ head sizes :data:`BWD_HEAD_DIMS`, bf16 in and out. :func:`flash_attention_bwd`
 launches them and counts each launch; ``FlashAttentionFn`` (in
 ``flash_attention``) calls it. :func:`flash_attention_bwd_plain` is the
 plain version, autograd through ``flash_attention_plain``, and
-:func:`bwd_prep_plain` the plain version of the first entry point; the
-tests and ``chip_smoke.py`` compare the kernel with them, and no path of
-the port takes them on the card.
+:func:`bwd_prep_plain` the plain version of delta; the tests and
+``chip_smoke.py`` compare the kernel with them, and no path of the port
+takes them on the card.
 """
 from __future__ import annotations
 
@@ -32,13 +37,14 @@ from repro_torch.kernels.build import launch
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, \
     check_kernel_operands, flash_attention_plain
 
-ENTRY_POINTS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
-                "flash_attention_bwd_dq")
+#: in launch order: dq writes the delta that dkdv reads
+ENTRY_POINTS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
 
 def bwd_prep_plain(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """delta [B, Hq, Sq] fp32: the sum over the head dimension of
-    ``dout * out`` ([B, Sq, Hq, D] each), widened to fp32 first."""
+    ``dout * out`` ([B, Sq, Hq, D] each), widened to fp32 first (what the
+    dq launch writes)."""
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -65,25 +71,24 @@ def entry_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                delta: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
                dv: torch.Tensor, scale: float, causal: bool,
                kv_offset: int) -> dict[str, tuple]:
-    """Each entry point's arguments before the stream: prep writes
-    ``delta`` from ``out`` and ``dout``; dkdv writes ``dk`` and ``dv``,
-    dq writes ``dq``, both reading ``lse`` and ``delta``."""
+    """Each entry point's arguments before the stream: dq writes ``dq``
+    and ``delta`` (from ``out`` and ``dout``); dkdv writes ``dk`` and
+    ``dv`` from ``lse`` and ``delta``."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               *dout.stride()[:3])
     tail = (float(scale), int(causal), int(kv_offset))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
+    qkv = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     return {
-        "flash_attention_bwd_prep": (
-            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), b, sq, hq,
-            v.shape[-1], *out.stride()[:3], *dout.stride()[:3]),
-        "flash_attention_bwd_dkdv": (
-            *ptrs, dk.data_ptr(), dv.data_ptr(), b, sq, skv, hq, hkv, d,
-            *strides, *tail),
         "flash_attention_bwd_dq": (
-            *ptrs, dq.data_ptr(), b, sq, skv, hq, hkv, d, *strides, *tail),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, sq, skv, hq, hkv, d, *qkv,
+            *out.stride()[:3], *dout.stride()[:3], *tail),
+        "flash_attention_bwd_dkdv": (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, skv, hq, hkv, d, *qkv,
+            *dout.stride()[:3], *tail),
     }
 
 
@@ -92,11 +97,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: torch.Tensor, scale: float, causal: bool,
                         kv_offset: int
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) on the card: the three entry points, each launch
-    counted. q [B, Sq, Hq, D], k / v [B, Skv, Hkv, D], out / dout
-    [B, Sq, Hq, D], bf16 (``dout`` is made contiguous, which autograd's
-    cotangent usually already is); ``lse`` [B, Hq, Sq] fp32 from the forward
-    launch. The gradients are contiguous bf16 in their inputs' shapes."""
+    """(dq, dk, dv) on the card: each entry point launched once, in the
+    order of :data:`ENTRY_POINTS`, and counted. q [B, Sq, Hq, D], k / v
+    [B, Skv, Hkv, D], out / dout [B, Sq, Hq, D], bf16 (``dout`` is made
+    contiguous, which autograd's cotangent usually already is); ``lse``
+    [B, Hq, Sq] fp32 from the forward launch. The gradients are contiguous
+    bf16 in their inputs' shapes."""
     b, sq, hq, d = q.shape
     _, skv, hkv, dv = v.shape
     if (d, dv) not in BWD_HEAD_DIMS:

@@ -395,7 +395,10 @@ def test_bwd_entry_args_fill_the_signatures():
     for name, a in args.items():
         assert len(a) == len(build.SOURCES["flash_attention_bwd"][name]) - 1
     assert args["flash_attention_bwd_dkdv"][8:14] == (2, 40, 50, 8, 2, 64)
+    assert args["flash_attention_bwd_dq"][8:14] == (2, 40, 50, 8, 2, 64)
+    assert args["flash_attention_bwd_dq"][3] == out.data_ptr()
     assert args["flash_attention_bwd_dq"][-3:] == (0.125, 1, 10)
+    assert args["flash_attention_bwd_dkdv"][-3:] == (0.125, 1, 10)
 
 
 @pytest.mark.parametrize("d,dv", [(192, 128), (256, 256), (16, 16)])

@@ -271,6 +271,39 @@ Phases, each printing its lines before the last:
    Last, a checkpoint of llama3.2-1b's smoke config (fp32) on the card
    saved at step 2 and restored into a fresh state: steps 3-4 bitwise
    equal to steps 3-4 without the restart.
+13. parallel: the parallel layer on ``torch.distributed``. First
+   ``launch.train.main`` under a world-1 ``torchrun`` environment with
+   no group made for it (:func:`torchrun_world_one`): it makes its own
+   NCCL group, trains and tears the group down, bitwise equal to one
+   plain process. A world-1 NCCL group on the card and
+   ``make_host_mesh``: ``shard_params_tree`` of seamless-m4t-large-v2's
+   parameters (published widths cut to :data:`PARALLEL_LAYERS` encoder
+   and decoder layers, :func:`cut_seamless`) gives DTensors on ``cuda``
+   bitwise equal to them, and
+   ``compressed_grad_allreduce(axis_name="data")`` over the group is
+   bitwise equal to ``axis_name=None``. Then :data:`DP_RANKS` ranks
+   spawned over gloo share the card, each running
+   ``repro_torch.launch.train.main`` on that arch at
+   :data:`PARALLEL_TRAIN` (``TRAIN_SEAMLESS``'s global batch 8 x 256, 2
+   steps, a checkpoint each step): each rank's flash launches over the
+   run exactly :func:`train_launches`', finite losses, the ranks'
+   losses and final states bitwise equal; against the one-process
+   launcher on the same global batch, as :func:`step_agreement` holds
+   it, step 1's loss and gradient norm and step 2's loss within
+   :data:`STEP_TOL`, and step 1's state read back from both runs'
+   checkpoints by :func:`state_agreement` (first moments within
+   ``STEP_TOL["moments"]``, every updated bf16 parameter within one
+   bf16 step); host ms a step, the profiled step's device ms,
+   ``reduce_gradients``' ms and bytes, peak GiB per rank, and whether
+   gloo reduces bf16 CUDA tensors. Rank 0's last checkpoint restores in
+   this process onto the world-1 mesh as DTensors with the spec tree's
+   placements, bitwise (a digest of the whole state). ``gpipe`` over 4
+   gloo ranks on the card runs llama3.2-1b's 16 decoder layers at
+   published width (:data:`PIPE`): every rank's output bitwise equal
+   to the same stages run one after another in this process; ms a
+   tick. With 2 or more cards the data-parallel run repeats over NCCL,
+   one rank a card (up to 4);
+   with one it prints that it did not run.
 
 Each phase prints its seconds ("time: phase ..."). The line before the
 last is the kernels' JSON summary; the last line
@@ -3764,6 +3797,37 @@ def first_batch(torch, arch, argv: list) -> dict:
     return batch
 
 
+def state_agreement(torch, params, params_ref, moments, moments_ref,
+                    lr: float) -> dict:
+    """Two step-1 states (leaf lists) held against each other as
+    :data:`STEP_TOL` holds them: the first moments' relative L2 over all
+    leaves (m is 0.1 times the clipped gradient, so this holds each
+    leaf's gradient) and the four worst leaves'; the updated parameters
+    outside one bf16 step (2^-7 |ref| + 2 lr x 1.01: a near-zero
+    gradient may take the other sign) and the share of them bitwise
+    equal (mean over leaves)."""
+    if not (len(params) == len(params_ref) and
+            len(moments) == len(moments_ref)):
+        raise AssertionError("the two states have different leaves")
+    num = den = 0.0
+    per_leaf = []
+    for i, (a, b) in enumerate(zip(moments, moments_ref)):
+        n, dd = float(torch.sum(torch.square(a - b))), \
+            float(torch.sum(torch.square(b)))
+        num, den = num + n, den + dd
+        per_leaf.append((math.sqrt(n / max(dd, 1e-30)), i))
+    p_bad, p_frac = 0, []
+    for a, b in zip(params, params_ref):
+        bf = b.float()
+        bound = 2 ** -7 * bf.abs() + 2 * lr * 1.01
+        p_bad += int(((a.float() - bf).abs() > bound).sum())
+        p_frac.append(float((a == b).float().mean()))
+    return {"moments_rel_l2": math.sqrt(num / max(den, 1e-30)),
+            "worst_leaves": sorted(per_leaf, reverse=True)[:4],
+            "params_outside": p_bad,
+            "params_bitwise_share": statistics.mean(p_frac)}
+
+
 def step_agreement(torch, arch, argv: list) -> dict:
     """Step 1 through the kernels and with ``attn_mode="ref"`` from one
     state on one batch, held to :data:`STEP_TOL`; also the device time
@@ -3792,30 +3856,16 @@ def step_agreement(torch, arch, argv: list) -> dict:
     lr = float(m_r["lr"])
     loss_err = abs(float(m_k["loss"]) - float(m_r["loss"]))
     gn_err = abs(float(m_k["grad_norm"]) - float(m_r["grad_norm"]))
-    num = den = 0.0
-    per_leaf = []
-    for i, (a, b) in enumerate(zip(tree_leaves(mom_k),
-                                   tree_leaves(s_r.opt.m))):
-        n, dd = float(torch.sum(torch.square(a - b))), \
-            float(torch.sum(torch.square(b)))
-        num, den = num + n, den + dd
-        per_leaf.append((math.sqrt(n / max(dd, 1e-30)), i))
-    mom_err = math.sqrt(num / max(den, 1e-30))
-    worst = sorted(per_leaf, reverse=True)[:4]
-    p_bad, p_frac = 0, []
-    for a, b in zip(tree_leaves(new_k), tree_leaves(s_r.params)):
-        bf = b.float()
-        bound = 2 ** -7 * bf.abs() + 2 * lr * 1.01
-        p_bad += int(((a.float() - bf).abs() > bound).sum())
-        p_frac.append(float((a == b).float().mean()))
+    agree = state_agreement(torch, tree_leaves(new_k),
+                            tree_leaves(s_r.params), tree_leaves(mom_k),
+                            tree_leaves(s_r.opt.m), lr)
+    mom_err, p_bad = agree["moments_rel_l2"], agree["params_outside"]
+    worst = agree["worst_leaves"]
     result = {"loss_kernel": float(m_k["loss"]),
               "loss_ref": float(m_r["loss"]), "loss_err": loss_err,
               "grad_norm_kernel": float(m_k["grad_norm"]),
               "grad_norm_ref": float(m_r["grad_norm"]),
-              "grad_norm_err": gn_err, "moments_rel_l2": mom_err,
-              "params_outside": p_bad,
-              "params_bitwise_share": statistics.mean(p_frac),
-              "worst_leaves": worst}
+              "grad_norm_err": gn_err, **agree}
     del s_r, new_k, mom_k
     print(f"train: {arch.arch_id} step 1 kernels vs attn_mode=ref: loss "
           f"{result['loss_kernel']:.6f} vs {result['loss_ref']:.6f}, |g| "
@@ -3973,6 +4023,575 @@ def phase_train(torch, details: dict) -> dict:
     return {"rows": rows, "launches": window}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the parallel layer
+# ---------------------------------------------------------------------------
+
+#: seamless-m4t-large-v2 at published widths cut to this many encoder and
+#: decoder layers, so that two data-parallel ranks and the one-process
+#: reference share the card and the phase stays short
+PARALLEL_LAYERS = 6
+#: the data-parallel run: TRAIN_SEAMLESS's global batch 8 x seq 256, 2
+#: steps, on the cut arch (its id is filled in by :func:`cut_seamless`)
+PARALLEL_TRAIN = ["--batch", "8", "--seq", "256", "--steps", "2", "--seed",
+                  "0", "--log-every", "1"]
+#: ranks sharing the card over gloo in the data-parallel run
+DP_RANKS = 2
+#: the pipeline: llama3.2-1b's 16 decoder layers at published width, 4
+#: stages x 4 layers, 8 micro-batches of 1 x 256 tokens, bf16 inputs
+#: 0.5 N(0, 1) from a seeded generator on the card
+PIPE = dict(arch="llama3.2-1b", stages=4, n_micro=8, batch=8, seq=256,
+            seed=3)
+#: the workers' time limit (spawned ranks are killed past it)
+RANK_TIMEOUT_S = 400
+
+
+def cut_seamless() -> str:
+    """Register seamless-m4t-large-v2 cut to :data:`PARALLEL_LAYERS`
+    encoder and decoder layers (published widths) under an arch id of
+    its own, once per process; returns the id."""
+    import dataclasses
+    from repro_torch.configs import registry
+    base = registry.get("seamless-m4t-large-v2")
+    n = PARALLEL_LAYERS
+    arch_id = f"{base.arch_id}-{n}+{n}L"
+    if arch_id not in registry.list_archs():
+        registry.register(dataclasses.replace(
+            base, arch_id=arch_id, model=dataclasses.replace(
+                base.model, n_enc_layers=n, n_dec_layers=n)))
+    return arch_id
+
+
+def _words(torch, b):
+    """Bytes (a uint8 tensor) zero-padded to whole int32 words."""
+    pad = (-b.numel()) % 4
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    return b.view(torch.int32)
+
+
+def state_digest(torch, state) -> list:
+    """Per leaf of a train state (params, moments, count, step), two int64
+    sums over its bytes read as int32 words (plain and weighted by the
+    word's index mod 1000003): equal tensors give equal digests, and a
+    changed word changes them."""
+    from repro_torch.models.layers import tree_leaves
+    leaves = (tree_leaves(state.params) + tree_leaves(state.opt.m) +
+              tree_leaves(state.opt.v) + [state.opt.count, state.step])
+    out = []
+    for t in leaves:
+        w = _words(torch, t.detach().contiguous().reshape(-1)
+                   .view(torch.uint8)).long()
+        idx = torch.arange(w.numel(), device=w.device) % 1000003 + 1
+        out.append([int(w.sum()), int((w * idx).sum())])
+    return out
+
+
+def step1_state(torch, arch, ckpt_dir: str) -> tuple[list, list]:
+    """Step 1's parameters and first moments, as leaf lists on the card,
+    from the checkpoint that a launcher run with ``--ckpt-every 1``
+    wrote (only those leaves are read)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.step import TrainState
+    abstract = arch.model_module().abstract(arch.model)
+    like = TrainState(
+        params=tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="cuda"), abstract),
+        opt=OptState(m=tree_map(lambda t: torch.empty(
+            t.shape, dtype=torch.float32, device="cuda"), abstract),
+            v=None, count=None),
+        step=None)
+    got = CheckpointManager(ckpt_dir).restore(like, step=1)
+    return tree_leaves(got.params), tree_leaves(got.opt.m)
+
+
+def dp_worker(rank: int, world: int, out_dir: str, argv: list,
+              ckpt_dir: str) -> None:
+    """One data-parallel rank: ``launch.train.main(argv)`` under the group
+    with ``--ckpt-dir ckpt_dir --ckpt-every 1`` (rank 0 writes each
+    step's state), its flash launches over the run read. Then one more
+    step under the profiler (device ms), ``reduce_gradients`` on the
+    parameters' shapes timed, the final state's digest and peak memory,
+    written to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import make_train_step, reduce_gradients
+    arch = registry.get(cut_seamless())
+    # whether this group's backend reduces bf16 CUDA tensors (the train
+    # step reduces an fp32 bucket either way)
+    probe = torch.ones(4, dtype=torch.bfloat16, device="cuda")
+    try:
+        dist.all_reduce(probe)
+        bf16 = f"sums to {probe[0].item()}"
+    except RuntimeError as e:
+        bf16 = f"refused: {str(e).splitlines()[0][:120]}"
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    res = train.main(["--arch", arch.arch_id, "--ckpt-dir", ckpt_dir,
+                      "--ckpt-every", "1", *argv])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    mesh, rows = res["mesh"], res["rows"]
+    get = lambda f: int(argv[argv.index(f) + 1])  # noqa: E731
+    b, s, seed = get("--batch"), get("--seq"), get("--seed")
+    batch = {k: t[rows].cuda() for k, t in SyntheticTokens(
+        arch.model.vocab, b, s, seed=seed).next_batch().items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch["frames"] = train.step_frames(gen, b, s, arch.model.d_model,
+                                        "cuda")[rows]
+    step_fn = make_train_step(arch, AdamWConfig(total_steps=get("--steps")),
+                              mesh=mesh)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(res["state"], batch)
+        torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    LAUNCHES.clear()
+    ar_ms = []
+    for _ in range(2):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_gradients(res["state"].params, mesh)
+        torch.cuda.synchronize()
+        ar_ms.append(1e3 * (time.perf_counter() - t0))
+    numel = sum(p.numel() for p in tree_leaves(res["state"].params))
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "bf16_allreduce": bf16,
+           "device": torch.cuda.current_device(),
+           "mesh": [list(mesh.mesh_dim_names), list(mesh.shape)],
+           "rows": [rows.start, rows.stop], "launches": launches,
+           "losses": [float(m["loss"]) for m in res["metrics"]],
+           "grad_norms": [float(m["grad_norm"]) for m in res["metrics"]],
+           "lrs": [float(m["lr"]) for m in res["metrics"]],
+           "step_host_ms": [1e3 * t for t in res["step_s"]],
+           "profiled_step_host_ms": host_ms,
+           "profiled_step_device_ms": us / 1e3 if us else None,
+           "allreduce_ms": ar_ms, "allreduce_bytes": 4 * numel,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "digest": state_digest(torch, res["state"])}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def pipe_stage_body(torch, cfg):
+    """One stage's body: its layers of the LM stack in order, each the
+    model's own pre-norm block (``lm._layer_apply``) at positions
+    0..S-1, as ``lm.forward`` runs them."""
+    from repro_torch.models import lm
+
+    def body(p_stage, h):
+        pos = lm._positions(h.shape[0], h.shape[1], 0, h.device)
+        for i in range(p_stage["ln_attn"].shape[0]):
+            h, _ = lm._layer_apply(lm._layer(p_stage, i), h, pos, cfg)
+        return h
+    return body
+
+
+def pipe_inputs(torch):
+    """:data:`PIPE`'s llama3.2-1b stack (the model's own init from the
+    seed) and its input batch, on the card."""
+    from repro_torch.configs import registry
+    arch = registry.get(PIPE["arch"])
+    cfg = arch.model
+    params = arch.model_module().init(
+        cfg, torch.Generator(device="cuda").manual_seed(PIPE["seed"]))
+    layers = params["layers"]
+    del params
+    x = 0.5 * torch.randn((PIPE["batch"], PIPE["seq"], cfg.d_model),
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(PIPE["seed"] + 1), device="cuda")
+    return cfg, layers, x.to(cfg.param_dtype)
+
+
+def pipe_worker(rank: int, world: int, out_dir: str) -> None:
+    """One pipeline stage: ``gpipe`` over a ("pod",) mesh of ``world``
+    stages on the stacked layers; the output, every rank's equal to rank
+    0's (bitwise), and ms a tick of the second call."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel import gpipe, stage_params_from_stack
+    cfg, layers, x = pipe_inputs(torch)
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    run = gpipe(pipe_stage_body(torch, cfg), mesh, "pod", PIPE["n_micro"])
+    stages = stage_params_from_stack(layers, world)
+    with torch.no_grad():
+        y = run(stages, x)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        y2 = run(stages, x)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    ref = y.clone()
+    dist.broadcast(ref, 0)
+    out = {"same_as_rank0": bool(torch.equal(y, ref)),
+           "second_call_same": bool(torch.equal(y, y2)),
+           "ms": ms, "ticks": PIPE["n_micro"] + world - 1,
+           "backend": dist.get_backend()}
+    if rank == 0:
+        torch.save(y.cpu(), Path(out_dir) / "pipe_y.pt")
+    (Path(out_dir) / f"pipe{rank}.json").write_text(json.dumps(out))
+
+
+def one_process_reference(torch, arch_id: str, tmp: str) -> dict:
+    """The one-process launcher on the cut arch at :data:`PARALLEL_TRAIN`
+    (no process group), with a checkpoint each step under ``tmp``: every
+    step's metrics and step 1's parameters and first moments."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    ckpt = str(Path(tmp) / "ckpt-one-process")
+    torch.cuda.empty_cache()
+    res = train.main(["--arch", arch_id, "--ckpt-dir", ckpt,
+                      "--ckpt-every", "1", *PARALLEL_TRAIN])
+    keep = {"losses": [float(m["loss"]) for m in res["metrics"]],
+            "grad_norms": [float(m["grad_norm"]) for m in res["metrics"]],
+            "lrs": [float(m["lr"]) for m in res["metrics"]],
+            "step_host_ms": [1e3 * t for t in res["step_s"]]}
+    del res
+    torch.cuda.empty_cache()
+    keep["params"], keep["moments"] = step1_state(
+        torch, registry.get(arch_id), ckpt)
+    return keep
+
+
+#: the launcher's own group: llama3.2-1b's smoke config (fp32, no flash
+#: launch) under a world-1 torchrun environment, and as one process
+TORCHRUN_ARGV = ["--arch", "llama3.2-1b", "--smoke", "--batch", "2",
+                 "--seq", "64", "--steps", "2", "--seed", "0",
+                 "--log-every", "1"]
+
+
+def torchrun_world_one(torch, out: dict) -> None:
+    """``launch.train.main`` with no group made for it, under a world-1
+    ``torchrun`` environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT): it makes an NCCL group on cuda:0 (its log names the
+    backend), trains on the (1, 1) host mesh and tears the group down;
+    its parameters bitwise equal to the plain one-process run's (a world
+    of one reduces nothing)."""
+    import io
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch.launch.ranks import free_port
+    from repro_torch.models.layers import tree_leaves
+    plain = train.main(TORCHRUN_ARGV)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    if dist.is_initialized() or any(k in os.environ for k in env):
+        raise AssertionError("parallel: a group or a torchrun environment "
+                             "exists before the torchrun-style run")
+    os.environ.update(env)
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            res = train.main(TORCHRUN_ARGV)
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    said = [ln for ln in log.getvalue().splitlines()
+            if ln.startswith("# data parallel")]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(res["state"].params), tree_leaves(plain["state"].params)))
+    got = {"log": said, "mesh": [list(res["mesh"].mesh_dim_names),
+                                 list(res["mesh"].shape)],
+           "group_left": dist.is_initialized(), "bitwise": same}
+    print(f"parallel: launch.train under a world-1 torchrun environment "
+          f"(no group made for it): {said}, mesh {got['mesh']}, group torn "
+          f"down {not got['group_left']}; params bitwise equal to the plain "
+          f"one-process run: {same}")
+    out["torchrun"] = got
+    if not (said == ["# data parallel: world 1 over nccl, mesh ('data', "
+                     "'model') (1, 1)"] and not got["group_left"] and same):
+        raise AssertionError(f"parallel: torchrun-style launch {got}")
+
+
+def nccl_world_one(torch, arch_id: str, out: dict):
+    """Item 1: a world-1 NCCL group on the card and ``make_host_mesh``;
+    ``shard_params_tree`` of the cut seamless's parameters bitwise equal
+    to them, and ``compressed_grad_allreduce(axis_name="data")`` over
+    the group bitwise equal to ``axis_name=None``. Returns the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import free_port
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.parallel import compress, shard_params_tree
+    from repro_torch.parallel.sharding import DEFAULT_RULES
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    mesh = make_host_mesh("cuda")
+    arch = registry.get(arch_id)
+    mod = arch.model_module()
+    params = mod.init(arch.model, torch.Generator(device="cuda")
+                      .manual_seed(0))
+    rules = DEFAULT_RULES.replace(**arch.rule_overrides)
+    sharded = shard_params_tree(params, mod.param_axes(arch.model), mesh,
+                                rules)
+    pairs = list(zip(tree_leaves(params), tree_leaves(sharded)))
+    same = all(isinstance(d, DTensor) and d.device.type == "cuda" and
+               torch.equal(d.full_tensor(), p) and
+               torch.equal(d.to_local(), p) for p, d in pairs)
+    grads = {"g": params["dec_layers"]["mlp"]["down"][0],
+             "e": params["embed"][:4096].float(),
+             "n": params["ln_dec"]}
+    state = compress.init_compression_state(grads)
+    a, sa = compress.compressed_grad_allreduce(grads, state,
+                                               axis_name="data", mesh=mesh)
+    b, sb = compress.compressed_grad_allreduce(grads, state)
+    c_same = all(torch.equal(x, y) for x, y in
+                 zip(tree_leaves(a) + tree_leaves(sa.residual),
+                     tree_leaves(b) + tree_leaves(sb.residual)))
+    print(f"parallel: world-1 {dist.get_backend()} group, make_host_mesh "
+          f"{tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)}; "
+          f"shard_params_tree on {arch_id} ({len(pairs)} leaves, "
+          f"{sum(p.numel() for p, _ in pairs) / 1e9:.3f} B params) DTensors "
+          f"on cuda bitwise equal to the input: {same}; "
+          f"compressed_grad_allreduce(axis_name='data') over NCCL bitwise "
+          f"equal to axis_name=None (3 leaves, bf16/fp32): {c_same}")
+    out["world1"] = {"shard_bitwise": same, "compress_bitwise": c_same}
+    if not (same and c_same):
+        raise AssertionError(f"parallel: world-1 NCCL checks {out['world1']}")
+    del params, sharded, pairs, grads
+    torch.cuda.empty_cache()
+    return mesh
+
+
+def elastic_restore(torch, arch_id: str, mesh, ckpt_dir: str,
+                    digest: list, out: dict) -> None:
+    """Item 4: the data-parallel run's checkpoint (written by rank 0) in
+    this process onto the world-1 NCCL mesh, each leaf a DTensor with its
+    spec-tree placements: the state's digest equal to rank 0's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import DEFAULT_RULES, NamedSharding, \
+        spec_tree_for
+    from repro_torch.train.step import init_train_state, train_state_axes
+    arch = registry.get(arch_id)
+    mod = arch.model_module()
+    abstract = mod.abstract(arch.model)          # on meta: no storage
+    like = init_train_state(abstract)
+    specs = spec_tree_for(
+        train_state_axes(mod.param_axes(arch.model)), mesh,
+        DEFAULT_RULES.replace(**arch.rule_overrides),
+        shape_tree=train_state_axes(tree_map(lambda t: tuple(t.shape),
+                                             abstract)))
+    shardings = tree_map(
+        lambda s: None if s is None else NamedSharding(mesh, s), specs)
+    t0 = time.perf_counter()
+    got = CheckpointManager(ckpt_dir).restore(like, shardings=shardings)
+    restore_s = time.perf_counter() - t0
+    leaves = tree_leaves(got.params)
+    sharded = sum(1 for t in leaves if isinstance(t, DTensor) and any(
+        p.is_shard() for p in t.placements))
+    full = tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, got)
+    same = state_digest(torch, full) == digest
+    print(f"parallel: elastic restore of rank 0's step-"
+          f"{int(full.step)} checkpoint in one process onto the world-1 "
+          f"NCCL mesh as DTensors ({sharded} of {len(leaves)} parameter "
+          f"leaves Shard-placed by the spec tree) in {restore_s:.1f} s: "
+          f"state bitwise equal to the ranks' (digest of params, moments, "
+          f"count, step): {same}")
+    out["elastic"] = {"bitwise": same, "restore_s": restore_s,
+                      "sharded_leaves": sharded}
+    if not same:
+        raise AssertionError("parallel: the elastic restore differs from "
+                             "the ranks' final state")
+    del got, full, like
+    torch.cuda.empty_cache()
+
+
+def data_parallel(torch, arch_id: str, ref: dict, backend: str, world: int,
+                  tmp: str, what: str, out: dict) -> dict:
+    """Item 2 (and 5): :func:`dp_worker` on ``world`` ranks over
+    ``backend``. Every rank's flash launches over the run exactly
+    :func:`train_launches`' for its steps; finite losses; the ranks'
+    losses and final states (params, both moments, count, step) bitwise
+    equal. Against the one-process launcher (``ref``) as
+    :func:`step_agreement` holds it: step 1's loss and gradient norm and
+    step 2's loss within :data:`STEP_TOL`, and rank 0's step-1
+    checkpoint by :func:`state_agreement` (first moments within
+    ``STEP_TOL["moments"]``, every updated bf16 parameter within one
+    bf16 step). Step 1 leaves the ranks equal too: the reduced gradient
+    is one tensor on every rank, so a rank that differed after step 1
+    would still differ after step 2. Returns the ranks' results."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.ranks import run_ranks
+    arch = registry.get(arch_id)
+    steps = int(PARALLEL_TRAIN[PARALLEL_TRAIN.index("--steps") + 1])
+    want = train_launches(arch, steps)
+    ckpt = str(Path(tmp) / f"ckpt-{backend}")
+    run_ranks(dp_worker, world, tmp, PARALLEL_TRAIN, ckpt, backend=backend,
+              timeout=RANK_TIMEOUT_S)
+    ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+             for r in range(world)]
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"{what}: rank {r['rank']} launched "
+                                 f"{r['launches']} in {steps} steps, want "
+                                 f"{want}")
+        if not all(map(math.isfinite, r["losses"] + r["grad_norms"])):
+            raise AssertionError(f"{what}: losses {r['losses']}")
+    r0 = ranks[0]
+    equal = all(r["losses"] == r0["losses"] and r["digest"] == r0["digest"]
+                for r in ranks)
+    params, moments = step1_state(torch, arch, ckpt)
+    agree = state_agreement(torch, params, ref["params"], moments,
+                            ref["moments"], ref["lrs"][0])
+    del params, moments
+    loss_err = [abs(a - b) for a, b in zip(r0["losses"], ref["losses"])]
+    gn_err = abs(r0["grad_norms"][0] - ref["grad_norms"][0])
+    dev = [r["profiled_step_device_ms"] for r in ranks]
+    print(f"parallel: {what}: {world} ranks over {r0['backend']} on "
+          f"{'cuda:0 shared' if backend == 'gloo' else 'one card each'}, "
+          f"mesh {r0['mesh']}, rows {[r['rows'] for r in ranks]}; flash "
+          f"launches per rank in {steps} steps {want} (all ranks); losses "
+          f"{[round(x, 6) for x in r0['losses']]} vs one process "
+          f"{[round(x, 6) for x in ref['losses']]} (|err| "
+          f"{[float(f'{e:.3g}') for e in loss_err]}), |g| step 1 "
+          f"{r0['grad_norms'][0]:.6f} vs {ref['grad_norms'][0]:.6f}; step 1 "
+          f"(rank 0's checkpoint): moments relative L2 "
+          f"{agree['moments_rel_l2']:.4g}, updated params bitwise equal "
+          f"{100 * agree['params_bitwise_share']:.3f}% (mean over leaves), "
+          f"{agree['params_outside']} outside one bf16 step; worst leaves' "
+          f"moments (relative L2, leaf index) "
+          f"{[(round(e, 4), i) for e, i in agree['worst_leaves']]}; ranks' "
+          f"losses and final states bitwise equal: {equal}; bf16 "
+          f"all_reduce of CUDA tensors on this backend: "
+          f"{r0['bf16_allreduce']}")
+    print(f"parallel: {what}: host ms a step per rank "
+          f"{[[round(t, 1) for t in r['step_host_ms']] for r in ranks]} "
+          f"(one process {[round(t, 1) for t in ref['step_host_ms']]}); "
+          f"profiled step host ms "
+          f"{[round(r['profiled_step_host_ms'], 1) for r in ranks]}, device "
+          f"ms {[None if d is None else round(d, 3) for d in dev]}; "
+          f"reduce_gradients ms "
+          f"{[[round(t, 1) for t in r['allreduce_ms']] for r in ranks]} "
+          f"for {r0['allreduce_bytes']} bytes (one fp32 bucket) a step; "
+          f"peak GiB per rank {[round(r['peak_gib'], 2) for r in ranks]}")
+    result = {"ranks": ranks, "ranks_equal": equal, "loss_err": loss_err,
+              "grad_norm_err": gn_err, **agree,
+              "ref": {k: v for k, v in ref.items()
+                      if k not in ("params", "moments")}}
+    out[what] = result
+    if not equal:
+        raise AssertionError(f"{what}: ranks disagree on losses or state")
+    if not (all(e <= STEP_TOL["loss"] * abs(b)
+                for e, b in zip(loss_err, ref["losses"])) and
+            gn_err <= STEP_TOL["grad_norm"] * ref["grad_norms"][0] and
+            agree["moments_rel_l2"] <= STEP_TOL["moments"] and
+            agree["params_outside"] == 0):
+        raise AssertionError(f"{what}: against the one-process launcher "
+                             f"outside {STEP_TOL}: loss {loss_err}, |g| "
+                             f"{gn_err}, {agree}")
+    return result
+
+
+def pipeline_check(torch, tmp: str, out: dict) -> None:
+    """Item 3: :func:`pipe_worker` on :data:`PIPE`'s stages over gloo on
+    the card; the output bitwise equal on every rank and to the same
+    stages run in this process, one after another, over the same
+    micro-batches in the same order."""
+    from repro_torch.launch.ranks import run_ranks
+    stages, n_micro = PIPE["stages"], PIPE["n_micro"]
+    run_ranks(pipe_worker, stages, tmp, timeout=RANK_TIMEOUT_S)
+    ranks = [json.loads((Path(tmp) / f"pipe{r}.json").read_text())
+             for r in range(stages)]
+    y = torch.load(Path(tmp) / "pipe_y.pt").cuda()
+    from repro_torch.parallel import stage_params_from_stack
+    from repro_torch.models.layers import tree_map
+    cfg, layers, x = pipe_inputs(torch)
+    body = pipe_stage_body(torch, cfg)
+    st = stage_params_from_stack(layers, stages)
+    mbs = x.reshape(n_micro, -1, *x.shape[1:])
+    with torch.no_grad():
+        serial = []
+        for m in range(n_micro):
+            h = mbs[m]
+            for s in range(stages):
+                h = body(tree_map(lambda p: p[s], st), h)
+            serial.append(h)
+        serial = torch.stack(serial).reshape(x.shape)
+    same = torch.equal(y, serial)
+    ticks = ranks[0]["ticks"]
+    print(f"parallel: gpipe {PIPE['arch']} {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} bf16, {stages} stages over gloo on the card "
+          f"(boundary tensors through host memory), n_micro {n_micro} x "
+          f"[{PIPE['batch'] // n_micro}, {PIPE['seq']}]: output bitwise "
+          f"equal to the serial layers in one process: {same}; every rank "
+          f"equal to rank 0's {all(r['same_as_rank0'] for r in ranks)}; "
+          f"ms a tick (second call, {ticks} ticks) "
+          f"{[round(r['ms'] / ticks, 3) for r in ranks]}")
+    out["pipeline"] = {"bitwise": same, "ranks": ranks}
+    if not (same and all(r["same_as_rank0"] for r in ranks)):
+        raise AssertionError("parallel: gpipe differs from the serial "
+                             "layers")
+    del layers, x, st, y, serial
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(torch, details: dict) -> dict:
+    """Phase 13. Returns the flash launches of the data-parallel ranks'
+    runs (the main path's), summed over the ranks."""
+    import tempfile
+    import torch.distributed as dist
+    import gc
+    out = details.setdefault("parallel", {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"parallel: this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
+          f"at the phase's start (the spawned ranks share it)")
+    arch_id = cut_seamless()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = one_process_reference(torch, arch_id, tmp)
+    torchrun_world_one(torch, out)
+    mesh = nccl_world_one(torch, arch_id, out)
+    launches = collections.Counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dp = data_parallel(torch, arch_id, ref, "gloo", DP_RANKS, tmp,
+                               "data-parallel", out)
+            for r in dp["ranks"]:
+                launches.update(r["launches"])
+            elastic_restore(torch, arch_id, mesh, str(Path(tmp) /
+                                                      "ckpt-gloo"),
+                            dp["ranks"][0]["digest"], out)
+        with tempfile.TemporaryDirectory() as tmp:
+            pipeline_check(torch, tmp, out)
+        n = torch.cuda.device_count()
+        if n >= 2:
+            with tempfile.TemporaryDirectory() as tmp:
+                dp = data_parallel(torch, arch_id, ref, "nccl", min(n, 4),
+                                   tmp, "data-parallel nccl", out)
+                for r in dp["ranks"]:
+                    launches.update(r["launches"])
+        else:
+            print("parallel: nccl multi-card not run (1 card)")
+    finally:
+        dist.destroy_process_group()
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4042,6 +4661,14 @@ def main(argv=None) -> int:
     train = phase("train", phase_train, torch, details)
     print(f"train: launches of the seamless run {train['launches']}")
     counts["flash_attention"] += train["launches"]["flash_attention"]
+    par = phase("parallel", phase_parallel, torch, details)
+    print(f"parallel: launches of the data-parallel ranks' runs, summed "
+          f"over the ranks {par}")
+    for name in train["launches"]:
+        if not par.get(name):
+            raise AssertionError(f"{name} not launched on the data-parallel "
+                                 f"path ({par})")
+    counts["flash_attention"] += par["flash_attention"]
     for name in ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
                  "int4_gemm"):
         if not codesign.get(name):
@@ -4056,7 +4683,7 @@ def main(argv=None) -> int:
         counts["depthwise_gemm" if name == "depthwise_conv_gemm"
                else name] += multi[name]
     for name, row in train["rows"].items():
-        tot[name], counts[name] = row, train["launches"][name]
+        tot[name], counts[name] = row, train["launches"][name] + par[name]
     kernels = []
     for name, replaces in REPLACES.items():
         t = tot[name]

@@ -27,6 +27,15 @@ background thread; ``wait`` joins it and raises what it raised.
 ``restore(like)`` loads into the structure of ``like``, each leaf on
 ``like``'s leaf's device and in its dtype: onto another card, the CPU or
 another precision, from the same files.
+
+Under ``torch.distributed`` (a default process group of more than one
+rank) the files are still full arrays: a DTensor leaf is gathered whole
+(``full_tensor``, which every rank calls), only rank 0 writes, and every
+rank's ``wait`` returns once the write is published. ``restore(like,
+shardings=...)`` is the elastic restore: each leaf that the congruent
+tree of ``NamedSharding``s names is distributed onto that mesh with its
+spec's placements, whatever mesh or world size wrote it; a DTensor leaf
+of ``like`` without one keeps its own mesh and placements.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "//"
 
@@ -82,6 +92,20 @@ def _rebuild(tree: Any, leaves: dict[str, Any], prefix: tuple = ()) -> Any:
     return leaves[_SEP.join(prefix)]
 
 
+def _dist_world() -> tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _full(t: Any) -> Any:
+    """A DTensor leaf gathered whole (a collective), else ``t``."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _to_host(t: Any) -> tuple[np.ndarray, str]:
     """A leaf as (the array to store, its logical dtype name): bf16 as its
     uint16 bits, anything else as itself."""
@@ -107,8 +131,11 @@ class CheckpointManager:
         os.makedirs(self.dir, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
-        # GC stale tmp dirs from a previous crashed process.
-        for name in os.listdir(self.dir):
+        self._pending = False
+        # GC stale tmp dirs from a previous crashed process (on the
+        # writing rank only: another rank's would race its writes).
+        for name in (os.listdir(self.dir) if _dist_world()[0] == 0
+                     else ()):
             if ".tmp-" in name:
                 shutil.rmtree(os.path.join(self.dir, name),
                               ignore_errors=True)
@@ -135,11 +162,18 @@ class CheckpointManager:
     # -- save ----------------------------------------------------------------
 
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
-        """Snapshot now (a host copy of every leaf), write in the
-        background (atomic publish)."""
+        """Snapshot now (a host copy of every leaf, DTensors gathered
+        whole), write in the background (atomic publish); with more than
+        one rank, rank 0 writes and every rank calls this."""
         self.wait()                                   # one in flight at a time
-        host = {k: _to_host(v)
-                for k, v in _flatten_with_paths(state).items()}
+        full = {k: _full(v) for k, v in _flatten_with_paths(state).items()}
+        self._pending = True
+        if _dist_world()[0] != 0:
+            if blocking:
+                self.wait()
+            return
+        host = {k: _to_host(v) for k, v in full.items()}
+        del full
 
         def work():
             try:
@@ -173,9 +207,15 @@ class CheckpointManager:
         os.rename(tmp, final)                          # atomic publish
 
     def wait(self) -> None:
+        """Join the write in flight; with more than one rank, every rank
+        returns once rank 0's write is published (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            if _dist_world()[1] > 1:
+                dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("async checkpoint write failed") from err
@@ -187,12 +227,16 @@ class CheckpointManager:
 
     # -- restore -------------------------------------------------------------
 
-    def restore(self, like: Any, step: int | None = None) -> Any:
+    def restore(self, like: Any, step: int | None = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like`` (a tree of tensors):
         each leaf on the device and in the dtype of ``like``'s leaf (the
         stored arrays are full host arrays, so another device or
-        precision is the same code path). Raises if a leaf is missing or
-        its shape differs."""
+        precision is the same code path). ``shardings`` (optional, a
+        congruent tree of ``parallel.sharding.NamedSharding``, None
+        where a leaf takes none) distributes each named leaf onto its
+        mesh with its spec's placements: the elastic restore, onto any
+        mesh. Raises if a leaf is missing or its shape differs."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -205,6 +249,8 @@ class CheckpointManager:
         if missing:
             raise KeyError(f"checkpoint step {step} missing leaves "
                            f"{sorted(missing)[:5]}...")
+        flat_sh = (_flatten_with_paths(shardings)
+                   if shardings is not None else {})
         restored = {}
         for key, want in flat_like.items():
             meta = manifest["leaves"][key]
@@ -214,5 +260,20 @@ class CheckpointManager:
                 raise ValueError(
                     f"shape mismatch for {key}: checkpoint "
                     f"{tuple(arr.shape)} vs expected {tuple(want.shape)}")
-            restored[key] = arr.to(device=want.device, dtype=want.dtype)
+            restored[key] = _place(arr, want, flat_sh.get(key))
         return _rebuild(like, restored)
+
+
+def _place(arr: torch.Tensor, want: Any, sharding) -> torch.Tensor:
+    """A restored full array in ``want``'s dtype: distributed per
+    ``sharding`` (a ``NamedSharding``), or onto ``want``'s own mesh and
+    placements where it is a DTensor, else on ``want``'s device."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if sharding is not None:
+        mesh, where = sharding.mesh, sharding.placements
+    elif isinstance(want, DTensor):
+        mesh, where = want.device_mesh, want.placements
+    else:
+        return arr.to(device=want.device, dtype=want.dtype)
+    return distribute_tensor(arr.to(device=mesh.device_type,
+                                    dtype=want.dtype), mesh, where)

@@ -6,9 +6,9 @@ embeddings (``extra_embed``) are added to the token embeddings; the
 launcher serves text, whose positions drive all three M-RoPE
 components. M-RoPE splits the 64 frequency bands (head_dim 128) into
 (t, h, w) = (16, 24, 24) sections. 12 heads do not divide the
-reference's 16-way model axis, so its mesh runs the attention
-sequence-parallel (a sharding-rule override); the port runs on one
-card and has no sharding rules.
+reference's 16-way model axis, so its rules run the attention
+sequence-parallel (a sharding-rule override, as in the reference; it
+binds nothing in the port until tensor parallelism lands).
 """
 import torch
 
@@ -26,6 +26,7 @@ CONFIG = register(ArchConfig(
         mrope_sections=(16, 24, 24), remat="full",
         tie_embeddings=True,
     ),
+    rule_overrides={"act_heads": (), "act_seq_attn": ("model",)},
     frontend="vision",
     smoke=LMConfig(
         name="qwen2-vl-smoke",

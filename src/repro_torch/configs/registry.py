@@ -3,10 +3,11 @@ model config, and a reduced same-family smoke config for CPU tests, to
 one model module of ``repro_torch.models``.
 
 The counterpart of ``repro.configs.registry``, with all ten of its
-archs. Sharding-rule overrides (yi-34b's and qwen2-vl-2b's) and the
-dry-run shape sets belong to the ``parallel`` slice and are not here:
-the port serves on one card. Modules are named as strings and imported
-on first use, only from ``repro_torch``.
+archs and their sharding-rule overrides (``rule_overrides``, which
+``DEFAULT_RULES.replace`` applies: yi-34b's and qwen2-vl-2b's). The
+dry-run's shape sets (``ShapeSpec``, ``SHAPES``, ``skip_shapes``) come
+with the dry-run slice (ROADMAP queue 1). Modules are named as strings
+and imported on first use, only from ``repro_torch``.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ class ArchConfig:
     family: str                        # dense | moe | ssm | hybrid | audio | vlm
     model: Any                         # LMConfig / SSMLMConfig / ...
     module: str                        # repro_torch.models.{lm,ssm,hybrid,encdec}
+    rule_overrides: dict = dataclasses.field(default_factory=dict)
     frontend: str | None = None        # audio | vision (stubbed embeddings)
     smoke: Any = None                  # reduced same-family config
     notes: str = ""

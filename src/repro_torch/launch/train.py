@@ -22,22 +22,51 @@ gradient on the backward kernel, which are built for (key, value) head
 sizes (64, 64) and (128, 128) in bf16: a config that would reach them
 at other sizes or in fp32 (the smoke configs of seamless and
 deepseek-v2) exits 2 before anything is built; ``--device cpu`` runs the
-plain versions. ``--production-mesh`` (the reference's 256-device mesh)
-belongs to the parallel layer, not ported yet: it exits 2.
+plain versions.
+
+Data parallelism, as the reference runs under ``make_host_mesh()``: if a
+default process group is initialized the launcher uses it; otherwise,
+under ``torchrun`` (its ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
+environment) it makes one, NCCL with one rank per card on ``cuda``
+(``cuda:LOCAL_RANK``) and gloo on ``cpu``; otherwise it runs as one
+process, exactly as without this layer. With a group it trains on
+``make_host_mesh`` ((world, 1) over ("data", "model")), or on the
+production mesh with ``--production-mesh`` (which exits 2, naming the
+device count it needs, on any other world size). Every rank draws the
+global batch from the same seeded stream (and, for an encoder-decoder,
+the same frames) and keeps the rows that ``logical_to_spec(("batch",
+None))`` gives its mesh coordinates: a batch that the data axis does
+not divide is replicated by that rule, so every rank computes it whole.
+An N-rank run thus sees exactly the tokens of the one-process run. The
+train step averages the gradients over the ranks; only rank 0 prints,
+and only rank 0 writes checkpoints. An MoE arch (qwen3-moe, deepseek-v2,
+jamba) at more than one data rank exits 2: its load-balance aux is a
+product of global-batch means (ROADMAP queue 3). The models are not
+tensor-parallel yet: the production mesh's "model" ranks run
+replicated.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch seamless-m4t-large-v2 --batch 8 --seq 256 --steps 5
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, StepWatchdog
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.parallel.sharding import DEFAULT_RULES, entry_axes, \
+    logical_to_spec
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -68,6 +97,37 @@ def step_frames(gen: torch.Generator, batch: int, seq: int, d_model: int,
                              device=device)
 
 
+def init_distributed(device: torch.device) -> tuple[bool, bool]:
+    """(whether a default process group is in use, whether this call made
+    it): the initialized one, else one from ``torchrun``'s environment
+    (NCCL on ``cuda`` after ``set_device(LOCAL_RANK)``, gloo on ``cpu``),
+    else none."""
+    if dist.is_initialized():
+        return True, False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False, False
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return True, True
+
+
+def batch_rows(mesh, rules, batch: int, seq: int) -> slice:
+    """The rows of the global [batch, seq] batch that this rank keeps:
+    ``logical_to_spec(("batch", None), mesh, rules, shape)`` splits dim 0
+    over some mesh axes (row-major over them) or replicates it."""
+    spec = logical_to_spec(("batch", None), mesh, rules, shape=(batch, seq))
+    axes = entry_axes(spec[0] if len(spec) else None)
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    sizes = [mesh.shape[names.index(a)] for a in axes]
+    index = 0
+    for a, n in zip(axes, sizes):
+        index = index * n + coord[names.index(a)]
+    rows = batch // math.prod(sizes)
+    return slice(index * rows, (index + 1) * rows)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -75,7 +135,8 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Train; returns the final state, each step's metrics and host
-    seconds, and the run's tokens per second."""
+    seconds, the run's tokens per second and, under a process group,
+    its mesh and the rows of each global batch this rank trained on."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true",
@@ -88,8 +149,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="(16,16) mesh — requires 256 devices (the parallel "
-                         "layer, not ported yet: exits 2)")
+                    help="(16,16) mesh — requires 256 devices (one rank "
+                         "each; exits 2 on any other world size)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -97,12 +158,6 @@ def main(argv=None) -> dict:
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        print("error: --production-mesh needs the parallel layer (ROADMAP "
-              "queue 1, item 2: meshes, sharding, the pod all-reduce), "
-              "which is not ported yet; the port trains on one device",
-              file=sys.stderr)
-        raise SystemExit(2)
     arch = registry.get(args.arch)
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
@@ -126,17 +181,56 @@ def main(argv=None) -> dict:
         raise SystemExit("error: CUDA is not available; pass --device cpu "
                          "to train on the CPU")
 
+    distributed, made_group = init_distributed(device)
+    try:
+        return _train(args, arch, device, distributed)
+    finally:
+        if made_group:
+            dist.destroy_process_group()
+
+
+def _fail(message: str) -> None:
+    print(f"error: {message}", file=sys.stderr)
+    raise SystemExit(2)
+
+
+def _train(args, arch, device: torch.device, distributed: bool) -> dict:
+    cfg = arch.model
+    rules = DEFAULT_RULES.replace(**arch.rule_overrides)
+    mesh, rows, rank0 = None, slice(None), True
+    if args.production_mesh:
+        try:
+            mesh = make_production_mesh(device_type=device.type)
+        except ValueError as e:
+            _fail(str(e))
+    elif distributed:
+        mesh = make_host_mesh(device.type)
+    if mesh is not None:
+        rank0 = dist.get_rank() == 0
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        rows = batch_rows(mesh, rules, args.batch, args.seq)
+    log = print if rank0 else (lambda *a, **k: None)
+    if mesh is not None:
+        log(f"# data parallel: world {dist.get_world_size()} over "
+            f"{dist.get_backend()}, mesh {tuple(mesh.mesh_dim_names)} "
+            f"{tuple(mesh.shape)}")
+
     mod = arch.model_module()
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
-    train_step = make_train_step(arch, opt_cfg,
-                                 compress_grads=args.compress_grads)
+    try:
+        train_step = make_train_step(arch, opt_cfg,
+                                     compress_grads=args.compress_grads,
+                                     mesh=mesh)
+    except ValueError as e:                 # MoE at > 1 data rank
+        _fail(str(e))
     data = SyntheticTokens(cfg.vocab, args.batch, args.seq, seed=args.seed)
     frame_gen = (torch.Generator(device=device).manual_seed(args.seed + 1)
                  if arch.module == "encdec" else None)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     dog = StepWatchdog(
         heartbeat_path=(f"{args.ckpt_dir}/heartbeat.json"
-                        if args.ckpt_dir else None))
+                        if args.ckpt_dir and rank0 else None))
 
     params = mod.init(cfg, torch.Generator(device=device).manual_seed(
         args.seed))
@@ -146,30 +240,31 @@ def main(argv=None) -> dict:
     if mgr is not None and mgr.latest_step() is not None:
         start = mgr.latest_step()
         state = mgr.restore(state, step=start)
-        print(f"# resumed from checkpoint step {start}")
+        log(f"# resumed from checkpoint step {start}")
 
     metrics_log, step_s = [], []
     _sync(device)
     t0 = time.time()
     for step in range(start, args.steps):
         dog.start_step(step)
-        batch = {k: v.to(device) for k, v in data.next_batch().items()}
+        batch = {k: v[rows].to(device)
+                 for k, v in data.next_batch().items()}
         if frame_gen is not None:
             batch["frames"] = step_frames(frame_gen, args.batch, args.seq,
-                                          cfg.d_model, device)
+                                          cfg.d_model, device)[rows]
         t_step = time.perf_counter()
         state, metrics = train_step(state, batch)
         _sync(device)
         step_s.append(time.perf_counter() - t_step)
         metrics_log.append(metrics)
         if dog.end_step():
-            print(f"# straggler flagged at step {step} "
-                  f"({dog.times[-1]:.2f}s vs median "
-                  f"{dog.median_step_s():.2f}s)")
+            log(f"# straggler flagged at step {step} "
+                f"({dog.times[-1]:.2f}s vs median "
+                f"{dog.median_step_s():.2f}s)")
         if (step + 1) % args.log_every == 0:
-            print(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
-                  f"  |g| {float(metrics['grad_norm']):.3f}"
-                  f"  lr {float(metrics['lr']):.2e}")
+            log(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
+                f"  |g| {float(metrics['grad_norm']):.3f}"
+                f"  lr {float(metrics['lr']):.2e}")
         if mgr is not None and (step + 1) % args.ckpt_every == 0:
             mgr.save(step + 1, state)
     if mgr is not None:
@@ -177,9 +272,10 @@ def main(argv=None) -> dict:
     dt = time.time() - t0
     n = args.steps - start
     tok_s = n * args.batch * args.seq / max(dt, 1e-9)
-    print(f"# {n} steps in {dt:.1f}s ({tok_s:.0f} tok/s)")
+    log(f"# {n} steps in {dt:.1f}s ({tok_s:.0f} tok/s)")
     return {"state": state, "metrics": metrics_log, "step_s": step_s,
-            "start": start, "tok_per_s": tok_s, "seconds": dt}
+            "start": start, "tok_per_s": tok_s, "seconds": dt,
+            "mesh": mesh, "rows": rows}
 
 
 if __name__ == "__main__":

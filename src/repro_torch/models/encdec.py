@@ -79,10 +79,10 @@ def _attn_specs(cfg: EncDecConfig) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
-        "wq": ParamSpec((d, hq * hd), dt),
-        "wk": ParamSpec((d, hkv * hd), dt),
-        "wv": ParamSpec((d, hkv * hd), dt),
-        "wo": ParamSpec((hq * hd, d), dt),
+        "wq": ParamSpec((d, hq * hd), ("embed", "heads"), dt),
+        "wk": ParamSpec((d, hkv * hd), ("embed", "kv_heads"), dt),
+        "wv": ParamSpec((d, hkv * hd), ("embed", "kv_heads"), dt),
+        "wo": ParamSpec((hq * hd, d), ("heads", "embed"), dt),
     }
 
 
@@ -111,12 +111,14 @@ def _dec_layer_specs(cfg: EncDecConfig) -> dict:
 def param_specs(cfg: EncDecConfig) -> dict:
     dt = cfg.param_dtype
     return {
-        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), dt, "embed"),
         "enc_layers": L.stack_specs(_enc_layer_specs(cfg), cfg.n_enc_layers),
         "ln_enc": L.rmsnorm_spec(cfg.d_model, dt),
         "dec_layers": L.stack_specs(_dec_layer_specs(cfg), cfg.n_dec_layers),
         "ln_dec": L.rmsnorm_spec(cfg.d_model, dt),
-        "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab), dt),
+        "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab),
+                             ("embed", "vocab"), dt),
     }
 
 
@@ -124,6 +126,14 @@ def init(cfg: EncDecConfig, gen: torch.Generator) -> dict:
     """Random weights by the reference's laws, made on ``gen``'s
     device."""
     return L.init_params(param_specs(cfg), gen)
+
+
+def abstract(cfg: EncDecConfig) -> dict:
+    return L.abstract_params(param_specs(cfg))
+
+
+def param_axes(cfg: EncDecConfig) -> dict:
+    return L.param_axes_tree(param_specs(cfg))
 
 
 def param_count(cfg: EncDecConfig) -> int:
@@ -285,9 +295,10 @@ def cache_specs(cfg: EncDecConfig, batch: int, max_tgt: int, src: int,
     """Per decoder layer, self K/V [B, max_tgt, Hkv, D] and cross K/V
     [B, src, Hkv, D] (which ``build_cross_cache`` replaces)."""
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    axes = ("batch", "kv_seq", "act_kv_heads", None)
     layer = {
-        name: {"k": ParamSpec((batch, n, hkv, hd), dtype, "zeros"),
-               "v": ParamSpec((batch, n, hkv, hd), dtype, "zeros")}
+        name: {"k": ParamSpec((batch, n, hkv, hd), axes, dtype, "zeros"),
+               "v": ParamSpec((batch, n, hkv, hd), axes, dtype, "zeros")}
         for name, n in (("self", max_tgt), ("cross", src))}
     return {"layers": L.stack_specs(layer, cfg.n_dec_layers)}
 

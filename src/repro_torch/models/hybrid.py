@@ -102,25 +102,30 @@ def _period_specs(cfg: HybridConfig) -> dict:
     return {
         "mamba": L.stack_specs(
             {"ln": L.rmsnorm_spec(cfg.d_model, dt),
-             "ssm": ssm_mod.block_specs(cfg.ssm, dt)}, PERIOD - 1),
+             "ssm": ssm_mod.block_specs(cfg.ssm, dt)}, PERIOD - 1,
+            axis_name="sublayers"),
         "attn": {"ln": L.rmsnorm_spec(cfg.d_model, dt),
                  "attn": lm_mod._attn_specs(cfg.as_lm())},
         "moe": L.stack_specs(
             {"ln": L.rmsnorm_spec(cfg.d_model, dt),
-             "ffn": L.moe_specs(cfg.d_model, cfg.moe, dt)}, n_moe),
+             "ffn": L.moe_specs(cfg.d_model, cfg.moe, dt)}, n_moe,
+            axis_name="sublayers"),
         "mlp": L.stack_specs(
             {"ln": L.rmsnorm_spec(cfg.d_model, dt),
-             "ffn": L.mlp_specs(cfg.d_model, cfg.d_ff, dt)}, PERIOD - n_moe),
+             "ffn": L.mlp_specs(cfg.d_model, cfg.d_ff, dt)}, PERIOD - n_moe,
+            axis_name="sublayers"),
     }
 
 
 def param_specs(cfg: HybridConfig) -> dict:
     dt = cfg.param_dtype
     return {
-        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), dt, "embed"),
         "periods": L.stack_specs(_period_specs(cfg), cfg.n_periods),
         "ln_f": L.rmsnorm_spec(cfg.d_model, dt),
-        "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab), dt),
+        "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab),
+                             ("embed", "vocab"), dt),
     }
 
 
@@ -129,6 +134,14 @@ def init(cfg: HybridConfig, gen: torch.Generator) -> dict:
     Mamba sublayers' ``a_log`` and ``dt_bias`` zeros, as the reference's
     hybrid leaves them)."""
     return L.init_params(param_specs(cfg), gen)
+
+
+def abstract(cfg: HybridConfig) -> dict:
+    return L.abstract_params(param_specs(cfg))
+
+
+def param_axes(cfg: HybridConfig) -> dict:
+    return L.param_axes_tree(param_specs(cfg))
 
 
 def param_count(cfg: HybridConfig) -> int:
@@ -230,11 +243,12 @@ def cache_specs(cfg: HybridConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16) -> dict:
     """Per period: the 7 Mamba sublayers' states (fp32) and conv windows
     stacked, and the attention sublayer's K / V [B, max_seq, Hkv, D]."""
-    kv = ParamSpec((batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype,
-                   "zeros")
+    kv = ParamSpec((batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
+                   ("batch", "kv_seq", "act_kv_heads", None), dtype, "zeros")
     period = {
         "mamba": L.stack_specs(
-            ssm_mod.block_cache_specs(cfg.ssm, batch, dtype), PERIOD - 1),
+            ssm_mod.block_cache_specs(cfg.ssm, batch, dtype), PERIOD - 1,
+            axis_name="sublayers"),
         "attn": {"k": kv, "v": kv},
     }
     return {"periods": L.stack_specs(period, cfg.n_periods)}

@@ -8,8 +8,10 @@ gated MLPs (silu, gemma's tanh-approximate gelu, seamless's relu), the
 GShard-style MoE layer (plain
 torch einsums, as in the reference, which computes it outside any
 Pallas kernel), the KV-cache write and its int8 quantizer, and the
-three attention forms. There is one device, so the reference's logical
-sharding annotations have no counterpart. Parameters are nested dicts
+three attention forms. Every ``ParamSpec`` carries the reference's
+logical axes (``param_axes_tree``, which the parallel layer's sharding
+rules resolve onto a mesh); the models make no activation sharding
+constraints (no tensor parallelism yet). Parameters are nested dicts
 of tensors; a layer-stacked leaf carries a leading "layers" axis, which
 the model walks with a Python loop where the reference scans.
 
@@ -41,19 +43,34 @@ from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Declaration of one parameter leaf."""
+    """Declaration of one parameter leaf: its shape, its logical axis
+    names (one per dimension, None for "no preference"; the sharding
+    rules of ``repro_torch.parallel.sharding`` read them) and its
+    initialisation law."""
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"          # normal | zeros | ones | embed
     fan_in: int | None = None     # for "normal": std = 1/sqrt(fan_in)
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} / axes {self.axes} rank "
+                             "mismatch")
+
 
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of nested dicts / lists."""
+    """Apply ``fn`` to every leaf of nested dicts, lists and dataclasses
+    (a train state, its optimizer state); a ``ParamSpec`` is a leaf."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(
+            tree, (type, ParamSpec)):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
     return fn(tree)
 
 
@@ -138,10 +155,24 @@ def tree_from_numpy(tree: Any, device,
     return tree_map(convert, tree)
 
 
-def stack_specs(spec_tree: Any, n: int) -> Any:
-    """Prefix every leaf with a stacked layer dimension."""
-    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
-                    spec_tree)
+def stack_specs(spec_tree: Any, n: int, axis_name: str = "layers") -> Any:
+    """Prefix every leaf with a stacked layer dimension named
+    ``axis_name``."""
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=(n,) + s.shape, axes=(axis_name,) + s.axes), spec_tree)
+
+
+def abstract_params(spec_tree: Any) -> Any:
+    """Stand-ins on the ``meta`` device with each spec's shape and dtype:
+    no storage is allocated (the counterpart of the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def param_axes_tree(spec_tree: Any) -> Any:
+    """Logical-axes tree congruent with the params (for sharding rules)."""
+    return tree_map(lambda s: s.axes, spec_tree)
 
 
 def param_count(spec_tree: Any) -> int:
@@ -194,7 +225,7 @@ def remat(fn: Callable, policy: str) -> Callable:
 
 
 def rmsnorm_spec(dim: int, dtype=torch.bfloat16) -> ParamSpec:
-    return ParamSpec((dim,), dtype, "ones")
+    return ParamSpec((dim,), (None,), dtype, "ones")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -386,9 +417,9 @@ ACTIVATIONS: dict[str, Callable] = {
 
 def mlp_specs(d_model: int, d_ff: int, dtype=torch.bfloat16) -> dict:
     return {
-        "gate": ParamSpec((d_model, d_ff), dtype),
-        "up": ParamSpec((d_model, d_ff), dtype),
-        "down": ParamSpec((d_ff, d_model), dtype),
+        "gate": ParamSpec((d_model, d_ff), ("embed", "mlp"), dtype),
+        "up": ParamSpec((d_model, d_ff), ("embed", "mlp"), dtype),
+        "down": ParamSpec((d_ff, d_model), ("mlp", "embed"), dtype),
     }
 
 
@@ -415,14 +446,14 @@ class MoEConfig:
 
 def moe_specs(d_model: int, cfg: MoEConfig, dtype=torch.bfloat16) -> dict:
     specs = {
-        "router": ParamSpec((d_model, cfg.n_experts), torch.float32,
-                            fan_in=d_model),
-        "gate": ParamSpec((cfg.n_experts, d_model, cfg.d_ff), dtype,
-                          fan_in=d_model),
-        "up": ParamSpec((cfg.n_experts, d_model, cfg.d_ff), dtype,
-                        fan_in=d_model),
-        "down": ParamSpec((cfg.n_experts, cfg.d_ff, d_model), dtype,
-                          fan_in=cfg.d_ff),
+        "router": ParamSpec((d_model, cfg.n_experts), ("embed", None),
+                            torch.float32, fan_in=d_model),
+        "gate": ParamSpec((cfg.n_experts, d_model, cfg.d_ff),
+                          ("experts", "embed", None), dtype, fan_in=d_model),
+        "up": ParamSpec((cfg.n_experts, d_model, cfg.d_ff),
+                        ("experts", "embed", None), dtype, fan_in=d_model),
+        "down": ParamSpec((cfg.n_experts, cfg.d_ff, d_model),
+                          ("experts", None, "embed"), dtype, fan_in=cfg.d_ff),
     }
     if cfg.n_shared:
         specs["shared"] = mlp_specs(d_model, cfg.d_ff * cfg.n_shared, dtype)

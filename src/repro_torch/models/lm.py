@@ -133,22 +133,23 @@ def _attn_specs(cfg: LMConfig) -> dict:
     if cfg.mla:
         a, h = cfg.mla, cfg.n_heads
         return {
-            "wq_a": ParamSpec((d, a.q_lora), dt),
+            "wq_a": ParamSpec((d, a.q_lora), ("embed", None), dt),
             "q_norm": L.rmsnorm_spec(a.q_lora, dt),
             "wq_b": ParamSpec((a.q_lora, h * (a.qk_nope_dim + a.qk_rope_dim)),
-                              dt, fan_in=a.q_lora),
-            "wkv_a": ParamSpec((d, a.kv_lora + a.qk_rope_dim), dt),
+                              (None, "heads"), dt, fan_in=a.q_lora),
+            "wkv_a": ParamSpec((d, a.kv_lora + a.qk_rope_dim),
+                               ("embed", None), dt),
             "kv_norm": L.rmsnorm_spec(a.kv_lora, dt),
             "wkv_b": ParamSpec((a.kv_lora, h * (a.qk_nope_dim + a.v_dim)),
-                               dt, fan_in=a.kv_lora),
-            "wo": ParamSpec((h * a.v_dim, d), dt),
+                               (None, "heads"), dt, fan_in=a.kv_lora),
+            "wo": ParamSpec((h * a.v_dim, d), ("heads", "embed"), dt),
         }
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     specs = {
-        "wq": ParamSpec((d, hq * hd), dt),
-        "wk": ParamSpec((d, hkv * hd), dt),
-        "wv": ParamSpec((d, hkv * hd), dt),
-        "wo": ParamSpec((hq * hd, d), dt),
+        "wq": ParamSpec((d, hq * hd), ("embed", "heads"), dt),
+        "wk": ParamSpec((d, hkv * hd), ("embed", "kv_heads"), dt),
+        "wv": ParamSpec((d, hkv * hd), ("embed", "kv_heads"), dt),
+        "wo": ParamSpec((hq * hd, d), ("heads", "embed"), dt),
     }
     if cfg.qk_norm:
         specs["q_norm"] = L.rmsnorm_spec(hd, dt)
@@ -179,13 +180,15 @@ def param_specs(cfg: LMConfig) -> dict:
                          f"have {sorted(L.ACTIVATIONS)}")
     dt = cfg.param_dtype
     specs: dict[str, Any] = {
-        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), dt, "embed"),
         "layers": L.stack_specs(_layer_specs(cfg, moe_layer=True),
                                 cfg.n_layers - cfg.n_dense_prefix),
         "ln_f": L.rmsnorm_spec(cfg.d_model, dt),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab), dt)
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                     ("embed", "vocab"), dt)
     if cfg.n_dense_prefix:
         specs["dense_prefix"] = [_layer_specs(cfg, moe_layer=False)
                                  for _ in range(cfg.n_dense_prefix)]
@@ -196,6 +199,14 @@ def init(cfg: LMConfig, gen: torch.Generator) -> dict:
     """Random weights by the reference's laws, made on ``gen``'s device
     (no host copy of the 1.24 B numbers of llama3.2-1b)."""
     return L.init_params(param_specs(cfg), gen)
+
+
+def abstract(cfg: LMConfig) -> dict:
+    return L.abstract_params(param_specs(cfg))
+
+
+def param_axes(cfg: LMConfig) -> dict:
+    return L.param_axes_tree(param_specs(cfg))
 
 
 def param_count(cfg: LMConfig) -> int:
@@ -487,17 +498,21 @@ def cache_specs(cfg: LMConfig, batch: int, max_seq: int,
     are a list beside the stack, as in the parameters."""
     if cfg.mla:
         a = cfg.mla
-        layer = {"c": ParamSpec((batch, max_seq, a.kv_lora), dtype, "zeros"),
-                 "k_rope": ParamSpec((batch, max_seq, a.qk_rope_dim), dtype,
-                                     "zeros")}
+        axes = ("batch", "kv_seq", None)
+        layer = {"c": ParamSpec((batch, max_seq, a.kv_lora), axes, dtype,
+                                "zeros"),
+                 "k_rope": ParamSpec((batch, max_seq, a.qk_rope_dim), axes,
+                                     dtype, "zeros")}
     else:
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         kv_dt = torch.int8 if cfg.kv_cache_quant else dtype
-        layer = {"k": ParamSpec(shape, kv_dt, "zeros"),
-                 "v": ParamSpec(shape, kv_dt, "zeros")}
+        axes = ("batch", "kv_seq", "act_kv_heads", None)
+        layer = {"k": ParamSpec(shape, axes, kv_dt, "zeros"),
+                 "v": ParamSpec(shape, axes, kv_dt, "zeros")}
         if cfg.kv_cache_quant:
             for name in ("k_scale", "v_scale"):
                 layer[name] = ParamSpec((batch, cfg.n_kv_heads),
+                                        ("batch", "act_kv_heads"),
                                         torch.float32, "ones")
     specs = {"layers": L.stack_specs(layer, cfg.n_layers - cfg.n_dense_prefix)}
     if cfg.n_dense_prefix:

@@ -91,19 +91,19 @@ def block_specs(cfg: SSMConfig, dtype=torch.bfloat16) -> dict:
         cfg.n_heads
     k = cfg.conv_kernel
     return {
-        "wz": ParamSpec((m, di), dtype),
-        "wx": ParamSpec((m, di), dtype),
-        "wb": ParamSpec((m, gn), dtype),
-        "wc": ParamSpec((m, gn), dtype),
-        "wdt": ParamSpec((m, h), dtype),
-        "conv_x": ParamSpec((k, di), dtype),
-        "conv_b": ParamSpec((k, gn), dtype),
-        "conv_c": ParamSpec((k, gn), dtype),
-        "a_log": ParamSpec((h,), torch.float32, "zeros"),
-        "d_skip": ParamSpec((h,), torch.float32, "ones"),
-        "dt_bias": ParamSpec((h,), torch.float32, "zeros"),
+        "wz": ParamSpec((m, di), ("embed", "mlp"), dtype),
+        "wx": ParamSpec((m, di), ("embed", "mlp"), dtype),
+        "wb": ParamSpec((m, gn), ("embed", None), dtype),
+        "wc": ParamSpec((m, gn), ("embed", None), dtype),
+        "wdt": ParamSpec((m, h), ("embed", None), dtype),
+        "conv_x": ParamSpec((k, di), (None, "mlp"), dtype),
+        "conv_b": ParamSpec((k, gn), (None, None), dtype),
+        "conv_c": ParamSpec((k, gn), (None, None), dtype),
+        "a_log": ParamSpec((h,), (None,), torch.float32, "zeros"),
+        "d_skip": ParamSpec((h,), (None,), torch.float32, "ones"),
+        "dt_bias": ParamSpec((h,), (None,), torch.float32, "zeros"),
         "norm": L.rmsnorm_spec(di, dtype),
-        "wo": ParamSpec((di, m), dtype),
+        "wo": ParamSpec((di, m), ("mlp", "embed"), dtype),
     }
 
 
@@ -265,9 +265,10 @@ def block_cache_specs(cfg: SSMConfig, batch: int,
     gn = cfg.n_groups * cfg.d_state
     return {
         "state": ParamSpec((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
-                           torch.float32, "zeros"),
+                           ("batch", "act_heads", None, None), torch.float32,
+                           "zeros"),
         "conv": ParamSpec((batch, cfg.conv_kernel - 1, cfg.d_inner + 2 * gn),
-                          dtype, "zeros"),
+                          ("batch", None, "mlp"), dtype, "zeros"),
     }
 
 
@@ -283,12 +284,14 @@ def param_specs(cfg: SSMLMConfig) -> dict:
         "ssm": block_specs(cfg.ssm, dt),
     }
     specs = {
-        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), dt, "embed"),
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), dt, "embed"),
         "layers": L.stack_specs(layer, cfg.n_layers),
         "ln_f": L.rmsnorm_spec(cfg.d_model, dt),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab), dt)
+        specs["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                     ("embed", "vocab"), dt)
     return specs
 
 
@@ -309,6 +312,14 @@ def init(cfg: SSMLMConfig, gen: torch.Generator) -> dict:
     ssm_p["dt_bias"].copy_(torch.log(torch.expm1(dt0)).expand_as(
         ssm_p["dt_bias"]))
     return params
+
+
+def abstract(cfg: SSMLMConfig) -> dict:
+    return L.abstract_params(param_specs(cfg))
+
+
+def param_axes(cfg: SSMLMConfig) -> dict:
+    return L.param_axes_tree(param_specs(cfg))
 
 
 def param_count(cfg: SSMLMConfig) -> int:

@@ -1,13 +1,16 @@
-"""Distribution substrate: logical-axis sharding rules and gradient
-compression.
+"""Distribution substrate: meshes, logical-axis sharding, compression,
+the pipeline.
 
 The framework describes every parameter/activation with *logical* axis
 names ("batch", "embed", "heads", "experts", ...). A rule table maps
-logical axes onto mesh axes (("pod",) "data", "model"). Only the rule
-tables are ported so far; the compiler's partitioner reads them. The
-int8 gradient compression with error feedback runs on one device (the
-train step's ``compress_grads``); its pod all-reduce waits for the
-parallel layer.
+logical axes onto mesh axes (("pod",) "data", "model"), with automatic
+divisibility fallback (an axis that does not divide evenly is left
+replicated rather than unevenly sharded). This is the same design as
+MaxText/T5X logical axis rules, reimplemented minimally. The port
+resolves the rules onto a ``torch.distributed`` ``DeviceMesh`` and
+DTensor placements; the int8 gradient all-reduce and the GPipe
+schedule run on ``torch.distributed`` process groups. The models make
+no activation sharding constraints yet (no tensor parallelism).
 """
 from repro_torch.parallel.compress import (
     CompressionState,
@@ -16,13 +19,49 @@ from repro_torch.parallel.compress import (
     decompress_int8,
     init_compression_state,
 )
+from repro_torch.parallel.pipeline import gpipe, stage_params_from_stack
 from repro_torch.parallel.sharding import (
     DEFAULT_RULES,
     FILTER_PARALLEL_AXES,
+    KV_SHARDED_RULES,
     AxisRules,
     MeshAxes,
+    MeshShape,
+    NamedSharding,
+    PartitionSpec,
+    current_mesh,
+    logical_to_spec,
+    placements,
+    shard_params_tree,
+    spec_tree_for,
+    use_mesh,
+    with_logical_constraint,
+    zero1_spec,
 )
 
-__all__ = ["DEFAULT_RULES", "FILTER_PARALLEL_AXES", "AxisRules", "MeshAxes",
-           "CompressionState", "compress_int8", "decompress_int8",
-           "init_compression_state", "compressed_grad_allreduce"]
+__all__ = [
+    "DEFAULT_RULES",
+    "AxisRules",
+    "logical_to_spec",
+    "shard_params_tree",
+    "spec_tree_for",
+    "with_logical_constraint",
+    "zero1_spec",
+    "CompressionState",
+    "compress_int8",
+    "decompress_int8",
+    "init_compression_state",
+    "compressed_grad_allreduce",
+    "gpipe",
+    "stage_params_from_stack",
+    # the port's own
+    "FILTER_PARALLEL_AXES",
+    "KV_SHARDED_RULES",
+    "MeshAxes",
+    "MeshShape",
+    "NamedSharding",
+    "PartitionSpec",
+    "current_mesh",
+    "placements",
+    "use_mesh",
+]

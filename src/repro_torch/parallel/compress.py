@@ -3,13 +3,15 @@
 The counterpart of ``repro.parallel.compress``: per-leaf symmetric int8
 codes with one fp32 max-abs scale, and error feedback (EF-SGD): the
 quantization residual of step t is added back to the gradient of step
-t + 1 before it is compressed, so what was lost is sent later. The
-train step's ``compress_grads`` path runs it on one device, where the
-all-reduce is the identity: each leaf is compressed, decompressed and
-its residual kept, with the reference's arithmetic.
+t + 1 before it is compressed, so what was lost is sent later.
 
-The cross-pod all-reduce of the compressed codes (``axis_name``) belongs
-to the parallel layer (ROADMAP queue 1, item 2) and raises until then.
+With ``axis_name=None`` (the train step's ``compress_grads``) each leaf
+is compressed, decompressed and its residual kept: the reference's
+arithmetic outside ``shard_map``. With ``axis_name`` the int32 sum of
+the codes and the sum of the scales are all-reduced over that dimension
+of the current mesh (``use_mesh``) or of ``mesh=``, with
+``torch.distributed``: the pod all-reduce, which moves a quarter of the
+bytes of fp32 gradients.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 
@@ -52,27 +55,47 @@ def decompress_int8(codes: torch.Tensor, scale: torch.Tensor
 
 def compressed_grad_allreduce(grads: Any, state: CompressionState,
                               axis_name: str | None = None,
-                              n_replicas: int | None = None
-                              ) -> tuple[Any, CompressionState]:
-    """Error-feedback int8 compression of every leaf of ``grads``.
+                              n_replicas: int | None = None,
+                              mesh=None) -> tuple[Any, CompressionState]:
+    """Error-feedback int8 all-reduce over ``axis_name``.
 
-    With ``axis_name=None`` (one device) each leaf is compressed with its
-    residual added, decompressed in its dtype, and the new residual is
-    what the codes did not carry: the reference's arithmetic outside
-    ``shard_map``. ``axis_name`` names the pod all-reduce of the
-    parallel layer, which is not ported yet (ROADMAP queue 1, item 2)."""
-    if axis_name is not None or n_replicas is not None:
-        raise NotImplementedError(
-            f"compressed_grad_allreduce: the all-reduce over "
-            f"{axis_name!r} is the parallel layer's (ROADMAP queue 1, "
-            f"item 2), not ported yet; pass axis_name=None")
+    ``axis_name`` names a dimension of ``mesh`` or, without one, of the
+    current mesh (``parallel.sharding.use_mesh``); without either it
+    raises (it never runs locally in its place). Each leaf's codes are
+    summed as int32 and its scales as fp32 over that dimension's process
+    group, and ``reduced = summed * (scale_sum / n) / n`` with ``n`` =
+    ``n_replicas`` or the group's size (the mean scale for the sum of
+    codes: exact when the scales match). With ``axis_name=None`` this is
+    compress / decompress with error feedback, the reference's
+    arithmetic outside ``shard_map``. Either way the new residual is the
+    error against the local dequantized value."""
+    group = None
+    if axis_name is not None:
+        from repro_torch.parallel.sharding import current_mesh
+        mesh = mesh if mesh is not None else current_mesh()
+        if mesh is None:
+            raise ValueError(f"compressed_grad_allreduce: axis_name "
+                             f"{axis_name!r} needs a mesh (use_mesh or "
+                             f"mesh=)")
+        group = mesh.get_group(axis_name)
     new_grads, new_res = [], []
     for g, r in zip(tree_leaves(grads), tree_leaves(state.residual)):
         g32 = g.float() + r
         codes, scale = compress_int8(g32)
-        deq = decompress_int8(codes, scale)
-        new_res.append(g32 - deq)                   # error feedback
-        new_grads.append(deq.to(g.dtype))
+        local_deq = decompress_int8(codes, scale)
+        if group is not None:
+            summed = codes.to(torch.int32)
+            scale_sum = scale.clone()
+            dist.all_reduce(summed, group=group)
+            dist.all_reduce(scale_sum, group=group)
+            n = n_replicas or dist.get_world_size(group)
+            # codes were scaled per replica; use the mean scale for the
+            # sum of codes (exact when scales match, tight otherwise)
+            reduced = summed.to(torch.float32) * (scale_sum / n) / n
+        else:
+            reduced = local_deq
+        new_res.append(g32 - local_deq)             # error feedback
+        new_grads.append(reduced.to(g.dtype))
     return (tree_unflatten(grads, new_grads),
             CompressionState(tree_unflatten(grads, new_res)))
 

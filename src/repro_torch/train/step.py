@@ -17,8 +17,17 @@ was) and ``{loss, ce, aux, grad_norm, lr}`` as 0-d tensors on the
 parameters' device. On the card the attention of every
 ``blockwise_attention`` call, and its gradient, are the flash kernels.
 
-The logical-axes tree of the state (``train_state_axes``) belongs to the
-parallel layer (ROADMAP queue 1, item 2) and is not here.
+``make_train_step(..., mesh=)`` trains data-parallel over the mesh's
+batch axes ("pod", "data", whichever it has): each rank runs the step
+on its rows of the global batch, the gradients are averaged over those
+axes' ranks (:func:`reduce_gradients`: the fp32 sum of every leaf in
+one bucket, divided by the rank count and cast back, the reduction GSPMD
+performs for the reference), then compressed and applied as on one
+device, so every rank keeps the same parameters; the loss parts are
+averaged the same way, so the metrics are the global batch's. The
+parameters stay whole on every rank: the "model" axis runs replicated
+(no tensor parallelism yet). ``train_state_axes`` is the state's
+logical-axes tree.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.parallel.compress import CompressionState, \
@@ -40,6 +50,16 @@ class TrainState:
     opt: OptState
     step: torch.Tensor
     compress: CompressionState | None = None
+
+
+def train_state_axes(param_axes: Any) -> TrainState:
+    """Logical-axes tree congruent with TrainState (for shardings)."""
+    scalar = ()
+    return TrainState(
+        params=param_axes,
+        opt=OptState(m=param_axes, v=param_axes, count=scalar),
+        step=scalar,
+        compress=None)
 
 
 def init_train_state(params: Any, compress_grads: bool = False
@@ -94,10 +114,66 @@ def make_loss_fn(arch, attn_mode: str = "auto") -> Callable:
     return loss_fn
 
 
+#: the mesh axes a batch is split over (``DEFAULT_RULES``' "batch")
+BATCH_AXES = ("pod", "data")
+
+
+def batch_groups(mesh) -> tuple[list, int]:
+    """The process groups of ``mesh``'s batch axes of size > 1, and the
+    number of data-parallel ranks they make (1 without a mesh)."""
+    if mesh is None:
+        return [], 1
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    axes = [a for a in BATCH_AXES if sizes.get(a, 1) > 1]
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return [mesh.get_group(a) for a in axes], n
+
+
+def reduce_gradients(grads: Any, mesh) -> Any:
+    """The mean of ``grads`` over the mesh's batch axes: every leaf in one
+    fp32 bucket, summed over each batch axis's group in turn
+    (``all_reduce``), divided by the rank count and cast back to the
+    leaf's dtype. Raises where the group's backend cannot reduce the
+    bucket on its device."""
+    groups, n = batch_groups(mesh)
+    leaves = tree_leaves(grads)
+    if n == 1 or not leaves:
+        return grads
+    bucket = torch.cat([g.reshape(-1).float() for g in leaves])
+    for group in groups:
+        dist.all_reduce(bucket, group=group)
+    bucket.div_(n)
+    out, i = [], 0
+    for g in leaves:
+        out.append(bucket[i:i + g.numel()].view(g.shape).to(g.dtype))
+        i += g.numel()
+    return tree_unflatten(grads, out)
+
+
+def has_moe(arch) -> bool:
+    """Whether ``arch``'s loss carries the MoE load-balance aux."""
+    return arch.module == "hybrid" or getattr(arch.model, "moe",
+                                              None) is not None
+
+
 def make_train_step(arch, opt_cfg: AdamWConfig = AdamWConfig(),
                     compress_grads: bool = False,
-                    attn_mode: str = "auto") -> Callable:
+                    attn_mode: str = "auto", mesh=None) -> Callable:
+    """The train step; with ``mesh``, data-parallel over its batch axes
+    (see the module docstring). An MoE arch at more than one
+    data-parallel rank raises: its load-balance aux (``moe_apply``'s
+    E * sum(mean(p) * mean(onehot))) is a product of global means, which
+    per-rank means do not reproduce."""
     loss_fn = make_loss_fn(arch, attn_mode)
+    groups, n_dp = batch_groups(mesh)
+    if n_dp > 1 and has_moe(arch):
+        raise ValueError(
+            f"{arch.arch_id}: data-parallel training over {n_dp} ranks is "
+            f"not supported for MoE archs: the load-balance aux is a "
+            f"product of global-batch means that per-rank means do not "
+            f"reproduce (ROADMAP queue 3)")
 
     def train_step(state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
@@ -113,6 +189,15 @@ def make_train_step(arch, opt_cfg: AdamWConfig = AdamWConfig(),
             for p, g in zip(leaves, grads)])
         params = tree_unflatten(state.params,
                                 [p.detach() for p in leaves])
+        parts = {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                 "aux": parts["aux"].detach()}
+        if n_dp > 1:
+            grads = reduce_gradients(grads, mesh)
+            vec = torch.stack([parts[k].float() for k in parts])
+            for group in groups:
+                dist.all_reduce(vec, group=group)
+            vec.div_(n_dp)
+            parts = {k: vec[i] for i, k in enumerate(parts)}
 
         compress_state = state.compress
         if compress_grads and compress_state is not None:
@@ -121,9 +206,7 @@ def make_train_step(arch, opt_cfg: AdamWConfig = AdamWConfig(),
 
         params, opt, opt_metrics = adamw_update(params, grads, state.opt,
                                                 opt_cfg)
-        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                   "aux": parts["aux"].detach(),
-                   **opt_metrics}
+        metrics = {**parts, **opt_metrics}
         new_state = TrainState(params=params, opt=opt,
                                step=state.step + 1,
                                compress=compress_state)

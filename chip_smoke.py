@@ -64,7 +64,7 @@ Phases, each printing its lines before the last:
    below 2^24), beside the bytes bound; ``fused_conv_gemm`` over the 36
    dense layers beside its plain version, ``_int_mm`` and the bound.
 5. flash: the flash-attention kernel against its plain version in bf16
-   at nineteen shapes (:data:`FLASH_SHAPES`): the serving prefill (B=8,
+   at twenty-three shapes (:data:`FLASH_SHAPES`): the serving prefill (B=8,
    S=64, 32 query heads
    over 8 KV heads, D=64, causal), S=2048 causal, S=1000 causal
    (ragged), S=333 non-causal, 64 queries at offset 960 of 1024 keys,
@@ -77,7 +77,9 @@ Phases, each printing its lines before the last:
    prefill at 128/128 heads, ragged at S=1000, and the decode form), and
    seamless-m4t's non-causal encoder / cross-attention prefill and its
    decode step's cross-attention (Sq=1 over 64 keys, the decode form
-   without a causal mask), each with the plan it ran under
+   without a causal mask), and phase 14's local heads (llama3.2-1b's
+   prefill at 16 over 4, seamless's encoder, decoder and a cross shape
+   at 8 over 8), each with the plan it ran under
    (``flash_attention.flash_plan``: form, grid, shared memory). Required:
    max |err|
    within :func:`flash_tol`, and every output row within
@@ -104,7 +106,8 @@ Phases, each printing its lines before the last:
    (device time from a profiler trace over the host-clock time, or "not
    measured" where the profiler records no device time).
 6b. archs: the other archs the launcher serves, each at :data:`SERVE`'s
-   batch, prompt, new tokens and seed, one model on the card at a time
+   batch, prompt and seed with :data:`ARCHS_NEW` new tokens, one model
+   on the card at a time
    (:data:`ARCHS`): qwen3-8b (36 layers, GQA 32/8, qk-norm), gemma-7b
    (28 layers, head size 256, GeGLU, tied 256000-token vocabulary) and
    mamba2-780m (48 layers) at published width and depth, yi-34b at
@@ -172,22 +175,23 @@ Phases, each printing its lines before the last:
    Times: seconds per image.
 9. accuracy: a convolution inside ``models.cnn.fp32_convs`` against
    float64 (required within 1e-5 of max |out|, which TF32 is not); then
-   ``repro_torch.eval.accuracy.measure`` (train the fp32
-   reference on the card with TF32 off, freeze and fold its norms,
-   compile at ``-O 1`` with 8-bit all-LUT first and last layers, bind,
-   and evaluate top-1 agreement one image at a time) at
-   :data:`HARNESS` on both reduced nets, required at or above
-   ``AGREEMENT_FLOOR``, and on full-width resnet18 (224, 1000 classes),
-   recorded; each run's launches counted in a window of their own and
-   required to be exactly the fused path's per evaluated image. Then
-   the cross checks, each on networks trained, folded, compiled and
+   ``repro_torch.eval.accuracy.measure`` (train the fp32 reference on
+   the card with TF32 off, freeze and fold its norms, compile at
+   ``-O 1`` with 8-bit all-LUT first and last layers, bind, and evaluate
+   top-1 agreement one image at a time) at :data:`HARNESS` on both
+   reduced nets, required at or above ``AGREEMENT_FLOOR``, and on
+   full-width resnet18 (224, 1000 classes, :data:`FULL_TRAIN_STEPS`
+   steps), recorded; each run's launches counted in a window of their
+   own and required to be exactly the fused path's per evaluated image.
+   Then the cross checks, each on networks trained, folded, compiled and
    bound here through the harness's public functions: on each reduced
    net two more trainings (whether they fold to the same weights is
    printed, not required), the first bound into a golden and a fused
    executor on the card and one on the CPU: equal agreement counts over
    :data:`CROSS_SAMPLES` and bitwise-equal logits on the first batch of
-   :data:`CROSS_BATCH`; on full-width resnet18 one more training, whose
-   folded weights give bitwise-equal logits on the card and the CPU for
+   :data:`CROSS_BATCH`; on full-width resnet18 one more training (again
+   :data:`FULL_TRAIN_STEPS` steps), whose folded weights give
+   bitwise-equal logits on the card and the CPU for
    :data:`FULL_CPU_IMAGES` images. Times: training seconds, eval ms per
    image (host clock).
 10. multi: multi-device bundles and compiled serving, every simulated
@@ -251,11 +255,14 @@ Phases, each printing its lines before the last:
    version at :data:`BWD_SHAPES` (seamless's encoder, decoder and cross
    shapes, llama3.2-1b's GQA 32/8 at S 2048, a ragged causal shape, one
    with ``kv_offset`` > 0, qwen2-vl's (128, 128) at GQA 12/2, and a D=128
-   GQA shape whose tiles cross the diagonal): dq, dk and dv within
+   GQA shape whose tiles cross the diagonal, and seamless's three at
+   phase 14's 8 local heads): dq, dk and dv within
    :data:`BWD_TOL` of the gradient's max |.| and every row within
    :data:`BWD_ROW_TOL`, the forward's log-sum-exp within :data:`LSE_TOL`
-   of the plain version's, a second backward bitwise equal to the first,
-   the dq launch's delta within :data:`DELTA_TOL` of ``bwd_prep_plain``;
+   of the plain version's, a second backward bitwise equal to the first
+   and to the entry points called as a new host thread's first CUDA work
+   (:func:`on_new_thread`: no context is current there until a CUDA call
+   makes one), the dq launch's delta within :data:`DELTA_TOL` of ``bwd_prep_plain``;
    device ms per entry point, the bound, the plain backward's and SDPA's
    backward's ms, and ptxas's registers and spills. Then
    seamless-m4t-large-v2 whole at published widths in bf16 through
@@ -304,6 +311,38 @@ Phases, each printing its lines before the last:
    tick. With 2 or more cards the data-parallel run repeats over NCCL,
    one rank a card (up to 4);
    with one it prints that it did not run.
+14. tensor: tensor parallelism over the mesh's "model" axis. Two ranks
+   spawned over gloo share the card on a :data:`TP_MESH` mesh over
+   ("data", "model"); gloo has no all-gather for CUDA tensors (it
+   crashes), so the ranks stage that one collective through host memory
+   (:func:`stage_gloo_all_gather`, printed), every other collective
+   runs on the card's tensors. Each rank runs llama3.2-1b at published
+   width and depth (bf16) through ``lm.prefill`` on its shards
+   (:data:`TP_PREFILL`: phase 5's batch 8 x prompt 64), the flash kernel
+   on its 16 of 32 query heads and 4 of 8 KV heads: the last position's
+   logits against the one-process prefill of the same weights: each
+   within :data:`TP_LOGIT_STEPS` bf16 steps of its |value| plus its
+   row's RMS, each row's error within :data:`TP_LAYERS_REL` of what the
+   layers add to it, and every row's argmax equal; exactly one flash
+   launch a layer a rank. The check's power is shown in the same run: a
+   planted fault, rank 1's attention partial sums lost (its shard of
+   ``wo`` zeroed) in the last layer alone, then in every layer, must
+   fail both measures each time. Then seamless-m4t-large-v2 cut as in phase 13
+   (:func:`cut_seamless`) takes one ``make_train_step(mesh=)`` step from
+   the launcher's initial state on its first batch: loss within
+   ``STEP_TOL["loss"]`` of phase 13's one-process launcher and the
+   gathered step-1 state against that run's checkpoint by
+   :func:`state_agreement` (the gate phase 13 uses), every rank's flash
+   forward and backward launches exactly :func:`train_launches`'. The
+   dry-run (``repro_torch.launch.dryrun``) predicts both runs on a fake
+   world of the same mesh, in a subprocess started beside phase 1's
+   kernel build, which times nothing, and waited for there (so it takes
+   no host time from any timed window):
+   each rank's parameter bytes equal to the bytes its local shards hold
+   (exactly), its collectives by kind equal to ``CommDebugMode``'s
+   counts on the card, and its peak (arguments + temporaries) beside
+   ``torch.cuda.max_memory_allocated``, within :data:`TP_PEAK_FACTOR`.
+   With 2 or more cards it repeats over NCCL, one rank a card.
 
 Each phase prints its seconds ("time: phase ..."). The line before the
 last is the kernels' JSON summary; the last line
@@ -323,6 +362,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -435,7 +475,10 @@ class FlashShape(NamedTuple):
 #: diagonal, and the decode form), and seamless-m4t's non-causal
 #: attention: its encoder and prefill cross-attention (cross_prefill) and
 #: a decode step's cross-attention over the 64-frame memory
-#: (cross_decode, the decode form without a causal mask)
+#: (cross_decode, the decode form without a causal mask). Last, phase
+#: 14's shapes on each rank's local heads: llama3.2-1b's prefill at 16
+#: query heads over 4 (tp_prefill), seamless's encoder, decoder and a
+#: cross-attention over a memory of another length at 8 over 8
 FLASH_SHAPES = [
     FlashShape("prefill", 8, 64, 64, 32, 8, 64, True, 0),
     FlashShape("s2048", 1, 2048, 2048, 32, 8, 64, True, 0),
@@ -456,6 +499,10 @@ FLASH_SHAPES = [
     FlashShape("mla_decode4", 8, 4, 1001, 4, 4, 192, True, 997, 128),
     FlashShape("cross_prefill", 8, 64, 64, 16, 16, 64, False, 0),
     FlashShape("cross_decode", 8, 1, 64, 16, 16, 64, False, 0),
+    FlashShape("tp_prefill", 8, 64, 64, 16, 4, 64, True, 0),
+    FlashShape("tp_seamless_enc", 8, 256, 256, 8, 8, 64, False, 0),
+    FlashShape("tp_seamless_dec", 8, 256, 256, 8, 8, 64, True, 0),
+    FlashShape("tp_cross", 8, 200, 320, 8, 8, 64, False, 0),
 ]
 #: the serving run: llama3.2-1b at batch 8, prompt 64, 32 new tokens
 SERVE = dict(arch="llama3.2-1b", batch=8, prompt=64, new=32, seed=0)
@@ -1518,9 +1565,10 @@ def flash_per_call(arch) -> tuple[dict, dict]:
 
 
 def serve_arch(torch, arch_id: str, out: dict, layers=None,
-               prefill_runs: int = 3) -> int:
-    """One arch at :data:`SERVE`'s batch, prompt, new tokens and seed
-    (``layers`` cuts its depth), through the launcher and then through
+               prefill_runs: int = 3, n_new: int = SERVE["new"]) -> int:
+    """One arch at :data:`SERVE`'s batch, prompt and seed and ``n_new``
+    new tokens (``layers`` cuts its depth), through the launcher and then
+    through
     the engine with prefill, decode and the ``mode="ref"`` run (prefill
     and decode) each in a launch window of its own; an encoder-decoder
     gets the launcher's frames. The model is freed before returning.
@@ -1534,7 +1582,7 @@ def serve_arch(torch, arch_id: str, out: dict, layers=None,
     from repro_torch.launch import serve
     from repro_torch.serve import engine
 
-    b, s0, n_new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    b, s0 = SERVE["batch"], SERVE["prompt"]
     arch = registry.get(arch_id)
     argv = ["--arch", arch_id, "--batch", str(b), "--prompt-len", str(s0),
             "--new-tokens", str(n_new), "--seed", str(SERVE["seed"])]
@@ -1741,6 +1789,9 @@ ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 32),
          ("mamba2-780m", None), ("qwen3-moe-235b-a22b", 8),
          ("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 6),
          ("qwen2-vl-2b", None), ("seamless-m4t-large-v2", None)]
+#: the archs' new tokens: half of :data:`SERVE`'s, to keep the script
+#: inside its time
+ARCHS_NEW = 16
 #: decode steps of qwen3-8b with the int8 KV cache against the bf16 one
 KV_QUANT_STEPS = 8
 
@@ -1792,13 +1843,17 @@ def phase_archs(torch, details: dict) -> int:
     """:data:`ARCHS` through :func:`serve_arch`, one model on the card at
     a time; returns the flash launches of their counted prefills."""
     out = details.setdefault("archs", {})
-    return sum(serve_arch(torch, arch_id, out, layers)
+    return sum(serve_arch(torch, arch_id, out, layers, n_new=ARCHS_NEW)
                for arch_id, layers in ARCHS)
 
 
 #: the accuracy harness's operating point on the card (both reduced
 #: nets, and full-width resnet18)
 HARNESS = dict(n_samples=256, batch=64, train_steps=200)
+#: full-width resnet18's two trainings (recorded, not gated; the second
+#: only feeds the card-vs-CPU bitwise check): cut from 200 steps, then
+#: 50, to keep the script inside its time (none converges)
+FULL_TRAIN_STEPS = 10
 #: reduced nets: samples evaluated through golden, the card and the CPU
 #: on the same folded weights, in batches of CROSS_BATCH; the first
 #: batch's logits are held bitwise
@@ -1925,29 +1980,30 @@ def measured(torch, cfg, what: str, **kw):
     prog, _ = acc.compile_quantized_cnn(cfg)
     torch.cuda.synchronize()
     LAUNCHES.clear()
-    rep = acc.measure(cfg.arch, backend="cuda", **HARNESS, **kw)
+    harness = {**HARNESS, **kw}
+    rep = acc.measure(cfg.arch, backend="cuda", **harness)
     torch.cuda.synchronize()
     launches = read_launches(LAUNCHES, harness_launches(prog),
                              rep.n_samples, f"harness {what}")
     print(f"accuracy: {what}: agreement {rep.agreement:.4f} (floor "
           f"{acc.AGREEMENT_FLOOR}), top-1 compiled {rep.top1_compiled:.4f}, "
           f"top-1 fp32 {rep.top1_ref:.4f} over {rep.n_samples} samples; "
-          f"training {rep.train_s:.2f} s ({HARNESS['train_steps']} steps, "
+          f"training {rep.train_s:.2f} s ({harness['train_steps']} steps, "
           f"batch {HARNESS['batch']}); eval {rep.eval_ms_per_image:.3f} ms "
           f"per image; simulated FPGA latency {rep.latency_ms} ms; "
           f"launches {launches}")
     return rep, launches
 
 
-def trained(torch, cfg):
-    """A reference trained at :data:`HARNESS`'s steps on the card, its
-    norms folded; returns (folded weights, reference forward, seconds)."""
+def trained(torch, cfg, steps: int = HARNESS["train_steps"]):
+    """A reference trained at ``steps`` (:data:`HARNESS`'s) on the card,
+    its norms folded; returns (folded weights, reference forward,
+    seconds)."""
     from repro_torch.eval import accuracy as acc
     from repro_torch.models import cnn
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, norms, ref_fn = acc.build_reference(
-        cfg, train_steps=HARNESS["train_steps"])
+    params, norms, ref_fn = acc.build_reference(cfg, train_steps=steps)
     folded = cnn.fold_inference_weights(params, cfg, norms)
     torch.cuda.synchronize()
     return folded, ref_fn, time.perf_counter() - t0
@@ -2068,9 +2124,10 @@ def phase_accuracy(torch, details: dict) -> dict:
                                    ref_fn)}
 
     cfg = cnn.CNNConfig(arch="resnet18")
-    rep, launches = measured(torch, cfg, "resnet18 224", reduced=False)
+    rep, launches = measured(torch, cfg, "resnet18 224", reduced=False,
+                             train_steps=FULL_TRAIN_STEPS)
     totals.update(launches)
-    folded, _, secs = trained(torch, cfg)
+    folded, _, secs = trained(torch, cfg, FULL_TRAIN_STEPS)
     prog, specs = acc.compile_quantized_cnn(cfg)
     images = SyntheticImages(1000, FULL_CPU_IMAGES, 224,
                              sample_seed=10_000).next_batch()["images"]
@@ -2081,7 +2138,8 @@ def phase_accuracy(torch, details: dict) -> dict:
     y = logits[0].numpy()
     if y.shape != (FULL_CPU_IMAGES, 1000) or not np.isfinite(y).all():
         raise AssertionError(f"harness logits {y.shape} not finite")
-    print(f"accuracy: resnet18 224: one more training ({secs:.2f} s); "
+    print(f"accuracy: resnet18 224: one more training ({secs:.2f} s, "
+          f"{FULL_TRAIN_STEPS} steps); "
           f"{FULL_CPU_IMAGES} images' logits bitwise equal on the card and "
           f"the CPU")
     out["resnet18_224"] = {"report": rep.bench_row(), "retrain_s": secs}
@@ -3477,8 +3535,9 @@ def phase_codesign(torch, details: dict) -> dict:
 #: attentions at batch 8, sequence 256 (encoder self, decoder self,
 #: cross over a memory of another length), llama3.2-1b's GQA at S 2048, a
 #: ragged causal shape whose tiles cross the diagonal, kv_offset > 0,
-#: qwen2-vl-2b's (128, 128) at 12 query heads over 2, and a D=128 GQA
-#: shape whose tiles cross the diagonal
+#: qwen2-vl-2b's (128, 128) at 12 query heads over 2, a D=128 GQA
+#: shape whose tiles cross the diagonal, and seamless's three at phase
+#: 14's 8 local heads a rank
 BWD_SHAPES = [
     FlashShape("seamless_enc", 8, 256, 256, 16, 16, 64, False, 0),
     FlashShape("seamless_dec", 8, 256, 256, 16, 16, 64, True, 0),
@@ -3488,6 +3547,9 @@ BWD_SHAPES = [
     FlashShape("offset", 2, 300, 1000, 8, 8, 64, True, 700),
     FlashShape("qwen2vl_d128", 2, 512, 512, 12, 2, 128, True, 0),
     FlashShape("gqa_d128", 2, 1000, 1000, 32, 8, 128, True, 0),
+    FlashShape("tp_seamless_enc", 8, 256, 256, 8, 8, 64, False, 0),
+    FlashShape("tp_seamless_dec", 8, 256, 256, 8, 8, 64, True, 0),
+    FlashShape("tp_cross", 8, 200, 320, 8, 8, 64, False, 0),
 ]
 #: kernel vs plain backward, bf16: each of dq, dk, dv within 4 bf16 steps
 #: (2^-8 relative) of the gradient's max |.|. The two differ in where they
@@ -3608,6 +3670,26 @@ def ptxas_usage(torch, source: str) -> list[str]:
     return lines
 
 
+def on_new_thread(fn):
+    """``fn()`` on a new host thread, which has no current CUDA context
+    until a CUDA call makes one (as autograd's device thread when the
+    backward is the first work it runs); its result, or its error
+    raised here."""
+    box: dict = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except Exception as e:  # noqa: BLE001 - raised below
+            box["err"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
 def bwd_shapes(torch, details: dict) -> dict:
     """The backward kernel against autograd through the plain version at
     :data:`BWD_SHAPES`, each entry point timed; returns the first shape's
@@ -3616,7 +3698,8 @@ def bwd_shapes(torch, details: dict) -> dict:
     from repro_torch.kernels.flash_attention import _forward_kernel, \
         flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_attention_bwd import ENTRY_POINTS, \
-        bwd_prep_plain, entry_args, flash_attention_bwd_plain
+        bwd_prep_plain, entry_args, flash_attention_bwd, \
+        flash_attention_bwd_plain
     gen = torch.Generator(device="cuda").manual_seed(12)
     rows = details.setdefault("bwd", [])
     for shape in BWD_SHAPES:
@@ -3654,6 +3737,13 @@ def bwd_shapes(torch, details: dict) -> dict:
             row_errs[what] = bwd_row_err(g, w)
         out_k, lse = _forward_kernel(q, k, v, scale, causal, off,
                                      with_lse=True)
+        # the entry points as a fresh thread's first CUDA work: the same
+        # gradients, bitwise
+        fresh = on_new_thread(lambda: flash_attention_bwd(
+            q, k, v, out_k, dout, lse, scale, causal, off))
+        torch.cuda.synchronize()
+        bitwise = bitwise and all(torch.equal(g, h)
+                                  for g, h in zip(got, fresh))
         lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)[1]
         lse_err = float((lse - lse_p).abs().max())
         # each entry point alone, on the kernel forward's out and lse; dq
@@ -3687,7 +3777,8 @@ def bwd_shapes(torch, details: dict) -> dict:
                 f"bwd {name}: kernel vs plain, relative max |err| {errs} "
                 f"(tol {BWD_TOL}), row errors {row_errs} (tol "
                 f"{BWD_ROW_TOL}), lse max |err| {lse_err} (tol {LSE_TOL}), "
-                f"second call bitwise equal {bitwise}, delta relative "
+                f"second call and a new thread's bitwise equal {bitwise}, "
+                f"delta relative "
                 f"error {delta_err} (tol {DELTA_TOL})")
         whole_ms, whole_by = bwd_bound_ms(b, sq, skv, hq, hkv, d, causal,
                                           off)
@@ -3710,7 +3801,8 @@ def bwd_shapes(torch, details: dict) -> dict:
               f"{row_errs['dq']:.3g} dk {row_errs['dk']:.3g} dv "
               f"{row_errs['dv']:.3g} (tol {BWD_ROW_TOL}), lse "
               f"{lse_err:.3g} (tol {LSE_TOL}), delta {delta_err:.3g} (tol "
-              f"{DELTA_TOL:.3g}), second call bitwise equal {bitwise}; "
+              f"{DELTA_TOL:.3g}), second call and a new thread's bitwise "
+              f"equal {bitwise}; "
               "device ms "
               + ", ".join(f"{e.replace('flash_attention_bwd_', '')} "
                           f"{times[e]:.4f}" for e in ENTRY_POINTS)
@@ -4549,9 +4641,10 @@ def pipeline_check(torch, tmp: str, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_parallel(torch, details: dict) -> dict:
+def phase_parallel(torch, details: dict) -> tuple[dict, dict]:
     """Phase 13. Returns the flash launches of the data-parallel ranks'
-    runs (the main path's), summed over the ranks."""
+    runs (the main path's), summed over the ranks, and the one-process
+    reference (phase 14 holds its tensor-parallel step to it)."""
     import tempfile
     import torch.distributed as dist
     import gc
@@ -4589,6 +4682,460 @@ def phase_parallel(torch, details: dict) -> dict:
             print("parallel: nccl multi-card not run (1 card)")
     finally:
         dist.destroy_process_group()
+    return dict(launches), ref
+
+# ---------------------------------------------------------------------------
+# Phase 14: tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+#: the tensor-parallel mesh over ("data", "model"): one rank a "model"
+#: shard
+TP_MESH = (1, 2)
+#: llama3.2-1b's tensor-parallel prefill: phase 5's serving traffic, the
+#: weights from the seed on the card, a bf16 cache of the prompt's length
+TP_PREFILL = dict(arch="llama3.2-1b", batch=8, prompt=64, seed=0)
+#: last-position logits against the one-process prefill, each logit
+#: within this many bf16 steps (2^-8 relative) of its own |value| plus
+#: its row's RMS: each of the 16 layers' two row-parallel products sums
+#: two bf16 partial products (each rounded once) where one process
+#: rounds one fp32 sum, the residual stream carries the difference to
+#: every logit in proportion to the row's scale, and the bf16 logits
+#: round once more on their own scale. A row's RMS, not its largest
+#: |logit|: at random init one column (the input token's, through the
+#: tied embedding) stands far above the rest. The largest of 8 x 128,256
+#: such errors is the far tail of their spread (about 20 steps on the
+#: card); rank 1's attention partial sums lost in the last layer alone
+#: give about 160
+TP_LOGIT_STEPS = 48
+#: and the rows' error as a share of what the layers add to the logits:
+#: ||tp - one|| / ||one - embedding-only|| a row, the embedding-only
+#: logits those of the same weights with every layer's output
+#: projections zeroed (at random init the residual stream is mostly the
+#: embedding passed through, which both runs share exactly; about 0.016
+#: on the card, and 0.13 with the last layer's fault above)
+TP_LAYERS_REL = 0.05
+#: the dry-run's predicted peak (arguments + temporaries) against the
+#: measured one, either way: it runs the attention's plain version on
+#: meta tensors (chunked scores the kernel never holds), and the card's
+#: caching allocator rounds blocks
+TP_PEAK_FACTOR = 3.0
+#: the seamless step: phase 13's global batch and seed, one step
+TP_TRAIN = dict(batch=8, seq=256, seed=0, steps=2)
+
+
+def stage_gloo_all_gather(torch) -> list:
+    """Route the functional all-gather of CUDA tensors through host
+    memory in this process: gloo crashes on an all-gather of CUDA
+    tensors (torch 2.11), while its all-reduce, reduce-scatter and
+    all-to-all take them. The tensor is copied to the host, gathered by
+    the same functional collective over the same group there, and
+    copied back; DTensor's redistributions and the port's own gathers
+    call the patched functions. Returns their names."""
+    import torch.distributed._functional_collectives as funcol
+    done = []
+    for name in ("all_gather_tensor", "all_gather_single"):
+        fn = getattr(funcol, name, None)
+        if fn is None:
+            continue
+
+        def staged(x, *args, _fn=fn, **kwargs):
+            if not x.is_cuda:
+                return _fn(x, *args, **kwargs)
+            y = funcol.wait_tensor(_fn(x.cpu(), *args, **kwargs))
+            return y.to(x.device)
+        setattr(funcol, name, staged)
+        done.append(name)
+    return done
+
+
+def comm_kinds(counts: dict) -> dict:
+    """``CommDebugMode``'s counts by op as the dry-run's kinds."""
+    kinds = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+             "all_to_all": "all-to-all", "alltoall": "all-to-all",
+             "all_reduce": "all-reduce", "allreduce": "all-reduce",
+             "allgather": "all-gather", "send": "collective-permute"}
+    out: dict = {}
+    for op, n in counts.items():
+        name = str(op)
+        kind = next((v for k, v in kinds.items() if k in name), name)
+        out[kind] = out.get(kind, 0) + int(n)
+    return out
+
+
+def tp_predictions():
+    """Start the dry-run of phase 14's two runs on a fake world of
+    :data:`TP_MESH` (rank 0's view) in a subprocess (the fake process
+    group must not meet this process's groups). Returns a function that
+    waits for it and returns its records with its host seconds (its
+    ``kill`` ends it). The whole script starts it beside the kernel
+    build, which times nothing, and waits for it there, so that it
+    takes no host time from any timed window."""
+    code = f"""
+import dataclasses, json, sys
+sys.path.insert(0, {str(SRC)!r})
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun
+base = registry.get("seamless-m4t-large-v2")
+n = {PARALLEL_LAYERS}
+cut = f"{{base.arch_id}}-{{n}}+{{n}}L"
+registry.register(dataclasses.replace(base, arch_id=cut, model=dataclasses.replace(
+    base.model, n_enc_layers=n, n_dec_layers=n)))
+mesh = dryrun.fake_mesh({TP_MESH!r}, ("data", "model"))
+recs = {{
+    "prefill": dryrun.run_cell({TP_PREFILL["arch"]!r}, registry.ShapeSpec(
+        "tp_prefill", {TP_PREFILL["prompt"]}, {TP_PREFILL["batch"]}, "prefill"),
+        mesh=mesh, verbose=False),
+    "train": dryrun.run_cell(cut, registry.ShapeSpec(
+        "tp_train", {TP_TRAIN["seq"]}, {TP_TRAIN["batch"]}, "train"),
+        mesh=mesh, verbose=False)}}
+import torch.distributed as dist
+dist.destroy_process_group()
+print(json.dumps(recs))
+"""
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def wait() -> dict:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            wait.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"tensor: the dry-run failed:\n"
+                                 f"{err[-3000:]}")
+        recs = json.loads(out.strip().splitlines()[-1])
+        recs["host_s"] = time.time() - t0
+        return recs
+
+    def kill() -> None:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wait.kill = kill
+    return wait
+
+
+def local_bytes(tree) -> int:
+    """The bytes the local shards of a DTensor tree hold."""
+    from repro_torch.models.layers import tree_leaves
+    return sum(t.to_local().untyped_storage().nbytes()
+               for t in tree_leaves(tree))
+
+
+def logit_errors(got, ref, ref0) -> dict:
+    """``got`` against ``ref`` [rows, V]: the largest error in bf16 steps
+    of each logit's |value| plus its row's RMS (``steps``), and the
+    largest row's L2 error over the row's ``ref - ref0`` (``layers_rel``:
+    ``ref0`` the embedding-only logits)."""
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    err = (got - ref).abs()
+    return {"steps": float((err / (ref.abs() + rms)).max()) / 2 ** -8,
+            "layers_rel": float((err.norm(dim=-1) /
+                                 (ref - ref0).norm(dim=-1)).max()),
+            "max_abs": float(err.max()),
+            "max_logit": float(ref.abs().max()),
+            "row_rms": [float(x) for x in rms[:, 0]]}
+
+
+def tp_worker(rank: int, world: int, out_dir: str, backend: str) -> None:
+    """One tensor-parallel rank of phase 14 (see the module docstring):
+    the llama3.2-1b prefill and the seamless step on a :data:`TP_MESH`
+    mesh, each in a launch window and under ``CommDebugMode``, with its
+    parameter bytes and peak. Rank 0 also writes the gathered step-1
+    state for the parent to hold against phase 13's reference."""
+    import gc
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.train import step_frames
+    from repro_torch.models.layers import param_axes_tree, tree_leaves
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import arch_rules, init_train_state, \
+        make_train_step, shard_train_state
+    staged = stage_gloo_all_gather(torch) if backend == "gloo" else []
+    mesh = init_device_mesh("cuda", TP_MESH, mesh_dim_names=("data",
+                                                             "model"))
+    res: dict = {"rank": rank, "backend": backend, "staged": staged}
+
+    # --- llama3.2-1b prefill on each rank's heads
+    arch = registry.get(TP_PREFILL["arch"])
+    mod, cfg, rules = arch.model_module(), arch.model, arch_rules(arch)
+    b, s = TP_PREFILL["batch"], TP_PREFILL["prompt"]
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+        TP_PREFILL["seed"]))
+    tokens = SyntheticTokens(cfg.vocab, b, s, TP_PREFILL["seed"]) \
+        .next_batch()["tokens"].cuda()
+    with torch.no_grad():
+        cache = mod.init_cache(cfg, b, s, torch.bfloat16, device="cuda")
+        ref, _ = mod.prefill(params, tokens, cache, cfg, last_only=True)
+        lay = params["layers"]
+        bare = dict(params, layers=dict(
+            lay, attn=dict(lay["attn"], wo=torch.zeros_like(lay["attn"]["wo"])),
+            mlp=dict(lay["mlp"], down=torch.zeros_like(lay["mlp"]["down"]))))
+        ref0, _ = mod.prefill(bare, tokens, cache, cfg, last_only=True)
+    ref, ref0 = ref[:, 0].float(), ref0[:, 0].float()
+    del cache, bare, lay
+    dp = S.shard_params_tree(params, mod.param_axes(cfg), mesh, rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["prefill_param_bytes"] = local_bytes(dp)
+    with S.use_mesh(mesh, rules):
+        cache = S.shard_params_tree(mod.init_cache(cfg, b, s, torch.bfloat16,
+                                            device="cuda"),
+                             param_axes_tree(mod.cache_specs(cfg, b, s)),
+                             mesh)
+        db = S.shard_batch({"tokens": tokens}, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    with torch.no_grad(), S.use_mesh(mesh, rules), CommDebugMode() as comm:
+        t0 = time.perf_counter()
+        logits, cache = mod.prefill(dp, db["tokens"], cache, cfg,
+                                    last_only=True)
+        torch.cuda.synchronize()
+        res["prefill_host_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["prefill_launches"] = dict(LAUNCHES)
+    res["prefill_peak"] = torch.cuda.max_memory_allocated()
+    res["prefill_comm"] = comm_kinds(comm.get_comm_counts())
+    got = logits.full_tensor()[:, 0].float()
+    res.update(logit_errors(got, ref, ref0))
+    res["argmax_equal"] = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    res["min_margin"] = float((top2[:, 0] - top2[:, 1]).min())
+    with torch.no_grad(), S.use_mesh(mesh, rules):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.prefill(dp, db["tokens"], cache, cfg, last_only=True)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    res["prefill_warm_host_ms"] = times
+    # the check's power: rank 1's attention partial sums lost (its shard
+    # of wo zeroed), in the last layer, then in every layer
+    wo = dp["layers"]["attn"]["wo"].to_local()
+    res["faults"] = {}
+    with torch.no_grad(), S.use_mesh(mesh, rules):
+        for name, layers in (("last_layer", slice(-1, None)),
+                             ("every_layer", slice(None))):
+            if rank == 1:
+                wo[layers].zero_()
+            bad, _ = mod.prefill(dp, db["tokens"], cache, cfg,
+                                 last_only=True)
+            res["faults"][name] = logit_errors(
+                bad.full_tensor()[:, 0].float(), ref, ref0)
+    del dp, cache, db, logits, wo, bad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- seamless cut to 6 + 6 layers: one tensor-parallel train step
+    arch = registry.get(cut_seamless())
+    mod, cfg, rules = arch.model_module(), arch.model, arch_rules(arch)
+    b, s, seed = TP_TRAIN["batch"], TP_TRAIN["seq"], TP_TRAIN["seed"]
+    state = init_train_state(mod.init(cfg, torch.Generator(
+        device="cuda").manual_seed(seed)))
+    state = shard_train_state(state, mod.param_axes(cfg), mesh, rules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train_param_bytes"] = local_bytes(state.params)
+    batch = {k: t.cuda() for k, t in SyntheticTokens(
+        cfg.vocab, b, s, seed=seed).next_batch().items()}
+    batch["frames"] = step_frames(torch.Generator(device="cuda")
+                                  .manual_seed(seed + 1), b, s, cfg.d_model,
+                                  "cuda")
+    step = make_train_step(arch, AdamWConfig(total_steps=TP_TRAIN["steps"]),
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    with CommDebugMode() as comm:
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        res["train_host_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["train_launches"] = dict(LAUNCHES)
+    res["train_peak"] = torch.cuda.max_memory_allocated()
+    res["train_comm"] = comm_kinds(comm.get_comm_counts())
+    res["metrics"] = {k: float(v) for k, v in metrics.items()}
+    del state
+    params = [t.full_tensor() for t in tree_leaves(new.params)]
+    moments = [t.full_tensor() for t in tree_leaves(new.opt.m)]
+    if rank == 0:
+        torch.save({"params": [t.cpu() for t in params],
+                    "moments": [t.cpu() for t in moments]},
+                   Path(out_dir) / "tp_state.pt")
+    (Path(out_dir) / f"tp{rank}.json").write_text(json.dumps(res))
+
+
+def tensor_run(torch, backend: str, ref: dict, predicted: dict, tmp: str,
+               out: dict) -> dict:
+    """:func:`tp_worker` on 2 ranks over ``backend``, checked (see the
+    module docstring) against the dry-run's ``predicted`` records;
+    returns the launches summed over the ranks."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.ranks import run_ranks
+    world = math.prod(TP_MESH)
+    run_ranks(tp_worker, world, tmp, backend, backend=backend,
+              timeout=RANK_TIMEOUT_S)
+    ranks = [json.loads((Path(tmp) / f"tp{r}.json").read_text())
+             for r in range(world)]
+    arch = registry.get(cut_seamless())
+    n_layers = registry.get(TP_PREFILL["arch"]).model.n_layers
+    want_prefill = {"flash_attention": n_layers}
+    want_train = train_launches(arch, 1)
+    pre, tr = predicted["prefill"], predicted["train"]
+    r0 = ranks[0]
+    if r0["staged"]:
+        print(f"tensor: {backend}: the all-gather of CUDA tensors goes "
+              f"through host memory on these ranks (gloo crashes on it; "
+              f"{', '.join(r0['staged'])} patched in the ranks); the other "
+              f"collectives run on the card's tensors")
+    state = torch.load(Path(tmp) / "tp_state.pt")
+    agree = state_agreement(
+        torch, [t.cuda() for t in state["params"]], ref["params"],
+        [t.cuda() for t in state["moments"]], ref["moments"], ref["lrs"][0])
+    del state
+    torch.cuda.empty_cache()
+    loss_err = abs(r0["metrics"]["loss"] - ref["losses"][0])
+    peak_ratio = {
+        "prefill": [(pre["mem_argument_size_in_bytes"] +
+                     pre["mem_temp_size_in_bytes"]) / r["prefill_peak"]
+                    for r in ranks],
+        "train": [(tr["mem_argument_size_in_bytes"] +
+                   tr["mem_temp_size_in_bytes"]) / r["train_peak"]
+                  for r in ranks]}
+    gib = 2 ** 30
+    print(f"tensor: {backend}: llama3.2-1b bf16 {n_layers} layers, prefill "
+          f"batch {TP_PREFILL['batch']} x {TP_PREFILL['prompt']} on "
+          f"{world} ranks, mesh {TP_MESH}: last-position logits vs one "
+          f"process: bf16 steps of |logit| + row RMS "
+          f"{[round(r['steps'], 3) for r in ranks]} (tolerance "
+          f"{TP_LOGIT_STEPS}), share of the layers' part "
+          f"{[round(r['layers_rel'], 5) for r in ranks]} (tolerance "
+          f"{TP_LAYERS_REL}), max |err| "
+          f"{[round(r['max_abs'], 5) for r in ranks]} at max |logit| "
+          f"{r0['max_logit']:.4f}, row RMS "
+          f"{min(r0['row_rms']):.4f}-{max(r0['row_rms']):.4f}; argmax equal "
+          f"{[r['argmax_equal'] for r in ranks]} of {TP_PREFILL['batch']} "
+          f"(smallest top-2 margin {r0['min_margin']:.4f}); flash launches "
+          f"a rank {[r['prefill_launches'] for r in ranks]} (want "
+          f"{want_prefill}); host ms {[round(r['prefill_host_ms'], 1) for r in ranks]} "
+          f"(warm {[[round(t, 1) for t in r['prefill_warm_host_ms']] for r in ranks]})")
+    for name, f in r0["faults"].items():
+        print(f"tensor: {backend}: planted fault, rank 1's attention "
+              f"partial sums lost ({name.replace('_', ' ')}): bf16 steps "
+              f"{f['steps']:.3f}, share of the layers' part "
+              f"{f['layers_rel']:.5f}, max |err| {f['max_abs']:.4f} (must "
+              f"fail both tolerances)")
+    print(f"tensor: {backend}: {arch.arch_id} one train step on {world} "
+          f"ranks: loss {r0['metrics']['loss']:.6f} vs phase 13's one "
+          f"process {ref['losses'][0]:.6f} (|err| {loss_err:.3g}); step 1 "
+          f"moments relative L2 {agree['moments_rel_l2']:.4g}, params "
+          f"bitwise equal {100 * agree['params_bitwise_share']:.3f}%, "
+          f"{agree['params_outside']} outside one bf16 step; flash launches "
+          f"a rank {[r['train_launches'] for r in ranks]} (want "
+          f"{want_train}); host ms {[round(r['train_host_ms'], 1) for r in ranks]}")
+    print(f"tensor: {backend}: dry-run vs ranks: parameter bytes a rank "
+          f"predicted {pre['param_bytes_per_device']} / "
+          f"{tr['param_bytes_per_device']}, measured "
+          f"{[r['prefill_param_bytes'] for r in ranks]} / "
+          f"{[r['train_param_bytes'] for r in ranks]}; collectives "
+          f"predicted {pre['collective_counts_per_device']} / "
+          f"{tr['collective_counts_per_device']}, CommDebugMode "
+          f"{[r['prefill_comm'] for r in ranks]} / "
+          f"{[r['train_comm'] for r in ranks]}; peak GiB predicted "
+          f"{(pre['mem_argument_size_in_bytes'] + pre['mem_temp_size_in_bytes']) / gib:.2f} / "
+          f"{(tr['mem_argument_size_in_bytes'] + tr['mem_temp_size_in_bytes']) / gib:.2f}, "
+          f"measured {[round(r['prefill_peak'] / gib, 2) for r in ranks]} / "
+          f"{[round(r['train_peak'] / gib, 2) for r in ranks]} (ratio "
+          f"{[[round(x, 2) for x in v] for v in peak_ratio.values()]}, "
+          f"within {TP_PEAK_FACTOR}x required); predicted FLOPs a rank "
+          f"{pre['flops_per_device']:.4g} / {tr['flops_per_device']:.4g}, "
+          f"collective bytes {pre['collective_bytes_total']} / "
+          f"{tr['collective_bytes_total']}")
+    result = {"ranks": ranks, "agree": agree, "loss_err": loss_err,
+              "peak_ratio": peak_ratio}
+    out[backend] = result
+    bad = []
+    for r in ranks:
+        if not (r["steps"] <= TP_LOGIT_STEPS and
+                r["layers_rel"] <= TP_LAYERS_REL):
+            bad.append(f"rank {r['rank']} logits {r['steps']} steps, "
+                       f"{r['layers_rel']} of the layers' part")
+        for name, f in r["faults"].items():
+            if not (f["steps"] > TP_LOGIT_STEPS and
+                    f["layers_rel"] > TP_LAYERS_REL):
+                bad.append(f"rank {r['rank']}: the logits check passes a "
+                           f"lost partial sum ({name}: {f})")
+        if r["argmax_equal"] != TP_PREFILL["batch"]:
+            bad.append(f"rank {r['rank']} argmax {r['argmax_equal']}")
+        if r["prefill_launches"] != want_prefill:
+            bad.append(f"rank {r['rank']} prefill launches")
+        if r["train_launches"] != want_train:
+            bad.append(f"rank {r['rank']} train launches")
+        if r["prefill_param_bytes"] != pre["param_bytes_per_device"] or \
+                r["train_param_bytes"] != tr["param_bytes_per_device"]:
+            bad.append(f"rank {r['rank']} parameter bytes")
+        if r["prefill_comm"] != pre["collective_counts_per_device"] or \
+                r["train_comm"] != tr["collective_counts_per_device"]:
+            bad.append(f"rank {r['rank']} collective counts")
+        if not math.isfinite(r["metrics"]["loss"]):
+            bad.append(f"rank {r['rank']} loss {r['metrics']['loss']}")
+    for v in peak_ratio.values():
+        if not all(1 / TP_PEAK_FACTOR <= x <= TP_PEAK_FACTOR for x in v):
+            bad.append(f"peak ratio {peak_ratio}")
+    if not (loss_err <= STEP_TOL["loss"] * abs(ref["losses"][0]) and
+            agree["moments_rel_l2"] <= STEP_TOL["moments"] and
+            agree["params_outside"] == 0):
+        bad.append(f"train step against phase 13's one process outside "
+                   f"{STEP_TOL}: loss {loss_err}, {agree}")
+    if bad:
+        raise AssertionError(f"tensor: {backend}: {bad}")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["prefill_launches"])
+        launches.update(r["train_launches"])
+    return dict(launches)
+
+
+def phase_tensor(torch, details: dict, ref: dict | None = None,
+                 predicted: dict | None = None) -> dict:
+    """Phase 14. ``ref`` is phase 13's one-process reference and
+    ``predicted`` :func:`tp_predictions`' records (each computed here
+    when the phase runs alone). Returns the flash launches of the
+    tensor-parallel ranks, summed over the ranks."""
+    import gc
+    import tempfile
+    out = details.setdefault("tensor", {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch_id = cut_seamless()
+    if ref is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = one_process_reference(torch, arch_id, tmp)
+    if predicted is None:
+        predicted = tp_predictions()()
+    print(f"tensor: dry-run of the two runs on a fake {TP_MESH} world in "
+          f"{predicted['host_s']:.1f} s (host, before the ranks): prefill "
+          f"{predicted['prefill']['host_s']} s, train step "
+          f"{predicted['train']['host_s']} s")
+    out["predicted"] = predicted
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(tensor_run(torch, "gloo", ref, predicted, tmp, out))
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches.update(tensor_run(torch, "nccl", ref, predicted, tmp,
+                                       out))
+    else:
+        print("tensor: nccl, one rank a card, not run (1 card)")
     return dict(launches)
 
 
@@ -4625,7 +5172,17 @@ def main(argv=None) -> int:
         print(f"time: phase {name} {details['phase_s'][name]:.1f} s")
         return result
 
-    phase("card", phase_card, torch, details)
+    # phase 14's dry-run beside the kernel build, which times nothing
+    predicting = tp_predictions()
+    try:
+        phase("card", phase_card, torch, details)
+    except BaseException:
+        predicting.kill()
+        raise
+    t0 = time.time()
+    predicted = predicting()
+    print(f"tensor: waited {time.time() - t0:.1f} s for the dry-run after "
+          f"the build")
     t0 = time.time()
     prog = compile_network("resnet18")
     print(f"compile: resnet18 224 -O 0, {len(prog.layers)} layers, "
@@ -4661,7 +5218,7 @@ def main(argv=None) -> int:
     train = phase("train", phase_train, torch, details)
     print(f"train: launches of the seamless run {train['launches']}")
     counts["flash_attention"] += train["launches"]["flash_attention"]
-    par = phase("parallel", phase_parallel, torch, details)
+    par, ref = phase("parallel", phase_parallel, torch, details)
     print(f"parallel: launches of the data-parallel ranks' runs, summed "
           f"over the ranks {par}")
     for name in train["launches"]:
@@ -4669,6 +5226,16 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} not launched on the data-parallel "
                                  f"path ({par})")
     counts["flash_attention"] += par["flash_attention"]
+    tensor = phase("tensor", phase_tensor, torch, details, ref, predicted)
+    del ref
+    print(f"tensor: launches of the tensor-parallel ranks' runs, summed "
+          f"over the ranks {tensor}")
+    for name in train["launches"]:
+        if not tensor.get(name):
+            raise AssertionError(f"{name} not launched on the "
+                                 f"tensor-parallel path ({tensor})")
+        par[name] += tensor[name]
+    counts["flash_attention"] += tensor["flash_attention"]
     for name in ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
                  "int4_gemm"):
         if not codesign.get(name):

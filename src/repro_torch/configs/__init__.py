@@ -4,7 +4,8 @@ registry: the reference's ten archs (``llama3.2-1b``, ``qwen3-8b``,
 ``qwen2-vl-2b``, ``mamba2-780m``, ``jamba-v0.1-52b``,
 ``seamless-m4t-large-v2``), which it serves and compiles; the decoder
 archs also decode through compiled sessions."""
-from repro_torch.configs.registry import ArchConfig, get, list_archs, \
-    register
+from repro_torch.configs.registry import SHAPES, ArchConfig, ShapeSpec, \
+    get, list_archs, register
 
-__all__ = ["ArchConfig", "get", "list_archs", "register"]
+__all__ = ["SHAPES", "ArchConfig", "ShapeSpec", "get", "list_archs",
+           "register"]

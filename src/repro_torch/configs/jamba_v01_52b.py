@@ -16,6 +16,7 @@ from repro_torch.models.ssm import SSMConfig
 CONFIG = register(ArchConfig(
     arch_id="jamba-v0.1-52b",
     family="hybrid",
+    skip_shapes=(),                      # sub-quadratic: runs long_500k
     module="hybrid",
     model=HybridConfig(
         name="jamba-v0.1-52b",

@@ -14,6 +14,7 @@ from repro_torch.models.ssm import SSMConfig, SSMLMConfig
 CONFIG = register(ArchConfig(
     arch_id="mamba2-780m",
     family="ssm",
+    skip_shapes=(),                      # sub-quadratic: runs long_500k
     module="ssm",
     model=SSMLMConfig(
         name="mamba2-780m",

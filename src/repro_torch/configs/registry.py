@@ -4,16 +4,47 @@ one model module of ``repro_torch.models``.
 
 The counterpart of ``repro.configs.registry``, with all ten of its
 archs and their sharding-rule overrides (``rule_overrides``, which
-``DEFAULT_RULES.replace`` applies: yi-34b's and qwen2-vl-2b's). The
-dry-run's shape sets (``ShapeSpec``, ``SHAPES``, ``skip_shapes``) come
-with the dry-run slice (ROADMAP queue 1). Modules are named as strings
-and imported on first use, only from ``repro_torch``.
+``DEFAULT_RULES.replace`` applies: yi-34b's and qwen2-vl-2b's), and the
+dry-run's shape set: ``SHAPES`` (each ``ShapeSpec`` with its own rule
+overrides) and the shapes an arch skips (``skip_shapes``, ``shapes()``).
+Modules are named as strings and imported on first use, only from
+``repro_torch``.
+
+Shape semantics:
+  train_4k     seq 4096,   global_batch 256  -> train_step
+  prefill_32k  seq 32768,  global_batch 32   -> prefill (forward, no loss)
+  decode_32k   seq 32768,  global_batch 128  -> serve_step (1 new token,
+                                                KV cache of seq_len)
+  long_500k    seq 524288, global_batch 1    -> serve_step; only for the
+               sub-quadratic archs (jamba, mamba2); the eight pure
+               full-attention archs skip it.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+    rule_overrides: dict = dataclasses.field(default_factory=dict)
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec(
+        "decode_32k", 32768, 128, "decode",
+        rule_overrides={"kv_seq": ("model",), "act_kv_heads": ()}),
+    "long_500k": ShapeSpec(
+        "long_500k", 524288, 1, "decode",
+        rule_overrides={"kv_seq": ("data", "model"), "act_kv_heads": ()}),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,11 +55,15 @@ class ArchConfig:
     module: str                        # repro_torch.models.{lm,ssm,hybrid,encdec}
     rule_overrides: dict = dataclasses.field(default_factory=dict)
     frontend: str | None = None        # audio | vision (stubbed embeddings)
+    skip_shapes: tuple[str, ...] = ("long_500k",)
     smoke: Any = None                  # reduced same-family config
     notes: str = ""
 
     def model_module(self):
         return importlib.import_module(f"repro_torch.models.{self.module}")
+
+    def shapes(self) -> list[ShapeSpec]:
+        return [s for n, s in SHAPES.items() if n not in self.skip_shapes]
 
 
 _REGISTRY: dict[str, ArchConfig] = {}

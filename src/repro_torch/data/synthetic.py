@@ -1,11 +1,11 @@
 """Seeded synthetic batches: token streams for the LM serving and
 training paths, class-conditioned images for the CNN accuracy harness,
-and the smoke tests' host batch.
+and the smoke tests' host batch; the dry-run's batch specs.
 
 The counterparts of ``repro.data.synthetic``'s ``SyntheticTokens``,
-``SyntheticImages`` and ``make_host_batch``: the same numpy generators
-and the same draws, so both packages see identical prompts and images
-from one seed. Only the result's type differs: torch tensors on the CPU
+``SyntheticImages``, ``make_host_batch`` and ``make_batch_specs``: the
+same numpy generators and the same draws, so both packages see
+identical prompts and images from one seed. Only the result's type differs: torch tensors on the CPU
 (the caller moves them to its device). ``make_host_batch``'s frames and
 patch embeddings are the exception: see there.
 """
@@ -78,6 +78,27 @@ class SyntheticImages:
     def __iter__(self):
         while True:
             yield self.next_batch()
+
+
+def make_batch_specs(arch, shape) -> dict:
+    """Stand-ins on the ``meta`` device for (arch, shape), the dry-run's
+    inputs: ``tokens`` int32 [B, S] for a train or prefill shape (with an
+    encoder-decoder's ``frames`` or a vision frontend's ``extra_embed``
+    in bf16 [B, S, d_model]), else the decode step's ``token`` [B, 1];
+    B, S the shape's global batch and sequence length."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                       device="meta")}
+        name = {"encdec": "frames"}.get(arch.module)
+        if name is None and arch.frontend == "vision":
+            name = "extra_embed"
+        if name is not None:
+            specs[name] = torch.empty((b, s, arch.model.d_model),
+                                      dtype=torch.bfloat16, device="meta")
+        return specs
+    # decode: one new token against a cache of length s
+    return {"token": torch.empty((b, 1), dtype=torch.int32, device="meta")}
 
 
 def make_host_batch(arch, batch: int, seq: int, seed: int = 0) -> dict:

@@ -788,6 +788,14 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// Make the device's primary context current on the calling thread.
+// cuTensorMapEncodeTiled needs one, and a thread whose first CUDA call
+// this is has none: autograd's device thread, when this backward is the
+// first work it runs (on device 0 torch makes no runtime call there
+// first). Any runtime call makes it current; cudaFree(nullptr) does
+// nothing else.
+int current_context() { return cudaFree(nullptr); }
+
 // The tensor map of a [B, S, H, D] bf16 tensor (element strides sb, ss,
 // sh; a dimension of one takes any stride, so it gets the row's) in
 // boxes of `rows` rows by 64 columns, 128-byte swizzled, zeros past S.
@@ -863,6 +871,7 @@ int flash_attention_bwd_dq(
   if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
   CUtensorMap m[4];
   int err;
+  if ((err = current_context())) return err;
   if ((err = make_map(&m[0], q, B, Sq, Hq, D, q_sb, q_ss, q_sh, ROWS)) ||
       (err = make_map(&m[1], k, B, Skv, Hkv, D, k_sb, k_ss, k_sh, ROWS)) ||
       (err = make_map(&m[2], v, B, Skv, Hkv, D, v_sb, v_ss, v_sh, ROWS)) ||
@@ -895,6 +904,7 @@ int flash_attention_bwd_dkdv(
   if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
   CUtensorMap m[4];
   int err;
+  if ((err = current_context())) return err;
   if ((err = make_map(&m[0], q, B, Sq, Hq, D, q_sb, q_ss, q_sh, QT)) ||
       (err = make_map(&m[1], k, B, Skv, Hkv, D, k_sb, k_ss, k_sh, ROWS)) ||
       (err = make_map(&m[2], v, B, Skv, Hkv, D, v_sb, v_ss, v_sh, ROWS)) ||

@@ -9,8 +9,9 @@ The counterpart of ``repro.launch.mesh``. Both builders are functions,
 so importing this module touches no process group or device; they run
 on the default process group, which the caller (the train launcher, or
 ``torchrun``'s environment through it) has initialized, one rank per
-device. The port's models make no tensor-parallel constraints yet, so
-the "model" ranks of the production mesh run replicated.
+device. On the production mesh the models run tensor-parallel over
+"model" (``parallel/sharding.py``); the host mesh's "model" axis has one
+rank.
 """
 from __future__ import annotations
 

@@ -38,12 +38,13 @@ the same frames) and keeps the rows that ``logical_to_spec(("batch",
 None))`` gives its mesh coordinates: a batch that the data axis does
 not divide is replicated by that rule, so every rank computes it whole.
 An N-rank run thus sees exactly the tokens of the one-process run. The
-train step averages the gradients over the ranks; only rank 0 prints,
-and only rank 0 writes checkpoints. An MoE arch (qwen3-moe, deepseek-v2,
-jamba) at more than one data rank exits 2: its load-balance aux is a
-product of global-batch means (ROADMAP queue 3). The models are not
-tensor-parallel yet: the production mesh's "model" ranks run
-replicated.
+train step averages the gradients over the ranks (an MoE arch's
+load-balance term over the global batch too); only rank 0 prints, and
+only rank 0 writes checkpoints. On the production mesh the run is
+tensor-parallel over its "model" axis as well: the state is sharded by
+the rules (``train.step.shard_train_state``, after a resume reads the
+checkpoint whole), every rank passes the global batch and the step
+splits it by the "batch" rule.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch seamless-m4t-large-v2 --batch 8 --seq 256 --steps 5
@@ -65,10 +66,10 @@ from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-from repro_torch.parallel.sharding import DEFAULT_RULES, entry_axes, \
-    logical_to_spec
+from repro_torch.parallel.sharding import entry_axes, logical_to_spec
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.train.step import arch_rules, init_train_state, \
+    make_train_step, shard_train_state, tensor_parallel
 
 
 def train_flash_heads(arch, seq: int) -> tuple[int, int] | None:
@@ -196,7 +197,7 @@ def _fail(message: str) -> None:
 
 def _train(args, arch, device: torch.device, distributed: bool) -> dict:
     cfg = arch.model
-    rules = DEFAULT_RULES.replace(**arch.rule_overrides)
+    rules = arch_rules(arch)
     mesh, rows, rank0 = None, slice(None), True
     if args.production_mesh:
         try:
@@ -205,24 +206,26 @@ def _train(args, arch, device: torch.device, distributed: bool) -> dict:
             _fail(str(e))
     elif distributed:
         mesh = make_host_mesh(device.type)
+    sharded = tensor_parallel(mesh)
     if mesh is not None:
         rank0 = dist.get_rank() == 0
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        rows = batch_rows(mesh, rules, args.batch, args.seq)
+        if not sharded:
+            rows = batch_rows(mesh, rules, args.batch, args.seq)
     log = print if rank0 else (lambda *a, **k: None)
     if mesh is not None:
-        log(f"# data parallel: world {dist.get_world_size()} over "
-            f"{dist.get_backend()}, mesh {tuple(mesh.mesh_dim_names)} "
-            f"{tuple(mesh.shape)}")
+        log(f"# {'tensor' if sharded else 'data'} parallel: world "
+            f"{dist.get_world_size()} over {dist.get_backend()}, mesh "
+            f"{tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)}")
 
     mod = arch.model_module()
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
     try:
         train_step = make_train_step(arch, opt_cfg,
                                      compress_grads=args.compress_grads,
-                                     mesh=mesh)
-    except ValueError as e:                 # MoE at > 1 data rank
+                                     mesh=mesh, rules=rules)
+    except ValueError as e:       # compression on the tensor-parallel step
         _fail(str(e))
     data = SyntheticTokens(cfg.vocab, args.batch, args.seq, seed=args.seed)
     frame_gen = (torch.Generator(device=device).manual_seed(args.seed + 1)
@@ -241,6 +244,8 @@ def _train(args, arch, device: torch.device, distributed: bool) -> dict:
         start = mgr.latest_step()
         state = mgr.restore(state, step=start)
         log(f"# resumed from checkpoint step {start}")
+    if sharded:
+        state = shard_train_state(state, mod.param_axes(cfg), mesh, rules)
 
     metrics_log, step_s = [], []
     _sync(device)

@@ -41,6 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MoEConfig, ParamSpec
+from repro_torch.parallel import sharding as S
 
 PERIOD = 8
 ATTN_POS = 3            # in-period index of the attention layer
@@ -172,9 +173,14 @@ def _period_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: HybridConfig, cache: dict | None = None,
                   cache_len=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One period's 8 sublayers. Returns (x, the MoE sublayers' aux loss
-    summed); the period's cache, if any, is updated in place."""
+    summed); the period's cache, if any, is updated in place. On
+    DTensors the period's weights are gathered over the batch axes first
+    and the residual stream is held at the reference's ``act_res`` after
+    each sublayer (the attention, Mamba and MoE pieces are
+    ``lm``'s, ``ssm``'s and ``layers``' tensor-parallel forms)."""
     lm_cfg = cfg.as_lm()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    p = S.gather_params(p)
+    aux = 0.0
     i_mamba = i_moe = i_mlp = 0
     for pos in range(PERIOD):
         # ---- token mixer
@@ -191,7 +197,8 @@ def _period_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cache=None if cache is None
                 else lm_mod._layer(cache["mamba"], i_mamba))
             i_mamba += 1
-        x = x + h
+        x = S.with_logical_constraint(
+            x + S.with_logical_constraint(h, ACT_RES), ACT_RES)
         # ---- FFN
         if pos in MOE_POS:
             pf = lm_mod._layer(p["moe"], i_moe)
@@ -205,7 +212,10 @@ def _period_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
             h = L.mlp_apply(pf["ffn"], L.rmsnorm(x, pf["ln"], cfg.norm_eps),
                             cfg.act)
             i_mlp += 1
-        x = x + h
+        x = S.with_logical_constraint(
+            x + S.with_logical_constraint(h, ACT_RES), ACT_RES)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
@@ -214,21 +224,38 @@ def _period_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: HybridConfig
+ACT_RES = ("batch", "act_res", None)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: HybridConfig,
+            last_only: bool = False, slice_vocab: bool = True
             ) -> torch.Tensor:
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return (x @ params["unembed"]).float()[..., :cfg.vocab]
+    x = S.with_logical_constraint(x, ("batch", None, None))
+    if last_only:
+        x = x[:, -1:]
+    logits = S.with_logical_constraint(
+        (x @ S.gather_params(params["unembed"])).float(),
+        ("batch", None, "vocab_act"))
+    return logits[..., :cfg.vocab] if slice_vocab else logits
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: HybridConfig
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return S.with_logical_constraint(
+        S.vocab_parallel_embed(params["embed"], tokens), ACT_RES)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: HybridConfig,
+            last_only: bool = False, slice_vocab: bool = True
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal logits over a prompt from empty states. tokens: [B, S]
     int. Returns (logits [B, S, vocab] fp32, aux loss: the MoE
-    sublayers' load balance and z-loss summed)."""
+    sublayers' load balance and z-loss summed); ``last_only`` keeps the
+    last position, ``slice_vocab=False`` the padded vocab."""
     b, s = tokens.shape
     positions = lm_mod._positions(b, s, 0, tokens.device)
-    x = params["embed"][tokens]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x = _embed(params, tokens)
+    aux = 0.0
     for i in range(cfg.n_periods):
         def inner(x, p=lm_mod._layer(params["periods"], i)):
             return _period_apply(p, x, positions, cfg)
@@ -236,7 +263,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: HybridConfig
         x, aux_i = L.remat(inner, "full" if cfg.remat == "full"
                            else "none")(x)
         aux = aux + aux_i
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, last_only, slice_vocab), aux
 
 
 def cache_specs(cfg: HybridConfig, batch: int, max_seq: int,
@@ -267,7 +294,7 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, cache_len,
     b = token.shape[0]
     idx = int(cache_len)
     positions = lm_mod._positions(b, 1, idx, token.device)
-    x = params["embed"][token]
+    x = _embed(params, token)
     for i in range(cfg.n_periods):
         x, _ = _period_apply(lm_mod._layer(params["periods"], i), x,
                              positions, cfg,

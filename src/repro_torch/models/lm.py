@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding as S
 from repro_torch.quant.hybrid import LayerQuantConfig
 from repro_torch.quant.uniform import fit_scale, qrange
 
@@ -249,6 +250,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     hq = cfg.hetero_quant
     if hq is None:
         return x @ w
+    if S.is_dtensor(x):
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid fake-quant projection has no "
+            f"tensor-parallel form (it takes per-column maxima of whole "
+            f"weights); run it on one device")
     out = w.shape[-1]
     n_serial = int(round(hq.ratio * out))
     # Column split without data-dependent permutation (the KL allocation
@@ -277,66 +283,104 @@ def _layer(params: dict, i: int) -> dict:
     return L.tree_map(lambda t: t[i], params)
 
 
+ACT_RES = ("batch", "act_res", None)
+
+
 def _attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: LMConfig, cache: dict | None = None,
                cache_len: int | None = None, attn_mode: str = "auto"
                ) -> torch.Tensor:
     """Self-attention: full causal when ``cache`` is None, else a
     prefill (S > 1) or one decode step writing at ``cache_len``; the
-    cache (with an int8 cache, its scales too) is updated in place."""
+    cache (with an int8 cache, its scales too) is updated in place.
+    On DTensors the attention runs on each rank's heads (or query rows),
+    ``layers.sharded_attention``: the reference's q / k / cache / out
+    constraints."""
     if cfg.mla:
         return _mla_attention(p, x, positions, cfg, cache, cache_len,
                               attn_mode)
-    b, s, _ = x.shape
+    s = x.shape[1]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = S.with_logical_constraint(x, ("batch", None, None))
+    q, k, v = (_proj(x, p[w], cfg) for w in ("wq", "wk", "wv"))
+    norms = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else ()
+    names = ("k", "v", "k_scale", "v_scale") if cfg.kv_cache_quant else \
+        ("k", "v")
+    cache_t = () if cache is None else tuple(cache[n] for n in names)
+    pos = positions[:1]                    # every row is the same
+    idx = None if cache is None else int(cache_len)
 
-    q = _proj(x, p["wq"], cfg).reshape(b, s, hq, hd)
-    k = _proj(x, p["wk"], cfg).reshape(b, s, hkv, hd)
-    v = _proj(x, p["wv"], cfg).reshape(b, s, hkv, hd)
-    if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.mrope_sections:
-        # text positions drive all three (t, h, w) components
-        pos3 = positions[None].expand(3, *positions.shape)
-        q = L.apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
-        k = L.apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
-    else:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-
-    if cache is None:
-        if s <= cfg.dense_attn_max:
-            out = L.dense_attention(q, k, v, causal=True)
+    def body(q, k, v, sh, *rest):
+        nl = rest[:len(norms)]
+        c = rest[len(norms):]
+        bl, sl = q.shape[:2]
+        q = q.reshape(bl, sl, -1, hd)
+        k = k.reshape(bl, s, -1, hd)
+        v = v.reshape(bl, s, -1, hd)
+        if nl:
+            q = L.rmsnorm(q, nl[0], cfg.norm_eps)
+            k = L.rmsnorm(k, nl[1], cfg.norm_eps)
+        q_pos = pos[:, sh.seq0:sh.seq0 + sl]
+        if cfg.mrope_sections:
+            # text positions drive all three (t, h, w) components
+            q = L.apply_mrope(q, q_pos[None].expand(3, *q_pos.shape),
+                              cfg.mrope_sections, cfg.rope_theta)
+            k = L.apply_mrope(k, pos[None].expand(3, *pos.shape),
+                              cfg.mrope_sections, cfg.rope_theta)
         else:
-            out = L.blockwise_attention(q, k, v, causal=True,
-                                        q_chunk=cfg.q_chunk,
-                                        kv_chunk=cfg.kv_chunk,
-                                        mode=attn_mode)
-    else:
-        idx = int(cache_len)
+            q = L.apply_rope(q, q_pos, cfg.rope_theta)
+            k = L.apply_rope(k, pos, cfg.rope_theta)
+        rep = hq // hkv
+        hl = q.shape[2]
+        if not c:
+            kk, vv = sh.kv_for(k, hl, rep), sh.kv_for(v, hl, rep)
+            if s <= cfg.dense_attn_max:
+                out = L.dense_attention(q, kk, vv, causal=True,
+                                        kv_offset=sh.seq0)
+            else:
+                out = L.blockwise_attention(q, kk, vv, causal=True,
+                                            q_chunk=cfg.q_chunk,
+                                            kv_chunk=cfg.kv_chunk,
+                                            kv_offset=sh.seq0,
+                                            mode=attn_mode)
+            return out.reshape(bl, sl, -1)
+        ck, cv = c[0], c[1]
+        k_new, v_new = sh.cache_part(k, ck.shape[2]), \
+            sh.cache_part(v, cv.shape[2])
         k_sc = v_sc = None
-        k_store, v_store = k, v
         if cfg.kv_cache_quant:
             if s > 1:  # prefill calibrates the per-head scales
-                cache["k_scale"].copy_(L.kv_scale_from(k))
-                cache["v_scale"].copy_(L.kv_scale_from(v))
+                c[2].copy_(L.kv_scale_from(k_new))
+                c[3].copy_(L.kv_scale_from(v_new))
             # decode clips into the prefill-calibrated scales
-            k_sc, v_sc = cache["k_scale"], cache["v_scale"]
-            k_store, v_store = L.quantize_kv(k, k_sc), L.quantize_kv(v, v_sc)
-        L.cache_write(cache["k"], k_store, idx)
-        L.cache_write(cache["v"], v_store, idx)
+            k_sc, v_sc = c[2], c[3]
+            k_new = L.quantize_kv(k_new, k_sc)
+            v_new = L.quantize_kv(v_new, v_sc)
+        L.cache_write(ck, k_new, idx, sh.cache_seq0)
+        L.cache_write(cv, v_new, idx, sh.cache_seq0)
         if s == 1:
-            out = L.decode_attention(q, cache["k"], cache["v"],
-                                     kv_len=idx + s, k_scale=k_sc,
-                                     v_scale=v_sc)
+            h0 = sh.cache_head0
+            ks, vs = sh.kv_for(ck, hl, rep, h0), sh.kv_for(cv, hl, rep, h0)
+            if k_sc is not None:
+                k_sc = sh.kv_for(k_sc[:, None], hl, rep, h0)[:, 0]
+                v_sc = sh.kv_for(v_sc[:, None], hl, rep, h0)[:, 0]
+            out = L.decode_attention(q, ks, vs, kv_len=idx + s,
+                                     k_scale=k_sc, v_scale=v_sc,
+                                     kv_start=sh.cache_seq0,
+                                     seq_groups=sh.seq_groups)
         else:
             # prefill: attend within the freshly written prompt
-            out = L.blockwise_attention(q, k, v, causal=True,
+            out = L.blockwise_attention(q, sh.kv_for(k, hl, rep),
+                                        sh.kv_for(v, hl, rep), causal=True,
                                         q_chunk=cfg.q_chunk,
-                                        kv_chunk=cfg.kv_chunk, kv_offset=0,
-                                        mode=attn_mode)
-    return _proj(out.reshape(b, s, hq * hd), p["wo"], cfg)
+                                        kv_chunk=cfg.kv_chunk,
+                                        kv_offset=sh.seq0, mode=attn_mode)
+        return out.reshape(bl, sl, -1)
+
+    out = L.sharded_attention(body, q, (k, v), hq=hq, hkv=hkv, dq=hd,
+                              extras=norms, cache=cache_t,
+                              decode=cache is not None and s == 1)
+    return _proj(out, p["wo"], cfg)
 
 
 def _mla_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -347,50 +391,86 @@ def _mla_attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
     expands the latent into per-head keys [B, S, H, 192] and values
     [B, S, H, 128] and attends on the flash kernel at scale 192^-0.5;
     the absorbed decode scores and reads in the compressed space with
-    fp32 einsums over the cache, as the reference does (no kernel)."""
+    fp32 einsums over the cache, as the reference does (no kernel). On
+    DTensors each rank runs its heads (the latent and the cache are
+    whole over "model", unless ``kv_seq`` splits the cache's
+    positions)."""
     a = cfg.mla
-    b, s, _ = x.shape
+    s = x.shape[1]
     h = cfg.n_heads
-    scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
-
+    dqk = a.qk_nope_dim + a.qk_rope_dim
+    scale = dqk ** -0.5
+    x = S.with_logical_constraint(x, ("batch", None, None))
     q = _proj(L.rmsnorm(_proj(x, p["wq_a"], cfg), p["q_norm"], cfg.norm_eps),
-              p["wq_b"], cfg).reshape(b, s, h, a.qk_nope_dim + a.qk_rope_dim)
-    q_nope, q_rope = torch.split(q, [a.qk_nope_dim, a.qk_rope_dim], dim=-1)
-    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
-
+              p["wq_b"], cfg)                              # [B,S,H*192]
     ckv = _proj(x, p["wkv_a"], cfg)                        # [B,S,lora+rope]
     c, k_rope = torch.split(ckv, [a.kv_lora, a.qk_rope_dim], dim=-1)
     c = L.rmsnorm(c, p["kv_norm"], cfg.norm_eps)
-    k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    decode = cache is not None and s == 1
+    kv = () if decode else (c @ p["wkv_b"],)               # [B,S,H*256]
+    cache_t = () if cache is None else (cache["c"], cache["k_rope"])
+    extras = (c, k_rope) + ((p["wkv_b"],) if decode else ())
+    pos = positions[:1]
+    idx = None if cache is None else int(cache_len)
 
-    if cache is not None:
-        idx = int(cache_len)
-        L.cache_write(cache["c"], c, idx)
-        L.cache_write(cache["k_rope"], k_rope[:, :, 0, :], idx)
-    if cache is None or s > 1:
-        kv = (c @ p["wkv_b"]).reshape(b, s, h, a.qk_nope_dim + a.v_dim)
-        k_nope, v = torch.split(kv, [a.qk_nope_dim, a.v_dim], dim=-1)
-        k = torch.cat([k_nope, k_rope.expand(b, s, h, a.qk_rope_dim)],
-                      dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        out = L.blockwise_attention(qf, k, v, causal=True,
-                                    q_chunk=cfg.q_chunk,
-                                    kv_chunk=cfg.kv_chunk,
-                                    softmax_scale=scale, mode=attn_mode)
-    else:
+    def body(q, *rest):
+        kv_l = rest[:len(kv)]
+        sh = rest[len(kv)]
+        c, k_rope = rest[len(kv) + 1:len(kv) + 3]
+        c_cache = rest[len(kv) + 3 + decode:]
+        bl, sl = q.shape[:2]
+        q = q.reshape(bl, sl, -1, dqk)
+        hl = q.shape[2]
+        q_nope, q_rope = torch.split(q, [a.qk_nope_dim, a.qk_rope_dim],
+                                     dim=-1)
+        q_rope = L.apply_rope(q_rope, pos[:, sh.seq0:sh.seq0 + sl],
+                              cfg.rope_theta)
+        k_rope = L.apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)
+        if c_cache:
+            L.cache_write(c_cache[0], c, idx, sh.cache_seq0)
+            L.cache_write(c_cache[1], k_rope[:, :, 0, :], idx,
+                          sh.cache_seq0)
+        if not decode:
+            kvl = sh.kv_for(kv_l[0].reshape(bl, s, -1,
+                                            a.qk_nope_dim + a.v_dim), hl, 1)
+            k_nope, v = torch.split(kvl, [a.qk_nope_dim, a.v_dim], dim=-1)
+            k = torch.cat([k_nope, k_rope.expand(bl, s, hl, a.qk_rope_dim)],
+                          dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            out = L.blockwise_attention(qf, k, v, causal=True,
+                                        q_chunk=cfg.q_chunk,
+                                        kv_chunk=cfg.kv_chunk,
+                                        kv_offset=sh.seq0,
+                                        softmax_scale=scale, mode=attn_mode)
+            return out.reshape(bl, sl, -1)
         # Absorbed decode: score and read directly in the compressed space.
-        c_cache, r_cache = cache["c"].float(), cache["k_rope"].float()
-        wkv_b = p["wkv_b"].reshape(a.kv_lora, h, a.qk_nope_dim + a.v_dim)
+        wkv_b = rest[len(kv) + 3].reshape(a.kv_lora, h,
+                                          a.qk_nope_dim + a.v_dim)
+        wkv_b = wkv_b[:, sh.q_head0:sh.q_head0 + hl]
+        c_all, r_all = c_cache[0].float(), c_cache[1].float()
         wk, wv = torch.split(wkv_b.float(), [a.qk_nope_dim, a.v_dim], dim=-1)
         q_c = torch.einsum("bqhd,chd->bqhc", q_nope.float(), wk)
-        s_c = torch.einsum("bqhc,bkc->bhqk", q_c, c_cache)
-        s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), r_cache)
+        s_c = torch.einsum("bqhc,bkc->bhqk", q_c, c_all)
+        s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), r_all)
         logits = (s_c + s_r) * scale
-        mask = torch.arange(c_cache.shape[1], device=x.device) >= idx + s
-        pattn = torch.softmax(logits.masked_fill(mask, L.NEG_INF), dim=-1)
-        o_c = torch.einsum("bhqk,bkc->bqhc", pattn, c_cache)
-        out = torch.einsum("bqhc,chd->bqhd", o_c, wv).to(x.dtype)
-    return _proj(out.reshape(b, s, h * a.v_dim), p["wo"], cfg)
+        mask = sh.cache_seq0 + torch.arange(c_all.shape[1],
+                                            device=q.device) >= idx + s
+        logits = logits.masked_fill(mask, L.NEG_INF)
+        if not sh.seq_groups:
+            pattn = torch.softmax(logits, dim=-1)
+        else:
+            e = torch.exp(logits - L.reduce_over(
+                torch.amax(logits, -1, keepdim=True), sh.seq_groups, "max"))
+            pattn = e / L.reduce_over(torch.sum(e, -1, keepdim=True),
+                                      sh.seq_groups)
+        o_c = L.reduce_over(torch.einsum("bhqk,bkc->bqhc", pattn, c_all),
+                            sh.seq_groups)
+        out = torch.einsum("bqhc,chd->bqhd", o_c, wv).to(q.dtype)
+        return out.reshape(bl, sl, -1)
+
+    out = L.sharded_attention(body, q, kv, hq=h, hkv=h, dq=dqk,
+                              extras=extras, cache=cache_t, decode=decode)
+    return _proj(out, p["wo"], cfg)
 
 
 def _layer_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -398,25 +478,42 @@ def _layer_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  attn_mode: str = "auto"
                  ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Pre-norm block. Returns (x, aux loss: the MoE layer's, else 0);
-    the layer's cache, if any, is updated in place."""
+    the layer's cache, if any, is updated in place. On DTensors the
+    layer's weights are gathered over the batch axes first and the
+    residual stream is held at the reference's ``act_res``."""
+    p = S.gather_params(p)
     h_attn = _attention(p["attn"], L.rmsnorm(x, p["ln_attn"], cfg.norm_eps),
                         positions, cfg, cache, cache_len, attn_mode)
-    x = x + h_attn
+    x = S.with_logical_constraint(
+        x + S.with_logical_constraint(h_attn, ACT_RES), ACT_RES)
     h_norm = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
     if "moe" in p:
         h_ffn, aux = L.moe_apply(p["moe"], h_norm, cfg.moe, cfg.act)
     else:
         h_ffn, aux = L.mlp_apply(p["mlp"], h_norm, cfg.act), 0.0
-    return x + h_ffn, aux
+    x = S.with_logical_constraint(
+        x + S.with_logical_constraint(h_ffn, ACT_RES), ACT_RES)
+    return x, aux
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _logits(params: dict, x: torch.Tensor, cfg: LMConfig,
+            last_only: bool = False, slice_vocab: bool = True
+            ) -> torch.Tensor:
     """Final norm and (tied) unembedding in the model dtype, then fp32,
-    sliced from the padded vocab to ``vocab``."""
+    sliced from the padded vocab to ``vocab`` unless ``slice_vocab`` is
+    False (the loss masks the padded columns instead: slicing a
+    vocab-sharded DTensor gathers it); ``last_only`` keeps the last
+    position. On DTensors the logits are constrained to the reference's
+    ``("batch", None, "vocab_act")``."""
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    unembed = (params["embed"].T if cfg.tie_embeddings
-               else params["unembed"])
-    return (x @ unembed).float()[..., :cfg.vocab]
+    x = S.with_logical_constraint(x, ("batch", None, None))
+    if last_only:
+        x = x[:, -1:]
+    unembed = S.gather_params(params["embed"].T if cfg.tie_embeddings
+                              else params["unembed"])
+    logits = S.with_logical_constraint((x @ unembed).float(),
+                                       ("batch", None, "vocab_act"))
+    return logits[..., :cfg.vocab] if slice_vocab else logits
 
 
 def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
@@ -427,10 +524,13 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 def _embed(params: dict, tokens: torch.Tensor,
            extra_embed: torch.Tensor | None) -> torch.Tensor:
     """Token embeddings, plus a frontend's precomputed [B, S, d_model]
-    embeddings (patches, frames) where given, cast to the model dtype."""
-    x = params["embed"][tokens]
+    embeddings (patches, frames) where given, cast to the model dtype.
+    On DTensors the lookup is vocab-parallel and the result is held at
+    ``act_res``."""
+    x = S.with_logical_constraint(
+        S.vocab_parallel_embed(params["embed"], tokens), ACT_RES)
     if extra_embed is not None:
-        x = x + extra_embed.to(x.dtype)
+        x = x + S.with_logical_constraint(extra_embed.to(x.dtype), ACT_RES)
     return x
 
 
@@ -447,7 +547,7 @@ def _stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
     """The dense-prefix layers, then the stacked ones, each with its
     cache if there is one, each under ``cfg.remat`` when there is none.
     Returns (x, the MoE layers' aux loss summed)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = 0.0
     blocks = [(params["dense_prefix"][i],
                None if cache is None else cache["dense_prefix"][i])
               for i in range(cfg.n_dense_prefix)]
@@ -464,24 +564,28 @@ def _stack(params: dict, x: torch.Tensor, positions: torch.Tensor,
             x, aux_i = _layer_apply(p_layer, x, positions, cfg, c_layer,
                                     cache_len, attn_mode)
         aux = aux + aux_i
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             extra_embed: torch.Tensor | None = None,
-            attn_mode: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+            attn_mode: str = "auto", last_only: bool = False,
+            slice_vocab: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal logits over a prompt, no cache. tokens: [B, S] int;
     ``extra_embed`` [B, S, d_model] is added to the token embedding.
     Returns (logits [B, S, vocab] fp32, aux loss: the MoE layers' load
-    balance and z-loss summed, 0 for a dense config). Only MLA's
-    attention runs on the flash kernel here (the others' is the
-    full-softmax ``dense_attention`` below 8192 tokens, as in the
+    balance and z-loss summed, 0 for a dense config); ``last_only``
+    keeps the last position, ``slice_vocab=False`` the padded vocab.
+    Only MLA's attention runs on the flash kernel here (the others' is
+    the full-softmax ``dense_attention`` below 8192 tokens, as in the
     reference)."""
     b, s = tokens.shape
     positions = _positions(b, s, 0, tokens.device)
     x, aux = _stack(params, _embed(params, tokens, extra_embed), positions,
                     cfg, attn_mode=attn_mode)
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, last_only, slice_vocab), aux
 
 
 # ---------------------------------------------------------------------------
@@ -528,18 +632,21 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 def prefill(params: dict, tokens: torch.Tensor, cache: dict, cfg: LMConfig,
             extra_embed: torch.Tensor | None = None,
-            attn_mode: str = "auto") -> tuple[torch.Tensor, dict]:
+            attn_mode: str = "auto", last_only: bool = False
+            ) -> tuple[torch.Tensor, dict]:
     """Score the prompt AND fill the KV cache (positions [0, S)).
 
-    Returns (logits [B, S, vocab], cache); the cache is written in
-    place. Subsequent ``decode_step`` calls continue from cache_len = S.
-    Each layer's attention is one flash-attention launch on the card.
+    Returns (logits [B, S, vocab], or [B, 1, vocab] with ``last_only``,
+    cache); the cache is written in place. Subsequent ``decode_step``
+    calls continue from cache_len = S. Each layer's attention is one
+    flash-attention launch on the card (on each rank's heads, on a
+    mesh).
     """
     b, s = tokens.shape
     positions = _positions(b, s, 0, tokens.device)
     x, _ = _stack(params, _embed(params, tokens, extra_embed), positions,
                   cfg, cache, 0, attn_mode)
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, last_only), cache
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict,

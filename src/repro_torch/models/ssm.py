@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,50 +214,122 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _heads_split(mesh, bs: int, s: int, cfg: SSMConfig) -> bool:
+    """Whether the reference's ``("batch", None, "act_heads", None)`` on
+    the heads [B, S, H, P] puts the heads over "model" under the active
+    rules."""
+    from torch.distributed.tensor import Shard
+    md = S.mesh_dim(mesh, "model")
+    pl = S.spec_placements(("batch", None, "act_heads", None),
+                           (bs, s, cfg.n_heads, cfg.head_dim), mesh)
+    return md is not None and pl[md] == Shard(2)
+
+
 def block_apply(p: dict, u: torch.Tensor, cfg: SSMConfig,
                 cache: dict | None = None
                 ) -> tuple[torch.Tensor, dict | None]:
     """u: [B, S, M]. With ``cache`` (decode): S == 1, cache holds
     {"state": [B,H,P,N], "conv": [B,K-1, d_inner + 2GN]}, both updated
-    in place and returned."""
+    in place and returned.
+
+    On DTensors the projections are DTensor products and the conv, the
+    SSD and the gated norm run on each rank's heads (the reference's
+    ``act_heads`` on the heads): z / x and ``conv_x`` by columns, B / C
+    and dt whole, the per-head vectors sliced, the norm's mean of
+    squares all-reduced over "model". A decode step reads the conv
+    window whole and writes its own columns of it."""
     bs, s, _ = u.shape
     h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
     gn = g * n
-
+    u = S.with_logical_constraint(u, ("batch", None, None))
     z = u @ p["wz"]
     x = u @ p["wx"]
     b = u @ p["wb"]
     c = u @ p["wc"]
     dt_raw = (u @ p["wdt"]).float()
-    a = -torch.exp(p["a_log"])
+    vecs = (p["a_log"], p["dt_bias"], p["d_skip"], p["norm"],
+            p["conv_b"], p["conv_c"])
 
-    xbc = torch.cat([x, b, c], dim=-1)
-    conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1)
-    if cache is None:
-        xbc_conv = _causal_conv(xbc, conv_w)
-    else:
+    def body(z, x, b, c, dt_raw, conv_x, a_log, dt_bias, d_skip, norm,
+             conv_b, conv_c, *cache_l, h0=0, group=None, window_full=None,
+             cols=None):
+        hl = x.shape[-1] // pdim
+        bl = x.shape[0]
+        xbc = torch.cat([x, b, c], dim=-1)
+        conv_w = torch.cat([conv_x, conv_b, conv_c], dim=-1)
+        if not cache_l:
+            xbc_conv = _causal_conv(xbc, conv_w)
+        else:
+            state, window = cache_l
+            full = window if window_full is None else window_full
+            di_cols = torch.cat([full[..., h0 * pdim:(h0 + hl) * pdim],
+                                 full[..., cfg.d_inner:]], dim=-1)
+            xbc_conv = _causal_conv(xbc, conv_w, window=di_cols)
+            row = xbc if group is None else torch.cat(
+                [S.all_gather(x, x.dim() - 1, group), b, c], dim=-1)
+            new = torch.cat([full[:, 1:], row.to(window.dtype)], dim=1)
+            window.copy_(new if cols is None else new[..., cols[0]:cols[1]])
+        xbc_conv = F.silu(xbc_conv)
+        x, b, c = torch.split(xbc_conv, [hl * pdim, gn, gn], dim=-1)
+        a = -torch.exp(a_log[h0:h0 + hl])
+        dt = F.softplus(dt_raw[..., h0:h0 + hl]
+                        + dt_bias[h0:h0 + hl][None, None, :])
+        xh = x.reshape(bl, s, hl, pdim)
+        rep = h // g
+        g0, ng = h0 // rep, max(1, hl // rep)
+        bg = b.reshape(bl, s, g, n)[:, :, g0:g0 + ng]
+        cg = c.reshape(bl, s, g, n)[:, :, g0:g0 + ng]
+        if not cache_l:
+            y, _ = ssd_chunked(xh, dt, a, bg, cg, cfg)
+        else:
+            y1, new_state = ssd_step(xh[:, 0], dt[:, 0], a, bg[:, 0],
+                                     cg[:, 0], cache_l[0])
+            y = y1[:, None]
+            cache_l[0].copy_(new_state)
+        y = y + xh * d_skip[h0:h0 + hl][None, None, :, None].to(y.dtype)
+        y = y.reshape(bl, s, hl * pdim)
+        if group is None:
+            y = L.rmsnorm(y, norm)
+        else:
+            scale = norm[h0 * pdim:(h0 + hl) * pdim]
+            y32 = y.float()
+            var = S.all_reduce_autograd(
+                torch.sum(torch.square(y32), dim=-1, keepdim=True), group,
+                backward="sum") / cfg.d_inner
+            y = (y32 * torch.rsqrt(var + 1e-6) * scale.float()).to(y.dtype)
+        return y * F.silu(z)
+
+    cache_t = () if cache is None else (cache["state"], cache["conv"])
+    if not S.is_dtensor(u):
+        y = body(z, x, b, c, dt_raw, p["conv_x"], *vecs, *cache_t)
+        return y @ p["wo"], cache
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = u.device_mesh
+    md = S.mesh_dim(mesh, "model")
+    split = _heads_split(mesh, bs, s, cfg)
+    rows = tuple(Shard(0) if pl == Shard(0) else Replicate()
+                 for pl in u.placements)
+    col = tuple(Shard(2) if d == md and split else pl
+                for d, pl in enumerate(rows))
+    conv_pl = tuple(Shard(1) if d == md and split else Replicate()
+                    for d in range(len(rows)))
+    whole = tuple(Replicate() for _ in rows)
+    r = S.axis_index(mesh, "model")
+    hl = h // S.axis_size(mesh, "model") if split else h
+    kw = {"h0": r * hl if split else 0,
+          "group": (mesh, md) if split else None}
+    args = [z, x, b, c, dt_raw, p["conv_x"], *vecs]
+    in_pl = [col, col, rows, rows, rows, conv_pl] + [whole] * len(vecs)
+    if cache is not None:
         window = cache["conv"]
-        xbc_conv = _causal_conv(xbc, conv_w, window=window)
-        window.copy_(torch.cat([window[:, 1:], xbc.to(window.dtype)], dim=1))
-    xbc_conv = F.silu(xbc_conv)
-    x, b, c = torch.split(xbc_conv, [cfg.d_inner, gn, gn], dim=-1)
-
-    dt = F.softplus(dt_raw + p["dt_bias"][None, None, :])
-    xh = x.reshape(bs, s, h, pdim)
-    bg = b.reshape(bs, s, g, n)
-    cg = c.reshape(bs, s, g, n)
-
-    if cache is None:
-        y, _ = ssd_chunked(xh, dt, a, bg, cg, cfg)
-    else:
-        y1, new_state = ssd_step(xh[:, 0], dt[:, 0], a, bg[:, 0], cg[:, 0],
-                                 cache["state"])
-        y = y1[:, None]
-        cache["state"].copy_(new_state)
-
-    y = y + xh * p["d_skip"][None, None, :, None].to(y.dtype)
-    y = y.reshape(bs, s, cfg.d_inner)
-    y = L.rmsnorm(y, p["norm"]) * F.silu(z)
+        kw["window_full"] = window.redistribute(mesh, rows).to_local()
+        wpl = window.placements[md] if md is not None else Replicate()
+        if isinstance(wpl, Shard):
+            w = window.to_local().shape[-1]
+            kw["cols"] = (r * w, (r + 1) * w)
+        args += [cache["state"], window]
+        in_pl += [None, None]
+    y = S.local_region(lambda *a: body(*a, **kw), mesh, args, in_pl, col)
     return y @ p["wo"], cache
 
 
@@ -339,28 +412,47 @@ def _layer(tree: dict, i: int) -> dict:
     return L.tree_map(lambda t: t[i], tree)
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: SSMLMConfig
+def _logits(params: dict, x: torch.Tensor, cfg: SSMLMConfig,
+            last_only: bool = False, slice_vocab: bool = True
             ) -> torch.Tensor:
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    unembed = (params["embed"].T if cfg.tie_embeddings
-               else params["unembed"])
-    return (x @ unembed).float()[..., :cfg.vocab]
+    x = S.with_logical_constraint(x, ("batch", None, None))
+    if last_only:
+        x = x[:, -1:]
+    unembed = S.gather_params(params["embed"].T if cfg.tie_embeddings
+                              else params["unembed"])
+    logits = S.with_logical_constraint((x @ unembed).float(),
+                                       ("batch", None, "vocab_act"))
+    return logits[..., :cfg.vocab] if slice_vocab else logits
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: SSMLMConfig
+ACT_RES = ("batch", "act_res", None)
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return S.with_logical_constraint(
+        S.vocab_parallel_embed(params["embed"], tokens), ACT_RES)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: SSMLMConfig,
+            last_only: bool = False, slice_vocab: bool = True
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal logits over a prompt from a zero state. tokens: [B, S]
-    int. Returns (logits [B, S, vocab] fp32, aux loss 0)."""
-    x = params["embed"][tokens]
+    int. Returns (logits [B, S, vocab] fp32, aux loss 0); ``last_only``
+    keeps the last position, ``slice_vocab=False`` the padded vocab. On
+    DTensors the residual stream is held at ``act_res``."""
+    x = _embed(params, tokens)
     for i in range(cfg.n_layers):
         def inner(x, p=_layer(params["layers"], i)):
+            p = S.gather_params(p)
             y, _ = block_apply(p["ssm"], L.rmsnorm(x, p["ln"], cfg.norm_eps),
                                cfg.ssm)
-            return x + y
+            return S.with_logical_constraint(
+                x + S.with_logical_constraint(y, ACT_RES), ACT_RES)
         # the reference checkpoints a layer only for remat == "full"
         x = L.remat(inner, "full" if cfg.remat == "full" else "none")(x)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, last_only, slice_vocab), aux
 
 
 def cache_specs(cfg: SSMLMConfig, batch: int, max_seq: int = 0,
@@ -380,10 +472,11 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, cache_len,
     """One recurrent step. token: [B, 1] int; returns (logits [B, vocab],
     cache), the state and conv window written in place."""
     del cache_len  # state is positionless
-    x = params["embed"][token]
+    x = _embed(params, token)
     for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+        p = S.gather_params(_layer(params["layers"], i))
         y, _ = block_apply(p["ssm"], L.rmsnorm(x, p["ln"], cfg.norm_eps),
                            cfg.ssm, cache=_layer(cache["layers"], i))
-        x = x + y
+        x = S.with_logical_constraint(
+            x + S.with_logical_constraint(y, ACT_RES), ACT_RES)
     return _logits(params, x, cfg)[:, 0], cache

@@ -9,8 +9,9 @@ replicated rather than unevenly sharded). This is the same design as
 MaxText/T5X logical axis rules, reimplemented minimally. The port
 resolves the rules onto a ``torch.distributed`` ``DeviceMesh`` and
 DTensor placements; the int8 gradient all-reduce and the GPipe
-schedule run on ``torch.distributed`` process groups. The models make
-no activation sharding constraints yet (no tensor parallelism).
+schedule run on ``torch.distributed`` process groups. Under a mesh the
+models take DTensor parameters and make the reference's activation
+constraints: tensor parallelism over "model" (``sharding.py``).
 """
 from repro_torch.parallel.compress import (
     CompressionState,

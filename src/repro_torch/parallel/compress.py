@@ -21,7 +21,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
+# the module, not its names: models.layers imports this package
+from repro_torch.models import layers as _layers
 
 
 @dataclasses.dataclass
@@ -31,7 +32,7 @@ class CompressionState:
 
 
 def init_compression_state(grads: Any) -> CompressionState:
-    return CompressionState(residual=tree_map(
+    return CompressionState(residual=_layers.tree_map(
         lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
         grads))
 
@@ -79,7 +80,7 @@ def compressed_grad_allreduce(grads: Any, state: CompressionState,
                              f"mesh=)")
         group = mesh.get_group(axis_name)
     new_grads, new_res = [], []
-    for g, r in zip(tree_leaves(grads), tree_leaves(state.residual)):
+    for g, r in zip(_layers.tree_leaves(grads), _layers.tree_leaves(state.residual)):
         g32 = g.float() + r
         codes, scale = compress_int8(g32)
         local_deq = decompress_int8(codes, scale)
@@ -96,13 +97,13 @@ def compressed_grad_allreduce(grads: Any, state: CompressionState,
             reduced = local_deq
         new_res.append(g32 - local_deq)             # error feedback
         new_grads.append(reduced.to(g.dtype))
-    return (tree_unflatten(grads, new_grads),
-            CompressionState(tree_unflatten(grads, new_res)))
+    return (_layers.tree_unflatten(grads, new_grads),
+            CompressionState(_layers.tree_unflatten(grads, new_res)))
 
 
 def compression_ratio(grads: Any) -> float:
     """Bytes(int8 codes + scales) / bytes(original) for a grad tree."""
-    leaves = tree_leaves(grads)
+    leaves = _layers.tree_leaves(grads)
     orig = sum(g.numel() * g.element_size() for g in leaves)
     comp = sum(g.numel() + 4 for g in leaves)
     return comp / max(orig, 1)

@@ -26,7 +26,8 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import tree_map
+# the module, not its names: models.layers imports this package
+from repro_torch.models import layers as _layers
 
 
 def _local_row(p, stage: int):
@@ -83,7 +84,7 @@ def gpipe(body: Callable, mesh, axis: str, n_micro: int):
         if b % n_micro:
             raise ValueError(f"batch {b} % n_micro {n_micro} != 0")
         mbs = x.reshape(n_micro, b // n_micro, *x.shape[1:])
-        params_local = tree_map(lambda p: _local_row(p, stage), stage_params)
+        params_local = _layers.tree_map(lambda p: _local_row(p, stage), stage_params)
         host = x.is_cuda and dist.get_backend(group) == "gloo"
         carry = torch.zeros_like(mbs[0])
         outs = torch.zeros_like(mbs)
@@ -111,4 +112,4 @@ def stage_params_from_stack(params_stacked: Any, n_stages: int) -> Any:
         if n % n_stages:
             raise ValueError(f"layers {n} % stages {n_stages} != 0")
         return p.reshape(n_stages, n // n_stages, *p.shape[1:])
-    return tree_map(split, params_stacked)
+    return _layers.tree_map(split, params_stacked)

@@ -27,13 +27,30 @@ None), so ``tuple(port_spec) == tuple(jax_spec)``. :func:`placements`
 turns a spec into DTensor ``Shard`` / ``Replicate`` placements, one per
 mesh dimension; :func:`shard_params_tree` distributes a tree with them.
 The current mesh is :func:`use_mesh`'s, the counterpart of ``with
-mesh:``. The models make no ``with_logical_constraint`` calls yet: no
-tensor parallelism, so a "model" axis of size > 1 runs replicated.
+mesh:``, and so are the current rules (:func:`active_rules`).
+
+Tensor parallelism. Under a mesh the models take DTensor parameters
+(:func:`shard_params_tree`) and DTensor inputs (:func:`shard_batch`);
+their matrix products, norms and residual adds are DTensor operations,
+and they make the reference's ``with_logical_constraint`` calls, which
+redistribute (the residual stream's ``act_res`` over "model" is
+Megatron-style sequence parallelism: the row-parallel products' partial
+sums are reduce-scattered onto it and all-gathered off it). A weight
+is gathered over the batch axes where it is used (:func:`gather_params`:
+the rules shard its "embed" dim over "data", FSDP-style, as XLA does
+for the reference). Whatever DTensor does not propagate runs on local
+shards through :func:`local_region`: attention on the local heads (the
+flash kernel gets local CUDA tensors, never DTensors), the MoE dispatch,
+the SSD, the cache writes, and the vocab-parallel pieces, the embedding
+lookup on a vocab-sharded table (:func:`vocab_parallel_embed`) and the
+cross entropy over vocab-sharded logits (:func:`vocab_parallel_ce`).
+Collectives inside a region are the autograd-aware
+:func:`all_reduce_autograd` and :func:`all_gather` over a mesh
+dimension.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 import math
 from typing import Any, Sequence
@@ -316,48 +333,341 @@ class NamedSharding:
 
 
 def shard_params_tree(params: Any, axes_tree: Any, mesh,
-                      rules: AxisRules = DEFAULT_RULES) -> Any:
-    """Distribute a materialized param tree (the same full tensors on every
-    rank, on the mesh's device type) onto ``mesh`` per the rules: each
-    leaf a DTensor with its resolved placements."""
-    from torch.distributed.tensor import distribute_tensor
+                      rules: AxisRules | None = None) -> Any:
+    """Distribute a materialized tree (parameters, a cache: the same full
+    tensors on every rank, on the mesh's device type) onto ``mesh`` per
+    ``rules`` (default :func:`active_rules`): each leaf a DTensor with
+    its resolved placements. Every rank cuts its own shard (no
+    collective), and a shard owns its storage (a copy where it is a view
+    into the full tensor), so the full tree can be freed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    rules = rules or active_rules()
 
     def put(axes, p):
-        spec = logical_to_spec(axes, mesh, rules, shape=p.shape)
-        return distribute_tensor(p, mesh, placements(spec, mesh))
+        pl = placements(logical_to_spec(axes, mesh, rules, shape=p.shape),
+                        mesh)
+        d = distribute_tensor(p, mesh, pl, src_data_rank=None)
+        local = d.to_local()
+        if local.untyped_storage().nbytes() != \
+                local.numel() * local.element_size():
+            d = DTensor.from_local(local.clone(), mesh, pl, run_check=False,
+                                   shape=d.shape, stride=d.stride())
+        return d
     return _map_axes(put, axes_tree, params)
 
 
-_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
-                                                       default=None)
+# The (mesh, rules) of the open use_mesh blocks, innermost last: a
+# process-wide stack, which autograd's device threads (they recompute a
+# checkpointed layer in the backward pass) see as the caller does.
+_ACTIVE: list = []
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, rules: AxisRules | None = None):
     """Make ``mesh`` the current mesh inside the block (the counterpart of
-    ``with mesh:``); the previous one is restored on exit."""
-    token = _MESH.set(mesh)
+    ``with mesh:``), and ``rules`` (default ``DEFAULT_RULES``) the rules
+    the models' constraints resolve with; the previous ones are restored
+    on exit."""
+    _ACTIVE.append((mesh, rules or DEFAULT_RULES))
     try:
         yield mesh
     finally:
-        _MESH.reset(token)
+        _ACTIVE.pop()
+
+
+def _current():
+    return _ACTIVE[-1] if _ACTIVE else None
 
 
 def current_mesh():
     """The innermost :func:`use_mesh` mesh, or None."""
-    return _MESH.get()
+    cur = _current()
+    return None if cur is None else cur[0]
+
+
+def active_rules() -> AxisRules:
+    """The innermost :func:`use_mesh` block's rules, else
+    ``DEFAULT_RULES``."""
+    cur = _current()
+    return DEFAULT_RULES if cur is None else cur[1]
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def spec_placements(axes: Sequence[str | None], shape: Sequence[int], mesh,
+                    rules: AxisRules | None = None) -> tuple:
+    """The placements of a tensor of ``shape`` with logical ``axes`` on
+    ``mesh`` under ``rules`` (default: :func:`active_rules`)."""
+    spec = logical_to_spec(axes, mesh, rules or active_rules(), shape=shape)
+    return placements(spec, mesh)
 
 
 def with_logical_constraint(x: torch.Tensor, axes: Sequence[str | None],
                             mesh=None,
-                            rules: AxisRules = DEFAULT_RULES) -> torch.Tensor:
+                            rules: AxisRules | None = None) -> torch.Tensor:
     """Redistribute a DTensor to the placements of its logical ``axes``
     (the counterpart of ``lax.with_sharding_constraint`` via logical
-    names). The identity outside a mesh and on a plain tensor, so model
-    code runs unchanged on one device."""
-    from torch.distributed.tensor import DTensor
-    mesh = mesh or current_mesh()
-    if mesh is None or not isinstance(x, DTensor):
+    names) under ``rules`` (default :func:`active_rules`), on its own
+    mesh unless ``mesh`` is given. The identity on a plain tensor, so
+    model code runs unchanged on one device."""
+    if not is_dtensor(x):
         return x
-    spec = logical_to_spec(axes, mesh, rules, shape=x.shape)
-    return x.redistribute(mesh, placements(spec, mesh))
+    mesh = mesh or x.device_mesh
+    return redistribute(x, mesh, spec_placements(axes, x.shape, mesh, rules))
+
+
+def redistribute(x, mesh, want) -> torch.Tensor:
+    """DTensor ``x`` redistributed to placements ``want``; a mesh dim that
+    moves its split from one tensor dim to another goes through
+    ``Replicate`` first (an all-gather, then a local chunk), which keeps
+    DTensor from searching its plans over every mesh dim (seconds a call
+    on a 3-D mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
+    want = tuple(want)
+    if tuple(x.placements) == want:
+        return x
+    moved = [isinstance(p, Shard) and isinstance(w, Shard) and p != w
+             for p, w in zip(x.placements, want)]
+    if any(moved):
+        x = x.redistribute(mesh, [Replicate() if m else p for m, p in
+                                  zip(moved, x.placements)])
+    return x.redistribute(mesh, want)
+
+
+def shard_batch(batch: dict, mesh, rules: AxisRules | None = None) -> dict:
+    """A batch dict ({"tokens": [B, S], "frames": [B, S, M], ...}, the same
+    global tensors on every rank) as DTensors split on dim 0 by the
+    "batch" rule."""
+    return {k: shard_params_tree(v, ("batch",) + (None,) * (v.dim() - 1),
+                                 mesh, rules) for k, v in batch.items()}
+
+
+#: the mesh axes a batch is split over (``DEFAULT_RULES``' "batch")
+BATCH_AXES = ("pod", "data")
+
+
+def batch_groups(mesh) -> tuple[list, int]:
+    """The process groups of ``mesh``'s batch axes of size > 1, and the
+    number of data-parallel ranks they make (1 without a mesh)."""
+    if mesh is None:
+        return [], 1
+    axes = [a for a in BATCH_AXES if axis_size(mesh, a) > 1]
+    return ([mesh.get_group(a) for a in axes],
+            math.prod(axis_size(mesh, a) for a in axes))
+
+
+def _batch_dims(mesh) -> list[int]:
+    """The mesh dimensions that are not "model": the batch axes, over
+    which a weight's "embed" dim may be sharded (FSDP)."""
+    return [i for i, n in enumerate(mesh.mesh_dim_names) if n != "model"]
+
+
+def gather_params(tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` replicated over the batch axes, its
+    "model" placement kept: the per-use all-gather of an FSDP-sharded
+    weight (its gradient is reduce-scattered back). Plain tensors pass
+    through."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models.layers import tree_map
+
+    def one(w):
+        if not is_dtensor(w):
+            return w
+        dims = _batch_dims(w.device_mesh)
+        if all(isinstance(w.placements[d], Replicate) for d in dims):
+            return w
+        want = [Replicate() if d in dims else p
+                for d, p in enumerate(w.placements)]
+        return w.redistribute(w.device_mesh, want)
+    return tree_map(one, tree)
+
+
+def mesh_dim(mesh, name: str) -> int | None:
+    names = list(mesh.mesh_dim_names)
+    return names.index(name) if name in names else None
+
+
+def axis_size(mesh, name: str) -> int:
+    d = mesh_dim(mesh, name)
+    return 1 if d is None else mesh.shape[d]
+
+
+def axis_index(mesh, name: str) -> int:
+    """This rank's coordinate along mesh axis ``name`` (0 without it)."""
+    d = mesh_dim(mesh, name)
+    return 0 if d is None else mesh.get_local_rank(d)
+
+
+def local_region(fn, mesh, args: Sequence[Any], in_placements: Sequence,
+                 out_placements: Sequence) -> Any:
+    """``fn`` on the local shards of ``args``, its outputs made DTensors
+    again (the explicit form of ``local_map``).
+
+    ``in_placements[i]`` is what DTensor ``args[i]`` is redistributed to
+    first (None: as it is; a plain argument passes unchanged). Each
+    output gets ``out_placements[j]`` (a single placements tuple for a
+    single output; None: the output is returned as ``fn`` gave it).
+    Outputs must be even shards: ``Shard`` for distinct pieces,
+    ``Partial`` for partial sums, ``Replicate`` where every rank holds
+    the same value.
+
+    Gradients: the region is split over every mesh dimension on which
+    some input is sharded; there each replicated input's gradient is
+    declared ``Partial`` (every rank holds its own contribution), so a
+    replicated weight used on local heads, or on local rows, gets the
+    sum of the ranks' contributions.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    fixed = []
+    for a, pl in zip(args, in_placements):
+        if isinstance(a, DTensor) and pl is not None:
+            a = redistribute(a, mesh, pl)
+        fixed.append(a)
+    split = {d for a in fixed if isinstance(a, DTensor)
+             for d, p in enumerate(a.placements) if isinstance(p, Shard)}
+    local = []
+    for a in fixed:
+        if isinstance(a, DTensor):
+            grad_pl = [Partial() if isinstance(p, Replicate) and d in split
+                       else p for d, p in enumerate(a.placements)]
+            a = a.to_local(grad_placements=grad_pl)
+        local.append(a)
+    out = fn(*local)
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    pls = (out_placements,) if single else tuple(out_placements)
+    wrapped = tuple(
+        o if pl is None or not isinstance(o, torch.Tensor)
+        else DTensor.from_local(o, mesh, pl, run_check=False)
+        for o, pl in zip(outs, pls))
+    return wrapped[0] if single else wrapped
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, op, group, backward):
+        import torch.distributed._functional_collectives as funcol
+        ctx.group, ctx.backward = group, backward
+        return funcol.wait_tensor(funcol.all_reduce(x, op, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        if ctx.backward == "sum":
+            g = funcol.wait_tensor(funcol.all_reduce(g.contiguous(), "sum",
+                                                     ctx.group))
+        return g, None, None, None
+
+
+def all_reduce_autograd(x: torch.Tensor, group, op: str = "sum",
+                        backward: str = "identity") -> torch.Tensor:
+    """All-reduce ``x`` over ``group`` (a process group, or ``(mesh,
+    dim)``) as a functional collective. ``backward="identity"`` passes
+    the gradient through (Megatron's reduce-from: what follows runs the
+    same on every rank, each holding the whole gradient);
+    ``backward="sum"`` all-reduces it (every rank's loss is its own
+    share, as in the data-parallel step). ``op="max"`` has no
+    gradient."""
+    if op != "sum":
+        import torch.distributed._functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(x.detach(), op, group))
+    return _AllReduce.apply(x, op, group, backward)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed._functional_collectives as funcol
+        ctx.dim, ctx.group = dim, group
+        return funcol.wait_tensor(funcol.all_gather_tensor(x.contiguous(),
+                                                           dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            g.contiguous(), "sum", ctx.dim, ctx.group)), None, None
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` concatenated along ``dim`` over ``group`` (a process group,
+    or ``(mesh, dim)``) in rank order, as a functional collective; the
+    gradient is the sum of every rank's, each rank's piece scattered
+    back to it."""
+    return _AllGather.apply(x, dim, group)
+
+
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor
+                         ) -> torch.Tensor:
+    """``table[tokens]`` for a DTensor ``table`` [V, M] (its vocab dim
+    sharded over "model", or not) and DTensor ``tokens`` [B, S]: each
+    rank looks up the tokens in its slice of rows and zeroes the rest,
+    and the result is the ``Partial`` sum over "model" (exact: one rank
+    contributes each row). Plain tensors: ``table[tokens]``."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    table = gather_params(table)
+    md = mesh_dim(mesh, "model")
+    sharded = md is not None and isinstance(table.placements[md], Shard)
+    tok_pl = tuple(Replicate() if d == md else p
+                   for d, p in enumerate(tokens.placements))
+    out_pl = tuple(Partial() if (d == md and sharded) else p
+                   for d, p in enumerate(tok_pl))
+
+    def body(tab, tok):
+        if not sharded:
+            return tab[tok]
+        lo = axis_index(mesh, "model") * tab.shape[0]
+        idx = tok.long() - lo
+        ok = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[torch.where(ok, idx, 0)]
+        return rows * ok[..., None].to(rows.dtype)
+    return local_region(body, mesh, [table, tokens], [None, tok_pl], out_pl)
+
+
+def vocab_parallel_ce(logits: torch.Tensor, tokens: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+    """Mean next-token cross entropy of DTensor ``logits`` [B, S, Vp]
+    (fp32, padded vocab sharded over "model" or not) against ``tokens``
+    [B, S]: the log-sum-exp and the target's logit are all-reduced over
+    "model" from each rank's columns (columns >= ``vocab`` masked to
+    -1e30 first, as ``next_token_loss`` masks them), so no rank gathers
+    the logits. Returns a 0-d DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    md = mesh_dim(mesh, "model")
+    last = logits.dim() - 1
+    sharded = md is not None and logits.placements[md] == Shard(last)
+    rows = [Shard(0) if p == Shard(0) else Replicate()
+            for p in logits.placements]
+    lg_pl = tuple(Shard(last) if d == md and sharded else p
+                  for d, p in enumerate(rows))
+    tok_pl = out_pl = tuple(rows)
+    group = (mesh, md) if sharded else None
+
+    def body(lg, tok):
+        lg = lg[:, :-1].float()
+        lo = axis_index(mesh, "model") * lg.shape[-1] if sharded else 0
+        cols = lo + torch.arange(lg.shape[-1], device=lg.device)
+        lg = lg.masked_fill(cols >= vocab, -1e30)
+        tgt = tok[:, 1:].long() - lo
+        ok = (tgt >= 0) & (tgt < lg.shape[-1])
+        correct = torch.gather(lg, -1, torch.where(ok, tgt, 0)[..., None])
+        correct = correct[..., 0] * ok.to(lg.dtype)
+        m = torch.amax(lg, dim=-1).detach()
+        if group is not None:
+            m = all_reduce_autograd(m, group, op="max")
+        sumexp = torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+        if group is not None:
+            sumexp = all_reduce_autograd(sumexp, group)
+            correct = all_reduce_autograd(correct, group)
+        return m + torch.log(sumexp) - correct       # [B, S-1]
+    per_token = local_region(body, mesh, [logits, tokens], [lg_pl, tok_pl],
+                             out_pl)
+    return torch.mean(per_token)

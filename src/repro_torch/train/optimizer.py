@@ -47,10 +47,9 @@ def _device_of(tree: Any) -> torch.device:
 
 
 def adamw_init(params: Any) -> OptState:
-    """Zero fp32 moments congruent with ``params`` and count 0, on the
-    parameters' device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero fp32 moments congruent with ``params`` (DTensors laid out as
+    the parameters are) and count 0, on the parameters' device."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     count=torch.zeros((), dtype=torch.int32,
                                       device=_device_of(params)))
@@ -69,10 +68,40 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
+    """sqrt of the sum of squares of every leaf, in fp32. DTensor leaves
+    (the tensor-parallel step): each rank sums its local shards, once
+    for each replicated copy (the rank at coordinate 0 of a leaf's
+    replicated mesh axes counts it), and the sums are all-reduced over
+    the mesh; a plain 0-d tensor comes back."""
     leaves = tree_leaves(tree)
+    if leaves and _is_dtensor(leaves[0]):
+        return _sharded_global_norm(leaves)
     total = sum(torch.sum(torch.square(x.float())) for x in leaves)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _sharded_global_norm(leaves: list) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = None
+    for x in leaves:
+        if any(coord[d] != 0 for d, p in enumerate(x.placements)
+               if p.is_replicate()):
+            continue
+        part = torch.sum(torch.square(x.to_local().float()))
+        total = part if total is None else total + part
+    if total is None:
+        total = torch.zeros((), device=leaves[0].to_local().device)
+    for d in range(mesh.ndim):
+        total = funcol.wait_tensor(funcol.all_reduce(total, "sum",
+                                                     (mesh, d)))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: Any, max_norm: float

@@ -218,3 +218,125 @@ def torchrun_body(rank, world, tmp, port, argv):
                 "log": log.getvalue().splitlines(),
                 "group_left": dist.is_initialized()},
                tmp / f"torchrun_{rank}.pt")
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def serve_steps(arch, params, batch: dict, mesh=None, rules=None) -> dict:
+    """The serving path the tensor-parallel tests hold, in the port: an
+    LM's prefill (last position) into an fp32 cache of S + 2 and one
+    decode step of ``tokens[:, :1]`` at S; the recurrent families' two
+    decode steps from an empty state; the encoder-decoder's encode, its
+    bf16 cross cache and one decode step. ``batch`` holds the global
+    tensors; with ``mesh`` the parameters are DTensors already, and the
+    batch and the cache are laid out here by ``rules``; the results come
+    back whole."""
+    from repro_torch.models.layers import param_axes_tree
+    from repro_torch.parallel import sharding as S
+    mod, cfg = arch.model_module(), arch.model
+    whole = batch["tokens"]
+    b, s = whole.shape
+
+    def cache_of(specs, make):
+        c = make()
+        return c if mesh is None else S.shard_params_tree(
+            c, param_axes_tree(specs), mesh, rules)
+
+    def tok(t):
+        return t if mesh is None else S.shard_batch({"t": t}, mesh, rules)["t"]
+
+    if mesh is not None:
+        batch = S.shard_batch(batch, mesh, rules)
+    tokens = batch["tokens"]
+    out = {}
+    if arch.module == "lm":
+        cache = cache_of(mod.cache_specs(cfg, b, s + 2, torch.float32),
+                         lambda: mod.init_cache(cfg, b, s + 2, torch.float32,
+                                                device="cpu"))
+        out["prefill"], cache = mod.prefill(
+            params, tokens, cache, cfg, extra_embed=batch.get("extra_embed"),
+            last_only=True)
+        out["decode"], _ = mod.decode_step(params, tok(whole[:, :1]), cache,
+                                           s, cfg)
+    elif arch.module in ("ssm", "hybrid"):
+        kw = {} if arch.module == "ssm" else {"max_seq": s + 2}
+        cache = cache_of(mod.cache_specs(cfg, b, kw.get("max_seq", 0),
+                                         torch.float32),
+                         lambda: mod.init_cache(cfg, b, dtype=torch.float32,
+                                                device="cpu", **kw))
+        out["decode0"], _ = mod.decode_step(params, tok(whole[:, :1]),
+                                            cache, 0, cfg)
+        out["decode1"], _ = mod.decode_step(params, tok(whole[:, 1:2]),
+                                            cache, 1, cfg)
+    else:
+        cache = cache_of(mod.cache_specs(cfg, b, s + 2, s, torch.float32),
+                         lambda: mod.init_cache(cfg, b, s + 2, s,
+                                                torch.float32, device="cpu"))
+        memory = mod.encode(params, batch["frames"], cfg)
+        cache = mod.build_cross_cache(params, memory, cfg, cache)
+        out["decode"], _ = mod.decode_step(params, tok(whole[:, :1]), cache,
+                                           0, cfg)
+    return {k: v.full_tensor() if S.is_dtensor(v) else v
+            for k, v in out.items()}
+
+
+def tp_body(rank, world, tmp, shape, cases):
+    """Each case (arch id, the reference's initial params as numpy, the
+    batch as numpy) on a ``shape`` mesh over ("data", "model"): the
+    params through ``params_from_jax`` and ``shard_params_tree``; the
+    forward's logits and aux, :func:`serve_steps`, the loss and its
+    gathered gradients, and one ``make_train_step`` step (metrics, the
+    new params and first moments gathered). Rank 0 writes them."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import registry
+    from repro_torch.models.layers import tree_leaves, tree_unflatten
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import step as T
+    from repro_torch.train.optimizer import AdamWConfig
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    out = {}
+    for arch_id, np_params, np_batch in cases:
+        base = registry.get(arch_id)
+        arch = dataclasses.replace(base, model=base.smoke)
+        mod, cfg = arch.model_module(), arch.model
+        rules = T.arch_rules(arch)
+        params = mod.params_from_jax(np_params, "cpu")
+        batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+        with S.use_mesh(mesh, rules):
+            dp = S.shard_params_tree(params, mod.param_axes(cfg), mesh,
+                                     rules)
+            db = S.shard_batch(batch, mesh, rules)
+            if arch.module == "encdec":
+                logits, aux = mod.forward(dp, db["frames"], db["tokens"],
+                                          cfg)
+            elif arch.module == "lm":
+                logits, aux = mod.forward(
+                    dp, db["tokens"], cfg, extra_embed=db.get("extra_embed"))
+            else:
+                logits, aux = mod.forward(dp, db["tokens"], cfg)
+            got = {"logits": logits.full_tensor(),
+                   "aux": aux.full_tensor() if S.is_dtensor(aux) else aux,
+                   "serve": serve_steps(arch, dp, batch, mesh, rules)}
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(dp)]
+            loss, _ = T.make_loss_fn(arch)(tree_unflatten(dp, leaves), db)
+            grads = T.reduce_gradients(
+                list(torch.autograd.grad(loss, leaves)), mesh)
+            got["loss"] = loss.full_tensor()
+            got["grads"] = [g.full_tensor() for g in grads]
+        state = T.shard_train_state(T.init_train_state(params),
+                                    mod.param_axes(cfg), mesh, rules)
+        step = T.make_train_step(arch, AdamWConfig(lr=3e-4, total_steps=1),
+                                 mesh=mesh)
+        new, metrics = step(state, batch)
+        got["metrics"] = {k: v.clone() for k, v in metrics.items()}
+        got["params"] = [p.full_tensor() for p in tree_leaves(new.params)]
+        got["moments"] = [m.full_tensor() for m in tree_leaves(new.opt.m)]
+        out[arch_id] = got
+    if rank == 0:
+        torch.save(out, tmp / f"tp_{'x'.join(map(str, shape))}.pt")

@@ -253,6 +253,10 @@ CHIP_PLANS = [
     ("mla_decode4", "decode", (4, 8, 1)),
     ("cross_prefill", "prefill", (16, 8, 1)),
     ("cross_decode", "decode", (16, 8, 1)),
+    ("tp_prefill", "prefill", (16, 8, 1)),
+    ("tp_seamless_enc", "prefill", (8, 8, 4)),
+    ("tp_seamless_dec", "prefill", (8, 8, 4)),
+    ("tp_cross", "prefill", (8, 8, 4)),
 ]
 
 

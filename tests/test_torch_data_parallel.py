@@ -7,8 +7,11 @@ turn: llama3.2-1b's smoke config (fp32) for 3 steps at batch 4 (each
 rank 2 rows), the encoder-decoder's smoke config the same way (the
 frames sliced like the tokens), llama at batch 3 (which the data axis
 does not divide: replicated, each rank computes it whole), and the
-three MoE archs, which exit 2. Two more ranks run the llama case as
-``torchrun``'s children do, with no group made for them.
+three MoE archs for one step at batch 4 (64 tokens: one dispatch group
+of 64, which the ranks' rows split, so every rank routes the gathered
+group) and at batch 8 (two groups, one a rank: each routes its own and
+the load-balance means are all-reduced). Two more ranks run the llama
+case as ``torchrun``'s children do, with no group made for them.
 
 Tolerances, against the one-process launcher: each step's loss, ce,
 aux, |g| and lr within 1e-6 relative (the global loss is the mean of
@@ -47,8 +50,9 @@ ENCDEC = ["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu",
 MOE = ["qwen3-moe-235b-a22b", "deepseek-v2-236b", "jamba-v0.1-52b"]
 RUNS = [("llama", LLAMA + ["--batch", "4"]), ("encdec", ENCDEC),
         ("odd", LLAMA + ["--batch", "3"])] + [
-    (f"moe:{a}", ["--arch", a, "--smoke", "--device", "cpu", "--steps",
-                  "1", "--batch", "4", "--seq", "16"]) for a in MOE]
+    (f"moe{b}:{a}", ["--arch", a, "--smoke", "--device", "cpu", "--steps",
+                     "1", "--batch", str(b), "--seq", "16", "--seed", "0"])
+    for a in MOE for b in (4, 8)]
 DENSE = ["llama", "encdec", "odd"]
 #: per parameter, |2-rank - reference|: step 1 moves a parameter by
 #: lr x sign(g) (lr 3e-6), and a gradient element near 0 can take the
@@ -200,11 +204,39 @@ def test_launcher_makes_its_group_under_torchrun(runs, tmp_path):
 
 @pytest.mark.parametrize("arch_id", MOE)
 def test_moe_archs_exit_2_at_two_ranks(runs, arch_id):
-    for out in runs:
-        got = out[f"moe:{arch_id}"]
-        assert got["exit"] == 2
-        assert "load-balance aux" in got["stderr"]
-        assert "ROADMAP queue 3" in got["stderr"]
+    """The MoE archs no longer exit 2 at two data ranks: their step at
+    batch 4 (the ranks route the gathered global group) and at batch 8
+    (each rank its own group, the load-balance means all-reduced) holds,
+    on both ranks, to the one-process launcher (loss, ce, aux, |g| and
+    lr within ``LOSS_RTOL``; moments and params by ``_hold``) and to
+    ``jax.jit(repro.train.step.make_train_step)`` (the metrics within
+    1e-4; ``_hold``)."""
+    for b in (4, 8):
+        name = f"moe{b}:{arch_id}"
+        argv = dict(RUNS)[name]
+        ref = train.main(argv)
+        params0 = _np(tree_leaves(_initial_params(argv)))
+        params_j, moments_j, metrics_j = _jax_run(argv)
+        for r, out in enumerate(runs):
+            got = out[name]
+            assert "exit" not in got, got.get("stderr")
+            assert got["rows"] == slice(r * b // 2, (r + 1) * b // 2)
+            for m, mr, mj in zip(got["metrics"], ref["metrics"],
+                                 metrics_j):
+                for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+                    np.testing.assert_allclose(
+                        float(m[k]), float(mr[k]), rtol=LOSS_RTOL, atol=0,
+                        err_msg=f"{name} {k}")
+                    np.testing.assert_allclose(
+                        float(m[k]), mj[k], rtol=1e-4, atol=1e-4,
+                        err_msg=f"{name} {k} (JAX)")
+            for pr, mr in ((ref["state"].params, ref["state"].opt.m),):
+                _hold(_np(tree_leaves(got["params"])),
+                      _np(tree_leaves(got["moments"])),
+                      _np(tree_leaves(pr)), _np(tree_leaves(mr)), params0)
+            _hold(_np(tree_leaves(got["params"])),
+                  _np(tree_leaves(got["moments"])), params_j, moments_j,
+                  params0)
 
 
 def test_rank_rows_follow_the_batch_rule():

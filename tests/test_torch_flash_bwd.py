@@ -51,6 +51,9 @@ SHAPES = [
     (1, 4096, 4096, 32, 8, 64, True, 0),
     (1, 17, 33, 7, 7, 64, False, 0),
     (3, 129, 129, 56, 8, 128, True, 5),
+    (8, 256, 256, 8, 8, 64, False, 0),
+    (8, 256, 256, 8, 8, 64, True, 0),
+    (8, 200, 320, 8, 8, 64, False, 0),
 ]
 
 

@@ -7,8 +7,9 @@ Phases, each printing its lines before the last:
 
 1. card: ``nvidia-smi`` name and power limit; build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (``fused_split_gemm.cu``,
-   ``split_gemm.cu``, ``depthwise_gemm.cu``, ``flash_attention.cu`` and
-   ``flash_attention_bwd.cu``, one nvcc each, started together), time
+   ``split_gemm.cu``, ``depthwise_gemm.cu``, ``flash_attention.cu``,
+   ``flash_attention_bwd.cu`` and ``flash_attention_f32.cu``, one nvcc
+   each, started together), time
    the build and print ptxas's register, shared-memory and spill
    report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
@@ -111,7 +112,7 @@ Phases, each printing its lines before the last:
    (:data:`ARCHS`): qwen3-8b (36 layers, GQA 32/8, qk-norm), gemma-7b
    (28 layers, head size 256, GeGLU, tied 256000-token vocabulary) and
    mamba2-780m (48 layers) at published width and depth, yi-34b at
-   published widths cut to 32 of its 60 layers, qwen3-moe-235b-a22b
+   published widths cut to 16 of its 60 layers, qwen3-moe-235b-a22b
    (128 experts top 8 on every layer, GQA 64/4) cut to 8 of its 94
    layers, jamba-v0.1-52b cut to one period of 8 layers (7 Mamba, 1
    attention, 4 MoE of 16 experts top 2, 4 dense FFNs), deepseek-v2-236b
@@ -343,6 +344,30 @@ Phases, each printing its lines before the last:
    counts on the card, and its peak (arguments + temporaries) beside
    ``torch.cuda.max_memory_allocated``, within :data:`TP_PEAK_FACTOR`.
    With 2 or more cards it repeats over NCCL, one rank a card.
+15. pairs: every (key, value) head size and dtype the archs send. The
+   fp32 kernel (``flash_attention_f32.cu``: a forward with the
+   log-sum-exp, dq with delta, dkdv) at :data:`F32_SHAPES` (each smoke
+   pair, GQA, ragged causal tiles, ``kv_offset`` > 0, the decode form,
+   non-causal cross-attention over a bf16 cache, an LM smoke config's
+   training at S 8448) against its plain version and float64
+   (:data:`F32_FACTOR`, :data:`F32_FLOOR`), the backward bitwise
+   repeatable, timed beside SDPA (and its backward) in fp32 and the fp32
+   bound. Then, through ``launch.train.main`` at published widths cut in
+   depth (:func:`cut_arch`): deepseek-v2-236b's dense first layer
+   (:data:`TRAIN_DEEPSEEK`: MLA at (192, 128) on the bf16 kernels' wide
+   backward) and gemma-7b's first 2 layers at S 8448
+   (:data:`TRAIN_GEMMA`: (256, 256) above dense_attn_max), each with
+   exactly :func:`train_launches`, finite losses, step 1 against
+   ``attn_mode="ref"`` (:func:`step_agreement`, :data:`STEP_TOL`), host
+   and device ms a step and peak GiB. Then ``launch.serve --smoke`` for
+   each of :data:`SMOKE_SERVE` and ``launch.train --smoke`` at
+   :data:`SMOKE_TRAIN`, each on the card (exact fp32-kernel launches)
+   and with ``--device cpu`` (none); the two launchers draw their
+   weights from their devices' generators, so the card is held to the
+   CPU on weights made once on the CPU: prefill logits and greedy tokens
+   (:data:`SMOKE_LOGIT_TOL`), one train step's loss and gradient norm
+   (:data:`SMOKE_STEP_TOL`). Phase 12's :data:`BWD_SHAPES` hold the bf16
+   backward's wide pairs (``mla_*``, ``d256_*``).
 
 Each phase prints its seconds ("time: phase ..."). The line before the
 last is the kernels' JSON summary; the last line
@@ -373,6 +398,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 INT8_OPS_PER_S = 1.979e15          # H100 SXM dense int8 tensor cores
 BF16_FLOP_PER_S = 9.89e14          # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 6.7e13           # H100 SXM fp32 outside the tensor cores
 #: the spin that holds the stream while timed calls are enqueued: ~10 ms
 #: at the H100's 1.98 GHz boost clock (device_times lengthens it if short)
 SPIN_CYCLES = 20_000_000
@@ -386,6 +412,9 @@ SOURCE = {
     "depthwise_gemm": f"{CSRC}/depthwise_gemm.cu",
     **{f"flash_attention_bwd_{e}": f"{CSRC}/flash_attention_bwd.cu"
        for e in ("dq", "dkdv")},
+    **{name: f"{CSRC}/flash_attention_f32.cu"
+       for name in ("flash_attention_f32", "flash_attention_f32_bwd_dq",
+                    "flash_attention_f32_bwd_dkdv")},
 }
 REPLACES = {
     "fused_conv_gemm": "src/repro/kernels/fused_hetero_gemm.py:232",
@@ -398,6 +427,10 @@ REPLACES = {
     **{f"flash_attention_bwd_{e}": "the gradient of "
        "src/repro/models/layers.py:188::blockwise_attention (XLA autodiff; "
        "the Pallas kernel has none)" for e in ("dq", "dkdv")},
+    "flash_attention_f32": "src/repro/kernels/flash_attention.py:78 (fp32)",
+    **{f"flash_attention_f32_bwd_{e}": "the gradient of "
+       "src/repro/models/layers.py:188::blockwise_attention in fp32 (XLA "
+       "autodiff; the Pallas kernel has none)" for e in ("dq", "dkdv")},
 }
 #: the executor path whose counted run each kernel's launches come from
 KERNEL_PATH = {
@@ -445,7 +478,9 @@ SINGLE_CORNERS = [(m, k) for m in (1, 13, 49) for k in (31, 33, 147, 4608)]
 SINGLE_COLUMNS = [(33, 23), (100, 77), (680, 5)]
 class FlashShape(NamedTuple):
     """One flash shape: q [B, Sq, Hq, D], k [B, Skv, Hkv, D], v [B, Skv,
-    Hkv, DV] with DV = ``dv``, or D where ``dv`` is None."""
+    Hkv, DV] with DV = ``dv``, or D where ``dv`` is None. In
+    :data:`F32_SHAPES`, ``kv_bf16`` puts fp32 queries over bf16 K and V
+    (forward only) and ``backward`` holds the gradient too."""
     name: str
     b: int
     sq: int
@@ -456,6 +491,8 @@ class FlashShape(NamedTuple):
     causal: bool
     kv_offset: int
     dv: int | None = None
+    kv_bf16: bool = False
+    backward: bool = False
 
     @property
     def v_dim(self) -> int:
@@ -1393,20 +1430,24 @@ def flash_row_err(got, want) -> float:
     return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def flash_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset, dv=None):
+def flash_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset, dv=None,
+                   elem=2, kv_elem=None, rate=BF16_FLOP_PER_S):
     """Least time for one attention call: q and k (head size D), v and
-    out (head size DV, default D), k and v at the KV heads, in bf16 read
-    / written once over the HBM rate, vs 2·B·Hq·(D + DV) FLOP per
-    unmasked (query, key) pair (q·k and p·v) over the bf16 tensor-core
-    rate."""
+    out (head size DV, default D), k and v at the KV heads, read /
+    written once over the HBM rate (``elem`` bytes an element, 2 in bf16
+    and 4 in fp32; ``kv_elem`` for K and V, default ``elem``), vs
+    2·B·Hq·(D + DV) FLOP per unmasked (query, key) pair (q·k and p·v)
+    over ``rate`` (the bf16 tensor cores, or fp32 outside them)."""
     dv = d if dv is None else dv
-    nbytes = 2 * (b * sq * hq + b * skv * hkv) * (d + dv)
+    kv_elem = elem if kv_elem is None else kv_elem
+    nbytes = elem * b * sq * hq * (d + dv) + kv_elem * b * skv * hkv * (
+        d + dv)
     if causal:
         pairs = sum(min(skv, r + kv_offset + 1) for r in range(sq))
     else:
         pairs = sq * skv
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * b * hq * (d + dv) * pairs / BF16_FLOP_PER_S
+    t_ops = 2 * b * hq * (d + dv) * pairs / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -1765,13 +1806,14 @@ def phase_serve(torch, details: dict) -> int:
 
 #: the archs phase: (arch, layers) served at SERVE's batch, prompt, new
 #: tokens and seed; layers None is the published depth. yi-34b keeps its
-#: published widths at 32 of its 60 layers: its bf16 parameters are 68.8
+#: published widths at 16 of its 60 layers: its bf16 parameters are 68.8
 #: GB, and init_params draws each stacked leaf in fp32 first (its MLP's
 #: [60, 7168, 20480] alone 35 GB), so the whole model does not fit the
-#: 80 GB card; at 32 layers the parameters take 37.5 GB and the fp32
-#: draw of one MLP leaf 18.8 GB more. qwen3-moe-235b-a22b (467 GB in
-#: bf16) keeps its widths at 8 of its 94 layers: 4.98 GB a layer (128
-#: experts x 3 x 4096 x 1536, and 71 M of attention), 39.8 GB for 8 and
+#: 80 GB card; 32 layers would fit (37.5 GB, and the fp32 draw of one
+#: MLP leaf 18.8 GB more), 16 keep the script inside its time.
+#: qwen3-moe-235b-a22b (467 GB in bf16) keeps its widths at 8 of its 94
+#: layers: 4.98 GB a layer (128 experts x 3 x 4096 x 1536, and 71 M of
+#: attention), 39.8 GB for 8 and
 #: 2.5 GB of embedding tables, plus the fp32 draw of one stacked expert
 #: leaf [8, 128, 4096, 1536], 25.8 GB. jamba-v0.1-52b (103 GB) keeps its
 #: widths at one period of 8 layers (7 Mamba, 1 attention, 4 MoE and 4
@@ -1785,13 +1827,13 @@ def phase_serve(torch, details: dict) -> int:
 #: 25.2 GB, about 63 GiB at peak; 7 layers would need 80.6 GB.
 #: qwen2-vl-2b (3.1 GB, text only as the launcher serves it) and
 #: seamless-m4t-large-v2 (4.1 GB, 24 + 24 layers) run whole
-ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 32),
+ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 16),
          ("mamba2-780m", None), ("qwen3-moe-235b-a22b", 8),
          ("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 6),
          ("qwen2-vl-2b", None), ("seamless-m4t-large-v2", None)]
 #: the archs' new tokens: half of :data:`SERVE`'s, to keep the script
 #: inside its time
-ARCHS_NEW = 16
+ARCHS_NEW = 8
 #: decode steps of qwen3-8b with the int8 KV cache against the bf16 one
 KV_QUANT_STEPS = 8
 
@@ -2151,7 +2193,7 @@ def phase_accuracy(torch, details: dict) -> dict:
 #: config (52 B parameters do not fit one card at full width), then
 #: golden sessions at the three smoke configs
 DECODE = dict(batch=8, max_seq=64, seed=0)
-DECODE_STEPS = {"llama3.2-1b": 16, "mamba2-780m": 8, "jamba-v0.1-52b": 8}
+DECODE_STEPS = {"llama3.2-1b": 8, "mamba2-780m": 4, "jamba-v0.1-52b": 4}
 #: step_slots calls of the staggered per-slot run; slot j is admitted
 #: (``reset_slot``) at step j % 3 and holds a stale request before that
 SLOT_STEPS = 4
@@ -2556,7 +2598,7 @@ CNN_BUNDLES = [("resnet18", "filter", 2), ("resnet18", "filter", 3),
 #: full-width llama3.2-1b decode bundles, (plan kind, devices), and the
 #: greedy steps each decodes
 DECODE_BUNDLES = [("filter", 2), ("pipeline", 2)]
-MULTI_STEPS = 8
+MULTI_STEPS = 4
 #: the compiled-serving command (``launch.serve``), as a user runs it
 SERVE_ACCEL = ["--arch", "llama3.2-1b", "--quantize", "--accel-devices",
                "2", "--accel-partition", "filter", "--accel-backend",
@@ -3536,8 +3578,12 @@ def phase_codesign(torch, details: dict) -> dict:
 #: cross over a memory of another length), llama3.2-1b's GQA at S 2048, a
 #: ragged causal shape whose tiles cross the diagonal, kv_offset > 0,
 #: qwen2-vl-2b's (128, 128) at 12 query heads over 2, a D=128 GQA
-#: shape whose tiles cross the diagonal, and seamless's three at phase
-#: 14's 8 local heads a rank
+#: shape whose tiles cross the diagonal, seamless's three at phase 14's 8
+#: local heads a rank, and the wide pairs' instance: deepseek-v2's MLA
+#: (keys 192 over values 128) at phase 15's training shape (128/128 heads,
+#: B 2, S 1024) and with tiles across the diagonal, gemma-7b's (256, 256)
+#: at its training shape above dense_attn_max (16/16 heads, S 8448) and
+#: with tiles across the diagonal
 BWD_SHAPES = [
     FlashShape("seamless_enc", 8, 256, 256, 16, 16, 64, False, 0),
     FlashShape("seamless_dec", 8, 256, 256, 16, 16, 64, True, 0),
@@ -3550,6 +3596,10 @@ BWD_SHAPES = [
     FlashShape("tp_seamless_enc", 8, 256, 256, 8, 8, 64, False, 0),
     FlashShape("tp_seamless_dec", 8, 256, 256, 8, 8, 64, True, 0),
     FlashShape("tp_cross", 8, 200, 320, 8, 8, 64, False, 0),
+    FlashShape("mla_train", 2, 1024, 1024, 128, 128, 192, True, 0, 128),
+    FlashShape("mla_ragged", 2, 1000, 1000, 16, 16, 192, True, 0, 128),
+    FlashShape("d256_train", 1, 8448, 8448, 16, 16, 256, True, 0),
+    FlashShape("d256_ragged", 2, 1000, 1000, 16, 16, 256, True, 0),
 ]
 #: kernel vs plain backward, bf16: each of dq, dk, dv within 4 bf16 steps
 #: (2^-8 relative) of the gradient's max |.|. The two differ in where they
@@ -3615,31 +3665,38 @@ def bwd_row_err(got, want) -> float:
 
 
 def bwd_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset,
-                 entry=None) -> tuple[float, str]:
+                 entry=None, dv=None, elem=2, rate=BF16_FLOP_PER_S
+                 ) -> tuple[float, str]:
     """Least time for the backward of one attention call (``entry`` None),
-    or for one entry point: bytes of what it reads and writes (bf16 q, k,
-    v, out, dout, dq, dk, dv; fp32 lse and delta, [B, Hq, Sq]) once over
-    the HBM rate, vs its products over the bf16 rate, each 2·B·Hq·D per
-    unmasked (query, key) pair: five for the whole backward (s, dp, dv,
+    or for one entry point (named by its dq / dkdv suffix): bytes of what
+    it reads and writes (q, k, v, out, dout, dq, dk, dv of ``elem`` bytes
+    each, 2 in bf16 and 4 in fp32; fp32 lse and delta, [B, Hq, Sq]) once
+    over the HBM rate, vs its products over ``rate``, each 2·B·Hq per
+    unmasked (query, key) pair times its depth: D for s, dk and dq, DV
+    (default D) for dp and dv; five for the whole backward (s, dp, dv,
     dk, dq), four for dkdv (s, dp, dv, dk), three for dq (s, dp, dq) and
-    delta's 2·B·Sq·Hq·D (dq reads out, dout, q, k, v and lse, writes dq and
-    delta; dkdv reads q, dout, k, v, lse and delta, writes dk and dv)."""
-    q_b = 2 * b * sq * hq * d                 # q, out, dout, dq each
-    kv_b = 2 * b * skv * hkv * d              # k, v, dk, dv each
-    st_b = 4 * b * hq * sq                    # lse, delta each
+    delta's 2·B·Sq·Hq·DV (dq reads out, dout, q, k, v and lse, writes dq
+    and delta; dkdv reads q, dout, k, v, lse and delta, writes dk and
+    dv)."""
+    dv = d if dv is None else dv
+    qk_b = elem * b * sq * hq              # q, dq per column; out, dout too
+    kv_b = elem * b * skv * hkv            # k, dk; v, dv
+    st_b = 4 * b * hq * sq                 # lse, delta each
     if causal:
         pairs = sum(min(skv, r + kv_offset + 1) for r in range(sq))
     else:
         pairs = sq * skv
-    prod = 2 * b * hq * d * pairs
+    prod = 2 * b * hq * pairs
+    kind = None if entry is None else entry.rsplit("_", 1)[-1]
     nbytes, flops = {
-        None: (4 * q_b + 4 * kv_b + 2 * st_b, 5 * prod),
-        "flash_attention_bwd_dq": (4 * q_b + 2 * kv_b + 2 * st_b,
-                                   3 * prod + 2 * b * sq * hq * d),
-        "flash_attention_bwd_dkdv": (2 * q_b + 4 * kv_b + 2 * st_b,
-                                     4 * prod),
-    }[entry]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        None: (2 * qk_b * (d + dv) + 2 * kv_b * (d + dv) + 2 * st_b,
+               prod * (3 * d + 2 * dv)),
+        "dq": (qk_b * (2 * d + 2 * dv) + kv_b * (d + dv) + 2 * st_b,
+               prod * (2 * d + dv) + 2 * b * sq * hq * dv),
+        "dkdv": (qk_b * (d + dv) + 2 * kv_b * (d + dv) + 2 * st_b,
+                 prod * (2 * d + 2 * dv)),
+    }[kind]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -3648,12 +3705,24 @@ def sdpa_bwd_fn(torch, q, k, v, dout, causal, kv_offset):
     """The backward of ``F.scaled_dot_product_attention`` alone, on the
     views :func:`sdpa_fn` makes (KV heads repeated outside the timed
     call): one forward with grad, then ``torch.autograd.grad`` on its
-    retained graph per call."""
+    retained graph per call. None where no SDPA backend takes the shape
+    (the yardstick is then not measured)."""
     qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
-    with torch.enable_grad():
-        out = sdpa_fn(torch, qt, kt, vt, causal, kv_offset)()
+    try:
+        with torch.enable_grad():
+            out = sdpa_fn(torch, qt, kt, vt, causal, kv_offset)()
+        torch.autograd.grad(out, (qt, kt, vt), dout, retain_graph=True)
+    except RuntimeError as e:
+        print(f"sdpa backward: not measured at q {tuple(q.shape)}, v "
+              f"{tuple(v.shape)}: {str(e).splitlines()[0]}")
+        return None
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dout,
                                        retain_graph=True)
+
+
+def fmt_ms(t) -> str:
+    """A device time in ms, or "not measured" for None."""
+    return "not measured" if t is None else f"{t:.4f}"
 
 
 def ptxas_usage(torch, source: str) -> list[str]:
@@ -3704,10 +3773,11 @@ def bwd_shapes(torch, details: dict) -> dict:
     rows = details.setdefault("bwd", [])
     for shape in BWD_SHAPES:
         name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+        dv = shape.v_dim
         q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda",
                                      dtype=torch.bfloat16)
                          for sh in ((b, sq, hq, d), (b, skv, hkv, d),
-                                    (b, skv, hkv, d), (b, sq, hq, d)))
+                                    (b, skv, hkv, dv), (b, sq, hq, dv)))
         scale = d ** -0.5
         kw = dict(causal=causal, kv_offset=off)
 
@@ -3758,9 +3828,11 @@ def bwd_shapes(torch, details: dict) -> dict:
         # back, dkdv's start overlapping dq's last blocks
         fns["bwd"] = (lambda: [build.launch(e, q, *args[e])
                                for e in ENTRY_POINTS], 10)
-        fns["sdpa_bwd"] = (sdpa_bwd_fn(torch, q, k, v, dout, causal, off),
-                           10)
+        lib = sdpa_bwd_fn(torch, q, k, v, dout, causal, off)
+        if lib is not None:
+            fns["sdpa_bwd"] = (lib, 10)
         times = device_times(torch, fns)
+        times.setdefault("sdpa_bwd", None)
         # the plain backward's allocations can synchronise the host (its
         # autograd graph outgrows the allocator's pool): CUDA events over
         # back-to-back calls, which a slow yardstick barely notices
@@ -3781,9 +3853,10 @@ def bwd_shapes(torch, details: dict) -> dict:
                 f"delta relative "
                 f"error {delta_err} (tol {DELTA_TOL})")
         whole_ms, whole_by = bwd_bound_ms(b, sq, skv, hq, hkv, d, causal,
-                                          off)
+                                          off, dv=dv)
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
-               "hkv": hkv, "d": d, "causal": causal, "kv_offset": off,
+               "hkv": hkv, "d": d, "dv": dv, "causal": causal,
+               "kv_offset": off,
                "rel_err": errs, "abs_err": abs_errs, "row_err": row_errs,
                "lse_err": lse_err, "bitwise_repeat": bitwise,
                "delta_err": delta_err, "times_ms": times,
@@ -3791,11 +3864,12 @@ def bwd_shapes(torch, details: dict) -> dict:
                "entry_sum_ms": sum(times[e] for e in ENTRY_POINTS),
                "bound_ms": whole_ms, "bound_by": whole_by,
                "entry_bounds": {e: bwd_bound_ms(b, sq, skv, hq, hkv, d,
-                                                causal, off, e)
+                                                causal, off, e, dv=dv)
                                 for e in ENTRY_POINTS}}
         rows.append(row)
         print(f"train bwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
-              f"Hkv={hkv} D={d} causal={causal} kv_offset={off}: relative "
+              f"Hkv={hkv} D={d} DV={dv} causal={causal} kv_offset={off}: "
+              f"relative "
               f"max |err| dq {errs['dq']:.3g} dk {errs['dk']:.3g} dv "
               f"{errs['dv']:.3g} (tol {BWD_TOL:.3g}), row error dq "
               f"{row_errs['dq']:.3g} dk {row_errs['dk']:.3g} dv "
@@ -3809,7 +3883,7 @@ def bwd_shapes(torch, details: dict) -> dict:
               + f" (back to back {row['kernel_bwd_ms']:.4f}, sum "
               f"{row['entry_sum_ms']:.4f}; plain backward "
               f"{times['plain_bwd']:.4f}, sdpa backward "
-              f"{times['sdpa_bwd']:.4f}; bound {whole_ms:.4f} by "
+              f"{fmt_ms(times['sdpa_bwd'])}; bound {whole_ms:.4f} by "
               f"{whole_by})")
         del q, k, v, dout, got, again, want, out_k, bufs
     for ln in ptxas_usage(torch, "flash_attention_bwd"):
@@ -3830,21 +3904,34 @@ def bwd_shapes(torch, details: dict) -> dict:
     return out
 
 
-def train_launches(arch, steps: int = 1) -> dict:
-    """The kernel launches of ``steps`` train steps of ``arch``, read from
-    the code: each ``blockwise_attention`` launches the forward once in
-    the forward pass and once more in ``remat="full"``'s recompute, and
-    each backward entry point once. An encoder-decoder makes one call
-    per encoder layer and two per decoder layer (self and cross); an LM
-    below ``dense_attn_max`` none."""
-    from repro_torch.kernels.flash_attention_bwd import ENTRY_POINTS
+def train_launches(arch, steps: int = 1, seq: int = 0) -> dict:
+    """The kernel launches of ``steps`` train steps of ``arch`` at
+    sequence length ``seq``, read from the code: each
+    ``blockwise_attention`` launches the forward once in the forward pass
+    and once more in ``remat="full"``'s recompute, and each backward entry
+    point once; fp32 configs launch the fp32 kernel's entry points. An
+    encoder-decoder makes one call per encoder layer and two per decoder
+    layer (self and cross); an LM one a layer where it reaches the kernel
+    (MLA always, the others above ``dense_attn_max``,
+    ``launch.train.train_flash_heads``), else none."""
+    import torch
+    from repro_torch.kernels.flash_attention_bwd import entry_points
+    from repro_torch.launch.train import train_flash_heads
     cfg = arch.model
-    if arch.module != "encdec":
+    if train_flash_heads(arch, seq) is None:
         return {}
-    n = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    if arch.module == "encdec":
+        n = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    elif arch.module == "lm":
+        n = cfg.n_layers
+    else:
+        raise ValueError(f"{arch.arch_id}: no launch count for "
+                         f"{arch.module}")
     fwd = 2 if cfg.remat == "full" else 1
-    return {"flash_attention": fwd * n * steps,
-            **{e: n * steps for e in ENTRY_POINTS}}
+    f32 = cfg.param_dtype == torch.float32
+    return {"flash_attention_f32" if f32 else "flash_attention":
+            fwd * n * steps,
+            **{e: n * steps for e in entry_points(cfg.param_dtype)}}
 
 
 def run_launcher(torch, argv: list, want: dict, what: str) -> dict:
@@ -3913,7 +4000,8 @@ def state_agreement(torch, params, params_ref, moments, moments_ref,
         bf = b.float()
         bound = 2 ** -7 * bf.abs() + 2 * lr * 1.01
         p_bad += int(((a.float() - bf).abs() > bound).sum())
-        p_frac.append(float((a == b).float().mean()))
+        if b.numel():  # a cut config keeps empty leaves (no MoE layer)
+            p_frac.append(float((a == b).float().mean()))
     return {"moments_rel_l2": math.sqrt(num / max(den, 1e-30)),
             "worst_leaves": sorted(per_leaf, reverse=True)[:4],
             "params_outside": p_bad,
@@ -3938,7 +4026,9 @@ def step_agreement(torch, arch, argv: list) -> dict:
     LAUNCHES.clear()
     s_k, m_k = kern(state, batch)
     torch.cuda.synchronize()
-    read_window(LAUNCHES, train_launches(arch), "train step 1 (kernels)")
+    read_window(LAUNCHES, train_launches(
+        arch, seq=int(argv[argv.index("--seq") + 1])),
+        "train step 1 (kernels)")
     new_k, mom_k = s_k.params, s_k.opt.m
     del s_k
     LAUNCHES.clear()
@@ -3997,10 +4087,11 @@ def train_arch(torch, argv: list, out: dict) -> dict:
     steps = int(argv[argv.index("--steps") + 1])
     tokens = int(argv[argv.index("--batch") + 1]) * int(
         argv[argv.index("--seq") + 1])
-    want = train_launches(arch, steps)
+    seq = int(argv[argv.index("--seq") + 1])
+    want = train_launches(arch, steps, seq)
     run = run_launcher(torch, argv, want, f"train {arch.arch_id} launcher "
                        f"({steps} steps)")
-    per_step = train_launches(arch)
+    per_step = train_launches(arch, seq=seq)
     med = statistics.median(run["step_ms"][1:])
     print(f"train: {arch.arch_id} {model_depth(arch.model)} layers d_model "
           f"{arch.model.d_model} bf16, "
@@ -4122,7 +4213,7 @@ def phase_train(torch, details: dict) -> dict:
 #: seamless-m4t-large-v2 at published widths cut to this many encoder and
 #: decoder layers, so that two data-parallel ranks and the one-process
 #: reference share the card and the phase stays short
-PARALLEL_LAYERS = 6
+PARALLEL_LAYERS = 3
 #: the data-parallel run: TRAIN_SEAMLESS's global batch 8 x seq 256, 2
 #: steps, on the cut arch (its id is filled in by :func:`cut_seamless`)
 PARALLEL_TRAIN = ["--batch", "8", "--seq", "256", "--steps", "2", "--seed",
@@ -4935,7 +5026,7 @@ def tp_worker(rank: int, world: int, out_dir: str, backend: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --- seamless cut to 6 + 6 layers: one tensor-parallel train step
+    # --- seamless cut to 3 + 3 layers: one tensor-parallel train step
     arch = registry.get(cut_seamless())
     mod, cfg, rules = arch.model_module(), arch.model, arch_rules(arch)
     b, s, seed = TP_TRAIN["batch"], TP_TRAIN["seq"], TP_TRAIN["seed"]
@@ -5139,6 +5230,534 @@ def phase_tensor(torch, details: dict, ref: dict | None = None,
     return dict(launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: every head size and dtype the archs send
+# ---------------------------------------------------------------------------
+
+#: the fp32 kernel (``flash_attention_f32.cu``) at the pairs the smoke
+#: configs send, at their launchers' shapes (serving: batch 8, prompt 64;
+#: training: batch 8, seq 128, and an LM above dense_attn_max at batch 1,
+#: seq 8448): seamless's encoder (non-causal) and decoder at head size 12,
+#: GQA 4/2, and its decode step's cross-attention, fp32 queries over the
+#: bf16 cross cache (forward only: decode takes no gradient); deepseek's
+#: MLA at keys 24 over values 16, and with causal tiles across the
+#: diagonal (S 100); the LMs' prefill at 16 (4/2), gemma's 32, yi's 8 at 7
+#: query heads over 1, qwen2-vl's 16 at 3/1; kv_offset > 0 over a longer
+#: key range; the decode form (Sq 1); an LM smoke config's training above
+#: 8192 tokens. The first is the kernels line's row
+F32_SHAPES = [
+    FlashShape("f32_seamless_enc", 8, 128, 128, 4, 2, 12, False, 0,
+               backward=True),
+    FlashShape("f32_seamless_dec", 8, 128, 128, 4, 2, 12, True, 0,
+               backward=True),
+    FlashShape("f32_cross_decode", 8, 1, 64, 4, 2, 12, False, 0,
+               kv_bf16=True),
+    FlashShape("f32_mla", 8, 128, 128, 4, 4, 24, True, 0, 16,
+               backward=True),
+    FlashShape("f32_mla_ragged", 2, 100, 100, 4, 4, 24, True, 0, 16,
+               backward=True),
+    FlashShape("f32_prefill", 8, 64, 64, 4, 2, 16, True, 0),
+    FlashShape("f32_gemma", 8, 64, 64, 4, 4, 32, True, 0, backward=True),
+    FlashShape("f32_yi", 8, 64, 64, 7, 1, 8, True, 0, backward=True),
+    FlashShape("f32_vlm", 8, 64, 64, 3, 1, 16, True, 0),
+    FlashShape("f32_offset", 2, 130, 200, 4, 1, 32, True, 70,
+               backward=True),
+    FlashShape("f32_decode", 8, 1, 64, 4, 2, 16, True, 63),
+    FlashShape("f32_lm_s8448", 1, 8448, 8448, 4, 2, 16, True, 0,
+               backward=True),
+]
+#: fp32 kernel vs the exact function. The kernel and its plain version
+#: are both fp32 and differ only in the order of their sums, so each is
+#: held against the same attention in float64 (:func:`dense64`, autograd
+#: for the gradients): the kernel's max |err| within F32_FACTOR times the
+#: plain version's own at the same inputs (the fp32 rounding noise of
+#: this shape: the kernel sums its keys and rows one after another where
+#: the plain version's einsums sum in blocks, and a sequential sum of N
+#: terms drifts ~sqrt(N) roundings), plus F32_FLOOR steps of 2^-24 of
+#: the largest |value| (for outputs where the plain version's error is
+#: near 0). A key masked or dropped moves an output by ~1e-2 of itself,
+#: some 1e4 times this. fp32 queries over a bf16 cache round p to bf16,
+#: as the plain version does: that row is held as the bf16 kernel is
+#: (:func:`flash_tol`, :data:`FLASH_ROW_TOL`)
+F32_FACTOR = 16
+F32_FLOOR = 64
+#: phase 15's training runs at published widths, cut in depth (the arch
+#: id is filled in by :func:`cut_arch`): deepseek-v2-236b's dense first
+#: layer (MLA, keys 192 over values 128, 128 heads) at batch 2 x 1024;
+#: gemma-7b's first 2 layers (head size 256, 16 heads) at batch 1 x 8448,
+#: just above dense_attn_max, so that its attention is the flash kernel
+TRAIN_DEEPSEEK = ("deepseek-v2-236b", 1,
+                  ["--batch", "2", "--seq", "1024", "--steps", "3",
+                   "--seed", "0", "--log-every", "1"])
+TRAIN_GEMMA = ("gemma-7b", 2,
+               ["--batch", "1", "--seq", "8448", "--steps", "2", "--seed",
+                "0", "--log-every", "1"])
+#: the archs whose smoke configs reach the flash kernel when served
+#: (every attention arch but the hybrid, whose prompt attention is
+#: dense_attention below 8192 tokens), each at the launcher's default
+#: request (batch 8, prompt 64) with :data:`SMOKE_NEW` new tokens
+SMOKE_SERVE = ["llama3.2-1b", "qwen3-8b", "gemma-7b", "yi-34b",
+               "qwen3-moe-235b-a22b", "deepseek-v2-236b", "qwen2-vl-2b",
+               "seamless-m4t-large-v2"]
+SMOKE_NEW = 8
+#: the smoke trainings on the card: seamless and deepseek-v2 at the
+#: launcher's default batch 8 x 128 (they always reach the kernels), and
+#: llama3.2-1b at 8448 tokens, above dense_attn_max
+SMOKE_TRAIN = [
+    ["--arch", "seamless-m4t-large-v2", "--smoke", "--steps", "3",
+     "--batch", "8", "--seq", "128", "--seed", "0", "--log-every", "1"],
+    ["--arch", "deepseek-v2-236b", "--smoke", "--steps", "3", "--batch",
+     "8", "--seq", "128", "--seed", "0", "--log-every", "1"],
+    ["--arch", "llama3.2-1b", "--smoke", "--steps", "2", "--batch", "1",
+     "--seq", "8448", "--seed", "0", "--log-every", "1"],
+]
+#: the card against the CPU on the same weights (fp32 smoke configs): the
+#: prefill logits within 1e-4 of the largest |logit| (both fp32; the
+#: card's attention is the fp32 kernel, cuBLAS's products sum in another
+#: order than the CPU's, ~1e-6 relative after 2 layers), and the greedy
+#: tokens equal in every row until a step where the CPU's top two logits
+#: lie within that tolerance; one train step's loss and gradient norm
+#: within 1e-4 of themselves
+SMOKE_LOGIT_TOL = 1e-4
+SMOKE_STEP_TOL = 1e-4
+
+
+def dense64(torch, q, k, v, causal: bool, kv_offset: int, scale: float):
+    """Attention in float64 with a dense softmax over all keys, the
+    function the fp32 kernel and its plain version round: (out [B, Sq,
+    Hq, DV], lse [B, Hq, Sq]); differentiable."""
+    rep = q.shape[2] // k.shape[2]
+    kd = k.double().repeat_interleave(rep, dim=2)
+    vd = v.double().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) * scale
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None] + kv_offset
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", p, vd), lse
+
+
+def f32_tol(plain_err: float, ref) -> float:
+    """:data:`F32_FACTOR` times the plain version's max |err| against
+    float64 plus :data:`F32_FLOOR` steps of 2^-24 of max |ref|."""
+    return F32_FACTOR * plain_err + F32_FLOOR * 2 ** -24 * float(
+        ref.abs().max())
+
+
+def f32_shapes(torch, details: dict) -> dict:
+    """The fp32 kernel at :data:`F32_SHAPES`: the forward against the
+    plain version and float64 (output and log-sum-exp), and where a row
+    has ``backward`` the gradient through the autograd Function (one
+    launch of each entry point) against the plain backward and float64,
+    bitwise repeatable, the dq launch's delta against ``bwd_prep_plain``;
+    each entry point timed beside the plain version, SDPA (and its
+    backward) in fp32 and the fp32 bound. Returns the kernels line's rows
+    for the fp32 kernel's three entry points."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _forward_kernel, \
+        flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention_bwd import F32_ENTRY_POINTS
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = details.setdefault("f32", [])
+    for shape in F32_SHAPES:
+        name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+        dv = shape.v_dim
+        kv_dt = torch.bfloat16 if shape.kv_bf16 else torch.float32
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(dt)
+                   for sh, dt in (((b, sq, hq, d), torch.float32),
+                                  ((b, skv, hkv, d), kv_dt),
+                                  ((b, skv, hkv, dv), kv_dt)))
+        scale = d ** -0.5
+        kw = dict(causal=causal, kv_offset=off)
+        kern = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: flash_attention_plain(q, k, v, **kw)  # noqa: E731
+        build.LAUNCHES.clear()
+        got = kern()
+        torch.cuda.synchronize()
+        read_window(build.LAUNCHES, {"flash_attention_f32": 1},
+                    f"f32 {name} forward")
+        want = plain()
+        if got.shape != want.shape or got.dtype != v.dtype or \
+                not torch.isfinite(got).all():
+            raise AssertionError(f"f32 {name}: {tuple(got.shape)} "
+                                 f"{got.dtype} output not finite or not "
+                                 f"{tuple(want.shape)} {v.dtype}")
+        row_err = flash_row_err(got, want)
+        checks = {}
+        if shape.kv_bf16:
+            checks["out"] = (float((got.float() - want.float()).abs().max()),
+                             flash_tol(v), None)
+        else:
+            ref, lse_ref = dense64(torch, q, k, v, causal, off, scale)
+            lse = _forward_kernel(q, k, v, scale, causal, off,
+                                  with_lse=True)[1]
+            lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)[1]
+            for what, g, w, r in (("out", got, want, ref),
+                                  ("lse", lse, lse_p, lse_ref)):
+                p_err = float((w.double() - r).abs().max())
+                checks[what] = (float((g.double() - r).abs().max()),
+                                f32_tol(p_err, r), p_err)
+            del ref, lse_ref
+        fwd_err = checks["out"][0]
+        if not (all(e <= t for e, t, _ in checks.values()) and
+                row_err <= FLASH_ROW_TOL):
+            raise AssertionError(
+                f"f32 {name}: kernel (max |err|, tol, plain's max |err|) "
+                f"{checks}, row error {row_err} (tol {FLASH_ROW_TOL})")
+        lib = sdpa_fn(torch, q, k.float(), v.float(), causal, off)
+        fb_ms, fb_by = flash_bound_ms(b, sq, skv, hq, hkv, d, causal, off,
+                                      dv, elem=4, kv_elem=k.element_size(),
+                                      rate=FP32_FLOP_PER_S)
+        row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
+               "hkv": hkv, "d": d, "dv": dv, "causal": causal,
+               "kv_offset": off, "kv_dtype": str(kv_dt), "checks": checks,
+               "row_err": row_err,
+               **device_times(torch, {"ms": (kern, 10),
+                                      "library_ms": (lib, 10)}),
+               # the plain version's thousands of small launches at S
+               # 8448 outrun the launch queue: CUDA events over
+               # back-to-back calls
+               "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1),
+               "bound_ms": fb_ms, "bound_by": fb_by}
+        if shape.backward:
+            row.update(f32_backward(torch, shape, q, k, v, gen))
+        rows.append(row)
+        print(f"f32 {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
+              f"D={d} DV={dv} causal={causal} kv_offset={off} K/V "
+              f"{str(kv_dt).split('.')[-1]}: forward (max |err|, tol, "
+              f"plain's) {fmt_checks(checks)}, row error {row_err:.3g}; "
+              f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+              f"sdpa {row['library_ms']:.4f}, bound {fb_ms:.4f} by "
+              f"{fb_by})" + (f"; backward {fmt_checks(row['bwd_checks'])}, "
+                             f"delta {row['delta_err']:.3g} (tol "
+                             f"{DELTA_TOL:.3g}), second call bitwise equal "
+                             f"{row['bitwise_repeat']}; device ms dq "
+                             f"{row['times_ms'][F32_ENTRY_POINTS[0]]:.4f} "
+                             f"dkdv "
+                             f"{row['times_ms'][F32_ENTRY_POINTS[1]]:.4f} "
+                             f"(back to back {row['times_ms']['bwd']:.4f}; "
+                             f"plain backward "
+                             f"{row['times_ms']['plain_bwd']:.4f}, sdpa "
+                             f"backward "
+                             f"{fmt_ms(row['times_ms']['sdpa_bwd'])}; "
+                             f"bound {row['bwd_bound'][0]:.4f} by "
+                             f"{row['bwd_bound'][1]})"
+                             if shape.backward else ""))
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    for ln in ptxas_usage(torch, "flash_attention_f32"):
+        print(f"f32 ptxas: {ln}")
+    details["f32_ptxas"] = ptxas_usage(torch, "flash_attention_f32")
+    first = rows[0]
+    out = {"flash_attention_f32": {
+        "max_abs_err": max(r["checks"]["out"][0] for r in rows),
+        **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}}
+    grads = {F32_ENTRY_POINTS[0]: ("dq",), F32_ENTRY_POINTS[1]: ("dk", "dv")}
+    for e in F32_ENTRY_POINTS:
+        b_ms, b_by = first["entry_bounds"][e]
+        out[e] = {"max_abs_err": max(r["bwd_checks"][g][0] for r in rows
+                                     if "bwd_checks" in r for g in grads[e]),
+                  "ms": first["times_ms"][e],
+                  "plain_ms": first["times_ms"]["plain_bwd"],
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": first["times_ms"]["sdpa_bwd"]}
+    return out
+
+
+def fmt_checks(checks: dict) -> str:
+    """``{what: (max |err|, tol, plain's max |err| or None)}`` printed."""
+    return ", ".join(
+        f"{w} {e:.3g} ({t:.3g}" + ("" if p is None else f"; {p:.3g}") + ")"
+        for w, (e, t, p) in checks.items())
+
+
+def f32_backward(torch, shape, q, k, v, gen) -> dict:
+    """The fp32 backward of one :data:`F32_SHAPES` row (see
+    :func:`f32_shapes`); raises outside the tolerances."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _forward_kernel, \
+        flash_attention
+    from repro_torch.kernels.flash_attention_bwd import F32_ENTRY_POINTS, \
+        bwd_prep_plain, entry_args, flash_attention_bwd_plain
+    entry_names = F32_ENTRY_POINTS
+    name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+    dv = shape.v_dim
+    scale = d ** -0.5
+    kw = dict(causal=causal, kv_offset=off)
+    dout = torch.randn((b, sq, hq, dv), generator=gen, device="cuda")
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        build.LAUNCHES.clear()
+        with torch.enable_grad():
+            out = flash_attention(*leaves, **kw)
+            got = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        read_window(build.LAUNCHES, {"flash_attention_f32": 1,
+                                     **{e: 1 for e in entry_names}},
+                    f"f32 {name} forward + backward")
+        return got
+    got, again = grads(), grads()
+    bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, dout, **kw)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        ref = torch.autograd.grad(dense64(torch, *leaves, causal, off,
+                                          scale)[0], leaves, dout.double())
+    checks = {}
+    for what, g, w, r in zip(("dq", "dk", "dv"), got, want, ref):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"f32 {name}: {what} not finite or not "
+                                 f"{tuple(w.shape)}")
+        p_err = float((w.double() - r).abs().max())
+        checks[what] = (float((g.double() - r).abs().max()),
+                        f32_tol(p_err, r), p_err)
+    del leaves, ref
+    out_k, lse = _forward_kernel(q, k, v, scale, causal, off, with_lse=True)
+    delta = torch.empty((b, hq, sq), device="cuda")
+    bufs = [torch.empty_like(t) for t in (q, k, v)]
+    args = entry_args(q, k, v, out_k, dout, lse, delta, *bufs, scale,
+                      causal, off)
+    build.launch(entry_names[0], q, *args[entry_names[0]])
+    prod = dout * out_k
+    delta_err = float(((delta - bwd_prep_plain(out_k, dout)).abs() /
+                       prod.abs().sum(-1).transpose(1, 2).clamp_min(
+                           1e-30)).max())
+    if not (all(e <= t for e, t, _ in checks.values()) and bitwise and
+            delta_err <= DELTA_TOL):
+        raise AssertionError(
+            f"f32 {name}: backward (max |err|, tol, plain's) {checks}, "
+            f"second call bitwise equal {bitwise}, delta relative error "
+            f"{delta_err} (tol {DELTA_TOL})")
+    fns = {e: ((lambda e=e: build.launch(e, q, *args[e])), 10)
+           for e in entry_names}
+    fns["bwd"] = (lambda: [build.launch(e, q, *args[e])
+                           for e in entry_names], 10)
+    lib = sdpa_bwd_fn(torch, q, k, v, dout, causal, off)
+    if lib is not None:
+        fns["sdpa_bwd"] = (lib, 10)
+    times = device_times(torch, fns)
+    times.setdefault("sdpa_bwd", None)
+    times["plain_bwd"] = cuda_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, dout, **kw), iters=3, warmup=1)
+    bound = (b, sq, skv, hq, hkv, d, causal, off)
+    return {"bwd_checks": checks, "bitwise_repeat": bitwise,
+            "delta_err": delta_err, "times_ms": times,
+            "bwd_bound": bwd_bound_ms(*bound, dv=dv, elem=4,
+                                      rate=FP32_FLOP_PER_S),
+            "entry_bounds": {e: bwd_bound_ms(*bound, e, dv=dv, elem=4,
+                                             rate=FP32_FLOP_PER_S)
+                             for e in entry_names}}
+
+
+def cut_arch(base_id: str, n_layers: int) -> str:
+    """Register ``base_id`` at published widths cut to its first
+    ``n_layers`` layers under an arch id of its own, once per process;
+    returns the id."""
+    import dataclasses
+    from repro_torch.configs import registry
+    base = registry.get(base_id)
+    arch_id = f"{base.arch_id}-{n_layers}L"
+    if arch_id not in registry.list_archs():
+        registry.register(dataclasses.replace(
+            base, arch_id=arch_id, model=dataclasses.replace(
+                base.model, n_layers=n_layers)))
+    return arch_id
+
+
+def smoke_weights(torch, arch, devices):
+    """The smoke config's weights from a CPU generator (seed 0), on each
+    of ``devices``: the same values on the card and on the CPU."""
+    from repro_torch.models.layers import tree_map
+    params = arch.model_module().init(arch.model,
+                                      torch.Generator().manual_seed(0))
+    return [tree_map(lambda t, dev=dev: t.to(dev), params)
+            for dev in devices]
+
+
+def smoke_serve(torch, arch_id: str, out: dict) -> dict:
+    """``launch.serve --smoke`` on the card (its flash launches exactly
+    :func:`flash_per_call`'s, on the fp32 kernel) and with ``--device
+    cpu`` (none); then the engine on the same weights on both devices:
+    prefill logits within :data:`SMOKE_LOGIT_TOL` and greedy tokens as it
+    says. Returns the launcher's window on the card."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import serve
+    from repro_torch.serve import engine
+    arch = registry.get(arch_id)
+    arch = dataclasses.replace(arch, model=arch.smoke)
+    cfg = arch.model
+    argv = ["--arch", arch_id, "--smoke", "--new-tokens", str(SMOKE_NEW),
+            "--seed", "0"]
+    per_prefill, per_step = flash_per_call(arch)
+    want = {"flash_attention_f32": per_prefill["flash_attention"] + (
+        SMOKE_NEW - 1) * per_step.get("flash_attention", 0)}
+    runs, windows = {}, {}
+    for dev, extra, expect in (("cuda", [], want),
+                               ("cpu", ["--device", "cpu"], {})):
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        runs[dev] = serve.main(argv + extra)
+        torch.cuda.synchronize()
+        runs[dev]["wall_s"] = time.perf_counter() - t0
+        windows[dev] = read_window(LAUNCHES, expect,
+                                   f"serve --smoke {arch_id} on {dev}")
+    b, s0 = runs["cpu"]["prompts"].shape
+    if not torch.equal(runs["cuda"]["prompts"], runs["cpu"]["prompts"]):
+        raise AssertionError(f"{arch_id}: the two runs' prompts differ")
+    prompts = SyntheticTokens(cfg.vocab, b, s0, seed=0).next_batch()[
+        "tokens"]
+    frames = (0.1 * torch.randn((b, s0, cfg.d_model),
+                                generator=torch.Generator().manual_seed(1))
+              if arch.module == "encdec" else None)
+    logits, tokens = {}, {}
+    with torch.inference_mode():
+        for dev, params in zip(("cuda", "cpu"),
+                               smoke_weights(torch, arch, ("cuda", "cpu"))):
+            batch = {"tokens": prompts.to(dev)}
+            if frames is not None:
+                batch["frames"] = frames.to(dev)
+            cache = engine.make_cache(arch, b, s0 + SMOKE_NEW,
+                                      cfg.param_dtype, dev)
+            lg, cache = engine.make_prefill_fn(arch)(params, batch, cache)
+            steps, tok = [lg[:, -1]], engine.greedy_token(lg[:, -1])
+            toks = [tok]
+            decode = engine.make_decode_fn(arch)
+            for i in range(SMOKE_NEW - 1):
+                st, cache = decode(params, tok, cache, s0 + i)
+                steps.append(st)
+                tok = engine.greedy_token(st)
+                toks.append(tok)
+            logits[dev] = (lg.float().cpu(), [x.float().cpu()
+                                              for x in steps])
+            tokens[dev] = torch.cat(toks, 1).cpu()
+            del params, cache
+    ref = logits["cpu"][0]
+    err = float((logits["cuda"][0] - ref).abs().max())
+    tol = SMOKE_LOGIT_TOL * float(ref.abs().max())
+    # each row's tokens until the CPU's top two logits lie within tol
+    compared = mismatched = 0
+    for r in range(b):
+        for i, st in enumerate(logits["cpu"][1]):
+            top2 = st[r].topk(2).values
+            if float(top2[0] - top2[1]) <= tol:
+                break
+            compared += 1
+            mismatched += int(tokens["cuda"][r, i] != tokens["cpu"][r, i])
+    torch.cuda.empty_cache()
+    print(f"smoke serve {arch_id}: {cfg.name} {serve.model_depth(cfg)} "
+          f"layers, heads {serve.flash_heads(arch)} fp32, batch {b} prompt "
+          f"{s0} new {SMOKE_NEW}: launcher on the card {windows['cuda']} "
+          f"({runs['cuda']['prefill_ms']:.3f} ms prefill, "
+          f"{runs['cuda']['decode_ms_per_step']:.3f} ms/step), on the CPU "
+          f"no launch ({runs['cpu']['prefill_ms']:.3f} ms prefill); same "
+          f"weights card vs CPU: prefill logits max |err| {err:.4g} (tol "
+          f"{tol:.4g}), greedy tokens equal in {compared - mismatched} of "
+          f"{compared} compared ({b * SMOKE_NEW} drawn)")
+    out[f"serve {arch_id}"] = {"windows": windows, "logit_err": err,
+                               "logit_tol": tol, "compared": compared,
+                               "mismatched": mismatched,
+                               "prefill_ms": {d: runs[d]["prefill_ms"]
+                                              for d in runs}}
+    if not (err <= tol and mismatched == 0):
+        raise AssertionError(f"smoke serve {arch_id}: card vs CPU prefill "
+                             f"logits max |err| {err} (tol {tol}), "
+                             f"{mismatched} of {compared} tokens differ")
+    return windows["cuda"]
+
+
+def smoke_train(torch, argv: list, out: dict) -> dict:
+    """``launch.train --smoke`` at ``argv`` on the card (exactly
+    :func:`train_launches`, the fp32 kernels) and with ``--device cpu``
+    (no launch), both with finite losses; then one train step from the
+    same state and batch on both devices, loss and gradient norm within
+    :data:`SMOKE_STEP_TOL`. Returns the launcher's window on the card."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    get = lambda f: int(argv[argv.index(f) + 1])  # noqa: E731
+    arch_id = argv[argv.index("--arch") + 1]
+    arch = registry.get(arch_id)
+    arch = dataclasses.replace(arch, model=arch.smoke)
+    steps, b, seq = get("--steps"), get("--batch"), get("--seq")
+    run = run_launcher(torch, argv, train_launches(arch, steps, seq),
+                       f"train --smoke {arch_id} on the card")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cpu = train.main(argv + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    read_window(LAUNCHES, {}, f"train --smoke {arch_id} on the CPU")
+    cpu_losses = [float(m["loss"]) for m in cpu["metrics"]]
+    if not all(map(math.isfinite, cpu_losses)):
+        raise AssertionError(f"{arch_id}: CPU losses {cpu_losses}")
+    batch = SyntheticTokens(arch.model.vocab, b, seq, seed=0).next_batch()
+    if arch.module == "encdec":
+        batch["frames"] = train.step_frames(torch.Generator().manual_seed(1),
+                                            b, seq, arch.model.d_model,
+                                            "cpu")
+    fn = make_train_step(arch, AdamWConfig(total_steps=steps))
+    metrics = {}
+    for dev, params in zip(("cuda", "cpu"),
+                           smoke_weights(torch, arch, ("cuda", "cpu"))):
+        LAUNCHES.clear()
+        _, m = fn(init_train_state(params),
+                  tree_map(lambda t, dev=dev: t.to(dev), batch))
+        metrics[dev] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        read_window(LAUNCHES, train_launches(arch, seq=seq)
+                    if dev == "cuda" else {}, f"{arch_id} step on {dev}")
+    errs = {k: abs(metrics["cuda"][k] - metrics["cpu"][k]) /
+            abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+    print(f"smoke train {arch_id}: batch {b} x seq {seq}, {steps} steps: "
+          f"launcher on the card {run['window']}, losses "
+          f"{[round(x, 5) for x in run['losses']]}, host ms a step "
+          f"{', '.join(f'{t:.1f}' for t in run['step_ms'])}; on the CPU "
+          f"losses {[round(x, 5) for x in cpu_losses]} ({cpu_s:.1f} s); "
+          f"one step from the same state, card vs CPU: loss "
+          f"{metrics['cuda']['loss']:.6f} vs {metrics['cpu']['loss']:.6f}, "
+          f"|g| {metrics['cuda']['grad_norm']:.6f} vs "
+          f"{metrics['cpu']['grad_norm']:.6f} (relative {errs}, tol "
+          f"{SMOKE_STEP_TOL})")
+    out[f"train {arch_id} seq {seq}"] = {**run, "cpu_losses": cpu_losses,
+                                         "step": metrics, "rel_err": errs}
+    if not max(errs.values()) <= SMOKE_STEP_TOL:
+        raise AssertionError(f"smoke train {arch_id}: card vs CPU step "
+                             f"{metrics} outside {SMOKE_STEP_TOL}")
+    return run["window"]
+
+
+def phase_pairs(torch, details: dict) -> dict:
+    """Phase 15. Returns the fp32 kernel's rows for the kernels line and
+    the launches of the phase's main-path windows: the two published
+    trainings and the smoke serving and training runs."""
+    out = details.setdefault("pairs", {})
+    rows = f32_shapes(torch, out)
+    launches: collections.Counter = collections.Counter()
+    for base, layers, argv in (TRAIN_DEEPSEEK, TRAIN_GEMMA):
+        launches.update(train_arch(torch, ["--arch", cut_arch(base, layers),
+                                           *argv], out))
+    for arch_id in SMOKE_SERVE:
+        launches.update(smoke_serve(torch, arch_id, out))
+    for argv in SMOKE_TRAIN:
+        launches.update(smoke_train(torch, argv, out))
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv", *rows):
+        if not launches.get(name):
+            raise AssertionError(f"{name} not launched on phase 15's paths "
+                                 f"({dict(launches)})")
+    return {"rows": rows, "launches": dict(launches)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5251,6 +5870,12 @@ def main(argv=None) -> int:
                else name] += multi[name]
     for name, row in train["rows"].items():
         tot[name], counts[name] = row, train["launches"][name] + par[name]
+    pairs = phase("pairs", phase_pairs, torch, details)
+    print(f"pairs: launches of the phase's published and smoke runs "
+          f"{pairs['launches']}")
+    tot.update(pairs["rows"])
+    for name, n in pairs["launches"].items():
+        counts[name] = counts.get(name, 0) + n
     kernels = []
     for name, replaces in REPLACES.items():
         t = tot[name]

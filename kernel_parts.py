@@ -74,6 +74,12 @@ variants (:data:`BWD_VARIANTS`):
     no_pdl        dkdv launched as an ordinary launch, not as a
                   programmatic dependent of dq (timed as the pair)
 
+With ``--parent-bwd PATH`` (an earlier ``flash_attention_bwd.cu``, whose
+entry points take no value head size) it also times that source's pair
+beside this one's at the same shapes, in turns (``turns/parent_1``,
+``this_1``, ``this_2``, ``parent_2``), so that a change to the source is
+weighed on one card in one call.
+
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
 is the difference between two variants; the variants compute wrong
@@ -244,6 +250,10 @@ def main(argv=None) -> int:
                     "JSON here")
     ap.add_argument("--only", choices=("split", "flash", "bwd"),
                     default=None, help="time one kernel family only")
+    ap.add_argument("--parent-bwd", default=None, metavar="PATH",
+                    help="also time the flash_attention_bwd.cu at PATH (an "
+                         "earlier version, whose entry points take no value "
+                         "head size) beside this one's, in turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -257,7 +267,8 @@ def main(argv=None) -> int:
     for family, fn in (("split", time_split), ("flash", time_flash),
                        ("bwd", time_bwd)):
         if args.only in (None, family):
-            rows += fn(torch, device_times)
+            rows += fn(torch, device_times, *(
+                [args.parent_bwd] if family == "bwd" else []))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
@@ -311,12 +322,38 @@ def time_flash(torch, device_times) -> list[dict]:
     return rows
 
 
-def time_bwd(torch, device_times) -> list[dict]:
+def build_parent(path: str) -> ctypes.CDLL:
+    """``path``, an earlier flash_attention_bwd.cu whose entry points take
+    D alone (no DV), built as the variants are; its entry points bound
+    with the current signatures less the DV argument."""
+    from repro_torch.kernels import build
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = OUT_DIR / "flash_attention_bwd-parent.so"
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                           str(lib_path), path], capture_output=True,
+                          text=True)
+    if proc.returncode:
+        raise SystemExit(f"error: nvcc failed on {path}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for entry, argtypes in build.SOURCES["flash_attention_bwd"].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes[:PARENT_DV] + argtypes[PARENT_DV + 1:]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+#: the position of DV in the backward entry points' arguments (after D)
+PARENT_DV = 14
+
+
+def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
     """The backward's variants at :data:`BWD_SHAPES`, each entry point
-    timed alone and the two as a pair."""
+    timed alone and the two as a pair; with ``parent``, that source's
+    pair beside this one's, in turns (parent, this, this, parent)."""
     from chip_smoke import BWD_SHAPES as SMOKE_SHAPES
     from repro_torch.kernels import flash_attention_bwd as fab
     libs = build_variants("flash_attention_bwd", BWD_VARIANTS)
+    old = build_parent(parent) if parent else None
     gen = torch.Generator(device="cuda").manual_seed(12)
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
@@ -324,11 +361,12 @@ def time_bwd(torch, device_times) -> list[dict]:
         name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
         if name not in BWD_SHAPES:
             continue
+        dv = shape.v_dim
         q, k, v, out, dout = (
             torch.randn(sh, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
-            for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
-                       (b, sq, hq, d), (b, sq, hq, d)))
+            for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                       (b, sq, hq, dv), (b, sq, hq, dv)))
         # the row statistics of a softmax over ~Skv keys of unit scores
         lse = torch.full((b, hq, sq), math.log(skv), device="cuda")
         delta = torch.empty((b, hq, sq), device="cuda")
@@ -353,6 +391,21 @@ def time_bwd(torch, device_times) -> list[dict]:
                         lambda lib=lib, entry=entry: run(lib, entry), 20)
             if vname in ("full", "no_pdl"):
                 fns[f"{vname}/pair"] = (lambda lib=lib: pair(lib), 20)
+        if old is not None:
+            def old_pair():
+                for entry in fab.ENTRY_POINTS:
+                    a = args[entry]
+                    rc = getattr(old, entry)(*a[:PARENT_DV],
+                                             *a[PARENT_DV + 1:], stream)
+                    if rc:
+                        raise RuntimeError(f"parent {entry} failed with "
+                                           f"error {rc}")
+            for key, fn in (
+                    ("turns/parent_1", old_pair),
+                    ("turns/this_1", lambda: pair(libs["full"])),
+                    ("turns/this_2", lambda: pair(libs["full"])),
+                    ("turns/parent_2", old_pair)):
+                fns[key] = (fn, 20)
         # dkdv alone reads the delta dq writes
         run(libs["full"], "flash_attention_bwd_dq")
         us = {key: 1e3 * t for key, t in device_times(torch, fns).items()}

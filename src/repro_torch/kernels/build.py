@@ -57,10 +57,18 @@ SOURCES = {
                             *[_L] * 12, _P, _F, _I, _I, _I, _P],
     },
     "flash_attention_bwd": {
-        "flash_attention_bwd_dq": [*[_P] * 8, *[_I] * 6, *[_L] * 15, _F, _I,
+        "flash_attention_bwd_dq": [*[_P] * 8, *[_I] * 7, *[_L] * 15, _F, _I,
                                    _I, _P],
-        "flash_attention_bwd_dkdv": [*[_P] * 8, *[_I] * 6, *[_L] * 12, _F,
+        "flash_attention_bwd_dkdv": [*[_P] * 8, *[_I] * 7, *[_L] * 12, _F,
                                      _I, _I, _P],
+    },
+    "flash_attention_f32": {
+        "flash_attention_f32": [*[_P] * 4, *[_I] * 7, *[_L] * 9, _P, _F, _I,
+                                _I, _I, _P],
+        "flash_attention_f32_bwd_dq": [*[_P] * 8, *[_I] * 7, *[_L] * 15, _F,
+                                       _I, _I, _P],
+        "flash_attention_f32_bwd_dkdv": [*[_P] * 8, *[_I] * 7, *[_L] * 12,
+                                         _F, _I, _I, _P],
     },
 }
 #: the source that defines each entry point

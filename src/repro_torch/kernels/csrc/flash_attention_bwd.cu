@@ -8,13 +8,15 @@
 // points, called by kernels/flash_attention.py's autograd Function, dq
 // first, then dkdv.
 //
-// Layout. q [B, Sq, Hq, D], k / v [B, Skv, Hkv, D], o / dout [B, Sq, Hq,
-// D], bf16, given by element strides (batch, sequence, head) that are
-// multiples of 8 with the last dimension contiguous and 16-byte aligned
-// rows (what a TMA tensor map takes); dq [B, Sq, Hq, D] and dk / dv
-// [B, Skv, Hkv, D] bf16, contiguous; lse (the forward's m + log l) and
-// delta [B, Hq, Sq] fp32, contiguous. D in {64, 128}, keys and values of
-// one size. Query head h reads KV head h / (Hq / Hkv).
+// Layout. q [B, Sq, Hq, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv, DV], o /
+// dout [B, Sq, Hq, DV], bf16, given by element strides (batch, sequence,
+// head) that are multiples of 8 with the last dimension contiguous and
+// 16-byte aligned rows (what a TMA tensor map takes); dq [B, Sq, Hq, D],
+// dk [B, Skv, Hkv, D] and dv [B, Skv, Hkv, DV] bf16, contiguous; lse (the
+// forward's m + log l) and delta [B, Hq, Sq] fp32, contiguous. (D, DV) in
+// {(64, 64), (128, 128)}, the wgmma plan below, and {(192, 128), (256,
+// 256)}, the mma.sync instance of "wide pairs". Query head h reads KV head
+// h / (Hq / Hkv).
 //
 // Numerics (FlashAttention-2's backward): with s = (q . k) * scale masked
 // as the forward masks it (-inf past Skv, and where causal, key > query +
@@ -759,6 +761,472 @@ __global__ void __launch_bounds__(2 * WG, BLOCKS_SM)
   }
 }
 
+// -------------------------------------------- wide pairs (mma.sync) ---
+//
+// (192, 128), MLA's keys over values, and (256, 256), gemma's. The wgmma
+// plan above does not hold them: dkdv's warpgroup would keep dK and dV in
+// fp32 registers, 160 a thread at (192, 128) and 256 at (256, 256), beside
+// the s and dp fragments; and at D 256 the K and V tiles and one Q + dO
+// ring stage take 128 KiB, past a block's share at two blocks an SM. So
+// these pairs have an instance of their own, FlashAttention-2's backward
+// on mma.sync m16n8k16 (bf16 -> fp32), one block an SM, cp.async rings:
+//   * dq: one block of 4 warps per (64-row query tile, query head, batch),
+//     each warp 16 rows, the Q and dout tiles loaded once, the K and V
+//     tiles through a 2-stage ring; it computes its rows' delta from the
+//     dout tile and o and writes it for dkdv, as the wgmma dq does. dq
+//     takes D / 2 fp32 registers a thread (128 at D 256);
+//   * dkdv: one block of 8 warps per (64-key tile, KV head, batch) over
+//     the query tiles of the KV head's query heads (no two blocks add into
+//     one row, no atomics). Warps 0-3 own dV and warps 4-7 dK, each warp
+//     16 keys: both compute s^T = K Q^T for their keys, the dV warps then
+//     p and dv += p^T . dout, the dK warps dp^T = V dout^T, ds and dk +=
+//     ds^T . q. So each warp holds one accumulator (DV / 2 or D / 2
+//     registers, at most 128) and s is computed twice, one product of the
+//     six: the separate dV and dK passes of the forward's D 256, in one
+//     launch that streams each Q and dout tile once.
+// Tiles are bf16 rows of 16-byte chunks swizzled by (row & 7); A fragments
+// by ldmatrix.x4 on a tile's rows (or p and ds packed from C fragments), B
+// fragments by ldmatrix.x4 ([n][k] tiles) or ldmatrix.x4.trans ([k][n]).
+// The numerics are those of the wgmma kernels: p by ex2.approx from the
+// forward's lse, p and ds rounded to bf16 for their products, fp32
+// accumulators, every sum in one fixed order.
+
+namespace wide {
+
+constexpr int BQ = 64;    // dq: query rows of a block (4 warps x 16)
+constexpr int BKV = 64;   // keys of a tile (dkdv: of a block)
+constexpr int QT = 64;    // dkdv: query rows of a streamed tile
+constexpr int NST = 2;    // ring stages
+constexpr int DQ_THREADS = 128, DKDV_THREADS = 256;
+
+struct WArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* out;
+  const bf16* dout;
+  const float* lse;
+  float* delta;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int Sq, Skv, Hq, Hkv, rep;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
+  float scale, scale_log2;
+  int causal, kv_offset;
+};
+
+// element offset of 16-byte chunk `chunk` of row `row` in a [.][W] tile
+// whose chunks are swizzled by (row & 7) (W a multiple of 64)
+template <int W>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * W + ((chunk ^ (row & 7)) << 3);
+}
+// the offset within a row of chunk 2 i + c0, z = c0 ^ (row & 7)
+__device__ __forceinline__ int swz_step(int i, int z) {
+  return (((2 * i) & ~7) + (((2 * i) & 7) ^ z)) << 3;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c += a . b on one m16n8k16 tile (bf16 in, fp32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [0, n) of an NROWS x W tile from g (row stride ld) into its
+// swizzled shared tile by 16-byte cp.async, NT threads; zeros from row n
+template <int W, int NROWS, int NT>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          long long ld, int n, int tid) {
+  constexpr int CH = W / 8;
+  static_assert(NROWS * CH % NT == 0, "tile chunks per thread");
+#pragma unroll
+  for (int it = 0; it < NROWS * CH / NT; ++it) {
+    const int i = tid + it * NT, r = i / CH, c = i % CH;
+    const bool ok = r < n;
+    cp_async16(s + swz<W>(r, c), g + (ok ? r * ld : 0) + c * 8, ok);
+  }
+}
+
+// C [16 rows][NB * 8 cols] += A . B^T over W: A the warp's 16 rows of a
+// swizzled [.][W] tile (a_lane at the lane's row), B the rows [0, NB * 8)
+// of another
+template <int W, int NB>
+__device__ __forceinline__ void mma_abt(float (&c)[NB][4], const bf16* a_lane,
+                                        const bf16* b, int brow, int za,
+                                        int zb) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a_lane + swz_step(kk, za));
+#pragma unroll
+    for (int jj = 0; jj < NB / 2; ++jj) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + (brow + 16 * jj) * W + swz_step(kk, zb));
+      mma_bf16(c[2 * jj], af, bf[0], bf[1]);
+      mma_bf16(c[2 * jj + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc [16 rows][W] += P . T: P [16][NB * 8] in C fragments (rounded to
+// bf16 here), T the rows [0, NB * 8) of a swizzled [.][W] tile
+template <int W, int NB>
+__device__ __forceinline__ void mma_pt(float (*acc)[4],
+                                       const float (&p)[NB][4], const bf16* t,
+                                       int trow, int zt) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int jj = 0; jj < W / 16; ++jj) {
+      uint32_t tf[4];
+      ldsm_x4_trans(tf, t + (trow + 16 * kk) * W + swz_step(jj, zt));
+      mma_bf16(acc[2 * jj], pa, tf[0], tf[1]);
+      mma_bf16(acc[2 * jj + 1], pa, tf[2], tf[3]);
+    }
+  }
+}
+
+// rows r and r + 8 of a [B, S, H, W] output (contiguous) from a warp's C
+// fragments acc [W / 8][4] times `mul`; row i of the pair is `rows[i]`
+template <int W>
+__device__ __forceinline__ void store_pair(bf16* out, float (*acc)[4],
+                                           float mul, const int (&rows)[2],
+                                           int S, int H, int b, int h,
+                                           int t4) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= S) continue;
+    bf16* row = out + (((long long)b * S + rows[i]) * H + h) * W + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+  }
+}
+
+// dq and delta of one 64-row query tile of one query head of one batch
+template <int D, int DV>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    dq_wide_kernel(const WArgs a) {
+  constexpr int NB = BKV / 8;               // n-blocks of a score tile
+  constexpr int STAGE = BKV * (D + DV);     // a K and a V tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][D]
+  bf16* dOs = Qs + BQ * D;                   // [BQ][DV]
+  bf16* ring = dOs + BQ * DV;                // [NST][K [BKV][D], V [BKV][DV]]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.rep;
+  // causal: the query tiles with the most KV tiles start first
+  const int q0 = BQ * (a.causal ? (int)gridDim.z - 1 - (int)blockIdx.z
+                                : (int)blockIdx.z);
+  const bf16* kg = a.k + b * a.k_sb + hk * a.k_sh;
+  const bf16* vg = a.v + b * a.v_sb + hk * a.v_sh;
+  const int r0 = q0 + 16 * warp;
+  const int qpos[2] = {r0 + g + a.kv_offset, r0 + g + 8 + a.kv_offset};
+  const int qlo = r0 + a.kv_offset;
+  const int qhi = min(r0 + 16, a.Sq) - 1 + a.kv_offset;
+  int kv_end = a.Skv;
+  if (a.causal) kv_end = min(kv_end, min(q0 + BQ, a.Sq) + a.kv_offset);
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+
+  auto issue_tile = [&](int t) {
+    bf16* ks = ring + (t % NST) * STAGE;
+    const int kt = t * BKV;
+    load_tile<D, BKV, DQ_THREADS>(ks, kg + kt * a.k_ss, a.k_ss, a.Skv - kt,
+                                  tid);
+    load_tile<DV, BKV, DQ_THREADS>(ks + BKV * D, vg + kt * a.v_ss, a.v_ss,
+                                   a.Skv - kt, tid);
+  };
+  load_tile<D, BQ, DQ_THREADS>(Qs, a.q + b * a.q_sb + h * a.q_sh +
+                                       q0 * a.q_ss,
+                               a.q_ss, a.Sq - q0, tid);
+  load_tile<DV, BQ, DQ_THREADS>(dOs, a.dout + b * a.do_sb + h * a.do_sh +
+                                         q0 * a.do_ss,
+                                a.do_ss, a.Sq - q0, tid);
+  if (n_tiles > 0) issue_tile(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // rows g and g + 8 of the warp: lse in base 2, and delta = rowsum(dout
+  // * o) in fp32 (each of a quad's threads takes every fourth 16-byte
+  // chunk of the row, then the quad sums its four parts), written for dkdv
+  float l2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = 16 * warp + g + 8 * i, r = q0 + rr;
+    float sum = 0.f;
+    if (r < a.Sq) {
+      const bf16* orow = a.out + b * a.o_sb + r * a.o_ss + h * a.o_sh;
+#pragma unroll
+      for (int m = 0; m < DV / 32; ++m) {
+        const int c = t4 + 4 * m;
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dOs + swz<DV>(rr, c));
+        const __nv_bfloat162* o2 =
+            reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 =
+            reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          sum += of.x * df.x + of.y * df.y;
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dl[i] = sum;
+    const long long row = ((long long)b * a.Hq + h) * a.Sq + r;
+    l2[i] = r < a.Sq ? a.lse[row] * LOG2E : 0.f;
+    if (t4 == 0 && r < a.Sq) a.delta[row] = sum;
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const int arow = 16 * warp + (lane & 15);
+  const int brow = (lane & 7) + ((lane >> 4) << 3);
+  const int trow = lane & 15;
+  const int za = (lane >> 4) ^ (lane & 7);
+  const int zb = ((lane >> 3) & 1) ^ (lane & 7);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t - 1 read by all
+    if (t + 1 < n_tiles) issue_tile(t + 1);
+    cp_async_commit();
+    const bf16* ks = ring + (t % NST) * STAGE;
+    const bf16* vs = ks + BKV * D;
+    const int kt = t * BKV;
+    if (qhi < qlo || (a.causal && kt > qhi)) continue;
+    const bool edge = kt + BKV > a.Skv || (a.causal && kt + BKV - 1 > qlo);
+    // s = Q K^T and dp = dout V^T over the warp's 16 rows x 64 keys
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<D, NB>(s, Qs + arow * D, ks, brow, za, zb);
+    mma_abt<DV, NB>(dp, dOs + arow * DV, vs, brow, za, zb);
+    // element e of n-block j: row g + 8 (e / 2), key kt + 8 j + 2 t4 + e % 2
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = fast_exp2(s[j][e] * a.scale_log2 - l2[i]);
+        if (edge) {
+          const int key = kt + 8 * j + 2 * t4 + (e & 1);
+          if (key >= a.Skv || (a.causal && key > qpos[i])) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dl[i]);
+      }
+    mma_pt<D, NB>(dq, dp, ks, trow, za);  // dq += ds . k
+  }
+  cp_async_wait_all();
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  store_pair<D>(a.dq, dq, a.scale, rows, a.Sq, a.Hq, b, h, t4);
+}
+
+// dk and dv of 64 keys of one KV head of one batch: warps 0-3 dv, 4-7 dk
+template <int D, int DV>
+__global__ void __launch_bounds__(DKDV_THREADS, 1)
+    dkdv_wide_kernel(const WArgs a) {
+  constexpr int NB = QT / 8;                 // n-blocks of a score tile
+  constexpr int STAGE = QT * (D + DV);       // a Q and a dout tile
+  constexpr int AW = D > DV ? D : DV;        // the wider accumulator
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BKV][D]
+  bf16* Vs = Ks + BKV * D;                   // [BKV][DV]
+  bf16* ring = Vs + BKV * DV;                // [NST][Q [QT][D], dO [QT][DV]]
+  float* Ls = reinterpret_cast<float*>(ring + NST * STAGE);  // [NST][QT]
+  float* Ds = Ls + NST * QT;                                 // [NST][QT]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool dv_warp = warp < 4;
+  const int kw0 = blockIdx.x * BKV + 16 * (warp & 3);
+  const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
+  // query tiles: from the first that can see key k0, over the rep heads
+  const int qt0 = a.causal ? max(0, k0 - a.kv_offset) / QT : 0;
+  const int nq = max(0, (a.Sq + QT - 1) / QT - qt0);
+  const int n_tiles = a.rep * nq;
+
+  auto tile_q0 = [&](int t) { return (qt0 + t % nq) * QT; };
+  auto issue_tile = [&](int t) {
+    const int h = hk * a.rep + t / nq, q0 = tile_q0(t);
+    bf16* qs = ring + (t % NST) * STAGE;
+    load_tile<D, QT, DKDV_THREADS>(
+        qs, a.q + b * a.q_sb + h * a.q_sh + q0 * a.q_ss, a.q_ss, a.Sq - q0,
+        tid);
+    load_tile<DV, QT, DKDV_THREADS>(
+        qs + QT * D, a.dout + b * a.do_sb + h * a.do_sh + q0 * a.do_ss,
+        a.do_ss, a.Sq - q0, tid);
+    if (tid < QT) {
+      const int r = q0 + tid;
+      const long long row = ((long long)b * a.Hq + h) * a.Sq + r;
+      Ls[(t % NST) * QT + tid] = r < a.Sq ? a.lse[row] * LOG2E : 0.f;
+      Ds[(t % NST) * QT + tid] = r < a.Sq ? a.delta[row] : 0.f;
+    }
+  };
+  load_tile<D, BKV, DKDV_THREADS>(Ks, a.k + b * a.k_sb + hk * a.k_sh +
+                                          k0 * a.k_ss,
+                                  a.k_ss, a.Skv - k0, tid);
+  load_tile<DV, BKV, DKDV_THREADS>(Vs, a.v + b * a.v_sb + hk * a.v_sh +
+                                           k0 * a.v_ss,
+                                   a.v_ss, a.Skv - k0, tid);
+  if (n_tiles > 0) issue_tile(0);
+  cp_async_commit();
+
+  float acc[AW / 8][4];  // dv (DV / 8 blocks) or dk (D / 8)
+#pragma unroll
+  for (int n = 0; n < AW / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // the lane's ldmatrix rows: A rows of K / V, B rows of a [queries][.]
+  // tile, non-transposed; T rows of it, transposed
+  const int arow = 16 * (warp & 3) + (lane & 15);
+  const int brow = (lane & 7) + ((lane >> 4) << 3);
+  const int trow = lane & 15;
+  const int za = (lane >> 4) ^ (lane & 7);
+  const int zb = ((lane >> 3) & 1) ^ (lane & 7);
+  const int kpos[2] = {kw0 + g, kw0 + g + 8};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t (and K, V) landed; tile t - 1 read by all
+    if (t + 1 < n_tiles) issue_tile(t + 1);
+    cp_async_commit();
+    const bf16* qs = ring + (t % NST) * STAGE;
+    const bf16* dos = qs + QT * D;
+    const float* ls = Ls + (t % NST) * QT;
+    const float* ds = Ds + (t % NST) * QT;
+    const int q0 = tile_q0(t);
+    // the warp's keys are all past Skv, or all above every query of the
+    // tile: nothing to add
+    if (kw0 >= a.Skv ||
+        (a.causal && kw0 > min(q0 + QT, a.Sq) - 1 + a.kv_offset))
+      continue;
+    const bool edge = kw0 + 16 > a.Skv || q0 + QT > a.Sq ||
+                      (a.causal && kw0 + 15 > q0 + a.kv_offset);
+    // s^T = K Q^T over the warp's 16 keys x QT queries; element e of
+    // n-block j: key kpos[e / 2], query q0 + 8 j + 2 t4 + e % 2
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_abt<D, NB>(s, Ks + arow * D, qs, brow, za, zb);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        float p = fast_exp2(s[j][e] * a.scale_log2 - ls[c]);
+        if (edge) {
+          const int qpos = q0 + c, key = kpos[e >> 1];
+          if (qpos >= a.Sq || key >= a.Skv ||
+              (a.causal && key > qpos + a.kv_offset))
+            p = 0.f;
+        }
+        s[j][e] = p;
+      }
+    if (dv_warp) {
+      mma_pt<DV, NB>(acc, s, dos, trow, za);  // dv += p^T . dout
+    } else {
+      // dp^T = V dout^T, ds = p (dp - delta), dk += ds^T . q
+      float dp[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+      mma_abt<DV, NB>(dp, Vs + arow * DV, dos, brow, za, zb);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - ds[8 * j + 2 * t4 + (e & 1)]);
+      mma_pt<D, NB>(acc, dp, qs, trow, za);
+    }
+  }
+  cp_async_wait_all();  // a block with no query tile issued K and V only
+  if (dv_warp)
+    store_pair<DV>(a.dv, acc, 1.f, kpos, a.Skv, a.Hkv, b, hk, t4);
+  else
+    store_pair<D>(a.dk, acc, a.scale, kpos, a.Skv, a.Hkv, b, hk, t4);
+}
+
+// Q, dout and the ring of K and V tiles; K, V and the ring of Q and dout
+// tiles with their lse and delta rows
+template <int D, int DV>
+constexpr int dq_smem() {
+  return 2 * (BQ * (D + DV) + NST * BKV * (D + DV));
+}
+template <int D, int DV>
+constexpr int dkdv_smem() {
+  return 2 * (BKV * (D + DV) + NST * QT * (D + DV)) + 4 * 2 * NST * QT;
+}
+static_assert(dq_smem<256, 256>() <= 232448 &&
+                  dkdv_smem<256, 256>() <= 232448,
+              "a block may take 227 KiB of shared memory");
+
+template <typename K>
+int launch(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
+           const WArgs& a) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
+
 // ------------------------------------------------------------- host ---
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
@@ -846,9 +1314,54 @@ int launch(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
 static_assert(DqSmem<128>::ST >= 2 && DkdvSmem<128>::ST >= 2,
               "two ring stages fit");
 
-bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D) {
+// the (key, value) head sizes: the wgmma plan's (64, 64) and (128, 128),
+// the wide instances' (192, 128) and (256, 256)
+bool wgmma_pair(int D, int DV) { return D == DV && (D == 64 || D == 128); }
+bool wide_pair(int D, int DV) {
+  return (D == 192 && DV == 128) || (D == 256 && DV == 256);
+}
+
+bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D, int DV) {
   return B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-         (D != 64 && D != 128);
+         !(wgmma_pair(D, DV) || wide_pair(D, DV));
+}
+
+wide::WArgs wide_args(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, int Sq, int Skv,
+                      int Hq, int Hkv, long long q_sb, long long q_ss,
+                      long long q_sh, long long k_sb, long long k_ss,
+                      long long k_sh, long long v_sb, long long v_ss,
+                      long long v_sh, long long do_sb, long long do_ss,
+                      long long do_sh, float scale, int causal,
+                      int kv_offset) {
+  wide::WArgs a = {};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.dout = static_cast<const bf16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.rep = Hq / Hkv;
+  a.q_sb = q_sb;
+  a.q_ss = q_ss;
+  a.q_sh = q_sh;
+  a.k_sb = k_sb;
+  a.k_ss = k_ss;
+  a.k_sh = k_sh;
+  a.v_sb = v_sb;
+  a.v_ss = v_ss;
+  a.v_sh = v_sh;
+  a.do_sb = do_sb;
+  a.do_ss = do_ss;
+  a.do_sh = do_sh;
+  a.scale = scale;
+  a.scale_log2 = scale * LOG2E;
+  a.causal = causal;
+  a.kv_offset = kv_offset;
+  return a;
 }
 
 }  // namespace
@@ -856,22 +1369,42 @@ bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D) {
 extern "C" {
 
 // dq [B, Sq, Hq, D] (bf16, contiguous) and delta [B, Hq, Sq] (fp32,
-// contiguous) = rowsum(dout * out), from q, out, dout [B, Sq, Hq, D], k, v
-// [B, Skv, Hkv, D] (bf16, element strides) and the forward's lse [B, Hq,
-// Sq] (fp32, contiguous). Grid (Hq, B, ceil(Sq / 64)).
+// contiguous) = rowsum(dout * out), from q [B, Sq, Hq, D], out, dout [B,
+// Sq, Hq, DV], k [B, Skv, Hkv, D], v [B, Skv, Hkv, DV] (bf16, element
+// strides) and the forward's lse [B, Hq, Sq] (fp32, contiguous). Grid
+// (Hq, B, ceil(Sq / 64)).
 int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, int B, int Sq,
-    int Skv, int Hq, int Hkv, int D,
+    int Skv, int Hq, int Hkv, int D, int DV,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long do_sb, long long do_ss, long long do_sh, float scale,
     int causal, int kv_offset, void* stream) {
-  if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
-  CUtensorMap m[4];
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, D, DV)) return cudaErrorInvalidValue;
   int err;
   if ((err = current_context())) return err;
+  if (wide_pair(D, DV)) {
+    wide::WArgs a = wide_args(q, k, v, dout, lse, Sq, Skv, Hq, Hkv, q_sb,
+                              q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                              v_sh, do_sb, do_ss, do_sh, scale, causal,
+                              kv_offset);
+    a.out = static_cast<const bf16*>(out);
+    a.o_sb = o_sb;
+    a.o_ss = o_ss;
+    a.o_sh = o_sh;
+    a.delta = static_cast<float*>(delta);
+    a.dq = static_cast<bf16*>(dq);
+    const dim3 grid(Hq, B, (Sq + wide::BQ - 1) / wide::BQ);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (D == 192)
+      return wide::launch(wide::dq_wide_kernel<192, 128>, grid,
+                          wide::DQ_THREADS, wide::dq_smem<192, 128>(), s, a);
+    return wide::launch(wide::dq_wide_kernel<256, 256>, grid,
+                        wide::DQ_THREADS, wide::dq_smem<256, 256>(), s, a);
+  }
+  CUtensorMap m[4];
   if ((err = make_map(&m[0], q, B, Sq, Hq, D, q_sb, q_ss, q_sh, ROWS)) ||
       (err = make_map(&m[1], k, B, Skv, Hkv, D, k_sb, k_ss, k_sh, ROWS)) ||
       (err = make_map(&m[2], v, B, Skv, Hkv, D, v_sb, v_ss, v_sh, ROWS)) ||
@@ -890,21 +1423,40 @@ int flash_attention_bwd_dq(
                 m, a, false);
 }
 
-// dk, dv [B, Skv, Hkv, D] (bf16, contiguous) from q, dout [B, Sq, Hq, D],
-// k, v [B, Skv, Hkv, D] (bf16, element strides), lse and the dq launch's
-// delta [B, Hq, Sq] (fp32, contiguous). Grid (Hkv, B, ceil(Skv / 64)).
+// dk [B, Skv, Hkv, D], dv [B, Skv, Hkv, DV] (bf16, contiguous) from q [B,
+// Sq, Hq, D], dout [B, Sq, Hq, DV], k, v (bf16, element strides), lse and
+// the dq launch's delta [B, Hq, Sq] (fp32, contiguous). Grid (Hkv, B,
+// ceil(Skv / 64)); at the wide pairs (ceil(Skv / 64), Hkv, B).
 int flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-    int Skv, int Hq, int Hkv, int D,
+    int Skv, int Hq, int Hkv, int D, int DV,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
     float scale, int causal, int kv_offset, void* stream) {
-  if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
-  CUtensorMap m[4];
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, D, DV)) return cudaErrorInvalidValue;
   int err;
   if ((err = current_context())) return err;
+  if (wide_pair(D, DV)) {
+    wide::WArgs a = wide_args(q, k, v, dout, lse, Sq, Skv, Hq, Hkv, q_sb,
+                              q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                              v_sh, do_sb, do_ss, do_sh, scale, causal,
+                              kv_offset);
+    a.delta = const_cast<float*>(static_cast<const float*>(delta));
+    a.dk = static_cast<bf16*>(dk);
+    a.dv = static_cast<bf16*>(dv);
+    const dim3 grid((Skv + wide::BKV - 1) / wide::BKV, Hkv, B);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (D == 192)
+      return wide::launch(wide::dkdv_wide_kernel<192, 128>, grid,
+                          wide::DKDV_THREADS, wide::dkdv_smem<192, 128>(), s,
+                          a);
+    return wide::launch(wide::dkdv_wide_kernel<256, 256>, grid,
+                        wide::DKDV_THREADS, wide::dkdv_smem<256, 256>(), s,
+                        a);
+  }
+  CUtensorMap m[4];
   if ((err = make_map(&m[0], q, B, Sq, Hq, D, q_sb, q_ss, q_sh, QT)) ||
       (err = make_map(&m[1], k, B, Skv, Hkv, D, k_sb, k_ss, k_sh, ROWS)) ||
       (err = make_map(&m[2], v, B, Skv, Hkv, D, v_sb, v_ss, v_sh, ROWS)) ||

@@ -26,14 +26,22 @@ computes :func:`flash_attention_plain`, the chunked online softmax of
 ``blockwise_attention`` in plain PyTorch, whose autograd is the
 gradient there.
 
+fp32. fp32 queries go to ``csrc/flash_attention_f32.cu`` (entry
+``flash_attention_f32``): the same function on the CUDA cores' fp32 FMA
+(no TF32), for any key and value head sizes that are multiples of 4 up
+to :data:`F32_MAX_HEAD` (the smoke configs' 8-32), over fp32 K and V or
+a bf16 cache (widened in the kernel; p is then rounded to bf16 before
+``p . v``, as the plain version rounds it to the value dtype).
+
 Training. On CUDA tensors that need a gradient (grad mode on and q, k or
 v requiring it) the call goes through :class:`FlashAttentionFn`: the
 forward launch also writes each row's log-sum-exp, and the backward is
-the hand-written kernel of ``flash_attention_bwd`` (two launches),
-for the (key, value) head sizes :data:`BWD_HEAD_DIMS`; any other pair
-raises at forward time (:func:`kernel_route`) rather than return an
-output without a ``grad_fn``. Under ``no_grad`` / ``inference_mode``
-serving launches the forward alone, with no log-sum-exp.
+the hand-written kernel of ``flash_attention_bwd`` (two launches): in
+bf16 for the (key, value) head sizes :data:`BWD_HEAD_DIMS`, in fp32 for
+those of the fp32 kernel. A pair or dtype no kernel has raises at
+forward time (:func:`kernel_route`) rather than return an output without
+a ``grad_fn``. Under ``no_grad`` / ``inference_mode`` serving launches
+the forward alone, with no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -49,9 +57,13 @@ MODES = ("auto", "ref")
 #: bf16): three with equal sizes, and MLA's 192-wide keys over 128-wide
 #: values
 KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
-#: the (key, value) head sizes the backward kernel is instantiated for:
-#: those of every arch whose training fits one card
-BWD_HEAD_DIMS = ((64, 64), (128, 128))
+#: the (key, value) head sizes the bf16 backward kernel is instantiated
+#: for: the forward's four (the wgmma plan at (64, 64) and (128, 128), an
+#: mma.sync instance at (192, 128) and (256, 256))
+BWD_HEAD_DIMS = KERNEL_HEAD_DIMS
+#: the fp32 kernel (forward and backward) takes key and value head sizes
+#: that are multiples of 4 up to this
+F32_MAX_HEAD = 64
 #: the kernel's launch forms, in the order of the entry point's ``form``
 FORMS = ("prefill", "decode")
 BLOCK_Q = 64                # prefill: query rows per block (4 warps x 16)
@@ -196,9 +208,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Any strides with the last dimension contiguous (``[B, H, S, D]``
     tensors transposed to ``[B, S, H, D]`` views need no copy). The
-    kernel takes bf16 with (D, DV) in :data:`KERNEL_HEAD_DIMS`; any
-    other pair raises on the card. ``q_chunk`` / ``kv_chunk`` set only
-    the plain version's schedule.
+    kernels take bf16 with (D, DV) in :data:`KERNEL_HEAD_DIMS`, and fp32
+    queries (over fp32 or bf16 K and V) with D and DV multiples of 4 up
+    to :data:`F32_MAX_HEAD`; anything else raises on the card. The
+    output has v's dtype. ``q_chunk`` / ``kv_chunk`` set only the plain
+    version's schedule.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -213,8 +227,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    route = kernel_route(d, dv, q.dtype, needs_grad)
-    check_kernel_operands("flash_attention", q, k, v)
+    route = kernel_route(d, dv, q.dtype, needs_grad, k.dtype)
+    check_kernel_operands("flash_attention", q, k, v, vec=vec_of(q.dtype))
     if skv == 0:
         raise ValueError("flash_attention: no keys")
     if route == "autograd":
@@ -223,46 +237,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward_kernel(q, k, v, scale, causal, kv_offset)[0]
 
 
-def kernel_route(d: int, dv: int, dtype: torch.dtype,
-                 needs_grad: bool) -> str:
+def f32_pair(d: int, dv: int) -> bool:
+    """Whether the fp32 kernel takes key and value head sizes (d, dv)."""
+    return all(0 < n <= F32_MAX_HEAD and n % 4 == 0 for n in (d, dv))
+
+
+def kernel_route(d: int, dv: int, dtype: torch.dtype, needs_grad: bool,
+                 kv_dtype: torch.dtype | None = None) -> str:
     """How a call on CUDA tensors runs: ``"forward"`` (one launch, no
     gradient), or ``"autograd"`` (:class:`FlashAttentionFn`: the forward
     with its log-sum-exp, and the backward kernel) where a gradient is
-    needed. Raises for head sizes or a dtype the kernels are not built
-    for: a gradient never falls back to the plain version, and is never
-    dropped."""
-    if (d, dv) not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention: head sizes (key, value) {(d, dv)} are not "
-            f"instantiated {KERNEL_HEAD_DIMS}; other sizes (the smoke "
-            f"configs' 8-32) are for a later slice")
-    if dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention: the kernel takes bf16, got "
-                         f"{dtype}")
-    if not needs_grad:
-        return "forward"
-    if (d, dv) not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention: a gradient is needed, and the backward "
-            f"kernel is not instantiated for head sizes (key, value) "
-            f"{(d, dv)} (it has {BWD_HEAD_DIMS}); the other pairs are for "
-            f"a later slice")
-    return "autograd"
+    needed. ``dtype`` (the queries') picks the kernel: bf16 the bf16
+    kernels at :data:`KERNEL_HEAD_DIMS`, fp32 the fp32 kernel at
+    :func:`f32_pair` sizes (over fp32 K and V, or a bf16 cache
+    ``kv_dtype`` without a gradient). Raises for a dtype or head sizes no
+    kernel is built for: a gradient never falls back to the plain
+    version, and is never dropped."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
+    if dtype == torch.bfloat16:
+        if (d, dv) not in KERNEL_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention: head sizes (key, value) {(d, dv)} are "
+                f"not instantiated {KERNEL_HEAD_DIMS} in bf16")
+    elif dtype == torch.float32:
+        if not f32_pair(d, dv):
+            raise NotImplementedError(
+                f"flash_attention: head sizes (key, value) {(d, dv)} are "
+                f"not instantiated in fp32 (multiples of 4 up to "
+                f"{F32_MAX_HEAD})")
+        if needs_grad and kv_dtype != torch.float32:
+            raise NotImplementedError(
+                f"flash_attention: a gradient is needed through {kv_dtype} "
+                f"keys and values under fp32 queries, which no backward "
+                f"kernel takes")
+    else:
+        raise ValueError(f"flash_attention: the kernels take bf16 or fp32, "
+                         f"got {dtype}")
+    return "autograd" if needs_grad else "forward"
 
 
-def check_kernel_operands(kernel: str, *ts: torch.Tensor) -> None:
-    """Raise unless every tensor is one the kernels copy by 16-byte rows:
-    the last dimension contiguous, the other strides multiples of 8
-    elements, the data 16-byte aligned."""
+def check_kernel_operands(kernel: str, *ts: torch.Tensor,
+                          vec: int = 8) -> None:
+    """Raise unless every tensor is one the kernels copy ``vec`` elements
+    at a time: the last dimension contiguous, the other strides
+    multiples of ``vec`` elements, the data aligned to ``vec`` elements.
+    The bf16 kernels copy 16-byte rows of 8; the fp32 kernel 4 (16 bytes
+    of fp32, 8 of a bf16 cache)."""
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError(f"{kernel}: the head dimension must be "
                          "contiguous")
-    if any(st % 8 for t in ts
+    if any(st % vec for t in ts
            for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1) or \
-            any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{kernel}: the kernel copies 16-byte rows: "
-                         "strides must be multiples of 8 elements and "
-                         "the data 16-byte aligned")
+            any(t.data_ptr() % (vec * t.element_size()) for t in ts):
+        nbytes = sorted({vec * t.element_size() for t in ts})
+        raise ValueError(
+            f"{kernel}: the kernel copies rows {vec} elements at a time "
+            f"({'/'.join(map(str, nbytes))}-byte chunks): strides must be "
+            f"multiples of {vec} elements and the data "
+            f"{'/'.join(map(str, nbytes))}-byte aligned")
 
 
 def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -273,10 +305,14 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     dv = v.shape[-1]
-    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
+        return out, lse
+    if q.dtype == torch.float32:
+        launch("flash_attention_f32", q,
+               *f32_kernel_args(q, k, v, out, scale, causal, kv_offset, lse))
         return out, lse
     plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
     launch("flash_attention", q,
@@ -321,3 +357,26 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if lse is None else lse.data_ptr(),
             float(scale), int(causal), int(kv_offset),
             FORMS.index(plan.form))
+
+
+def vec_of(dtype: torch.dtype) -> int:
+    """The elements a kernel of queries of ``dtype`` copies at a time
+    (:func:`check_kernel_operands`): 8 for the bf16 kernels, 4 for the
+    fp32 one."""
+    return 4 if dtype == torch.float32 else 8
+
+
+def f32_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, scale: float, causal: bool,
+                    kv_offset: int, lse: torch.Tensor | None = None
+                    ) -> tuple:
+    """``flash_attention_f32``'s arguments before the stream: q fp32, k
+    and v fp32 or bf16 (the last argument says which), ``out`` [B, Sq,
+    Hq, DV] in v's dtype, contiguous; ``lse`` as :func:`kernel_args`."""
+    b, sq, hq, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            k.shape[1], hq, k.shape[2], d, v.shape[-1], *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3],
+            None if lse is None else lse.data_ptr(),
+            float(scale), int(causal), int(kv_offset),
+            int(k.dtype == torch.bfloat16))

@@ -32,9 +32,9 @@ seamless-m4t-large-v2 (module ``encdec``) encodes :func:`encdec_frames`
 position) twice in its prefill and launches the kernel for every
 encoder, decoder and cross attention, and in every decode step for each
 layer's cross-attention; as in the reference its prefill leaves the
-decoder's self cache empty. A family whose smoke config the kernel is
-not built for (head sizes 8-32, fp32 params: the LMs and the
-encoder-decoder) takes ``--smoke`` only with ``--device cpu``.
+decoder's self cache empty. ``--smoke`` serves the smoke config on the
+card too: its fp32 attentions (head sizes 8-32) run on the fp32 flash
+kernel, the encoder-decoder's decode over its bf16 cross cache.
 mamba2-780m (module ``ssm``) and jamba-v0.1-52b (module ``hybrid``)
 launch no kernel of the port: jamba's prompt attention is the
 full-softmax ``dense_attention`` below 8192 tokens, as in the
@@ -81,7 +81,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
-from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS
+from repro_torch.kernels.flash_attention import kernel_route
 from repro_torch.models.hybrid import PERIOD
 from repro_torch.models.lm import HeteroQuantConfig
 from repro_torch.obs import METRICS
@@ -295,20 +295,11 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     if args.smoke:
         arch = dataclasses.replace(arch, model=arch.smoke)
-        heads = flash_heads(arch)
-        dtype = arch.model.param_dtype
-        if device.type == "cuda" and heads is not None and (
-                heads not in KERNEL_HEAD_DIMS or dtype != torch.bfloat16):
-            # no silent fallback to plain attention: the flash kernel is
-            # built for the head sizes KERNEL_HEAD_DIMS in bf16 only
-            qk, v = heads
-            sizes = f"head_dim {qk}" + (f" (values {v})" if v != qk else "")
-            name = str(dtype).split(".")[-1].replace("float32", "fp32")
-            print(f"error: --smoke serves the smoke config ({sizes}, "
-                  f"{name} params), which the flash-attention kernel is "
-                  f"not instantiated for; the smoke run takes --device cpu",
-                  file=sys.stderr)
-            raise SystemExit(2)
+    heads = flash_heads(arch)
+    if device.type == "cuda" and heads is not None:
+        # a config whose head sizes or dtype no flash kernel takes fails
+        # here, before anything is built (no fallback to plain attention)
+        kernel_route(*heads, arch.model.param_dtype, needs_grad=False)
     if args.layers is not None:
         if arch.module == "encdec":
             print(f"error: --layers: {args.arch} is an encoder-decoder, "

@@ -17,12 +17,13 @@ feedback, AdamW), timed by ``StepWatchdog`` (heartbeat in
 steps and at the end, and a run finds the newest checkpoint in
 ``--ckpt-dir`` and resumes from it. On the card every
 ``blockwise_attention`` (the encoder-decoder's attentions, MLA's, a
-dense model's above 8192 tokens) runs on the flash kernel and its
-gradient on the backward kernel, which are built for (key, value) head
-sizes (64, 64) and (128, 128) in bf16: a config that would reach them
-at other sizes or in fp32 (the smoke configs of seamless and
-deepseek-v2) exits 2 before anything is built; ``--device cpu`` runs the
-plain versions.
+dense model's or the hybrid's above 8192 tokens) runs on the flash
+kernel and its gradient on the backward kernel: in bf16 at every
+published config's (key, value) head sizes ((64, 64), (128, 128),
+deepseek-v2's (192, 128), gemma-7b's (256, 256)), and in fp32 at the
+smoke configs' (multiples of 4 up to 64), so ``--smoke`` trains on the
+card too. A config that no kernel takes raises before anything is
+built; ``--device cpu`` runs the plain versions.
 
 Data parallelism, as the reference runs under ``make_host_mesh()``: if a
 default process group is initialized the launcher uses it; otherwise,
@@ -64,7 +65,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager, StepWatchdog
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import SyntheticTokens
-from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+from repro_torch.kernels.flash_attention import kernel_route
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.parallel.sharding import entry_axes, logical_to_spec
 from repro_torch.train.optimizer import AdamWConfig
@@ -165,19 +166,11 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     cfg = arch.model
     heads = train_flash_heads(arch, args.seq)
-    if device.type == "cuda" and heads is not None and (
-            heads not in BWD_HEAD_DIMS or cfg.param_dtype != torch.bfloat16):
-        # no silent fallback to plain attention or a dropped gradient:
-        # the kernels train at BWD_HEAD_DIMS in bf16 only
-        qk, v = heads
-        sizes = f"head_dim {qk}" + (f" (values {v})" if v != qk else "")
-        name = str(cfg.param_dtype).split(".")[-1].replace("float32", "fp32")
-        print(f"error: {cfg.name} ({sizes}, {name} params) would train on "
-              f"the flash-attention kernels, which are not instantiated "
-              f"for it (they take {list(BWD_HEAD_DIMS)} in bf16); "
-              f"{'the smoke run' if args.smoke else 'it'} takes "
-              f"--device cpu", file=sys.stderr)
-        raise SystemExit(2)
+    if device.type == "cuda" and heads is not None:
+        # a config whose head sizes or dtype no flash kernel trains fails
+        # here, before anything is built (no fallback to plain attention,
+        # no dropped gradient)
+        kernel_route(*heads, cfg.param_dtype, needs_grad=True)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: CUDA is not available; pass --device cpu "
                          "to train on the CPU")

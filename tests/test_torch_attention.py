@@ -106,6 +106,48 @@ def test_plain_matches_pallas_decode_offset():
                          torch.from_numpy(v), kv_offset=s - 1), want)
 
 
+# (b, sq, skv, hq, hkv, d, dv, causal, kv_offset, kv dtype): the smoke
+# configs' pairs as the fp32 kernel takes them (seamless's 12 at GQA 4/2,
+# the LMs' 16, MLA's 24 over 16, gemma's 32, yi's 8 at 7/1), ragged,
+# offset, and seamless's decode step: fp32 queries over its bf16 cross
+# cache
+SMOKE_PAIRS = [
+    (2, 40, 40, 4, 2, 12, 12, False, 0, "fp32"),
+    (2, 37, 37, 4, 2, 16, 16, True, 0, "fp32"),
+    (2, 24, 24, 4, 4, 24, 16, True, 0, "fp32"),
+    (1, 9, 50, 4, 4, 32, 32, True, 41, "fp32"),
+    (2, 33, 33, 7, 1, 8, 8, True, 0, "fp32"),
+    (2, 1, 30, 4, 2, 12, 12, False, 0, "bf16"),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,off,kv", SMOKE_PAIRS)
+def test_plain_fp32_matches_jax_at_smoke_pairs(b, sq, skv, hq, hkv, d, dv,
+                                               causal, off, kv):
+    """What the fp32 kernel computes, in its plain version, against the
+    reference's ``blockwise_attention`` on the same fp32 inputs (numpy,
+    seeded), at chunks that split the keys; over a bf16 cache both round
+    p and the output to bf16, which flips an occasional last bit."""
+    rng = np.random.default_rng(d + sq)
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, dv)).astype(np.float32)
+    jkv = jnp.bfloat16 if kv == "bf16" else jnp.float32
+    tkv = torch.bfloat16 if kv == "bf16" else torch.float32
+    want = jlayers.blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k).astype(jkv), jnp.asarray(v).astype(jkv),
+        causal=causal, kv_offset=off, q_chunk=16, kv_chunk=16)
+    got = flash_attention_plain(torch.from_numpy(q),
+                                torch.from_numpy(k).to(tkv),
+                                torch.from_numpy(v).to(tkv), causal=causal,
+                                kv_offset=off, q_chunk=16, kv_chunk=16)
+    assert got.dtype == tkv and got.shape == (b, sq, hq, dv)
+    want = np.asarray(want.astype(jnp.float32))
+    tol = 2 * 2 ** -8 * np.abs(v).max() if kv == "bf16" else \
+        1e-5 * np.abs(v).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("mode", ["auto", "ref"])
 @pytest.mark.parametrize("s", [96, 75])
 def test_attention_wrapper_gqa(s, mode):
@@ -401,8 +443,8 @@ def test_kernel_matches_plain_on_card(cuda, form, d, dims, off, dv):
     # to bf16 at running maxima taken over other tiles
     tol = 2 * 2 ** -8 * float(v.abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
-    with pytest.raises(ValueError, match="bf16"):
-        flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        flash_attention(q.half(), k.half(), v.half())
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(shifted.view(q.shape), k, v)

@@ -39,6 +39,7 @@ from repro_torch.kernels.build import LAUNCHES
 from repro_torch.launch import serve
 from repro_torch.models import encdec, layers
 from repro_torch.serve import engine
+from test_torch_lm import serve_on_a_fake_card
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -317,14 +318,11 @@ def test_serve_layers_refuses_the_encoder_decoder(capsys):
     assert err.startswith("error: --layers") and "encoder-decoder" in err
 
 
-def test_serve_smoke_refuses_the_card(capsys, monkeypatch):
-    """seamless's smoke config (head_dim 12, fp32) has no flash-kernel
-    instantiation: ``--smoke`` on a CUDA device exits 2, card or no
-    card."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", ARCH, "--smoke"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: --smoke")
-    assert "head_dim 12," in err and "fp32" in err
+def test_serve_smoke_takes_the_card(monkeypatch):
+    """seamless's smoke config (head_dim 12, fp32; its decode over the
+    bf16 cross cache) is served on a CUDA device: its attentions route to
+    the fp32 flash kernel and the launcher goes on to build the model on
+    the card."""
+    routed, reached = serve_on_a_fake_card(monkeypatch,
+                                           ["--arch", ARCH, "--smoke"])
+    assert routed == [(12, 12, torch.float32, False)] and reached == "cuda"

@@ -20,10 +20,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, \
-    flash_attention
+    f32_pair, flash_attention
 from repro_torch.kernels.flash_attention_bwd import ENTRY_POINTS, \
-    bwd_prep_plain, entry_args, flash_attention_bwd, \
-    flash_attention_bwd_plain
+    F32_ENTRY_POINTS, bwd_prep_plain, entry_args, entry_points, \
+    flash_attention_bwd, flash_attention_bwd_plain
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -55,6 +55,26 @@ SHAPES = [
     (8, 256, 256, 8, 8, 64, True, 0),
     (8, 200, 320, 8, 8, 64, False, 0),
 ]
+# (b, sq, skv, hq, hkv, d, dv, causal, kv_offset, dtype): chip_smoke's
+# BWD_SHAPES at key sizes other than the value's or past 128 (MLA's and
+# gemma-7b's training, each also with tiles across the diagonal) and its
+# fp32 rows (F32_SHAPES with a backward: the smoke configs' pairs, GQA,
+# ragged causal tiles, kv_offset > 0, non-causal)
+PAIR_SHAPES = [
+    (2, 1024, 1024, 128, 128, 192, 128, True, 0, "bf16"),
+    (2, 1000, 1000, 16, 16, 192, 128, True, 0, "bf16"),
+    (1, 8448, 8448, 16, 16, 256, 256, True, 0, "bf16"),
+    (2, 1000, 1000, 16, 16, 256, 256, True, 0, "bf16"),
+    (8, 128, 128, 4, 2, 12, 12, False, 0, "fp32"),
+    (8, 128, 128, 4, 2, 12, 12, True, 0, "fp32"),
+    (8, 128, 128, 4, 4, 24, 16, True, 0, "fp32"),
+    (2, 100, 100, 4, 4, 24, 16, True, 0, "fp32"),
+    (8, 64, 64, 4, 4, 32, 32, True, 0, "fp32"),
+    (8, 64, 64, 7, 1, 8, 8, True, 0, "fp32"),
+    (2, 130, 200, 4, 1, 32, 32, True, 70, "fp32"),
+    (1, 8448, 8448, 4, 2, 16, 16, True, 0, "fp32"),
+]
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 def _operands(b, sq, skv, hq, hkv, d, dtype=torch.bfloat16):
@@ -90,7 +110,7 @@ def test_entry_args_place_every_operand(shape):
         assert len(a) == len(sig[name]) - 1
     ptr = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
     st = lambda *ts: tuple(x for t in ts for x in t.stride()[:3])  # noqa
-    dims = (b, sq, skv, hq, hkv, d)
+    dims = (b, sq, skv, hq, hkv, d, d)
     tail = (0.125, int(causal), off)
     assert args["flash_attention_bwd_dq"] == (
         *ptr(q, k, v, out, dout, lse, delta, dq), *dims,
@@ -101,20 +121,57 @@ def test_entry_args_place_every_operand(shape):
     assert q.stride()[1] == (hq + 2 * hkv) * d != hq * d
 
 
-@pytest.mark.parametrize("dims", [(64, 128), (128, 64), (192, 128),
-                                  (256, 256)])
+@pytest.mark.parametrize("dims", [(64, 128, "bf16"), (128, 64, "bf16"),
+                                  (192, 192, "bf16"), (96, 96, "fp32")])
 def test_wrapper_refuses_pairs_without_a_backward(dims):
-    """A (key, value) pair outside BWD_HEAD_DIMS raises before any launch
-    (the forward's ``kernel_route`` refuses it earlier still)."""
-    assert dims not in BWD_HEAD_DIMS
-    d, dv = dims
-    q, k, _, _, _, lse = _operands(1, 64, 64, 4, 2, d)
+    """A (key, value) pair outside BWD_HEAD_DIMS in bf16, or past the fp32
+    kernel's 64, raises before any launch (the forward's ``kernel_route``
+    refuses it earlier still)."""
+    d, dv, name = dims
+    dtype = DTYPES[name]
+    assert (d, dv) not in BWD_HEAD_DIMS and not f32_pair(d, dv)
+    q, k, _, _, _, lse = _operands(1, 64, 64, 4, 2, d, dtype)
     v = torch.empty(1, 64, 2, dv, dtype=q.dtype)
     out = torch.empty(1, 64, 4, dv, dtype=q.dtype)
     before = dict(build.LAUNCHES)
     with pytest.raises(NotImplementedError, match="not instantiated"):
         flash_attention_bwd(q, k, v, out, out, lse, 0.1, True, 0)
     assert dict(build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_entry_args_at_every_pair(shape):
+    """The bf16 wide pairs and the fp32 kernel: each entry point of q's
+    dtype gets its signature's arguments, with the value head size after
+    the key's and v's, out's and dout's strides at DV."""
+    b, sq, skv, hq, hkv, d, dv, causal, off, name = shape
+    dtype = DTYPES[name]
+    q, k, _, _, _, lse = _operands(b, sq, skv, hq, hkv, d, dtype)
+    v = torch.empty(b, skv, hkv, dv, dtype=dtype)
+    out, dout, dq = (torch.empty(b, sq, hq, n, dtype=dtype)
+                     for n in (dv, dv, d))
+    dk, dvv = (torch.empty(b, skv, hkv, n, dtype=dtype) for n in (d, dv))
+    delta = torch.empty_like(lse)
+    args = entry_args(q, k, v, out, dout, lse, delta, dq, dk, dvv, 0.125,
+                      causal, off)
+    names = entry_points(dtype)
+    assert tuple(args) == names == (
+        F32_ENTRY_POINTS if name == "fp32" else ENTRY_POINTS)
+    source = build.SOURCE_OF[names[0]]
+    assert source == ("flash_attention_f32" if name == "fp32"
+                      else "flash_attention_bwd")
+    for e, a in args.items():
+        assert len(a) == len(build.SOURCES[source][e]) - 1
+        assert a[8:15] == (b, sq, skv, hq, hkv, d, dv)
+        assert a[-3:] == (0.125, int(causal), off)
+    assert args[names[0]][24:27] == out.stride()[:3]
+    assert args[names[1]][15:24] == (*q.stride()[:3], *k.stride()[:3],
+                                     *v.stride()[:3])
+    if name == "bf16":
+        assert (d, dv) in BWD_HEAD_DIMS
+    else:
+        assert f32_pair(d, dv)
 
 
 @pytest.mark.parametrize("bad", ["fp32_q", "bf16_lse", "odd_stride",
@@ -139,15 +196,33 @@ def test_wrapper_refuses_operands_the_kernels_do_not_take(bad):
 
 
 def test_smoke_shapes_are_held_here_and_one_crosses_the_diagonal():
-    """chip_smoke.py's BWD_SHAPES are among the ones above, each with a
-    pair the kernel has, and one D=128 GQA shape has causal tiles that
-    cross the diagonal (Sq not a multiple of the 64-row tiles)."""
+    """chip_smoke.py's BWD_SHAPES and its fp32 rows with a backward are
+    among the ones above, each with a pair its kernel has; one D=128 GQA
+    shape, one MLA (192, 128) and one (256, 256) shape have causal tiles
+    that cross the diagonal (Sq not a multiple of the 64-row tiles), and
+    the fp32 rows hold every smoke pair, GQA, a ragged causal shape,
+    kv_offset > 0 and a non-causal one."""
     smoke = _load("chip_smoke")
-    shapes = [tuple(s[1:9]) for s in smoke.BWD_SHAPES]
-    assert set(shapes) <= set(SHAPES)
-    assert all((s.d, s.d) in BWD_HEAD_DIMS for s in smoke.BWD_SHAPES)
+    bf16 = [(*s[1:7], s.v_dim, *s[7:9], "bf16") for s in smoke.BWD_SHAPES]
+    assert {s[:6] + s[7:9] for s in bf16 if s[5] == s[6] <= 128} <= \
+        set(SHAPES)
+    assert {s for s in bf16 if not s[5] == s[6] <= 128} <= set(PAIR_SHAPES)
+    assert all((s.d, s.v_dim) in BWD_HEAD_DIMS for s in smoke.BWD_SHAPES)
+    crossing = {(s.d, s.v_dim) for s in smoke.BWD_SHAPES
+                if s.causal and s.sq % 64}
+    assert {(128, 128), (192, 128), (256, 256)} <= crossing
     assert [s.name for s in smoke.BWD_SHAPES if s.d == 128 and s.causal
             and s.hq > s.hkv and s.sq % 64]
+    f32 = [s for s in smoke.F32_SHAPES if s.backward]
+    assert {(*s[1:7], s.v_dim, *s[7:9], "fp32") for s in f32} <= \
+        set(PAIR_SHAPES)
+    assert all(f32_pair(s.d, s.v_dim) for s in smoke.F32_SHAPES)
+    assert {(12, 12), (16, 16), (24, 16), (8, 8), (32, 32)} <= \
+        {(s.d, s.v_dim) for s in f32}
+    assert any(s.hq > s.hkv for s in f32)
+    assert any(s.causal and s.sq % 32 and s.sq > 64 for s in f32)
+    assert any(s.kv_offset > 0 for s in f32)
+    assert any(not s.causal for s in f32)
 
 
 def test_delta_plain_is_the_rowsum_in_fp32():

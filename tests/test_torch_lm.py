@@ -362,23 +362,59 @@ def test_serve_launcher_on_cpu(capsys, tmp_path):
         np.asarray(JSyntheticTokens(512, 2, 8, seed=0).next_batch()["tokens"]))
 
 
+class ReachedTheCard(Exception):
+    """Raised where a launcher makes its first tensor on the card."""
+
+
+def serve_on_a_fake_card(monkeypatch, argv):
+    """``serve.main(argv)`` with CUDA reported available, stopped where it
+    makes its generator on the device (this CPU build has no CUDA
+    tensors); returns the flash head sizes and dtype it routed, and the
+    device it reached."""
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    routed = []
+
+    def route(*a, **k):
+        routed.append((*a, k.get("needs_grad")))
+        return fa.kernel_route(*a, **k)
+
+    def generator(device=None):
+        raise ReachedTheCard(str(device))
+    monkeypatch.setattr(serve, "kernel_route", route)
+    monkeypatch.setattr(torch, "Generator", generator)
+    with pytest.raises(ReachedTheCard) as exc:
+        serve.main(argv)
+    return routed, str(exc.value)
+
+
 @pytest.mark.parametrize("device", [[], ["--device", "cuda"],
                                     ["--device", "cuda:0"]],
                          ids=["default", "cuda", "cuda0"])
-def test_serve_smoke_refuses_the_card(capsys, monkeypatch, device):
-    """The smoke config (head_dim 16, fp32) has no flash-kernel
-    instantiation, so ``--smoke`` on a CUDA device exits 2 with a clear
-    message before anything is built, card or no card; it never falls
-    back to plain attention."""
+def test_serve_smoke_takes_the_card(monkeypatch, device):
+    """The smoke config (head_dim 16, fp32) is served on a CUDA device:
+    the launcher routes its attention to the fp32 flash kernel (no
+    gradient) and goes on to build the model on the card."""
     cfg = registry.get("llama3.2-1b").smoke
     assert cfg.head_dim == 16 and cfg.param_dtype == torch.float32
+    routed, reached = serve_on_a_fake_card(
+        monkeypatch, ["--arch", "llama3.2-1b", "--smoke", *device])
+    assert routed == [(16, 16, torch.float32, False)]
+    assert reached == (device[1] if device else "cuda")
+
+
+def test_serve_refuses_a_pair_without_a_kernel(monkeypatch):
+    """A config whose head size no kernel takes (fp32 at 96) raises in
+    the launcher before anything is built."""
+    base = registry.get("llama3.2-1b")
+    odd = dataclasses.replace(base, smoke=dataclasses.replace(
+        base.smoke, head_dim=96))
+    monkeypatch.setattr(serve.registry, "get", lambda _: odd)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "llama3.2-1b", "--smoke", *device])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: --smoke")
-    assert "head_dim 16" in err and "fp32" in err and "--device cpu" in err
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match=r"\(96, 96\)"):
+        serve.main(["--arch", "llama3.2-1b", "--smoke"])
+    assert dict(LAUNCHES) == before
 
 
 @pytest.mark.parametrize("arch", ["encdec-test"])

@@ -42,6 +42,7 @@ from repro_torch.launch import serve
 from repro_torch.models import layers, lm
 from repro_torch.serve import engine
 from test_torch_ssm import _jax_launcher
+from test_torch_lm import serve_on_a_fake_card
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -399,14 +400,11 @@ def test_serve_layers_cuts_the_moe_stack(capsys):
     assert out["tokens"].shape == (1, 2)
 
 
-def test_serve_smoke_refuses_the_card(capsys, monkeypatch):
-    """deepseek's smoke config (keys 24 wide over values 16, fp32) has no
-    flash-kernel instantiation: ``--smoke`` on a CUDA device exits 2,
-    card or no card, naming both sizes."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", ARCH, "--smoke"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: --smoke")
-    assert "head_dim 24 (values 16)" in err and "fp32" in err
+def test_serve_smoke_takes_the_card(monkeypatch):
+    """deepseek's smoke config (keys 24 wide over values 16, fp32) is
+    served on a CUDA device: MLA's attention routes to the fp32 flash
+    kernel at both sizes and the launcher goes on to build the model on
+    the card."""
+    routed, reached = serve_on_a_fake_card(monkeypatch,
+                                           ["--arch", ARCH, "--smoke"])
+    assert routed == [(24, 16, torch.float32, False)] and reached == "cuda"

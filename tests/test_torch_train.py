@@ -320,6 +320,9 @@ def test_remat_saves_fewer_tensors():
     (2, 9, 50, 4, 2, 16, 16, True, 41, 8, 16),      # kv_offset > 0
     (1, 24, 24, 2, 2, 24, 16, True, 0, 8, 8),       # keys 24 over values 16
     (1, 20, 20, 2, 2, 192, 128, True, 0, 8, 16),    # MLA's (192, 128)
+    (1, 19, 19, 2, 2, 256, 256, True, 0, 8, 16),    # gemma's (256, 256)
+    (2, 30, 30, 4, 2, 12, 12, False, 0, 16, 8),     # seamless smoke's 12
+    (1, 26, 40, 4, 4, 32, 32, True, 14, 8, 16),     # gemma smoke's 32
 ])
 def test_plain_attention_grads_match_jax(b, sq, skv, hq, hkv, d, dv, causal,
                                          off, qc, kc):
@@ -389,30 +392,43 @@ def test_bwd_entry_args_fill_the_signatures():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention_bwd import ENTRY_POINTS, \
         entry_args
-    q, out, dout, dq = (torch.zeros(2, 40, 8, 64) for _ in range(4))
-    k, v, dk, dv = (torch.zeros(2, 50, 2, 64) for _ in range(4))
+    q, out, dout, dq = (torch.zeros(2, 40, 8, 64, dtype=torch.bfloat16)
+                        for _ in range(4))
+    k, v, dk, dv = (torch.zeros(2, 50, 2, 64, dtype=torch.bfloat16)
+                    for _ in range(4))
     lse, delta = torch.zeros(2, 8, 40), torch.zeros(2, 8, 40)
     args = entry_args(q, k, v, out, dout, lse, delta, dq, dk, dv, 0.125,
                       True, 10)
     assert set(args) == set(ENTRY_POINTS)
     for name, a in args.items():
         assert len(a) == len(build.SOURCES["flash_attention_bwd"][name]) - 1
-    assert args["flash_attention_bwd_dkdv"][8:14] == (2, 40, 50, 8, 2, 64)
-    assert args["flash_attention_bwd_dq"][8:14] == (2, 40, 50, 8, 2, 64)
+    assert args["flash_attention_bwd_dkdv"][8:15] == (2, 40, 50, 8, 2, 64,
+                                                      64)
+    assert args["flash_attention_bwd_dq"][8:15] == (2, 40, 50, 8, 2, 64, 64)
     assert args["flash_attention_bwd_dq"][3] == out.data_ptr()
     assert args["flash_attention_bwd_dq"][-3:] == (0.125, 1, 10)
     assert args["flash_attention_bwd_dkdv"][-3:] == (0.125, 1, 10)
 
 
-@pytest.mark.parametrize("d,dv", [(192, 128), (256, 256), (16, 16)])
-def test_kernel_route_raises_where_a_gradient_has_no_kernel(d, dv):
+@pytest.mark.parametrize("d,dv,dtype,kv", [
+    (64, 128, torch.bfloat16, None),
+    (96, 96, torch.float32, None),
+    (16, 16, torch.float32, torch.bfloat16),
+])
+def test_kernel_route_raises_where_a_gradient_has_no_kernel(d, dv, dtype,
+                                                            kv):
     """On CUDA inputs that need a gradient, a (key, value) pair with no
-    backward instantiation raises at forward time: the gradient is never
-    dropped and never falls back to the plain version."""
+    backward instantiation (bf16 outside the four pairs, fp32 past 64),
+    or fp32 queries over a bf16 cache, raises at forward time: the
+    gradient is never dropped and never falls back to the plain version.
+    Serving keeps the forward where one exists (fp32 over a bf16 cache)."""
     with pytest.raises(NotImplementedError):
-        fa.kernel_route(d, dv, torch.bfloat16, needs_grad=True)
-    if (d, dv) in fa.KERNEL_HEAD_DIMS:      # serving still has its forward
-        assert fa.kernel_route(d, dv, torch.bfloat16, False) == "forward"
+        fa.kernel_route(d, dv, dtype, needs_grad=True, kv_dtype=kv)
+    if kv is not None:
+        assert fa.kernel_route(d, dv, dtype, False, kv_dtype=kv) == "forward"
+    else:
+        with pytest.raises(NotImplementedError):
+            fa.kernel_route(d, dv, dtype, needs_grad=False)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -421,8 +437,56 @@ def test_kernel_route_takes_the_autograd_function(d):
         "autograd"
     assert fa.kernel_route(d, d, torch.bfloat16, needs_grad=False) == \
         "forward"
-    with pytest.raises(ValueError, match="bf16"):
-        fa.kernel_route(d, d, torch.float32, needs_grad=True)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fa.kernel_route(d, d, torch.float16, needs_grad=True)
+    # fp32 goes to the fp32 kernel up to head size 64
+    if d <= fa.F32_MAX_HEAD:
+        assert fa.kernel_route(d, d, torch.float32, True) == "autograd"
+    else:
+        with pytest.raises(NotImplementedError, match="fp32"):
+            fa.kernel_route(d, d, torch.float32, needs_grad=True)
+
+
+def _registry_pairs():
+    """(arch id, config, path, (key, value) head sizes, dtype) for every
+    flash launch a published or smoke config of the registry makes:
+    serving, and training at 8193 tokens (where the dense LMs and the
+    hybrid reach the kernels too)."""
+    from repro_torch.launch import serve
+    out = []
+    for arch_id in registry.list_archs():
+        arch = registry.get(arch_id)
+        for which in ("published", "smoke"):
+            cfg = arch.model if which == "published" else arch.smoke
+            a = dataclasses.replace(arch, model=cfg)
+            for path, heads in (("serve", serve.flash_heads(a)),
+                                ("train", launch_train.train_flash_heads(
+                                    a, 8193))):
+                if heads is not None:
+                    out.append((arch_id, which, path, heads,
+                                cfg.param_dtype))
+    return out
+
+
+def test_kernel_route_takes_every_registry_pair():
+    """Every (key, value) pair and dtype the registry's configs send,
+    served or trained, has a kernel: bf16 at the published pairs, the
+    fp32 kernel at the smoke ones; none is refused, and the list covers
+    the pairs the launchers used to refuse."""
+    pairs = _registry_pairs()
+    seen = set()
+    for arch_id, which, path, (d, dv), dtype in pairs:
+        route = fa.kernel_route(d, dv, dtype, needs_grad=path == "train")
+        assert route == ("autograd" if path == "train" else "forward")
+        assert dtype == (torch.bfloat16 if which == "published"
+                         else torch.float32), (arch_id, which)
+        seen.add((d, dv, dtype))
+    assert {(192, 128, torch.bfloat16), (256, 256, torch.bfloat16),
+            (12, 12, torch.float32), (24, 16, torch.float32),
+            (16, 16, torch.float32), (32, 32, torch.float32),
+            (8, 8, torch.float32)} <= seen
+    assert {p[3] for p in pairs if p[1] == "published"} <= \
+        set(fa.BWD_HEAD_DIMS)
 
 
 def test_cpu_attention_keeps_its_gradient():
@@ -504,21 +568,44 @@ def test_train_launcher_encdec_on_cpu():
     assert all(np.isfinite(float(m["loss"])) for m in res["metrics"])
 
 
-@pytest.mark.parametrize("arch_id,words", [
-    ("seamless-m4t-large-v2", ["head_dim 12", "fp32"]),
-    ("deepseek-v2-236b", ["head_dim 24 (values 16)", "fp32"]),
+@pytest.mark.parametrize("arch_id,heads", [
+    ("seamless-m4t-large-v2", (12, 12)),
+    ("deepseek-v2-236b", (24, 16)),
 ])
-def test_train_smoke_refuses_the_card(capsys, monkeypatch, arch_id, words):
-    """A smoke config that would train on the flash kernels at sizes they
-    are not built for exits 2 on a CUDA device, card or no card, before
-    anything is built."""
+def test_train_smoke_takes_the_card(monkeypatch, arch_id, heads):
+    """A smoke config whose attentions reach the flash kernels (fp32, head
+    sizes 12 / (24, 16)) trains on a CUDA device: the launcher routes its
+    heads to the fp32 kernels and goes on to train, card or no card here
+    (the training itself is stubbed)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit) as exc:
-        launch_train.main(["--arch", arch_id, "--smoke"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error:") and "--device cpu" in err
-    assert all(w in err for w in words)
+    routed, trained = [], []
+
+    def route(*a, **k):
+        routed.append((a, k))
+        return fa.kernel_route(*a, **k)
+    monkeypatch.setattr(launch_train, "kernel_route", route)
+    monkeypatch.setattr(launch_train, "_train",
+                        lambda args, arch, device, dist: trained.append(
+                            (arch.model.name, device.type, dist)) or {})
+    assert launch_train.main(["--arch", arch_id, "--smoke"]) == {}
+    assert routed == [((*heads, torch.float32), {"needs_grad": True})]
+    assert trained == [(registry.get(arch_id).smoke.name, "cuda", False)]
+
+
+def test_train_refuses_a_pair_without_a_kernel(monkeypatch):
+    """A config whose head size no kernel takes (fp32 at 96) raises in
+    the launcher before anything is built; no launch."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    base = registry.get("seamless-m4t-large-v2")
+    odd = dataclasses.replace(base, smoke=dataclasses.replace(
+        base.smoke, head_dim=96))
+    monkeypatch.setattr(launch_train.registry, "get", lambda _: odd)
+    monkeypatch.setattr(launch_train, "_train", lambda *a: pytest.fail(
+        "the launcher trained a config no kernel takes"))
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match=r"\(96, 96\)"):
+        launch_train.main(["--arch", "seamless-m4t-large-v2", "--smoke"])
+    assert dict(LAUNCHES) == before
 
 
 def test_train_flash_heads():

@@ -36,6 +36,7 @@ from repro_torch.launch import serve
 from repro_torch.models import layers, lm
 from repro_torch.serve import engine
 from test_torch_ssm import _jax_launcher
+from test_torch_lm import serve_on_a_fake_card
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -238,16 +239,13 @@ def test_serve_launcher_on_cpu_matches_reference(capsys):
     np.testing.assert_array_equal(out["tokens"].numpy(), tokens)
 
 
-def test_serve_smoke_refuses_the_card(capsys, monkeypatch):
-    """qwen2-vl's smoke config (head_dim 16, fp32) has no flash-kernel
-    instantiation: ``--smoke`` on a CUDA device exits 2, card or no
-    card."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", ARCH, "--smoke"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: --smoke") and "head_dim 16," in err
+def test_serve_smoke_takes_the_card(monkeypatch):
+    """qwen2-vl's smoke config (head_dim 16, fp32) is served on a CUDA
+    device: its attention routes to the fp32 flash kernel and the
+    launcher goes on to build the model on the card."""
+    routed, reached = serve_on_a_fake_card(monkeypatch,
+                                           ["--arch", ARCH, "--smoke"])
+    assert routed == [(16, 16, torch.float32, False)] and reached == "cuda"
 
 
 # ---------------------------------------------------------------------------

@@ -109,17 +109,17 @@ Phases, each printing its lines before the last:
 6b. archs: the other archs the launcher serves, each at :data:`SERVE`'s
    batch, prompt and seed with :data:`ARCHS_NEW` new tokens, one model
    on the card at a time
-   (:data:`ARCHS`): qwen3-8b (36 layers, GQA 32/8, qk-norm), gemma-7b
-   (28 layers, head size 256, GeGLU, tied 256000-token vocabulary) and
-   mamba2-780m (48 layers) at published width and depth, yi-34b at
-   published widths cut to 16 of its 60 layers, qwen3-moe-235b-a22b
-   (128 experts top 8 on every layer, GQA 64/4) cut to 8 of its 94
-   layers, jamba-v0.1-52b cut to one period of 8 layers (7 Mamba, 1
+   (:data:`ARCHS`), every one at its published widths and all but
+   seamless at a cut depth: qwen3-8b (GQA 32/8, qk-norm) at 8 of its 36
+   layers, gemma-7b (head size 256, GeGLU, tied 256000-token
+   vocabulary) at 8 of 28, mamba2-780m at 12 of 48, yi-34b at 4 of 60,
+   qwen3-moe-235b-a22b (128 experts top 8 on every layer, GQA 64/4) at
+   2 of 94, jamba-v0.1-52b at one period of 8 layers (7 Mamba, 1
    attention, 4 MoE of 16 experts top 2, 4 dense FFNs), deepseek-v2-236b
-   (MLA, 160 experts top 6 + 2 shared) cut to 6 of its 60 layers (the
-   dense first layer and 5 MoE layers), and qwen2-vl-2b (28 layers,
-   M-RoPE over text positions, tied embeddings) and
-   seamless-m4t-large-v2 (24 encoder + 24 decoder layers, fed the
+   (MLA, 160 experts top 6 + 2 shared) at 2 of 60 (the dense first
+   layer and one MoE layer), qwen2-vl-2b (M-RoPE over text positions,
+   tied embeddings) at 8 of 28, and seamless-m4t-large-v2 (24 encoder +
+   24 decoder layers, fed the
    launcher's seeded frames, ``launch.serve.encdec_frames``) whole. Each
    runs once through ``launch.serve.main`` and once through the engine,
    each in launch windows of its own. Required: exactly the
@@ -140,9 +140,11 @@ Phases, each printing its lines before the last:
    device memory of the launcher's run and of the engine's.
 
 7. decode: decode sessions (``compiler/runtime/session.py``) on the
-   card. Full-width llama3.2-1b (113 layers) and mamba2-780m (193
-   layers), and jamba-v0.1-52b at its smoke config (at 52 B parameters
-   its full width does not fit one card), each compiled as
+   card. Full-width llama3.2-1b cut to 2 of its 16 blocks (15 layers)
+   and mamba2-780m cut to 6 of its 48 layers (25 layers)
+   (:data:`DECODE_LAYERS`), and jamba-v0.1-52b at its smoke config (at
+   52 B parameters its full width does not fit one card), each compiled
+   as
    ``compile_decode_network`` does (batch 8, max_seq 64, ``-O 0``,
    bits 4) but at the full config, with ``synthetic_decode_arrays``
    (seed 0) bound into a ``ReferenceSession``, a fused ``CudaExecutor``
@@ -171,7 +173,8 @@ Phases, each printing its lines before the last:
    the card (the ISA contract checked instruction by instruction, every
    tile through the exact plain oracles: no kernel may launch), bitwise
    equal to ``CudaExecutor``'s fused path and ``mode="ref"``; then one
-   full-width mobilenet_v2 image the same way; then a weight fetch
+   full-width mobilenet_v2 image at :data:`GOLDEN_MOBILENET_HW` the same
+   way; then a weight fetch
    planted at another layer's segment must raise ``ExecutionError``.
    Times: seconds per image.
 9. accuracy: a convolution inside ``models.cnn.fp32_convs`` against
@@ -186,7 +189,8 @@ Phases, each printing its lines before the last:
    own and required to be exactly the fused path's per evaluated image.
    Then the cross checks, each on networks trained, folded, compiled and
    bound here through the harness's public functions: on each reduced
-   net two more trainings (whether they fold to the same weights is
+   net two more trainings of :data:`RETRAIN_STEPS` steps (whether they
+   fold to the same weights is
    printed, not required), the first bound into a golden and a fused
    executor on the card and one on the CPU: equal agreement counts over
    :data:`CROSS_SAMPLES` and bitwise-equal logits on the first batch of
@@ -256,8 +260,10 @@ Phases, each printing its lines before the last:
    version at :data:`BWD_SHAPES` (seamless's encoder, decoder and cross
    shapes, llama3.2-1b's GQA 32/8 at S 2048, a ragged causal shape, one
    with ``kv_offset`` > 0, qwen2-vl's (128, 128) at GQA 12/2, and a D=128
-   GQA shape whose tiles cross the diagonal, and seamless's three at
-   phase 14's 8 local heads): dq, dk and dv within
+   GQA shape whose tiles cross the diagonal, seamless's three at phase
+   14's 8 local heads, and the wide pairs' instance at MLA's (192, 128)
+   and gemma's (256, 256), each at its training shape and with tiles
+   across the diagonal): dq, dk and dv within
    :data:`BWD_TOL` of the gradient's max |.| and every row within
    :data:`BWD_ROW_TOL`, the forward's log-sum-exp within :data:`LSE_TOL`
    of the plain version's, a second backward bitwise equal to the first
@@ -265,7 +271,10 @@ Phases, each printing its lines before the last:
    (:func:`on_new_thread`: no context is current there until a CUDA call
    makes one), the dq launch's delta within :data:`DELTA_TOL` of ``bwd_prep_plain``;
    device ms per entry point, the bound, the plain backward's and SDPA's
-   backward's ms, and ptxas's registers and spills. Then
+   backward's ms, and ptxas's registers and spills; at :data:`FWD_TIMED`
+   (the wide training shapes, which the serving rows of phase 5 do not
+   have) also the forward launch with its log-sum-exp against the plain
+   forward (:func:`fwd_row`), timed beside SDPA and the bound. Then
    seamless-m4t-large-v2 whole at published widths in bf16 through
    ``repro_torch.launch.train.main`` (:data:`TRAIN_SEAMLESS`): exactly
    :func:`train_launches` a step (the forward kernel twice a layer's
@@ -337,8 +346,8 @@ Phases, each printing its lines before the last:
    forward and backward launches exactly :func:`train_launches`'. The
    dry-run (``repro_torch.launch.dryrun``) predicts both runs on a fake
    world of the same mesh, in a subprocess started beside phase 1's
-   kernel build, which times nothing, and waited for there (so it takes
-   no host time from any timed window):
+   kernel build and waited for after phase 5 (so it takes no host time
+   from the ranks' timed windows):
    each rank's parameter bytes equal to the bytes its local shards hold
    (exactly), its collectives by kind equal to ``CommDebugMode``'s
    counts on the card, and its peak (arguments + temporaries) beside
@@ -549,6 +558,15 @@ SERVE = dict(arch="llama3.2-1b", batch=8, prompt=64, new=32, seed=0)
 #: bf16 rounding; 16 layers of bf16 matmuls carry such flips to the
 #: logits, which are themselves bf16 products (x @ embed.T) cast to fp32.
 LOGIT_TOL = 8 * 2 ** -8
+
+
+def timed(what: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, printing its wall seconds as a ``time:``
+    line (a phase's parts, so that a run shows where its time went)."""
+    t0 = time.time()
+    result = fn(*args, **kw)
+    print(f"time: {what} {time.time() - t0:.1f} s")
+    return result
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1805,32 +1823,27 @@ def phase_serve(torch, details: dict) -> int:
 
 
 #: the archs phase: (arch, layers) served at SERVE's batch, prompt, new
-#: tokens and seed; layers None is the published depth. yi-34b keeps its
-#: published widths at 16 of its 60 layers: its bf16 parameters are 68.8
-#: GB, and init_params draws each stacked leaf in fp32 first (its MLP's
-#: [60, 7168, 20480] alone 35 GB), so the whole model does not fit the
-#: 80 GB card; 32 layers would fit (37.5 GB, and the fp32 draw of one
-#: MLP leaf 18.8 GB more), 16 keep the script inside its time.
-#: qwen3-moe-235b-a22b (467 GB in bf16) keeps its widths at 8 of its 94
-#: layers: 4.98 GB a layer (128 experts x 3 x 4096 x 1536, and 71 M of
-#: attention), 39.8 GB for 8 and
-#: 2.5 GB of embedding tables, plus the fp32 draw of one stacked expert
-#: leaf [8, 128, 4096, 1536], 25.8 GB. jamba-v0.1-52b (103 GB) keeps its
-#: widths at one period of 8 layers (7 Mamba, 1 attention, 4 MoE and 4
-#: dense FFNs, so every kind of sublayer runs): 25.5 GB and 1.1 GB of
+#: tokens and seed, every arch at its published widths; layers None is
+#: the published depth. Phase 5 serves llama3.2-1b whole; here the
+#: depths are cut to keep the script inside half its time limit (the
+#: whole script once ran past its limit on a slower host), each to a
+#: few layers that hold every kind of sublayer its arch has:
+#: qwen3-8b 8 of 36, gemma-7b 8 of 28, qwen2-vl-2b 8 of 28, yi-34b 4 of
+#: 60 (its whole 68.8 GB would not fit the card beside init_params' fp32
+#: draw of a stacked leaf in any case), mamba2-780m 12 of 48,
+#: qwen3-moe-235b-a22b 2 of 94 (4.98 GB a layer: 128 experts x 3 x 4096
+#: x 1536 and 71 M of attention), deepseek-v2-236b 2 of 60 (its dense
+#: first layer and one MoE layer, 160 experts x 3 x 5120 x 1536; the
+#: launcher's --layers must exceed the dense prefix). jamba-v0.1-52b
+#: keeps one period of 8 layers (7 Mamba, 1 attention, 4 MoE and 4 dense
+#: FFNs: the launcher serves whole periods), 25.5 GB and 1.1 GB of
 #: embeddings, plus the fp32 draw of its MoE leaf [1, 4, 16, 4096,
-#: 14336], 15 GB; two periods would need about 83 GB. deepseek-v2-236b
-#: (471.6 GB in bf16) keeps its widths at 6 of its 60 layers, its dense
-#: first layer and 5 MoE layers (160 experts x 3 x 5120 x 1536, 7.55 GB
-#: each, and MLA's 149 M): 42.5 GB with the 2.1 GB of embedding tables,
-#: plus the fp32 draw of one stacked expert leaf [5, 160, 5120, 1536],
-#: 25.2 GB, about 63 GiB at peak; 7 layers would need 80.6 GB.
-#: qwen2-vl-2b (3.1 GB, text only as the launcher serves it) and
-#: seamless-m4t-large-v2 (4.1 GB, 24 + 24 layers) run whole
-ARCHS = [("qwen3-8b", None), ("gemma-7b", None), ("yi-34b", 16),
-         ("mamba2-780m", None), ("qwen3-moe-235b-a22b", 8),
-         ("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 6),
-         ("qwen2-vl-2b", None), ("seamless-m4t-large-v2", None)]
+#: 14336], 15 GB. seamless-m4t-large-v2 (4.1 GB, 24 + 24 layers) runs
+#: whole, as phase 12 trains it
+ARCHS = [("qwen3-8b", 8), ("gemma-7b", 8), ("yi-34b", 4),
+         ("mamba2-780m", 12), ("qwen3-moe-235b-a22b", 2),
+         ("jamba-v0.1-52b", 8), ("deepseek-v2-236b", 2),
+         ("qwen2-vl-2b", 8), ("seamless-m4t-large-v2", None)]
 #: the archs' new tokens: half of :data:`SERVE`'s, to keep the script
 #: inside its time
 ARCHS_NEW = 8
@@ -1885,7 +1898,8 @@ def phase_archs(torch, details: dict) -> int:
     """:data:`ARCHS` through :func:`serve_arch`, one model on the card at
     a time; returns the flash launches of their counted prefills."""
     out = details.setdefault("archs", {})
-    return sum(serve_arch(torch, arch_id, out, layers, n_new=ARCHS_NEW)
+    return sum(timed(f"archs {arch_id}", serve_arch, torch, arch_id, out,
+                     layers, n_new=ARCHS_NEW)
                for arch_id, layers in ARCHS)
 
 
@@ -1894,13 +1908,20 @@ def phase_archs(torch, details: dict) -> int:
 HARNESS = dict(n_samples=256, batch=64, train_steps=200)
 #: full-width resnet18's two trainings (recorded, not gated; the second
 #: only feeds the card-vs-CPU bitwise check): cut from 200 steps, then
-#: 50, to keep the script inside its time (none converges)
-FULL_TRAIN_STEPS = 10
+#: 50, 10 and 4, to keep the script inside its time (none converges)
+FULL_TRAIN_STEPS = 4
 #: reduced nets: samples evaluated through golden, the card and the CPU
 #: on the same folded weights, in batches of CROSS_BATCH; the first
-#: batch's logits are held bitwise
-CROSS_SAMPLES = 64
+#: batch's logits are held bitwise. One batch, cut from 64 samples to
+#: keep the script inside half its time limit (golden takes 0.14-0.15 s
+#: a reduced resnet18 image and 0.28-0.42 s a reduced mobilenet_v2 one
+#: on the card's host)
+CROSS_SAMPLES = 16
 CROSS_BATCH = 16
+#: steps of the reduced nets' two cross-check trainings (the harness's
+#: own run trains at HARNESS's 200): any trained weights serve the
+#: cross check and the repeat, and 50 keep the script inside its time
+RETRAIN_STEPS = 50
 #: full-width resnet18: images held bitwise between the card and the CPU
 FULL_CPU_IMAGES = 2
 
@@ -1944,9 +1965,17 @@ def golden_image(torch, prog, image, what: str):
     return secs
 
 
+#: the golden mobilenet_v2 image's side: its channels at full width, its
+#: resolution halved from 224 (a quarter of the tiles: golden is host
+#: work, 17 s an image at 224 on the card's host) to keep the script
+#: inside half its time limit
+GOLDEN_MOBILENET_HW = 112
+
+
 def phase_golden(torch, prog, details: dict) -> None:
     """``GoldenExecutor`` on the card: one full-width resnet18 image and
-    one mobilenet_v2 image bitwise equal to ``CudaExecutor``'s fused
+    one mobilenet_v2 image (at :data:`GOLDEN_MOBILENET_HW`) bitwise
+    equal to ``CudaExecutor``'s fused
     path and ``mode="ref"``, then a weight fetch planted at the wrong
     segment must raise ``ExecutionError``."""
     import dataclasses
@@ -1969,10 +1998,11 @@ def phase_golden(torch, prog, details: dict) -> None:
     print(f"golden: resnet18 224, {tiles} tiles, one image {secs:.2f} s "
           f"({1e6 * secs / tiles:.0f} us a tile); bitwise equal to the fused "
           f"path and mode=ref; no kernel launched")
-    mob = compile_network("mobilenet_v2")
-    mob_s = golden_image(torch, mob, image(mob), "mobilenet_v2 224")
-    out["mobilenet_v2"] = {"s": mob_s, "tiles": n_tiles(mob)}
-    print(f"golden: mobilenet_v2 224, {n_tiles(mob)} tiles, one image "
+    hw = GOLDEN_MOBILENET_HW
+    mob = compile_network("mobilenet_v2", in_hw=hw)
+    mob_s = golden_image(torch, mob, image(mob), f"mobilenet_v2 {hw}")
+    out["mobilenet_v2"] = {"s": mob_s, "tiles": n_tiles(mob), "in_hw": hw}
+    print(f"golden: mobilenet_v2 {hw}, {n_tiles(mob)} tiles, one image "
           f"{mob_s:.2f} s "
           f"({1e6 * mob_s / n_tiles(mob):.0f} us a tile); bitwise equal to "
           f"the fused path and mode=ref; no kernel launched")
@@ -2151,11 +2181,11 @@ def phase_accuracy(torch, details: dict) -> dict:
         if rep.agreement < acc.AGREEMENT_FLOOR:
             raise AssertionError(f"{arch} reduced: agreement "
                                  f"{rep.agreement} below the floor")
-        folded, ref_fn, s_a = trained(torch, cfg)
-        folded_b, _, s_b = trained(torch, cfg)
+        folded, ref_fn, s_a = trained(torch, cfg, RETRAIN_STEPS)
+        folded_b, _, s_b = trained(torch, cfg, RETRAIN_STEPS)
         same, diff = folded_diff(folded, folded_b)
-        print(f"accuracy: {arch} reduced: two more trainings ({s_a:.2f} s, "
-              f"{s_b:.2f} s) fold to "
+        print(f"accuracy: {arch} reduced: two more trainings of "
+              f"{RETRAIN_STEPS} steps ({s_a:.2f} s, {s_b:.2f} s) fold to "
               f"{'bitwise the same weights' if same else 'other weights'} "
               f"(max |diff| {diff:.3g})")
         prog, specs = acc.compile_quantized_cnn(cfg)
@@ -2194,6 +2224,14 @@ def phase_accuracy(torch, details: dict) -> dict:
 #: golden sessions at the three smoke configs
 DECODE = dict(batch=8, max_seq=64, seed=0)
 DECODE_STEPS = {"llama3.2-1b": 8, "mamba2-780m": 4, "jamba-v0.1-52b": 4}
+#: the full-width decode programs' depths (phase 7's, and phase 10's
+#: llama3.2-1b bundles): llama3.2-1b 2 of its 16 blocks, mamba2-780m 6
+#: of its 48 layers, to keep the script inside half its time limit.
+#: Drawing the weight codes and binding them into three sessions is host
+#: work (54 s and 34 s at the published depths on the card's host), and
+#: every layer shape the whole program has is still there, each kernel
+#: timed at each of them
+DECODE_LAYERS = {"llama3.2-1b": 2, "mamba2-780m": 6}
 #: step_slots calls of the staggered per-slot run; slot j is admitted
 #: (``reset_slot``) at step j % 3 and holds a stale request before that
 SLOT_STEPS = 4
@@ -2202,15 +2240,24 @@ GOLDEN_DECODE = dict(batch=1, max_seq=8, steps=4)
 DECODE_KERNELS = ("fused_hetero_gemm", "bitserial_gemm", "int4_gemm")
 
 
+def decode_arch(name: str) -> str:
+    """The arch id whose full config the decode programs of ``name``
+    compile: ``name`` cut to :data:`DECODE_LAYERS` (published widths)."""
+    return cut_arch(name, DECODE_LAYERS[name]) if name in DECODE_LAYERS \
+        else name
+
+
 def compile_decode(name: str, smoke: bool, **kw):
     """The decode-step program of ``name`` at :data:`DECODE`'s batch and
     window (``kw`` overrides), as ``compile_decode_network`` compiles it
-    at its defaults, but at the full config when ``smoke`` is False."""
+    at its defaults, but at the full config (cut to
+    :data:`DECODE_LAYERS`) when ``smoke`` is False."""
     from repro_torch.compiler.lower import lower_network
     from repro_torch.compiler.networks import decode_step_layers
     kw = {"batch": DECODE["batch"], "max_seq": DECODE["max_seq"], **kw}
     opt_level = kw.pop("opt_level", 0)
-    layers, spec = decode_step_layers(name, smoke=smoke, **kw)
+    layers, spec = decode_step_layers(name if smoke else decode_arch(name),
+                                      smoke=smoke, **kw)
     return lower_network(f"{name}.decode", layers, *compiler_cfgs(),
                          bits_w_lut=4, bits_a=4, opt_level=opt_level,
                          step=spec)
@@ -2539,7 +2586,8 @@ def golden_sessions(torch, out: dict) -> None:
 
 def phase_decode(torch, details: dict):
     """Decode sessions on the card: full-width llama3.2-1b and
-    mamba2-780m, jamba-v0.1-52b at its smoke config, each through the
+    mamba2-780m (depths cut to :data:`DECODE_LAYERS`), jamba-v0.1-52b at
+    its smoke config, each through the
     fused and ``fused=False`` ``ExecutorSession`` and the staggered
     per-slot run, bitwise equal to the reference session at every step;
     every decode-path kernel bitwise and timed at each full-width layer
@@ -2551,10 +2599,11 @@ def phase_decode(torch, details: dict):
     launches = collections.Counter()
     for name, steps in DECODE_STEPS.items():
         smoke = name.startswith("jamba")
-        t0 = time.time()
+        t0 = t_name = time.time()
         prog = compile_decode(name, smoke)
-        print(f"compile: {name}{' smoke' if smoke else ''} decode batch "
-              f"{prog.step.batch} max_seq {prog.step.max_seq} -O 0: "
+        print(f"compile: {name + ' smoke' if smoke else decode_arch(name)} "
+              f"decode batch {prog.step.batch} max_seq {prog.step.max_seq} "
+              f"-O 0: "
               f"{len(prog.layers)} layers, fingerprint "
               f"{prog.fingerprint()[:12]}, {time.time() - t0:.2f} s")
         torch.cuda.reset_peak_memory_stats()
@@ -2586,7 +2635,8 @@ def phase_decode(torch, details: dict):
         del sess
         gc.collect()
         torch.cuda.empty_cache()
-    golden_sessions(torch, out)
+        print(f"time: decode {name} {time.time() - t_name:.1f} s")
+    timed("decode golden sessions", golden_sessions, torch, out)
     return dict(launches)
 
 
@@ -2614,7 +2664,8 @@ FC_CHAIN = [(32, 256, 512), (32, 512, 384), (32, 384, 256), (32, 256, 128)]
 
 
 def decode_bundle(name: str, kind: str, n_dev: int):
-    """The decode-step bundle of ``name`` at its full config, as
+    """The decode-step bundle of ``name`` at its full config (cut to
+    :data:`DECODE_LAYERS`), as
     ``compile_decode_network(devices=n_dev, partition=kind)`` compiles
     its smoke config: ``lower_partitioned`` at :data:`DECODE`'s batch
     and window, ``-O 0``, then ``decorate_decode_bundle``."""
@@ -2622,7 +2673,8 @@ def decode_bundle(name: str, kind: str, n_dev: int):
     from repro_torch.compiler.partition import decorate_decode_bundle, \
         derive_plan, lower_partitioned
     lut, dsp, dev = compiler_cfgs()
-    layers, spec = decode_step_layers(name, batch=DECODE["batch"],
+    layers, spec = decode_step_layers(decode_arch(name),
+                                      batch=DECODE["batch"],
                                       max_seq=DECODE["max_seq"],
                                       smoke=False)
     plan = derive_plan(layers, n_dev, kind)
@@ -2979,6 +3031,7 @@ def compiled_serving(torch, out: dict) -> dict:
     layer and the compiled session's kernels per step. Returns those
     launches."""
     import os
+    import tempfile
 
     from repro_torch.compiler import compile_decode_network
     from repro_torch.configs import registry
@@ -2986,26 +3039,42 @@ def compiled_serving(torch, out: dict) -> dict:
     from repro_torch.launch import serve
     env = dict(os.environ, PYTHONPATH=str(SRC))
     runs = {}
+    # the two runs side by side (the CPU one needs no card), their output
+    # in files, each waited for in turn; their own times are recorded,
+    # not compared
+    t0 = time.time()
+    procs = {}
     for where, extra in (("card", []), ("cpu", ["--smoke", "--device",
                                                   "cpu"])):
-        t0 = time.time()
-        proc = subprocess.run(
+        files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+        procs[where] = (extra, files, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.serve",
-             *SERVE_ACCEL, *extra], capture_output=True, text=True,
-            timeout=900, env=env, cwd=ROOT)
+             *SERVE_ACCEL, *extra], stdout=files[0], stderr=files[1],
+            text=True, env=env, cwd=ROOT))
+    try:
+        for _, _, proc in procs.values():
+            proc.wait(timeout=max(1.0, 900 - (time.time() - t0)))
+    finally:
+        for _, _, proc in procs.values():
+            proc.kill()
+            proc.wait()
+    for where, (extra, files, proc) in procs.items():
         secs = time.time() - t0
+        stdout, stderr = (f.seek(0) or f.read() for f in files)
+        for f in files:
+            f.close()
         if proc.returncode != 0:
             raise AssertionError(f"launch.serve {' '.join(SERVE_ACCEL + extra)}"
                                  f" exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-3000:]}")
-        lines = {key: serve_line(proc.stdout, prefix) for key, prefix in (
+                                 f"{stderr[-3000:]}")
+        lines = {key: serve_line(stdout, prefix) for key, prefix in (
             ("image", "# accel program "), ("decode", "# accel decode program"),
             ("session", "# accel decode session [cuda]"),
             ("fleet", "# fleet[2 workers]"), ("prefill", "prefill:"),
             ("decode_ms", "decode:"))}
         runs[where] = {"s": secs, "lines": lines}
-        print(f"multi: launch.serve {' '.join(SERVE_ACCEL + extra)}: exit 0 "
-              f"in {secs:.1f} s")
+        print(f"multi: launch.serve {' '.join(SERVE_ACCEL + extra)}: exit 0; "
+              f"both runs side by side in {secs:.1f} s")
         for line in lines.values():
             print(f"multi:   {line}")
 
@@ -3076,14 +3145,32 @@ def fleet_cuda(torch, out: dict) -> dict:
             for p, n in FLEET_REQUESTS]
     n_tok = sum(n for _, n in FLEET_REQUESTS)
     res, launches = {}, collections.Counter()
-    for policy in ("continuous", "serial"):
+    # both fleets start side by side (their workers load at once), then
+    # serve in turn, the idle one launching nothing
+    fleets = {policy: FleetServer(
+        FLEET["arch"], [("w0", "cuda", "subprocess"),
+                        ("w1", "cuda", "thread")],
+        batch_slots=FLEET["batch_slots"], max_seq=FLEET["max_seq"],
+        seed=FLEET["seed"], policy=policy)
+        for policy in ("continuous", "serial")}
+    started = {}
+
+    def start(policy):
         t0 = time.time()
-        with FleetServer(FLEET["arch"], [("w0", "cuda", "subprocess"),
-                                         ("w1", "cuda", "thread")],
-                         batch_slots=FLEET["batch_slots"],
-                         max_seq=FLEET["max_seq"], seed=FLEET["seed"],
-                         policy=policy) as fleet:
-            start_s = time.time() - t0
+        fleets[policy].start()
+        started[policy] = time.time() - t0
+    try:
+        starters = [threading.Thread(target=start, args=(p,))
+                    for p in fleets]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join()
+        if set(started) != set(fleets):
+            raise AssertionError(f"fleets started {sorted(started)} of "
+                                 f"{sorted(fleets)}")
+        for policy, fleet in fleets.items():
+            start_s = started[policy]
             for f in [fleet.submit([1], 1) for _ in range(4)]:   # warm-up
                 f.result(600)
             LAUNCHES.clear()
@@ -3092,21 +3179,26 @@ def fleet_cuda(torch, out: dict) -> dict:
             rows = [f.result(600) for f in futs]
             secs = time.perf_counter() - t0
             counts = {k: v for k, v in LAUNCHES.items() if v}
-        for i, (row, exp) in enumerate(zip(rows, want)):
-            if not np.array_equal(row, exp):
-                raise AssertionError(f"fleet {policy} request {i}: tokens "
-                                     f"{row.tolist()} != single session "
-                                     f"{exp.tolist()}")
-        launches.update(counts)
-        res[policy] = {"s": secs, "req_per_s": len(rows) / secs,
-                       "tok_per_s": n_tok / secs, "start_s": start_s,
-                       "thread_worker_launches": counts}
-        print(f"multi: fleet {policy} (w0 cuda subprocess, w1 cuda thread, "
-              f"2 slots each; started in {start_s:.1f} s): "
-              f"{len(rows)} requests in {1e3 * secs:.1f} ms, "
-              f"{len(rows) / secs:.2f} req/s, {n_tok / secs:.1f} new tok/s; "
-              f"tokens bitwise equal to a single-request session on the "
-              f"card; thread worker launches {counts}")
+            fleet.stop()
+            for i, (row, exp) in enumerate(zip(rows, want)):
+                if not np.array_equal(row, exp):
+                    raise AssertionError(f"fleet {policy} request {i}: "
+                                         f"tokens {row.tolist()} != single "
+                                         f"session {exp.tolist()}")
+            launches.update(counts)
+            res[policy] = {"s": secs, "req_per_s": len(rows) / secs,
+                           "tok_per_s": n_tok / secs, "start_s": start_s,
+                           "thread_worker_launches": counts}
+            print(f"multi: fleet {policy} (w0 cuda subprocess, w1 cuda "
+                  f"thread, 2 slots each; both fleets started side by side, "
+                  f"this one in {start_s:.1f} s): {len(rows)} requests in "
+                  f"{1e3 * secs:.1f} ms, {len(rows) / secs:.2f} req/s, "
+                  f"{n_tok / secs:.1f} new tok/s; tokens bitwise equal to a "
+                  f"single-request session on the card; thread worker "
+                  f"launches {counts}")
+    finally:
+        for fleet in fleets.values():
+            fleet.stop()
     if not res["continuous"]["req_per_s"] > res["serial"]["req_per_s"]:
         raise AssertionError(f"continuous batching {res['continuous']} not "
                              f"faster than serial {res['serial']}")
@@ -3554,18 +3646,20 @@ def phase_codesign(torch, details: dict) -> dict:
     out = details.setdefault("codesign", {})
     launches = collections.Counter()
     for name, m, k, n, w_bits, a_bits, ratio in HETERO:
-        d, x_q, counts = hetero_layer(torch, name, m, k, n, w_bits, a_bits,
-                                      ratio, out)
+        d, x_q, counts = timed(f"codesign {name}", hetero_layer, torch, name,
+                               m, k, n, w_bits, a_bits, ratio, out)
         launches.update(counts)
         if name == "llama1b.mlp":
-            launches.update(deployed_program(torch, d, x_q, name, a_bits,
-                                             out))
+            launches.update(timed("codesign deployed program",
+                                  deployed_program, torch, d, x_q, name,
+                                  a_bits, out))
         del d, x_q
     for part in (readme_search, measured_search):
         t0 = time.time()
         launches.update(part(torch, out))
         out.setdefault("part_s", {})[part.__name__] = time.time() - t0
-    qat_steps(torch, out)
+        print(f"time: codesign {part.__name__} {time.time() - t0:.1f} s")
+    timed("codesign qat steps", qat_steps, torch, out)
     return dict(launches)
 
 
@@ -3581,9 +3675,10 @@ def phase_codesign(torch, details: dict) -> dict:
 #: shape whose tiles cross the diagonal, seamless's three at phase 14's 8
 #: local heads a rank, and the wide pairs' instance: deepseek-v2's MLA
 #: (keys 192 over values 128) at phase 15's training shape (128/128 heads,
-#: B 2, S 1024) and with tiles across the diagonal, gemma-7b's (256, 256)
-#: at its training shape above dense_attn_max (16/16 heads, S 8448) and
-#: with tiles across the diagonal
+#: B 2, S 1024), with tiles across the diagonal, and with the last dq
+#: block's second warpgroup wholly past Sq (`mla_tail`: 130 rows, blocks
+#: of 128), gemma-7b's (256, 256) at its training shape above
+#: dense_attn_max (16/16 heads, S 8448) and with tiles across the diagonal
 BWD_SHAPES = [
     FlashShape("seamless_enc", 8, 256, 256, 16, 16, 64, False, 0),
     FlashShape("seamless_dec", 8, 256, 256, 16, 16, 64, True, 0),
@@ -3598,9 +3693,14 @@ BWD_SHAPES = [
     FlashShape("tp_cross", 8, 200, 320, 8, 8, 64, False, 0),
     FlashShape("mla_train", 2, 1024, 1024, 128, 128, 192, True, 0, 128),
     FlashShape("mla_ragged", 2, 1000, 1000, 16, 16, 192, True, 0, 128),
+    FlashShape("mla_tail", 2, 130, 130, 4, 4, 192, True, 0, 128),
     FlashShape("d256_train", 1, 8448, 8448, 16, 16, 256, True, 0),
     FlashShape("d256_ragged", 2, 1000, 1000, 16, 16, 256, True, 0),
 ]
+#: BWD_SHAPES rows whose forward is also timed (the forward launch a
+#: training step makes, with its log-sum-exp): the wide pairs' training
+#: shapes, which FLASH_SHAPES (serving) does not have
+FWD_TIMED = ("mla_train", "d256_train")
 #: kernel vs plain backward, bf16: each of dq, dk, dv within 4 bf16 steps
 #: (2^-8 relative) of the gradient's max |.|. The two differ in where they
 #: round: the kernel rounds p and ds to bf16 before its products (half a
@@ -3759,6 +3859,46 @@ def on_new_thread(fn):
     return box["out"]
 
 
+def fwd_row(torch, name: str, q, k, v, out_k, scale: float, causal: bool,
+            kv_offset: int) -> dict:
+    """The forward launch a training step makes (with the log-sum-exp) at
+    a backward shape: its output ``out_k`` against the plain version
+    (:func:`flash_tol`, :data:`FLASH_ROW_TOL`), its device time beside
+    the plain version's, SDPA's and the bound."""
+    from repro_torch.kernels.flash_attention import _forward_kernel, \
+        flash_attention_plain
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v.shape
+    kw = dict(causal=causal, kv_offset=kv_offset)
+    want = flash_attention_plain(q, k, v, **kw)
+    err = float((out_k.float() - want.float()).abs().max())
+    tol, row_err = flash_tol(v), flash_row_err(out_k, want)
+    if not (err <= tol and row_err <= FLASH_ROW_TOL):
+        raise AssertionError(
+            f"fwd {name}: kernel vs plain max |err| {err} (tol {tol}), row "
+            f"error {row_err} (tol {FLASH_ROW_TOL})")
+    del want
+    kern = lambda: _forward_kernel(q, k, v, scale, causal,  # noqa: E731
+                                   kv_offset, with_lse=True)
+    b_ms, b_by = flash_bound_ms(b, sq, skv, hq, hkv, d, causal, kv_offset,
+                                dv)
+    row = {"max_abs_err": err, "tol": tol, "row_err": row_err,
+           **device_times(torch, {"ms": (kern, 10),
+                                  "library_ms": (sdpa_fn(torch, q, k, v,
+                                                         causal, kv_offset),
+                                                 10)}),
+           "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(
+               q, k, v, **kw), iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"train fwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
+          f"D={d} DV={dv} causal={causal}, with the log-sum-exp: max |err| "
+          f"{err:.3g} (tol {tol:.3g}), row error {row_err:.3g} (tol "
+          f"{FLASH_ROW_TOL}); device {row['ms']:.4f} ms (plain "
+          f"{row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
+          f"{b_ms:.4f} by {b_by})")
+    return row
+
+
 def bwd_shapes(torch, details: dict) -> dict:
     """The backward kernel against autograd through the plain version at
     :data:`BWD_SHAPES`, each entry point timed; returns the first shape's
@@ -3852,6 +3992,8 @@ def bwd_shapes(torch, details: dict) -> dict:
                 f"second call and a new thread's bitwise equal {bitwise}, "
                 f"delta relative "
                 f"error {delta_err} (tol {DELTA_TOL})")
+        fwd = fwd_row(torch, name, q, k, v, out_k, scale, **kw) \
+            if name in FWD_TIMED else None
         whole_ms, whole_by = bwd_bound_ms(b, sq, skv, hq, hkv, d, causal,
                                           off, dv=dv)
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
@@ -3865,7 +4007,8 @@ def bwd_shapes(torch, details: dict) -> dict:
                "bound_ms": whole_ms, "bound_by": whole_by,
                "entry_bounds": {e: bwd_bound_ms(b, sq, skv, hq, hkv, d,
                                                 causal, off, e, dv=dv)
-                                for e in ENTRY_POINTS}}
+                                for e in ENTRY_POINTS},
+               "forward": fwd}
         rows.append(row)
         print(f"train bwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
               f"Hkv={hkv} D={d} DV={dv} causal={causal} kv_offset={off}: "
@@ -4197,12 +4340,12 @@ def phase_train(torch, details: dict) -> dict:
     """Phase 12. Returns the backward entry points' rows for the kernels
     line and the launches of the seamless run (the main path's)."""
     out = details.setdefault("train", {})
-    rows = bwd_shapes(torch, out)
-    window = train_arch(torch, TRAIN_SEAMLESS, out)
-    llama = train_arch(torch, TRAIN_LLAMA, out)
+    rows = timed("train bwd_shapes", bwd_shapes, torch, out)
+    window = timed("train seamless", train_arch, torch, TRAIN_SEAMLESS, out)
+    llama = timed("train llama3.2-1b", train_arch, torch, TRAIN_LLAMA, out)
     if llama:
         raise AssertionError(f"llama3.2-1b training launched {llama}")
-    resume_check(torch, out)
+    timed("train resume", resume_check, torch, out)
     return {"rows": rows, "launches": window}
 
 
@@ -4212,8 +4355,12 @@ def phase_train(torch, details: dict) -> dict:
 
 #: seamless-m4t-large-v2 at published widths cut to this many encoder and
 #: decoder layers, so that two data-parallel ranks and the one-process
-#: reference share the card and the phase stays short
-PARALLEL_LAYERS = 3
+#: reference share the card and the phase stays short (6, then 3, then 1
+#: since the script once ran past its limit: each run's checkpoints, 7 GB
+#: a step at 3 + 3 layers, and the fp32 gradient bucket through gloo are
+#: host work; the 0.52 B parameters of the embeddings and the output
+#: projection stay)
+PARALLEL_LAYERS = 1
 #: the data-parallel run: TRAIN_SEAMLESS's global batch 8 x seq 256, 2
 #: steps, on the cut arch (its id is filled in by :func:`cut_seamless`)
 PARALLEL_TRAIN = ["--batch", "8", "--seq", "256", "--steps", "2", "--seed",
@@ -4747,21 +4894,23 @@ def phase_parallel(torch, details: dict) -> tuple[dict, dict]:
           f"at the phase's start (the spawned ranks share it)")
     arch_id = cut_seamless()
     with tempfile.TemporaryDirectory() as tmp:
-        ref = one_process_reference(torch, arch_id, tmp)
-    torchrun_world_one(torch, out)
-    mesh = nccl_world_one(torch, arch_id, out)
+        ref = timed("parallel one process", one_process_reference, torch,
+                    arch_id, tmp)
+    timed("parallel torchrun world 1", torchrun_world_one, torch, out)
+    mesh = timed("parallel nccl world 1", nccl_world_one, torch, arch_id,
+                 out)
     launches = collections.Counter()
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            dp = data_parallel(torch, arch_id, ref, "gloo", DP_RANKS, tmp,
-                               "data-parallel", out)
+            dp = timed("parallel gloo ranks", data_parallel, torch, arch_id,
+                       ref, "gloo", DP_RANKS, tmp, "data-parallel", out)
             for r in dp["ranks"]:
                 launches.update(r["launches"])
-            elastic_restore(torch, arch_id, mesh, str(Path(tmp) /
-                                                      "ckpt-gloo"),
-                            dp["ranks"][0]["digest"], out)
+            timed("parallel elastic restore", elastic_restore, torch,
+                  arch_id, mesh, str(Path(tmp) / "ckpt-gloo"),
+                  dp["ranks"][0]["digest"], out)
         with tempfile.TemporaryDirectory() as tmp:
-            pipeline_check(torch, tmp, out)
+            timed("parallel gpipe", pipeline_check, torch, tmp, out)
         n = torch.cuda.device_count()
         if n >= 2:
             with tempfile.TemporaryDirectory() as tmp:
@@ -4859,8 +5008,9 @@ def tp_predictions():
     group must not meet this process's groups). Returns a function that
     waits for it and returns its records with its host seconds (its
     ``kill`` ends it). The whole script starts it beside the kernel
-    build, which times nothing, and waits for it there, so that it
-    takes no host time from any timed window."""
+    build and waits for it after phase 5, so that it takes no host time
+    from the ranks' timed windows (phases 2-5 time the card, and their
+    host times are recorded only)."""
     code = f"""
 import dataclasses, json, sys
 sys.path.insert(0, {str(SRC)!r})
@@ -5026,7 +5176,7 @@ def tp_worker(rank: int, world: int, out_dir: str, backend: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --- seamless cut to 3 + 3 layers: one tensor-parallel train step
+    # --- seamless cut to PARALLEL_LAYERS: one tensor-parallel train step
     arch = registry.get(cut_seamless())
     mod, cfg, rules = arch.model_module(), arch.model, arch_rules(arch)
     b, s, seed = TP_TRAIN["batch"], TP_TRAIN["seq"], TP_TRAIN["seed"]
@@ -5302,13 +5452,14 @@ SMOKE_SERVE = ["llama3.2-1b", "qwen3-8b", "gemma-7b", "yi-34b",
 SMOKE_NEW = 8
 #: the smoke trainings on the card: seamless and deepseek-v2 at the
 #: launcher's default batch 8 x 128 (they always reach the kernels), and
-#: llama3.2-1b at 8448 tokens, above dense_attn_max
+#: llama3.2-1b at 8448 tokens, above dense_attn_max, one step (its CPU
+#: run takes some 7 s a step on the card's host)
 SMOKE_TRAIN = [
     ["--arch", "seamless-m4t-large-v2", "--smoke", "--steps", "3",
      "--batch", "8", "--seq", "128", "--seed", "0", "--log-every", "1"],
     ["--arch", "deepseek-v2-236b", "--smoke", "--steps", "3", "--batch",
      "8", "--seq", "128", "--seed", "0", "--log-every", "1"],
-    ["--arch", "llama3.2-1b", "--smoke", "--steps", "2", "--batch", "1",
+    ["--arch", "llama3.2-1b", "--smoke", "--steps", "1", "--batch", "1",
      "--seq", "8448", "--seed", "0", "--log-every", "1"],
 ]
 #: the card against the CPU on the same weights (fp32 smoke configs): the
@@ -5741,15 +5892,18 @@ def phase_pairs(torch, details: dict) -> dict:
     the launches of the phase's main-path windows: the two published
     trainings and the smoke serving and training runs."""
     out = details.setdefault("pairs", {})
-    rows = f32_shapes(torch, out)
+    rows = timed("pairs f32 shapes", f32_shapes, torch, out)
     launches: collections.Counter = collections.Counter()
     for base, layers, argv in (TRAIN_DEEPSEEK, TRAIN_GEMMA):
-        launches.update(train_arch(torch, ["--arch", cut_arch(base, layers),
-                                           *argv], out))
+        launches.update(timed(f"pairs train {base}", train_arch, torch,
+                              ["--arch", cut_arch(base, layers), *argv],
+                              out))
     for arch_id in SMOKE_SERVE:
-        launches.update(smoke_serve(torch, arch_id, out))
+        launches.update(timed(f"pairs smoke serve {arch_id}", smoke_serve,
+                              torch, arch_id, out))
     for argv in SMOKE_TRAIN:
-        launches.update(smoke_train(torch, argv, out))
+        launches.update(timed(f"pairs smoke train {argv[1]}", smoke_train,
+                              torch, argv, out))
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkdv", *rows):
         if not launches.get(name):
@@ -5791,34 +5945,37 @@ def main(argv=None) -> int:
         print(f"time: phase {name} {details['phase_s'][name]:.1f} s")
         return result
 
-    # phase 14's dry-run beside the kernel build, which times nothing
+    # phase 14's dry-run beside the kernel build and phases 2-5 (one host
+    # process: it shares the host with their recorded host times, but not
+    # the card with their device times), waited for before phase 6
     predicting = tp_predictions()
     try:
         phase("card", phase_card, torch, details)
+        t0 = time.time()
+        prog = compile_network("resnet18")
+        print(f"compile: resnet18 224 -O 0, {len(prog.layers)} layers, "
+              f"fingerprint {prog.fingerprint()[:12]}, "
+              f"{time.time() - t0:.2f} s")
+        ex = CudaExecutor(prog)
+        for lp in prog.layers:
+            bind_synthetic(ex, lp, seed=lp.index)
+        tot = phase("kernels", phase_kernels, torch, prog, ex, details)
+        counts = path_launches(phase("slice", phase_slice, torch, prog, ex,
+                                     details), KERNEL_PATH)
+        tot["depthwise_gemm"], counts["depthwise_gemm"] = phase(
+            "mobilenet_v2", phase_mobilenet, torch,
+            details.setdefault("mobilenet_v2", {}))
+        for t in tot.values():
+            t["bound_by"] = "bytes" if t["bytes"] >= t["operations"] \
+                else "operations"
+        tot["flash_attention"] = phase("flash", phase_flash, torch, details)
+        t0 = time.time()
+        predicted = predicting()
+        print(f"tensor: waited {time.time() - t0:.1f} s for the dry-run "
+              f"after phase flash")
     except BaseException:
         predicting.kill()
         raise
-    t0 = time.time()
-    predicted = predicting()
-    print(f"tensor: waited {time.time() - t0:.1f} s for the dry-run after "
-          f"the build")
-    t0 = time.time()
-    prog = compile_network("resnet18")
-    print(f"compile: resnet18 224 -O 0, {len(prog.layers)} layers, "
-          f"fingerprint {prog.fingerprint()[:12]}, {time.time() - t0:.2f} s")
-    ex = CudaExecutor(prog)
-    for lp in prog.layers:
-        bind_synthetic(ex, lp, seed=lp.index)
-    tot = phase("kernels", phase_kernels, torch, prog, ex, details)
-    counts = path_launches(phase("slice", phase_slice, torch, prog, ex,
-                                 details), KERNEL_PATH)
-    tot["depthwise_gemm"], counts["depthwise_gemm"] = phase(
-        "mobilenet_v2", phase_mobilenet, torch,
-        details.setdefault("mobilenet_v2", {}))
-    for t in tot.values():
-        t["bound_by"] = "bytes" if t["bytes"] >= t["operations"] \
-            else "operations"
-    tot["flash_attention"] = phase("flash", phase_flash, torch, details)
     counts["flash_attention"] = phase("serve", phase_serve, torch, details)
     counts["flash_attention"] += phase("archs", phase_archs, torch, details)
     decode_counts = phase("decode", phase_decode, torch, details)

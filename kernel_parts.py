@@ -58,9 +58,10 @@ form against it.
 
 ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, each entry point
 alone and the two back to back (``pair``, as a train step runs them) at
-seamless's encoder shape, llama's S=2048, qwen2-vl's D=128 and the D=128
-GQA shape whose tiles cross the diagonal (:data:`BWD_SHAPES`), as
-variants (:data:`BWD_VARIANTS`):
+seamless's encoder shape, llama's S=2048, qwen2-vl's D=128, the D=128
+GQA shape whose tiles cross the diagonal and the wide pairs' training
+shapes, MLA's (192, 128) and gemma's (256, 256) (:data:`BWD_SHAPES`), as
+variants (:data:`BWD_VARIANTS`; each edits the wide instance too):
 
     full          the kernel as it is
     no_mma        the tensor-core products taken out (the wgmma
@@ -73,9 +74,16 @@ variants (:data:`BWD_VARIANTS`):
                   the epilogue
     no_pdl        dkdv launched as an ordinary launch, not as a
                   programmatic dependent of dq (timed as the pair)
+    no_stagger    the wide dkdv's WG-K issues dp as soon as its tile
+                  lands, beside WG-V's s, instead of once s is done (at
+                  the wide shapes only)
 
-With ``--parent-bwd PATH`` (an earlier ``flash_attention_bwd.cu``, whose
-entry points take no value head size) it also times that source's pair
+With ``--parent-bwd PATH`` (an earlier ``flash_attention_bwd.cu`` with
+the same entry points, e.g. ``git show
+a4c59dd:src/repro_torch/kernels/csrc/flash_attention_bwd.cu``, the
+wide pairs on ``mma.sync``) it prints, for each kernel both sources
+have, whether the two compile to the same SASS (``cuobjdump``), and
+times that source's pair
 beside this one's at the same shapes, in turns (``turns/parent_1``,
 ``this_1``, ``this_2``, ``parent_2``), so that a change to the source is
 weighed on one card in one call.
@@ -92,6 +100,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -166,9 +175,13 @@ FLASH_VARIANTS = {
                   "  constexpr int NPASS = 1;\n")],
 }
 #: (statement, replacement, occurrences): the wgmma helpers, one per shape
-_BWD_NO_MMA = ('"wgmma.mma_async', '"// wgmma.mma_async', 3)
+#: and operand form
+_BWD_NO_MMA = ('"wgmma.mma_async', '"// wgmma.mma_async', 4)
 _BWD_NO_COMPUTE = [("dkdv_tile<D>(", "if (false) dkdv_tile<D>("),
-                   ("dq_tile<D>(", "if (false) dq_tile<D>(")]
+                   ("dq_tile<D>(", "if (false) dq_tile<D>("),
+                   ("dq_wide_tile<D, DV>(", "if (false) dq_wide_tile<D, DV>("),
+                   ("dv_tile<D, DV>(", "if (false) dv_tile<D, DV>("),
+                   ("dk_tile<D, DV>(", "if (false) dk_tile<D, DV>(")]
 _BWD_NO_COPIES = [
     ('"cp.async.bulk.tensor', '"// cp.async.bulk.tensor'),
     ('"mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;',
@@ -180,12 +193,18 @@ BWD_VARIANTS = {
     "no_mma": [_BWD_NO_MMA],
     "copies_only": _BWD_NO_COMPUTE,
     "empty": [*_BWD_NO_COMPUTE, *_BWD_NO_COPIES],
-    "no_pdl": [("m, a, true);", "m, a, false);", 2)],
+    "no_pdl": [("m, a, true);", "m, a, false);", 4)],
+    "no_stagger": [("  bar_arrive(BAR_S_DONE, 2 * WG);\n", ""),
+                   ("  bar_sync(BAR_S_DONE, 2 * WG);\n", "")],
 }
+#: variants that differ from "full" only at the wide pairs, timed there
+WIDE_VARIANTS = ("no_stagger",)
 #: chip_smoke.BWD_SHAPES rows timed here: seamless's encoder (the
-#: training path's), llama's GQA at S 2048, qwen2-vl's D=128 and the D=128
-#: GQA shape whose tiles cross the diagonal
-BWD_SHAPES = ("seamless_enc", "llama_s2048", "qwen2vl_d128", "gqa_d128")
+#: training path's), llama's GQA at S 2048, qwen2-vl's D=128, the D=128
+#: GQA shape whose tiles cross the diagonal, and the wide pairs' training
+#: shapes (deepseek-v2's MLA, gemma-7b's D 256)
+BWD_SHAPES = ("seamless_enc", "llama_s2048", "qwen2vl_d128", "gqa_d128",
+              "mla_train", "d256_train")
 #: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048,
 #: the two decode-form shapes, the three at D=256 and deepseek-v2's MLA
 #: prefill (keys 192 wide, values 128)
@@ -252,8 +271,8 @@ def main(argv=None) -> int:
                     default=None, help="time one kernel family only")
     ap.add_argument("--parent-bwd", default=None, metavar="PATH",
                     help="also time the flash_attention_bwd.cu at PATH (an "
-                         "earlier version, whose entry points take no value "
-                         "head size) beside this one's, in turns")
+                         "earlier version with the same entry points) beside "
+                         "this one's, in turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -323,9 +342,8 @@ def time_flash(torch, device_times) -> list[dict]:
 
 
 def build_parent(path: str) -> ctypes.CDLL:
-    """``path``, an earlier flash_attention_bwd.cu whose entry points take
-    D alone (no DV), built as the variants are; its entry points bound
-    with the current signatures less the DV argument."""
+    """``path``, an earlier flash_attention_bwd.cu with this one's entry
+    points (the value head size after D), built as the variants are."""
     from repro_torch.kernels import build
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = OUT_DIR / "flash_attention_bwd-parent.so"
@@ -334,16 +352,42 @@ def build_parent(path: str) -> ctypes.CDLL:
                           text=True)
     if proc.returncode:
         raise SystemExit(f"error: nvcc failed on {path}:\n{proc.stderr}")
+    usage = [ln.split(":", 1)[-1].strip()
+             for ln in (proc.stdout + proc.stderr).splitlines()
+             if "Used" in ln or "spill" in ln]
+    print(f"build: flash_attention_bwd parent: ptxas: {'; '.join(usage)}")
     lib = ctypes.CDLL(str(lib_path))
     for entry, argtypes in build.SOURCES["flash_attention_bwd"].items():
         fn = getattr(lib, entry)
-        fn.argtypes = argtypes[:PARENT_DV] + argtypes[PARENT_DV + 1:]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-#: the position of DV in the backward entry points' arguments (after D)
-PARENT_DV = 14
+def sass_of(lib: Path) -> dict[str, str]:
+    """Each kernel's SASS in ``lib`` (``cuobjdump -sass``, beside nvcc), by
+    its name less the source's anonymous namespace, with the instruction
+    addresses' comments taken out."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", name.strip())
+        out[name] = re.sub(r"/\*[0-9a-f]{4,}\*/", "", body)
+    return out
+
+
+def same_sass(this: Path, parent: Path) -> None:
+    """Print, for each kernel of the parent's library that this one also
+    has, whether the two compiled to the same SASS."""
+    mine, theirs = sass_of(this), sass_of(parent)
+    for name in sorted(set(mine) & set(theirs)):
+        print(f"sass {name[:48]}: "
+              + ("the parent's" if mine[name] == theirs[name]
+                 else "differs from the parent's"))
 
 
 def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
@@ -354,6 +398,9 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
     from repro_torch.kernels import flash_attention_bwd as fab
     libs = build_variants("flash_attention_bwd", BWD_VARIANTS)
     old = build_parent(parent) if parent else None
+    if old is not None:
+        same_sass(OUT_DIR / "flash_attention_bwd-full.so",
+                  OUT_DIR / "flash_attention_bwd-parent.so")
     gen = torch.Generator(device="cuda").manual_seed(12)
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
@@ -383,20 +430,21 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
             for entry in fab.ENTRY_POINTS:
                 run(lib, entry)
         fns = {}
+        wide = d > 128
         for vname, lib in libs.items():
+            if vname in WIDE_VARIANTS and not wide:
+                continue  # the same kernels as "full" at (64, 64), (128, 128)
             if vname != "no_pdl":
                 for entry in fab.ENTRY_POINTS:
                     short = entry.replace("flash_attention_bwd_", "")
                     fns[f"{vname}/{short}"] = (
                         lambda lib=lib, entry=entry: run(lib, entry), 20)
-            if vname in ("full", "no_pdl"):
+            if vname in ("full", "no_pdl", *WIDE_VARIANTS):
                 fns[f"{vname}/pair"] = (lambda lib=lib: pair(lib), 20)
         if old is not None:
             def old_pair():
                 for entry in fab.ENTRY_POINTS:
-                    a = args[entry]
-                    rc = getattr(old, entry)(*a[:PARENT_DV],
-                                             *a[PARENT_DV + 1:], stream)
+                    rc = getattr(old, entry)(*args[entry], stream)
                     if rc:
                         raise RuntimeError(f"parent {entry} failed with "
                                            f"error {rc}")
@@ -411,9 +459,9 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
         us = {key: 1e3 * t for key, t in device_times(torch, fns).items()}
         rows.append({"kernel": "flash_attention_bwd", "shape": name, "b": b,
                      "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d,
-                     "causal": causal, "kv_offset": off, "us": us})
+                     "dv": dv, "causal": causal, "kv_offset": off, "us": us})
         print(f"flash_attention_bwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
-              f"Hkv={hkv} D={d} causal={causal}: " + "; ".join(
+              f"Hkv={hkv} D={d} DV={dv} causal={causal}: " + "; ".join(
                   f"{key} {t:.2f} us" for key, t in us.items()))
         del q, k, v, out, dout, lse, delta, grads
     return rows

@@ -28,18 +28,27 @@ class SyntheticTokens:
         ranks = np.arange(1, vocab + 1, dtype=np.float64)
         p = 1.0 / ranks
         self._unigram = p / p.sum()
+        # ``Generator.choice(vocab, size, p=unigram)`` draws
+        # ``cdf.searchsorted(random(size), side="right")`` with this cdf,
+        # which it rebuilds from p on every call (O(vocab) a position);
+        # built once here, the draws are the same
+        cdf = self._unigram.cumsum()
+        cdf /= cdf[-1]
+        self._cdf = cdf
         self._rng = np.random.default_rng(seed + 1)
+
+    def _unigram_draw(self, n: int) -> np.ndarray:
+        return self._cdf.searchsorted(self._rng.random(n), side="right")
 
     def next_batch(self) -> dict:
         b, s = self.batch, self.seq
         out = np.empty((b, s), np.int32)
-        cur = self._rng.choice(self.vocab, size=b, p=self._unigram)
+        cur = self._unigram_draw(b)
         out[:, 0] = cur
         for t in range(1, s):
             use_bigram = self._rng.random(b) < self._peak
             nxt = np.where(use_bigram, self._succ[cur],
-                           self._rng.choice(self.vocab, size=b,
-                                            p=self._unigram))
+                           self._unigram_draw(b))
             out[:, t] = nxt
             cur = nxt
         return {"tokens": torch.from_numpy(out)}

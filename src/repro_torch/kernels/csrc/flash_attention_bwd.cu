@@ -14,9 +14,9 @@
 // 16-byte aligned rows (what a TMA tensor map takes); dq [B, Sq, Hq, D],
 // dk [B, Skv, Hkv, D] and dv [B, Skv, Hkv, DV] bf16, contiguous; lse (the
 // forward's m + log l) and delta [B, Hq, Sq] fp32, contiguous. (D, DV) in
-// {(64, 64), (128, 128)}, the wgmma plan below, and {(192, 128), (256,
-// 256)}, the mma.sync instance of "wide pairs". Query head h reads KV head
-// h / (Hq / Hkv).
+// {(64, 64), (128, 128)}, the plan below, and {(192, 128), (256, 256)},
+// its "wide pairs" instance (one block an SM, dkdv's products split over
+// two warpgroups). Query head h reads KV head h / (Hq / Hkv).
 //
 // Numerics (FlashAttention-2's backward): with s = (q . k) * scale masked
 // as the forward masks it (-inf past Skv, and where causal, key > query +
@@ -47,7 +47,9 @@
 // its whole group of query heads so that no two blocks add into one dk
 // or dv. No training path of the port sends such a shape (LMs reach this
 // kernel only above 8192 tokens, where the key tiles fill the card), so
-// the group is not split over blocks.
+// the group is not split over blocks. At the wide pairs (MLA's 128 heads
+// at S 1024, gemma's S 8448) the operations bound it, 0.31 and 2.07 ms at
+// the bf16 peak; their instance is described where it begins.
 //
 // Design.
 //   * Both kernels are warp-specialised: one producer warp loads tiles by
@@ -761,471 +763,564 @@ __global__ void __launch_bounds__(2 * WG, BLOCKS_SM)
   }
 }
 
-// -------------------------------------------- wide pairs (mma.sync) ---
+// ------------------------------------------------ wide pairs (wgmma) ---
 //
-// (192, 128), MLA's keys over values, and (256, 256), gemma's. The wgmma
-// plan above does not hold them: dkdv's warpgroup would keep dK and dV in
-// fp32 registers, 160 a thread at (192, 128) and 256 at (256, 256), beside
-// the s and dp fragments; and at D 256 the K and V tiles and one Q + dO
-// ring stage take 128 KiB, past a block's share at two blocks an SM. So
-// these pairs have an instance of their own, FlashAttention-2's backward
-// on mma.sync m16n8k16 (bf16 -> fp32), one block an SM, cp.async rings:
-//   * dq: one block of 4 warps per (64-row query tile, query head, batch),
-//     each warp 16 rows, the Q and dout tiles loaded once, the K and V
-//     tiles through a 2-stage ring; it computes its rows' delta from the
-//     dout tile and o and writes it for dkdv, as the wgmma dq does. dq
-//     takes D / 2 fp32 registers a thread (128 at D 256);
-//   * dkdv: one block of 8 warps per (64-key tile, KV head, batch) over
-//     the query tiles of the KV head's query heads (no two blocks add into
-//     one row, no atomics). Warps 0-3 own dV and warps 4-7 dK, each warp
-//     16 keys: both compute s^T = K Q^T for their keys, the dV warps then
-//     p and dv += p^T . dout, the dK warps dp^T = V dout^T, ds and dk +=
-//     ds^T . q. So each warp holds one accumulator (DV / 2 or D / 2
-//     registers, at most 128) and s is computed twice, one product of the
-//     six: the separate dV and dK passes of the forward's D 256, in one
-//     launch that streams each Q and dout tile once.
-// Tiles are bf16 rows of 16-byte chunks swizzled by (row & 7); A fragments
-// by ldmatrix.x4 on a tile's rows (or p and ds packed from C fragments), B
-// fragments by ldmatrix.x4 ([n][k] tiles) or ldmatrix.x4.trans ([k][n]).
-// The numerics are those of the wgmma kernels: p by ex2.approx from the
-// forward's lse, p and ds rounded to bf16 for their products, fp32
-// accumulators, every sum in one fixed order.
+// (192, 128), MLA's keys over values, and (256, 256), gemma's, on the same
+// wgmma + TMA machinery as the plan above. That plan does not hold them as
+// it stands: its dkdv warpgroup keeps dK and dV in fp32 registers (160 a
+// thread at (192, 128), 256 at (256, 256)) beside s and dp, and at D 256
+// the K and V tiles and one Q + dO ring stage take 128 KiB, past a block's
+// share at two blocks an SM. So the wide instances run one block an SM:
+//   * dkdv: one block per (64-key tile, KV head, batch), three
+//     warpgroups. The producer warp loads K [64 x D] and V [64 x DV] once
+//     and a ring of Q [64 x D] and dO [64 x DV] tiles (2 stages at D 256,
+//     4 at (192, 128)) with their lse and delta rows. The two consumer
+//     warpgroups split the work by product, so that each product is
+//     computed once: WG-V computes s^T = K Q^T (depth D) and p, puts p
+//     (fp32, 16 KiB) in shared memory for WG-K and adds dv += p^T . dO;
+//     WG-K computes dp^T = V dO^T (depth DV), takes p on a named barrier,
+//     forms ds = p (dp - delta) and adds dk += ds^T . Q. Both take the
+//     same depth (D + DV) a tile and hold one accumulator (DV / 2 and D / 2
+//     fp32 a thread, at most 128) beside their 32 score values: with
+//     setmaxnreg a consumer thread takes 240 registers and the producer
+//     24. WG-K starts dp once WG-V's s is done (a third named barrier,
+//     S_DONE): s then has the tensor cores and shared memory to itself,
+//     and dp runs while WG-V turns s into p. At (192, 128) K and V also
+//     fit in the registers, as the A operands of s and dp (A_REGS), which
+//     then read only Q and dO from shared memory.
+//   * dq: one block per (NW x 64 query rows, query head, batch), one
+//     consumer warpgroup per 64 rows (dq takes D / 2 fp32 a thread, 128 at
+//     D 256), the Q and dO tiles loaded once, the K and V tiles through a
+//     ring shared by the warpgroups (2 stages at D 256, 3 at (192, 128));
+//     delta as in dq_kernel. Two warpgroups (at (192, 128); at D 256 their
+//     tiles leave no room for two stages) halve the K and V bytes a query
+//     row and fill each other's gaps on the tensor cores.
+// The products over a tile's rows (N = D or DV, past wgmma's 64-row A
+// tile) are n128 and n64 wgmmas over the tile's 64-column boxes. Every
+// warpgroup waits for its products within the tile: keeping one in flight
+// into the next tile (dq's or WG-V's next s behind the last product) made
+// ptxas serialise every wgmma of the kernel, and WG-K issuing the next
+// tile's dp before it waits for p was slower. Causal tiles with the most
+// work start first, the tiles of one head run side by side (their blocks
+// stream the same tiles, from L2), and dkdv is a programmatic dependent of
+// dq, as in the plan above.
 
-namespace wide {
+// ring stages, at most 4, that fit beside `fixed` bytes in the 227 KiB a
+// block may take at one block an SM (1 KiB for alignment, 1 for barriers)
+constexpr int wide_stages(int fixed, int stage) {
+  return (232448 - 2048 - fixed) / stage < 4
+             ? (232448 - 2048 - fixed) / stage
+             : 4;
+}
+// a wide block of two consumer warpgroups and a producer warpgroup (dkdv,
+// and dq with NW 2): its threads' registers under setmaxnreg
+constexpr int WIDE_CONSUMER_REGS = 240, WIDE_PRODUCER_REGS = 24;
+static_assert(WG * (2 * WIDE_CONSUMER_REGS + WIDE_PRODUCER_REGS) <= 65536,
+              "the registers of a wide block");
+// named barriers between dkdv's consumer warpgroups: p is in shared
+// memory; WG-K has read it; WG-V's s is done
+constexpr int BAR_P_FULL = 1, BAR_P_FREE = 2, BAR_S_DONE = 3;
 
-constexpr int BQ = 64;    // dq: query rows of a block (4 warps x 16)
-constexpr int BKV = 64;   // keys of a tile (dkdv: of a block)
-constexpr int QT = 64;    // dkdv: query rows of a streamed tile
-constexpr int NST = 2;    // ring stages
-constexpr int DQ_THREADS = 128, DKDV_THREADS = 256;
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
-struct WArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* out;
-  const bf16* dout;
-  const float* lse;
-  float* delta;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int Sq, Skv, Hq, Hkv, rep;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
-  float scale, scale_log2;
-  int causal, kv_offset;
+// d[64 x N] += A . B over k16 (N a multiple of 64): A from registers, B
+// k-step kk of an MN-major R x N tile of N / 64 boxes, as n128 wgmmas over
+// box pairs and an n64 over a last odd box
+template <int N, int R>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              const bf16* tile, int kk) {
+#pragma unroll
+  for (int c = 0; c + 128 <= N; c += 128)
+    wgmma_rs_n128_mn(*reinterpret_cast<float(*)[64]>(d + c / 2), a,
+                     desc_mn<R>(tile + c * R, kk));
+  if constexpr (N % 128 != 0)
+    wgmma_rs_n64_mn(*reinterpret_cast<float(*)[32]>(d + N / 2 - 32), a,
+                    desc_mn<R>(tile + (N - 64) * R, kk));
+}
+
+// d[32] (+)= A . B over k16, A from registers, B from shared memory,
+// K-major; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36,"
+      " p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The register A fragments (wgmma's layout: the accumulator's, in bf16
+// pairs) of the warpgroup's rows of every k-step of a 64-row K-major tile
+// of N / 64 boxes of 128-byte swizzled rows: ldmatrix.x4 of each 16 x 16
+// slice, lanes 0-15 giving rows of its first 8 columns, 16-31 of its last.
+template <int N>
+__device__ __forceinline__ void load_a(uint32_t (*a)[4], const bf16* tile,
+                                       int warp, int lane) {
+  const int row = 16 * warp + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const int c = 2 * kk + (lane >> 4);  // the row's 16-byte chunk
+    const bf16* p = tile + (c >> 3) * ROWS * BOX + row * BOX +
+                    (((c & 7) ^ (row & 7)) << 3);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[kk][0]), "=r"(a[kk][1]), "=r"(a[kk][2]), "=r"(a[kk][3])
+        : "r"(smem_u32(p))
+        : "memory");
+  }
+}
+
+template <int D, int DV>
+struct WideDqSmem {
+  static constexpr int Q = ROWS * D, O = ROWS * DV;  // a Q and a dO tile
+  static constexpr int STAGE = ROWS * (D + DV);      // a K and a V tile
+  // consumer warpgroups, each with its own 64 query rows on one stream of
+  // K and V tiles: two where two ring stages still fit beside their Q and
+  // dO tiles, else one
+  static constexpr int NW = wide_stages(4 * (Q + O), 2 * STAGE) >= 2 ? 2 : 1;
+  static constexpr int ST = wide_stages(2 * NW * (Q + O), 2 * STAGE);
+  static constexpr int RING = NW * (Q + O);          // ST stages after them
+  static constexpr int BARS = 2 * (RING + ST * STAGE);  // bytes
+  static constexpr int BYTES = BARS + (1 + 2 * ST) * 8;
 };
 
-// element offset of 16-byte chunk `chunk` of row `row` in a [.][W] tile
-// whose chunks are swizzled by (row & 7) (W a multiple of 64)
-template <int W>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * W + ((chunk ^ (row & 7)) << 3);
-}
-// the offset within a row of chunk 2 i + c0, z = c0 ^ (row & 7)
-__device__ __forceinline__ int swz_step(int i, int z) {
-  return (((2 * i) & ~7) + (((2 * i) & 7) ^ z)) << 3;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a . b on one m16n8k16 tile (bf16 in, fp32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [0, n) of an NROWS x W tile from g (row stride ld) into its
-// swizzled shared tile by 16-byte cp.async, NT threads; zeros from row n
-template <int W, int NROWS, int NT>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long ld, int n, int tid) {
-  constexpr int CH = W / 8;
-  static_assert(NROWS * CH % NT == 0, "tile chunks per thread");
-#pragma unroll
-  for (int it = 0; it < NROWS * CH / NT; ++it) {
-    const int i = tid + it * NT, r = i / CH, c = i % CH;
-    const bool ok = r < n;
-    cp_async16(s + swz<W>(r, c), g + (ok ? r * ld : 0) + c * 8, ok);
-  }
-}
-
-// C [16 rows][NB * 8 cols] += A . B^T over W: A the warp's 16 rows of a
-// swizzled [.][W] tile (a_lane at the lane's row), B the rows [0, NB * 8)
-// of another
-template <int W, int NB>
-__device__ __forceinline__ void mma_abt(float (&c)[NB][4], const bf16* a_lane,
-                                        const bf16* b, int brow, int za,
-                                        int zb) {
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a_lane + swz_step(kk, za));
-#pragma unroll
-    for (int jj = 0; jj < NB / 2; ++jj) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (brow + 16 * jj) * W + swz_step(kk, zb));
-      mma_bf16(c[2 * jj], af, bf[0], bf[1]);
-      mma_bf16(c[2 * jj + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc [16 rows][W] += P . T: P [16][NB * 8] in C fragments (rounded to
-// bf16 here), T the rows [0, NB * 8) of a swizzled [.][W] tile
-template <int W, int NB>
-__device__ __forceinline__ void mma_pt(float (*acc)[4],
-                                       const float (&p)[NB][4], const bf16* t,
-                                       int trow, int zt) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int jj = 0; jj < W / 16; ++jj) {
-      uint32_t tf[4];
-      ldsm_x4_trans(tf, t + (trow + 16 * kk) * W + swz_step(jj, zt));
-      mma_bf16(acc[2 * jj], pa, tf[0], tf[1]);
-      mma_bf16(acc[2 * jj + 1], pa, tf[2], tf[3]);
-    }
-  }
-}
-
-// rows r and r + 8 of a [B, S, H, W] output (contiguous) from a warp's C
-// fragments acc [W / 8][4] times `mul`; row i of the pair is `rows[i]`
-template <int W>
-__device__ __forceinline__ void store_pair(bf16* out, float (*acc)[4],
-                                           float mul, const int (&rows)[2],
-                                           int S, int H, int b, int h,
-                                           int t4) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= S) continue;
-    bf16* row = out + (((long long)b * S + rows[i]) * H + h) * W + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < W / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) = __floats2bfloat162_rn(
-          acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
-  }
-}
-
-// dq and delta of one 64-row query tile of one query head of one batch
+// One KV tile of a wide dq block (`Ks`, V after it): s over D and dp over
+// DV, p and ds, and dq += ds . k.
 template <int D, int DV>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
-    dq_wide_kernel(const WArgs a) {
-  constexpr int NB = BKV / 8;               // n-blocks of a score tile
-  constexpr int STAGE = BKV * (D + DV);     // a K and a V tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][D]
-  bf16* dOs = Qs + BQ * D;                   // [BQ][DV]
-  bf16* ring = dOs + BQ * DV;                // [NST][K [BKV][D], V [BKV][DV]]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.rep;
-  // causal: the query tiles with the most KV tiles start first
-  const int q0 = BQ * (a.causal ? (int)gridDim.z - 1 - (int)blockIdx.z
-                                : (int)blockIdx.z);
-  const bf16* kg = a.k + b * a.k_sb + hk * a.k_sh;
-  const bf16* vg = a.v + b * a.v_sb + hk * a.v_sh;
-  const int r0 = q0 + 16 * warp;
-  const int qpos[2] = {r0 + g + a.kv_offset, r0 + g + 8 + a.kv_offset};
-  const int qlo = r0 + a.kv_offset;
-  const int qhi = min(r0 + 16, a.Sq) - 1 + a.kv_offset;
-  int kv_end = a.Skv;
-  if (a.causal) kv_end = min(kv_end, min(q0 + BQ, a.Sq) + a.kv_offset);
-  const int n_tiles = (kv_end + BKV - 1) / BKV;
-
-  auto issue_tile = [&](int t) {
-    bf16* ks = ring + (t % NST) * STAGE;
-    const int kt = t * BKV;
-    load_tile<D, BKV, DQ_THREADS>(ks, kg + kt * a.k_ss, a.k_ss, a.Skv - kt,
-                                  tid);
-    load_tile<DV, BKV, DQ_THREADS>(ks + BKV * D, vg + kt * a.v_ss, a.v_ss,
-                                   a.Skv - kt, tid);
-  };
-  load_tile<D, BQ, DQ_THREADS>(Qs, a.q + b * a.q_sb + h * a.q_sh +
-                                       q0 * a.q_ss,
-                               a.q_ss, a.Sq - q0, tid);
-  load_tile<DV, BQ, DQ_THREADS>(dOs, a.dout + b * a.do_sb + h * a.do_sh +
-                                         q0 * a.do_ss,
-                                a.do_ss, a.Sq - q0, tid);
-  if (n_tiles > 0) issue_tile(0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // rows g and g + 8 of the warp: lse in base 2, and delta = rowsum(dout
-  // * o) in fp32 (each of a quad's threads takes every fourth 16-byte
-  // chunk of the row, then the quad sums its four parts), written for dkdv
-  float l2[2], dl[2];
+__device__ __forceinline__ void dq_wide_tile(
+    const bf16* Qs, const bf16* dOs, const bf16* Ks, int kt, int q0,
+    const Args& a, const float (&l2)[2], const float (&dl)[2],
+    float (&dq)[D / 2], const Frag& f) {
+  float s[32], dp[32];
+  wg_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int rr = 16 * warp + g + 8 * i, r = q0 + rr;
-    float sum = 0.f;
-    if (r < a.Sq) {
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, desc_k<ROWS>(Qs, kk), desc_k<ROWS>(Ks, kk), kk);
+  wg_commit();
+#pragma unroll
+  for (int kk = 0; kk < DV / 16; ++kk)
+    wgmma_ss_n64(dp, desc_k<ROWS>(dOs, kk), desc_k<ROWS>(Ks + ROWS * D, kk),
+                 kk);
+  wg_commit();
+  wg_wait<1>();
+  fence_regs(s);
+  const bool edge = kt + ROWS > a.Skv || q0 + ROWS > a.Sq ||
+                    (a.causal && kt + ROWS - 1 > q0 + a.kv_offset);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hr = (i >> 1) & 1;
+    float p = fast_exp2(s[i] * a.scale_log2 - l2[hr]);
+    if (edge) {
+      const int key = kt + 8 * (i >> 2) + 2 * f.t4 + (i & 1);
+      const int q = q0 + 16 * f.warp + f.g + 8 * hr;
+      if (q >= a.Sq || key >= a.Skv || (a.causal && key > q + a.kv_offset))
+        p = 0.f;
+    }
+    s[i] = p;
+  }
+  wg_wait<0>();
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+  uint32_t da[4][4];
+  to_a<ROWS>(da, dp);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_cols<D, ROWS>(dq, da[kk], Ks, kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(dq);
+}
+
+// dq, and the rows' delta, of NW x 64 query rows (blockIdx.x) of one query
+// head (blockIdx.y) of one batch (blockIdx.z): consumer warpgroup w takes
+// rows [64 w, 64 w + 64) of the block's and the KV tiles they see; the
+// last warpgroup's first thread loads. The query tiles of a head are
+// neighbours in the grid (the last first where causal), so the blocks
+// that stream the same K and V tiles run together and read them from L2.
+template <int D, int DV>
+__global__ void __launch_bounds__((WideDqSmem<D, DV>::NW + 1) * WG, 1)
+    dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using L = WideDqSmem<D, DV>;
+  constexpr int ST = L::ST, NW = L::NW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* qd = reinterpret_cast<bf16*>(smem);  // NW x [Q, dO]
+  bf16* ring = qd + L::RING;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.rep;
+  // causal: the query rows with the most KV tiles start first
+  const int q0 = NW * ROWS *
+                 (a.causal ? (int)gridDim.x - 1 - (int)blockIdx.x
+                           : (int)blockIdx.x);
+  // the KV tiles of query rows [r0, r0 + 64), and of the block's
+  auto kv_tiles = [&](int r0) {
+    if (r0 >= a.Sq) return 0;
+    int kv_end = a.Skv;
+    if (a.causal) kv_end = min(kv_end, min(r0 + ROWS, a.Sq) + a.kv_offset);
+    return (kv_end + ROWS - 1) / ROWS;
+  };
+  int n_tiles = 0;
+  for (int w = 0; w < NW; ++w) n_tiles = max(n_tiles, kv_tiles(q0 + w * ROWS));
+
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  launch_dependents();
+
+  if (tid >= NW * WG) {  // the producer warpgroup: its first thread loads
+    if constexpr (NW > 1) reg_dealloc<WIDE_PRODUCER_REGS>();
+    if (tid == NW * WG) {
+      mbar_expect(qd_full, 2 * NW * (L::Q + L::O));
+      for (int w = 0; w < NW; ++w) {
+        bf16* qs = qd + w * (L::Q + L::O);
+        tma_tile<D, ROWS>(qs, &tq, qd_full, h, q0 + w * ROWS, b);
+        tma_tile<DV, ROWS>(qs + L::Q, &tdo, qd_full, h, q0 + w * ROWS, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
+        bf16* ks = ring + s * L::STAGE;
+        mbar_expect(&full[s], 2 * L::STAGE);
+        tma_tile<D, ROWS>(ks, &tk, &full[s], hk, t * ROWS, b);
+        tma_tile<DV, ROWS>(ks + ROWS * D, &tv, &full[s], hk, t * ROWS, b);
+      }
+    }
+  } else {
+    if constexpr (NW > 1) reg_alloc<WIDE_CONSUMER_REGS>();
+    const Frag f(tid & (WG - 1));
+    const int lane = tid & 31, w = tid / WG, qw = q0 + w * ROWS;
+    const int mine = kv_tiles(qw);  // this warpgroup's KV tiles
+    const bf16* Qs = qd + w * (L::Q + L::O);
+    const bf16* dOs = Qs + L::Q;
+    const long long row0 = ((long long)b * a.Hq + h) * a.Sq;
+    float l2[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = qw + 16 * f.warp + f.g + 8 * hr;
+      l2[hr] = r < a.Sq ? a.lse[row0 + r] * LOG2E : 0.f;
+    }
+    // delta = rowsum(dout * o) over DV in fp32, as dq_kernel takes it
+    uint4 ov[2][DV / 32];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = qw + 16 * f.warp + f.g + 8 * hr;
       const bf16* orow = a.out + b * a.o_sb + r * a.o_ss + h * a.o_sh;
 #pragma unroll
+      for (int m = 0; m < DV / 32; ++m)
+        ov[hr][m] = r < a.Sq ? *reinterpret_cast<const uint4*>(
+                                   orow + 8 * (f.t4 + 4 * m))
+                             : make_uint4(0, 0, 0, 0);
+    }
+    mbar_wait(qd_full, 0);
+    float dl[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int rr = 16 * f.warp + f.g + 8 * hr, r = qw + rr;
+      float sum = 0.f;
+#pragma unroll
       for (int m = 0; m < DV / 32; ++m) {
-        const int c = t4 + 4 * m;
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(dOs + swz<DV>(rr, c));
+        const int c = f.t4 + 4 * m, e = c >> 3, cc = c & 7;
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            dOs + e * ROWS * BOX + rr * BOX + ((cc ^ (rr & 7)) << 3));
         const __nv_bfloat162* o2 =
-            reinterpret_cast<const __nv_bfloat162*>(&ov);
+            reinterpret_cast<const __nv_bfloat162*>(&ov[hr][m]);
         const __nv_bfloat162* d2 =
             reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 of = __bfloat1622float2(o2[e]);
-          const float2 df = __bfloat1622float2(d2[e]);
+        for (int k = 0; k < 4; ++k) {
+          const float2 of = __bfloat1622float2(o2[k]);
+          const float2 df = __bfloat1622float2(d2[k]);
           sum += of.x * df.x + of.y * df.y;
         }
       }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      dl[hr] = sum;
+      if (f.t4 == 0 && r < a.Sq) a.delta[row0 + r] = sum;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    dl[i] = sum;
-    const long long row = ((long long)b * a.Hq + h) * a.Sq + r;
-    l2[i] = r < a.Sq ? a.lse[row] * LOG2E : 0.f;
-    if (t4 == 0 && r < a.Sq) a.delta[row] = sum;
-  }
 
-  float dq[D / 8][4];
+    float dq[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const int arow = 16 * warp + (lane & 15);
-  const int brow = (lane & 7) + ((lane >> 4) << 3);
-  const int trow = lane & 15;
-  const int za = (lane >> 4) ^ (lane & 7);
-  const int zb = ((lane >> 3) & 1) ^ (lane & 7);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t landed; tile t - 1 read by all
-    if (t + 1 < n_tiles) issue_tile(t + 1);
-    cp_async_commit();
-    const bf16* ks = ring + (t % NST) * STAGE;
-    const bf16* vs = ks + BKV * D;
-    const int kt = t * BKV;
-    if (qhi < qlo || (a.causal && kt > qhi)) continue;
-    const bool edge = kt + BKV > a.Skv || (a.causal && kt + BKV - 1 > qlo);
-    // s = Q K^T and dp = dout V^T over the warp's 16 rows x 64 keys
-    float s[NB][4], dp[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D, NB>(s, Qs + arow * D, ks, brow, za, zb);
-    mma_abt<DV, NB>(dp, dOs + arow * DV, vs, brow, za, zb);
-    // element e of n-block j: row g + 8 (e / 2), key kt + 8 j + 2 t4 + e % 2
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float p = fast_exp2(s[j][e] * a.scale_log2 - l2[i]);
-        if (edge) {
-          const int key = kt + 8 * j + 2 * t4 + (e & 1);
-          if (key >= a.Skv || (a.causal && key > qpos[i])) p = 0.f;
-        }
-        dp[j][e] = p * (dp[j][e] - dl[i]);
-      }
-    mma_pt<D, NB>(dq, dp, ks, trow, za);  // dq += ds . k
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % ST;
+      mbar_wait(&full[s], (t / ST) & 1);
+      // a tile past this warpgroup's last is only released
+      if (t < mine)
+        dq_wide_tile<D, DV>(Qs, dOs, ring + s * L::STAGE, t * ROWS, qw, a,
+                            l2, dl, dq, f);
+      release(&empty[s], lane);
+    }
+    store_rows<D>(a.dq, dq, a.scale, f, b, qw, a.Sq, a.Hq, h);
   }
-  cp_async_wait_all();
-  const int rows[2] = {r0 + g, r0 + g + 8};
-  store_pair<D>(a.dq, dq, a.scale, rows, a.Sq, a.Hq, b, h, t4);
 }
 
-// dk and dv of 64 keys of one KV head of one batch: warps 0-3 dv, 4-7 dk
 template <int D, int DV>
-__global__ void __launch_bounds__(DKDV_THREADS, 1)
-    dkdv_wide_kernel(const WArgs a) {
-  constexpr int NB = QT / 8;                 // n-blocks of a score tile
-  constexpr int STAGE = QT * (D + DV);       // a Q and a dout tile
-  constexpr int AW = D > DV ? D : DV;        // the wider accumulator
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BKV][D]
-  bf16* Vs = Ks + BKV * D;                   // [BKV][DV]
-  bf16* ring = Vs + BKV * DV;                // [NST][Q [QT][D], dO [QT][DV]]
-  float* Ls = reinterpret_cast<float*>(ring + NST * STAGE);  // [NST][QT]
-  float* Ds = Ls + NST * QT;                                 // [NST][QT]
+struct WideDkdvSmem {
+  static constexpr int K = ROWS * D, V = ROWS * DV;  // the K and V tiles
+  static constexpr int STAGE = QT * (D + DV);        // a Q and a dO tile
+  static constexpr int P = ROWS * QT;                // p, fp32
+  static constexpr int ST =
+      wide_stages(2 * (K + V) + 4 * P, 2 * STAGE + 8 * QT);
+  static constexpr int RING = K + V;                 // ST stages after V
+  static constexpr int PS = 2 * (RING + ST * STAGE);  // bytes
+  static constexpr int STATS = PS + 4 * P;
+  static constexpr int BARS = STATS + ST * 2 * QT * 4;
+  static constexpr int BYTES = BARS + (1 + 2 * ST) * 8;
+  // K in WG-V's and V in WG-K's registers as the A operands of s and dp
+  // (so those products read only Q and dO from shared memory), where each
+  // warpgroup's accumulator and fragments take at most 128 of its 240
+  static constexpr bool A_REGS = DV / 2 + D / 4 <= 128 && D / 2 + DV / 4 <= 128;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool dv_warp = warp < 4;
-  const int kw0 = blockIdx.x * BKV + 16 * (warp & 3);
-  const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
-  // query tiles: from the first that can see key k0, over the rep heads
+// WG-V on tile t, (query head, query tile) from q0, of a wide dkdv block:
+// s^T = K Q^T over D, p (into shared memory for WG-K, once WG-K has read
+// the last tile's), dv += p^T . dO. `ls` is the tile's lse. WG-K starts
+// its dp only once s is done (S_DONE), so that s has the tensor cores
+// alone and dp runs while WG-V turns s into p.
+template <int D, int DV>
+__device__ __forceinline__ void dv_tile(const bf16* Ks,
+                                        const uint32_t (*ka)[4],
+                                        const bf16* Qs, const bf16* dOs,
+                                        float4* ps, const float* ls, int kc,
+                                        int q0, int t, const Args& a,
+                                        float (&dv)[DV / 2], const Frag& f,
+                                        int ltid) {
+  float s[QT / 2];
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    if constexpr (WideDkdvSmem<D, DV>::A_REGS)
+      wgmma_rs_n64_k(s, ka[kk], desc_k<QT>(Qs, kk), kk);
+    else
+      wgmma_ss_n64(s, desc_k<ROWS>(Ks, kk), desc_k<QT>(Qs, kk), kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+  // WG-K has read the last tile's p (and so has passed its S_DONE)
+  if (t > 0) bar_sync(BAR_P_FREE, 2 * WG);
+  bar_arrive(BAR_S_DONE, 2 * WG);
+  const bool edge = kc + ROWS > a.Skv || q0 + QT > a.Sq ||
+                    (a.causal && kc + ROWS - 1 > q0 + a.kv_offset);
+#pragma unroll
+  for (int i = 0; i < QT / 2; ++i) {
+    const int c = 8 * (i >> 2) + 2 * f.t4 + (i & 1);
+    float p = fast_exp2(s[i] * a.scale_log2 - ls[c] * LOG2E);
+    if (edge) {
+      const int key = kc + 16 * f.warp + f.g + 8 * ((i >> 1) & 1);
+      const int q = q0 + c;
+      if (q >= a.Sq || key >= a.Skv || (a.causal && key > q + a.kv_offset))
+        p = 0.f;
+    }
+    s[i] = p;
+  }
+#pragma unroll
+  for (int i = 0; i < QT / 8; ++i)
+    ps[i * WG + ltid] =
+        make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+  bar_arrive(BAR_P_FULL, 2 * WG);
+  uint32_t pa[QT / 16][4];
+  to_a<QT>(pa, s);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < QT / 16; ++kk)
+    wgmma_rs_cols<DV, QT>(dv, pa[kk], dOs, kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(dv);
+}
+
+// WG-K on one tile of a wide dkdv block: dp^T = V dO^T over DV once WG-V's
+// s is done, then p from WG-V, ds = p (dp - delta) and dk += ds^T . Q.
+// `dl` is the tile's delta; `last` the block's last tile (WG-V waits for
+// no P_FREE after it).
+template <int D, int DV>
+__device__ __forceinline__ void dk_tile(const bf16* Vs,
+                                        const uint32_t (*va)[4],
+                                        const bf16* Qs, const bf16* dOs,
+                                        const float4* ps, const float* dl,
+                                        bool last, float (&dk)[D / 2],
+                                        const Frag& f, int ltid) {
+  float dp[QT / 2];
+  bar_sync(BAR_S_DONE, 2 * WG);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < DV / 16; ++kk)
+    if constexpr (WideDkdvSmem<D, DV>::A_REGS)
+      wgmma_rs_n64_k(dp, va[kk], desc_k<QT>(dOs, kk), kk);
+    else
+      wgmma_ss_n64(dp, desc_k<ROWS>(Vs, kk), desc_k<QT>(dOs, kk), kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(dp);
+  bar_sync(BAR_P_FULL, 2 * WG);
+#pragma unroll
+  for (int i4 = 0; i4 < QT / 8; ++i4) {
+    const float4 p4 = ps[i4 * WG + ltid];
+    const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * i4 + j, c = 8 * (i >> 2) + 2 * f.t4 + (i & 1);
+      dp[i] = p[j] * (dp[i] - dl[c]);
+    }
+  }
+  if (!last) bar_arrive(BAR_P_FREE, 2 * WG);
+  uint32_t da[QT / 16][4];
+  to_a<QT>(da, dp);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < QT / 16; ++kk)
+    wgmma_rs_cols<D, QT>(dk, da[kk], Qs, kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(dk);
+}
+
+// dk and dv of 64 keys (blockIdx.x) of one KV head (blockIdx.y) of one
+// batch (blockIdx.z), over the query tiles of the KV head's query heads.
+// The key tiles of a head are neighbours in the grid (the first, with the
+// most query tiles where causal, first), so the blocks that stream the
+// same Q and dO tiles run together and read them from L2. Warpgroup 0
+// (WG-V) computes s, p and dv, warpgroup 1 (WG-K) dp, ds and dk;
+// warpgroup 2's first warp loads.
+template <int D, int DV>
+__global__ void __launch_bounds__(3 * WG, 1)
+    dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using L = WideDkdvSmem<D, DV>;
+  constexpr int ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + L::K;
+  bf16* ring = Ks + L::RING;
+  float4* ps = reinterpret_cast<float4*>(smem + L::PS);
+  float* stats = reinterpret_cast<float*>(smem + L::STATS);  // ST x [l, d]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * ROWS, hk = blockIdx.y, b = blockIdx.z;
+  // the block's (query head, query tile) pairs: the group's heads [h0, h0
+  // + rep), each over query tiles [qt0, n_qt)
+  const int nh = a.rep, h0 = hk * a.rep;
   const int qt0 = a.causal ? max(0, k0 - a.kv_offset) / QT : 0;
   const int nq = max(0, (a.Sq + QT - 1) / QT - qt0);
-  const int n_tiles = a.rep * nq;
+  const int n_tiles = nh * nq;
 
-  auto tile_q0 = [&](int t) { return (qt0 + t % nq) * QT; };
-  auto issue_tile = [&](int t) {
-    const int h = hk * a.rep + t / nq, q0 = tile_q0(t);
-    bf16* qs = ring + (t % NST) * STAGE;
-    load_tile<D, QT, DKDV_THREADS>(
-        qs, a.q + b * a.q_sb + h * a.q_sh + q0 * a.q_ss, a.q_ss, a.Sq - q0,
-        tid);
-    load_tile<DV, QT, DKDV_THREADS>(
-        qs + QT * D, a.dout + b * a.do_sb + h * a.do_sh + q0 * a.do_ss,
-        a.do_ss, a.Sq - q0, tid);
-    if (tid < QT) {
-      const int r = q0 + tid;
-      const long long row = ((long long)b * a.Hq + h) * a.Sq + r;
-      Ls[(t % NST) * QT + tid] = r < a.Sq ? a.lse[row] * LOG2E : 0.f;
-      Ds[(t % NST) * QT + tid] = r < a.Sq ? a.delta[row] : 0.f;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA bytes; each lane's stats
+      mbar_init(&empty[s], 8);
     }
-  };
-  load_tile<D, BKV, DKDV_THREADS>(Ks, a.k + b * a.k_sb + hk * a.k_sh +
-                                          k0 * a.k_ss,
-                                  a.k_ss, a.Skv - k0, tid);
-  load_tile<DV, BKV, DKDV_THREADS>(Vs, a.v + b * a.v_sb + hk * a.v_sh +
-                                           k0 * a.v_ss,
-                                   a.v_ss, a.Skv - k0, tid);
-  if (n_tiles > 0) issue_tile(0);
-  cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[AW / 8][4];  // dv (DV / 8 blocks) or dk (D / 8)
-#pragma unroll
-  for (int n = 0; n < AW / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // the lane's ldmatrix rows: A rows of K / V, B rows of a [queries][.]
-  // tile, non-transposed; T rows of it, transposed
-  const int arow = 16 * (warp & 3) + (lane & 15);
-  const int brow = (lane & 7) + ((lane >> 4) << 3);
-  const int trow = lane & 15;
-  const int za = (lane >> 4) ^ (lane & 7);
-  const int zb = ((lane >> 3) & 1) ^ (lane & 7);
-  const int kpos[2] = {kw0 + g, kw0 + g + 8};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t (and K, V) landed; tile t - 1 read by all
-    if (t + 1 < n_tiles) issue_tile(t + 1);
-    cp_async_commit();
-    const bf16* qs = ring + (t % NST) * STAGE;
-    const bf16* dos = qs + QT * D;
-    const float* ls = Ls + (t % NST) * QT;
-    const float* ds = Ds + (t % NST) * QT;
-    const int q0 = tile_q0(t);
-    // the warp's keys are all past Skv, or all above every query of the
-    // tile: nothing to add
-    if (kw0 >= a.Skv ||
-        (a.causal && kw0 > min(q0 + QT, a.Sq) - 1 + a.kv_offset))
-      continue;
-    const bool edge = kw0 + 16 > a.Skv || q0 + QT > a.Sq ||
-                      (a.causal && kw0 + 15 > q0 + a.kv_offset);
-    // s^T = K Q^T over the warp's 16 keys x QT queries; element e of
-    // n-block j: key kpos[e / 2], query q0 + 8 j + 2 t4 + e % 2
-    float s[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    mma_abt<D, NB>(s, Ks + arow * D, qs, brow, za, zb);
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t4 + (e & 1);
-        float p = fast_exp2(s[j][e] * a.scale_log2 - ls[c]);
-        if (edge) {
-          const int qpos = q0 + c, key = kpos[e >> 1];
-          if (qpos >= a.Sq || key >= a.Skv ||
-              (a.causal && key > qpos + a.kv_offset))
-            p = 0.f;
-        }
-        s[j][e] = p;
+  if (tid >= 2 * WG) {  // the producer warpgroup: its first warp loads
+    reg_dealloc<WIDE_PRODUCER_REGS>();
+    if (tid < 2 * WG + 32 && n_tiles > 0) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        mbar_expect(kv_full, 2 * (L::K + L::V));
+        tma_tile<D, ROWS>(Ks, &tk, kv_full, hk, k0, b);
+        tma_tile<DV, ROWS>(Vs, &tv, kv_full, hk, k0, b);
       }
-    if (dv_warp) {
-      mma_pt<DV, NB>(acc, s, dos, trow, za);  // dv += p^T . dout
-    } else {
-      // dp^T = V dout^T, ds = p (dp - delta), dk += ds^T . q
-      float dp[NB][4];
+      wait_prerequisite();  // the dq launch's delta
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        if (t >= ST) mbar_wait(&empty[s], (t / ST - 1) & 1);
+        const int h = h0 + t / nq, q0 = (qt0 + t % nq) * QT;
+        bf16* qs = ring + s * L::STAGE;
+        if (lane == 0) {
+          mbar_expect(&full[s], 2 * L::STAGE);
+          tma_tile<D, QT>(qs, &tq, &full[s], h, q0, b);
+          tma_tile<DV, QT>(qs + QT * D, &tdo, &full[s], h, q0, b);
+        }
+        const long long row0 = ((long long)b * a.Hq + h) * a.Sq;
+        float* st = stats + s * 2 * QT;
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
+        for (int i = lane; i < QT; i += 32) {
+          const int q = q0 + i;
+          const long long r = row0 + min(q, a.Sq - 1);
+          cp_async4(st + i, a.lse + r, q < a.Sq);
+          cp_async4(st + QT + i, a.delta + r, q < a.Sq);
+        }
+        mbar_arrive_copies(&full[s]);
+      }
+    }
+  } else {
+    reg_alloc<WIDE_CONSUMER_REGS>();
+    const int lane = tid & 31, ltid = tid & (WG - 1);
+    const Frag f(ltid);
+    if (n_tiles > 0) mbar_wait(kv_full, 0);
+    constexpr bool A_REGS = L::A_REGS;
+    if (tid < WG) {  // WG-V
+      float dv[DV / 2];
+      uint32_t ka[A_REGS ? D / 16 : 1][4];
+      if constexpr (A_REGS) load_a<D>(ka, Ks, f.warp, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-      mma_abt<DV, NB>(dp, Vs + arow * DV, dos, brow, za, zb);
+      for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        mbar_wait(&full[s], (t / ST) & 1);
+        const int q0 = (qt0 + t % nq) * QT;
+        const bf16* qs = ring + s * L::STAGE;
+        dv_tile<D, DV>(Ks, ka, qs, qs + QT * D, ps, stats + s * 2 * QT, k0,
+                       q0, t, a, dv, f, ltid);
+        release(&empty[s], lane);
+      }
+      store_rows<DV>(a.dv, dv, 1.f, f, b, k0, a.Skv, a.Hkv, hk);
+    } else {  // WG-K
+      float dk[D / 2];
+      uint32_t va[A_REGS ? DV / 16 : 1][4];
+      if constexpr (A_REGS) load_a<DV>(va, Vs, f.warp, lane);
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[j][e] = s[j][e] * (dp[j][e] - ds[8 * j + 2 * t4 + (e & 1)]);
-      mma_pt<D, NB>(acc, dp, qs, trow, za);
+      for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST;
+        mbar_wait(&full[s], (t / ST) & 1);
+        const bf16* qs = ring + s * L::STAGE;
+        dk_tile<D, DV>(Vs, va, qs, qs + QT * D, ps, stats + s * 2 * QT + QT,
+                       t + 1 == n_tiles, dk, f, ltid);
+        release(&empty[s], lane);
+      }
+      store_rows<D>(a.dk, dk, a.scale, f, b, k0, a.Skv, a.Hkv, hk);
     }
   }
-  cp_async_wait_all();  // a block with no query tile issued K and V only
-  if (dv_warp)
-    store_pair<DV>(a.dv, acc, 1.f, kpos, a.Skv, a.Hkv, b, hk, t4);
-  else
-    store_pair<D>(a.dk, acc, a.scale, kpos, a.Skv, a.Hkv, b, hk, t4);
 }
-
-// Q, dout and the ring of K and V tiles; K, V and the ring of Q and dout
-// tiles with their lse and delta rows
-template <int D, int DV>
-constexpr int dq_smem() {
-  return 2 * (BQ * (D + DV) + NST * BKV * (D + DV));
-}
-template <int D, int DV>
-constexpr int dkdv_smem() {
-  return 2 * (BKV * (D + DV) + NST * QT * (D + DV)) + 4 * 2 * NST * QT;
-}
-static_assert(dq_smem<256, 256>() <= 232448 &&
-                  dkdv_smem<256, 256>() <= 232448,
-              "a block may take 227 KiB of shared memory");
-
-template <typename K>
-int launch(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
-           const WArgs& a) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace wide
 
 // ------------------------------------------------------------- host ---
 
@@ -1311,8 +1406,13 @@ int launch(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-static_assert(DqSmem<128>::ST >= 2 && DkdvSmem<128>::ST >= 2,
-              "two ring stages fit");
+static_assert(DqSmem<128>::ST >= 2 && DkdvSmem<128>::ST >= 2 &&
+                  WideDqSmem<256, 256>::ST >= 2 &&
+                  WideDkdvSmem<256, 256>::ST >= 2 &&
+                  WideDqSmem<192, 128>::NW == 2 &&
+                  WideDkdvSmem<192, 128>::A_REGS,
+              "two ring stages fit; at (192, 128) two dq warpgroups, and K and "
+              "V in registers");
 
 // the (key, value) head sizes: the wgmma plan's (64, 64) and (128, 128),
 // the wide instances' (192, 128) and (256, 256)
@@ -1326,44 +1426,6 @@ bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D, int DV) {
          !(wgmma_pair(D, DV) || wide_pair(D, DV));
 }
 
-wide::WArgs wide_args(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, int Sq, int Skv,
-                      int Hq, int Hkv, long long q_sb, long long q_ss,
-                      long long q_sh, long long k_sb, long long k_ss,
-                      long long k_sh, long long v_sb, long long v_ss,
-                      long long v_sh, long long do_sb, long long do_ss,
-                      long long do_sh, float scale, int causal,
-                      int kv_offset) {
-  wide::WArgs a = {};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.Sq = Sq;
-  a.Skv = Skv;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
-  a.rep = Hq / Hkv;
-  a.q_sb = q_sb;
-  a.q_ss = q_ss;
-  a.q_sh = q_sh;
-  a.k_sb = k_sb;
-  a.k_ss = k_ss;
-  a.k_sh = k_sh;
-  a.v_sb = v_sb;
-  a.v_ss = v_ss;
-  a.v_sh = v_sh;
-  a.do_sb = do_sb;
-  a.do_ss = do_ss;
-  a.do_sh = do_sh;
-  a.scale = scale;
-  a.scale_log2 = scale * LOG2E;
-  a.causal = causal;
-  a.kv_offset = kv_offset;
-  return a;
-}
-
 }  // namespace
 
 extern "C" {
@@ -1372,7 +1434,7 @@ extern "C" {
 // contiguous) = rowsum(dout * out), from q [B, Sq, Hq, D], out, dout [B,
 // Sq, Hq, DV], k [B, Skv, Hkv, D], v [B, Skv, Hkv, DV] (bf16, element
 // strides) and the forward's lse [B, Hq, Sq] (fp32, contiguous). Grid
-// (Hq, B, ceil(Sq / 64)).
+// (Hq, B, ceil(Sq / 64)); at the wide pairs (ceil(Sq / (64 NW)), Hq, B).
 int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, int B, int Sq,
@@ -1385,42 +1447,34 @@ int flash_attention_bwd_dq(
   if (bad_shape(B, Sq, Skv, Hq, Hkv, D, DV)) return cudaErrorInvalidValue;
   int err;
   if ((err = current_context())) return err;
-  if (wide_pair(D, DV)) {
-    wide::WArgs a = wide_args(q, k, v, dout, lse, Sq, Skv, Hq, Hkv, q_sb,
-                              q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                              v_sh, do_sb, do_ss, do_sh, scale, causal,
-                              kv_offset);
-    a.out = static_cast<const bf16*>(out);
-    a.o_sb = o_sb;
-    a.o_ss = o_ss;
-    a.o_sh = o_sh;
-    a.delta = static_cast<float*>(delta);
-    a.dq = static_cast<bf16*>(dq);
-    const dim3 grid(Hq, B, (Sq + wide::BQ - 1) / wide::BQ);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (D == 192)
-      return wide::launch(wide::dq_wide_kernel<192, 128>, grid,
-                          wide::DQ_THREADS, wide::dq_smem<192, 128>(), s, a);
-    return wide::launch(wide::dq_wide_kernel<256, 256>, grid,
-                        wide::DQ_THREADS, wide::dq_smem<256, 256>(), s, a);
-  }
   CUtensorMap m[4];
   if ((err = make_map(&m[0], q, B, Sq, Hq, D, q_sb, q_ss, q_sh, ROWS)) ||
       (err = make_map(&m[1], k, B, Skv, Hkv, D, k_sb, k_ss, k_sh, ROWS)) ||
-      (err = make_map(&m[2], v, B, Skv, Hkv, D, v_sb, v_ss, v_sh, ROWS)) ||
-      (err = make_map(&m[3], dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, ROWS)))
+      (err = make_map(&m[2], v, B, Skv, Hkv, DV, v_sb, v_ss, v_sh, ROWS)) ||
+      (err = make_map(&m[3], dout, B, Sq, Hq, DV, do_sb, do_ss, do_sh,
+                      ROWS)))
     return err;
   const Args a{static_cast<const bf16*>(out), static_cast<const float*>(lse),
                static_cast<float*>(delta), static_cast<bf16*>(dq),
                nullptr, nullptr, B, Sq, Skv, Hq, Hkv, Hq / Hkv,
                o_sb, o_ss, o_sh, scale, scale * LOG2E, causal, kv_offset};
-  const dim3 grid(Hq, B, (Sq + ROWS - 1) / ROWS);
+  const int n_qt = (Sq + ROWS - 1) / ROWS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch(dq_kernel<64>, grid, 2 * WG, DqSmem<64>::BYTES + 1024, s,
-                  m, a, false);
-  return launch(dq_kernel<128>, grid, 2 * WG, DqSmem<128>::BYTES + 1024, s,
-                m, a, false);
+    return launch(dq_kernel<64>, dim3(Hq, B, n_qt), 2 * WG,
+                  DqSmem<64>::BYTES + 1024, s, m, a, false);
+  if (D == 128)
+    return launch(dq_kernel<128>, dim3(Hq, B, n_qt), 2 * WG,
+                  DqSmem<128>::BYTES + 1024, s, m, a, false);
+  using M = WideDqSmem<192, 128>;
+  using G = WideDqSmem<256, 256>;
+  if (D == 192)
+    return launch(dq_wide_kernel<192, 128>,
+                  dim3((Sq + M::NW * ROWS - 1) / (M::NW * ROWS), Hq, B),
+                  (M::NW + 1) * WG, M::BYTES + 1024, s, m, a, false);
+  return launch(dq_wide_kernel<256, 256>,
+                dim3((Sq + G::NW * ROWS - 1) / (G::NW * ROWS), Hq, B),
+                (G::NW + 1) * WG, G::BYTES + 1024, s, m, a, false);
 }
 
 // dk [B, Skv, Hkv, D], dv [B, Skv, Hkv, DV] (bf16, contiguous) from q [B,
@@ -1438,44 +1492,33 @@ int flash_attention_bwd_dkdv(
   if (bad_shape(B, Sq, Skv, Hq, Hkv, D, DV)) return cudaErrorInvalidValue;
   int err;
   if ((err = current_context())) return err;
-  if (wide_pair(D, DV)) {
-    wide::WArgs a = wide_args(q, k, v, dout, lse, Sq, Skv, Hq, Hkv, q_sb,
-                              q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                              v_sh, do_sb, do_ss, do_sh, scale, causal,
-                              kv_offset);
-    a.delta = const_cast<float*>(static_cast<const float*>(delta));
-    a.dk = static_cast<bf16*>(dk);
-    a.dv = static_cast<bf16*>(dv);
-    const dim3 grid((Skv + wide::BKV - 1) / wide::BKV, Hkv, B);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (D == 192)
-      return wide::launch(wide::dkdv_wide_kernel<192, 128>, grid,
-                          wide::DKDV_THREADS, wide::dkdv_smem<192, 128>(), s,
-                          a);
-    return wide::launch(wide::dkdv_wide_kernel<256, 256>, grid,
-                        wide::DKDV_THREADS, wide::dkdv_smem<256, 256>(), s,
-                        a);
-  }
   CUtensorMap m[4];
   if ((err = make_map(&m[0], q, B, Sq, Hq, D, q_sb, q_ss, q_sh, QT)) ||
       (err = make_map(&m[1], k, B, Skv, Hkv, D, k_sb, k_ss, k_sh, ROWS)) ||
-      (err = make_map(&m[2], v, B, Skv, Hkv, D, v_sb, v_ss, v_sh, ROWS)) ||
-      (err = make_map(&m[3], dout, B, Sq, Hq, D, do_sb, do_ss, do_sh, QT)))
+      (err = make_map(&m[2], v, B, Skv, Hkv, DV, v_sb, v_ss, v_sh, ROWS)) ||
+      (err = make_map(&m[3], dout, B, Sq, Hq, DV, do_sb, do_ss, do_sh, QT)))
     return err;
   const Args a{nullptr, static_cast<const float*>(lse),
                const_cast<float*>(static_cast<const float*>(delta)),
                nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                B, Sq, Skv, Hq, Hkv, Hq / Hkv, 0, 0, 0,
                scale, scale * LOG2E, causal, kv_offset};
-  // key blocks slowest: where causal, the first (most query tiles) start
-  // first
-  const dim3 grid(Hkv, B, (Skv + ROWS - 1) / ROWS);
+  // key blocks slowest, so that where causal the first (most query tiles)
+  // start first
+  const int n_kt = (Skv + ROWS - 1) / ROWS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch(dkdv_kernel<64>, grid, 2 * WG, DkdvSmem<64>::BYTES + 1024,
-                  s, m, a, true);
-  return launch(dkdv_kernel<128>, grid, 2 * WG, DkdvSmem<128>::BYTES + 1024,
-                s, m, a, true);
+    return launch(dkdv_kernel<64>, dim3(Hkv, B, n_kt), 2 * WG,
+                  DkdvSmem<64>::BYTES + 1024, s, m, a, true);
+  if (D == 128)
+    return launch(dkdv_kernel<128>, dim3(Hkv, B, n_kt), 2 * WG,
+                  DkdvSmem<128>::BYTES + 1024, s, m, a, true);
+  const dim3 wide_grid(n_kt, Hkv, B);
+  if (D == 192)
+    return launch(dkdv_wide_kernel<192, 128>, wide_grid, 3 * WG,
+                  WideDkdvSmem<192, 128>::BYTES + 1024, s, m, a, true);
+  return launch(dkdv_wide_kernel<256, 256>, wide_grid, 3 * WG,
+                WideDkdvSmem<256, 256>::BYTES + 1024, s, m, a, true);
 }
 
 }  // extern "C"

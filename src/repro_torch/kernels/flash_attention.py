@@ -58,8 +58,9 @@ MODES = ("auto", "ref")
 #: values
 KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 #: the (key, value) head sizes the bf16 backward kernel is instantiated
-#: for: the forward's four (the wgmma plan at (64, 64) and (128, 128), an
-#: mma.sync instance at (192, 128) and (256, 256))
+#: for: the forward's four, all on wgmma and TMA (two blocks an SM at (64,
+#: 64) and (128, 128); one block an SM at (192, 128) and (256, 256), where
+#: dkdv's dk and dv live in two warpgroups, which pass p between them)
 BWD_HEAD_DIMS = KERNEL_HEAD_DIMS
 #: the fp32 kernel (forward and backward) takes key and value head sizes
 #: that are multiples of 4 up to this

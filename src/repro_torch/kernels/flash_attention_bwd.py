@@ -21,8 +21,14 @@ points, launched in this order:
 
 Each recomputes p = exp(s - lse) from the forward's log-sum-exp, with the
 forward's causal, ``kv_offset`` and ragged masks, for the (key, value)
-head sizes :data:`BWD_HEAD_DIMS`, bf16 in and out: the wgmma plan at (64,
-64) and (128, 128), an mma.sync instance at (192, 128) and (256, 256).
+head sizes :data:`BWD_HEAD_DIMS`, bf16 in and out: two blocks an SM at
+(64, 64) and (128, 128); at (192, 128) and (256, 256), whose dk and dv
+accumulators do not fit one warpgroup's registers, one block an SM whose
+dkdv splits the four products over two warpgroups (s, p and dv in one,
+dp, ds and dk in the other, p passed through shared memory), so that s
+is computed once. At the training shapes the products bound both
+(``chip_smoke.bwd_bound_ms``); the source's header says what each
+instance does about it.
 fp32 operands go to ``csrc/flash_attention_f32.cu``'s two entry points
 (:data:`F32_ENTRY_POINTS`: the same plan and order, on fp32 FMA, for the
 fp32 kernel's head sizes). :func:`flash_attention_bwd` launches them and

@@ -14,8 +14,8 @@ each step. Each step is ``make_train_step`` (forward under the config's
 ``remat``, ``torch.autograd.grad``, optional int8 compression with error
 feedback, AdamW), timed by ``StepWatchdog`` (heartbeat in
 ``--ckpt-dir``); ``CheckpointManager`` saves every ``--ckpt-every``
-steps and at the end, and a run finds the newest checkpoint in
-``--ckpt-dir`` and resumes from it. On the card every
+steps and at the end (once where the two meet), and a run finds the
+newest checkpoint in ``--ckpt-dir`` and resumes from it. On the card every
 ``blockwise_attention`` (the encoder-decoder's attentions, MLA's, a
 dense model's or the hybrid's above 8192 tokens) runs on the flash
 kernel and its gradient on the backward kernel: in bf16 at every
@@ -266,7 +266,10 @@ def _train(args, arch, device: torch.device, distributed: bool) -> dict:
         if mgr is not None and (step + 1) % args.ckpt_every == 0:
             mgr.save(step + 1, state)
     if mgr is not None:
-        mgr.save(args.steps, state, blocking=True)
+        if args.steps > start and args.steps % args.ckpt_every == 0:
+            mgr.wait()              # the loop's last save is this step's
+        else:
+            mgr.save(args.steps, state, blocking=True)
     dt = time.time() - t0
     n = args.steps - start
     tok_s = n * args.batch * args.seq / max(dt, 1e-9)

@@ -57,12 +57,14 @@ SHAPES = [
 ]
 # (b, sq, skv, hq, hkv, d, dv, causal, kv_offset, dtype): chip_smoke's
 # BWD_SHAPES at key sizes other than the value's or past 128 (MLA's and
-# gemma-7b's training, each also with tiles across the diagonal) and its
+# gemma-7b's training, each also with tiles across the diagonal, and MLA's
+# with a dq block's second warpgroup past the last row) and its
 # fp32 rows (F32_SHAPES with a backward: the smoke configs' pairs, GQA,
 # ragged causal tiles, kv_offset > 0, non-causal)
 PAIR_SHAPES = [
     (2, 1024, 1024, 128, 128, 192, 128, True, 0, "bf16"),
     (2, 1000, 1000, 16, 16, 192, 128, True, 0, "bf16"),
+    (2, 130, 130, 4, 4, 192, 128, True, 0, "bf16"),
     (1, 8448, 8448, 16, 16, 256, 256, True, 0, "bf16"),
     (2, 1000, 1000, 16, 16, 256, 256, True, 0, "bf16"),
     (8, 128, 128, 4, 2, 12, 12, False, 0, "fp32"),
@@ -240,23 +242,37 @@ def test_delta_plain_is_the_rowsum_in_fp32():
 
 
 @pytest.mark.parametrize("variant", ["full", "no_mma", "copies_only",
-                                     "empty", "no_pdl"])
+                                     "empty", "no_pdl", "no_stagger"])
 def test_kernel_parts_bwd_variants_edit_the_source(variant):
     """Each statement a ``kernel_parts.py`` backward variant edits is in
     ``flash_attention_bwd.cu`` as many times as the edit says (the card's
-    compiler is the first to see the variants, so this is checked here)."""
+    compiler is the first to see the variants, so this is checked here),
+    and the variants reach the wide pairs' instance: copies_only skips
+    every tile function of both instances, no_pdl makes every dkdv launch
+    an ordinary one, no_stagger takes out the wide dkdv's S_DONE barrier
+    (WG-K's dp no longer waits for WG-V's s)."""
     parts = _load("kernel_parts")
     src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
            ).read_text()
     assert set(parts.BWD_VARIANTS) == {"full", "no_mma", "copies_only",
-                                       "empty", "no_pdl"}
+                                       "empty", "no_pdl", "no_stagger"}
+    assert set(parts.WIDE_VARIANTS) <= set(parts.BWD_VARIANTS)
     for old, new, *n in parts.BWD_VARIANTS[variant]:
         assert src.count(old) == (n[0] if n else 1)
         src = src.replace(old, new)
     if variant == "no_mma":
         assert "wgmma.mma_async" not in src.replace("// wgmma", "")
+    if variant in ("copies_only", "empty"):
+        for call in ("dq_tile<D>(", "dkdv_tile<D>(", "dq_wide_tile<D, DV>(",
+                     "dv_tile<D, DV>(", "dk_tile<D, DV>("):
+            assert src.count(call) == src.count(f"if (false) {call}") > 0
+    if variant == "no_stagger":
+        assert "BAR_S_DONE, 2 * WG" not in src
     if variant == "empty":
         assert '"cp.async.bulk.tensor' not in src
+    if variant == "no_pdl":
+        assert "m, a, true);" not in src
+        assert src.count("m, a, false);") == 8  # every launch, dq's too
 
 
 @pytest.fixture
@@ -270,18 +286,24 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 130, 130, 12, 2, 128, True, 0),
                                    (1, 200, 330, 8, 8, 64, True, 130),
-                                   (2, 100, 70, 4, 4, 64, False, 0)])
+                                   (2, 100, 70, 4, 4, 64, False, 0),
+                                   (2, 130, 130, 4, 4, 192, True, 0, 128),
+                                   (1, 200, 330, 4, 2, 256, True, 130,
+                                    256)])
 def test_kernel_backward_matches_plain_on_card(cuda, shape):
     """Through the autograd Function: one launch of each entry point, the
     gradients within chip_smoke's tolerances of the plain version, and a
-    second backward bitwise equal to the first."""
+    second backward bitwise equal to the first; at the plan's pairs and
+    at the wide instance's (192, 128) and (256, 256), with GQA, causal
+    tiles across the diagonal and kv_offset > 0 among them."""
     smoke = _load("chip_smoke")
-    b, sq, skv, hq, hkv, d, causal, off = shape
+    b, sq, skv, hq, hkv, d, causal, off, *dv = shape
+    dv = dv[0] if dv else d
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, dout = (torch.randn(s, generator=gen, device=cuda,
                                  dtype=torch.bfloat16)
                      for s in ((b, sq, hq, d), (b, skv, hkv, d),
-                               (b, skv, hkv, d), (b, sq, hq, d)))
+                               (b, skv, hkv, dv), (b, sq, hq, dv)))
 
     def grads():
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]

@@ -9,7 +9,9 @@ Phases, each printing its lines before the last:
    from ``src/repro_torch/kernels/csrc`` (``fused_split_gemm.cu``,
    ``split_gemm.cu``, ``depthwise_gemm.cu``, ``flash_attention.cu``,
    ``flash_attention_bwd.cu`` and ``flash_attention_f32.cu``, one nvcc
-   each, started together), time
+   each, started together, beside one more of ``flash_attention.cu``
+   with :data:`PARENT_FLASH_EDITS`, the parent's launch of the wide
+   pairs' prefill form, to time against), time
    the build and print ptxas's register, shared-memory and spill
    report.
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
@@ -65,7 +67,7 @@ Phases, each printing its lines before the last:
    below 2^24), beside the bytes bound; ``fused_conv_gemm`` over the 36
    dense layers beside its plain version, ``_int_mm`` and the bound.
 5. flash: the flash-attention kernel against its plain version in bf16
-   at twenty-three shapes (:data:`FLASH_SHAPES`): the serving prefill (B=8,
+   at twenty-five shapes (:data:`FLASH_SHAPES`): the serving prefill (B=8,
    S=64, 32 query heads
    over 8 KV heads, D=64, causal), S=2048 causal, S=1000 causal
    (ragged), S=333 non-causal, 64 queries at offset 960 of 1024 keys,
@@ -75,7 +77,9 @@ Phases, each printing its lines before the last:
    prefill (16/16 heads), ragged at S=1000 and in the decode form,
    yi-34b's GQA 56/8, qwen3-8b's 32/8 and qwen3-moe-235b-a22b's 64/4 at
    D=128, deepseek-v2's MLA with keys of 192 over values of 128 (its
-   prefill at 128/128 heads, ragged at S=1000, and the decode form), and
+   prefill at 128/128 heads, ragged at S=1000, and the decode form), 300
+   queries at offset 700 of 1000 keys at both wide pairs (their 128-row
+   query tiles across the diagonal), and
    seamless-m4t's non-causal encoder / cross-attention prefill and its
    decode step's cross-attention (Sq=1 over 64 keys, the decode form
    without a causal mask), and phase 14's local heads (llama3.2-1b's
@@ -87,8 +91,9 @@ Phases, each printing its lines before the last:
    :data:`FLASH_ROW_TOL` of its plain row's norm (:func:`flash_row_err`).
    Times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` on the KV heads repeated (the
-   library yardstick): device time per call (:func:`device_times`; the
-   kernels' row reports these), and CUDA
+   library yardstick), and at the wide pairs' prefill form the parent's
+   mma.sync instance (:func:`parent_flash`): device time per call
+   (:func:`device_times`; the kernels' row reports these), and CUDA
    events over back-to-back calls, which at small shapes measure the
    host's launch rate. The bound: q, k, v and out once over 3.35 TB/s
    vs 2·B·Hq·(D + DV)·(unmasked pairs) over 989 TFLOP/s bf16.
@@ -273,8 +278,9 @@ Phases, each printing its lines before the last:
    device ms per entry point, the bound, the plain backward's and SDPA's
    backward's ms, and ptxas's registers and spills; at :data:`FWD_TIMED`
    (the wide training shapes, which the serving rows of phase 5 do not
-   have) also the forward launch with its log-sum-exp against the plain
-   forward (:func:`fwd_row`), timed beside SDPA and the bound. Then
+   have, and the other wide ones) also the forward launch with its
+   log-sum-exp against the plain forward (:func:`fwd_row`), timed beside
+   the parent's instance, SDPA and the bound. Then
    seamless-m4t-large-v2 whole at published widths in bf16 through
    ``repro_torch.launch.train.main`` (:data:`TRAIN_SEAMLESS`): exactly
    :func:`train_launches` a step (the forward kernel twice a layer's
@@ -518,9 +524,12 @@ class FlashShape(NamedTuple):
 #: (gqa7), qwen3-8b's serving prefill, qwen3-moe-235b-a22b's
 #: (moe_prefill: 16 query heads a KV head, 64 over 4), deepseek-v2's MLA
 #: at keys 192 over values 128 (its serving prefill, tiles across the
-#: diagonal, and the decode form), and seamless-m4t's non-causal
-#: attention: its encoder and prefill cross-attention (cross_prefill) and
-#: a decode step's cross-attention over the 64-frame memory
+#: diagonal, and the decode form), both wide pairs at 300 queries
+#: offset 700 into 1000 keys (d256_offset, mla_offset: the wgmma
+#: instance's 128-row query tiles across the diagonal, a ragged last
+#: tile), and seamless-m4t's non-causal attention: its encoder and
+#: prefill cross-attention (cross_prefill) and a decode step's
+#: cross-attention over the 64-frame memory
 #: (cross_decode, the decode form without a causal mask). Last, phase
 #: 14's shapes on each rank's local heads: llama3.2-1b's prefill at 16
 #: query heads over 4 (tp_prefill), seamless's encoder, decoder and a
@@ -543,6 +552,8 @@ FLASH_SHAPES = [
     FlashShape("mla_prefill", 8, 64, 64, 128, 128, 192, True, 0, 128),
     FlashShape("mla_ragged", 2, 1000, 1000, 16, 16, 192, True, 0, 128),
     FlashShape("mla_decode4", 8, 4, 1001, 4, 4, 192, True, 997, 128),
+    FlashShape("d256_offset", 2, 300, 1000, 16, 16, 256, True, 700),
+    FlashShape("mla_offset", 2, 300, 1000, 16, 16, 192, True, 700, 128),
     FlashShape("cross_prefill", 8, 64, 64, 16, 16, 64, False, 0),
     FlashShape("cross_decode", 8, 1, 64, 16, 16, 64, False, 0),
     FlashShape("tp_prefill", 8, 64, 64, 16, 4, 64, True, 0),
@@ -712,16 +723,99 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
+#: ``flash_attention.cu`` edited to the parent's launch of the wide pairs'
+#: prefill form: the mma.sync kernel (FlashAttention-2's shape, Q in
+#: shared memory, two passes of 128 output columns at DV 256), whose
+#: template the source keeps for the decode form, in place of the wgmma
+#: instance; (statement, replacement) edits, each statement found once.
+#: ``kernel_parts.py --parent-flash`` holds its SASS to the parent
+#: source's.
+PARENT_FLASH_EDITS = [
+    ("  if constexpr (DQK == 256) {\n", "  if constexpr (false) {\n"),
+    ("      if (a.Sq > BQ) return launch_wide<DQK, DV>(a, grid, stream);\n",
+     "      if (false) return launch_wide<DQK, DV>(a, grid, stream);\n")]
+#: the parent's library, once :func:`phase_card` has built it ("lib")
+PARENT_FLASH: dict = {}
+
+
+def start_parent_flash():
+    """Start nvcc on ``flash_attention.cu`` with
+    :data:`PARENT_FLASH_EDITS` into ``build/parent_flash/``; return a
+    function that waits for it, loads the library into
+    :data:`PARENT_FLASH` and returns ptxas's register and spill lines."""
+    import ctypes
+    from repro_torch.kernels import build
+    src = build.source_path("flash_attention").read_text()
+    for old, new in PARENT_FLASH_EDITS:
+        if src.count(old) != 1:
+            raise AssertionError(f"flash_attention.cu has {src.count(old)} "
+                                 f"copies of {old!r}, not 1")
+        src = src.replace(old, new)
+    out = ROOT / "build" / "parent_flash"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / "flash_attention-parent.cu"
+    lib = out / "flash_attention-parent.so"
+    cu.write_text(src)
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                             str(lib), str(cu)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait() -> list[str]:
+        stdout, stderr = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"nvcc failed on the parent flash "
+                                 f"source:\n{stderr}")
+        dll = ctypes.CDLL(str(lib))
+        dll.flash_attention.argtypes = \
+            build.SOURCES["flash_attention"]["flash_attention"]
+        dll.flash_attention.restype = ctypes.c_int
+        PARENT_FLASH["lib"] = dll
+        return [ln.split(":", 1)[-1].strip()
+                for ln in (stdout + stderr).splitlines()
+                if "Used" in ln or "spill" in ln]
+    return wait
+
+
+def parent_flash(torch, q, k, v, scale: float, causal: bool,
+                 kv_offset: int, with_lse: bool = False):
+    """The call launched by the parent's library (:data:`PARENT_FLASH`)
+    into buffers of its own: a function that launches it and returns its
+    output, raising on a refused launch."""
+    from repro_torch.kernels.flash_attention import flash_plan, kernel_args
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v.shape
+    out = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), device=q.device) if with_lse else None
+    args = kernel_args(q, k, v, out, scale, causal, kv_offset,
+                       flash_plan(b, sq, skv, hq, hkv, d, dv), lse)
+    fn = PARENT_FLASH["lib"].flash_attention
+
+    def run():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent flash_attention: launch failed "
+                               f"with error {rc}")
+        return out
+    return run
+
+
 def phase_card(torch, details: dict):
     from repro_torch.kernels import build
     details["card"] = nvidia_smi()
     print(f"card: {details['card']}")
     built = {src: build.is_built(src) for src in build.SOURCES}
     t0 = time.time()
-    build.build_all()
+    wait_parent = start_parent_flash()
+    try:
+        build.build_all()
+    finally:
+        parent_usage = wait_parent()
     for src in build.SOURCES:
         build.load_library(src)
     details["build_s"] = time.time() - t0
+    details["parent_flash_ptxas"] = parent_usage
+    print(f"build: flash_attention, the parent's wide prefill launch "
+          f"(nvcc): ptxas: {'; '.join(parent_usage)}")
     details["ptxas"] = {}
     for src in build.SOURCES:
         report = build.report_path(src).read_text()
@@ -1496,8 +1590,8 @@ def phase_flash(torch, details: dict) -> dict:
     :data:`FLASH_SHAPES`, each under its plan, timed beside SDPA and the
     bound; returns the serving prefill shape's row and the largest error
     over all shapes."""
-    from repro_torch.kernels.flash_attention import flash_attention, \
-        flash_attention_plain, flash_plan
+    from repro_torch.kernels.flash_attention import WIDE_PAIRS, \
+        flash_attention, flash_attention_plain, flash_plan
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = details.setdefault("flash", [])
     for shape in FLASH_SHAPES:
@@ -1526,28 +1620,34 @@ def phase_flash(torch, details: dict) -> dict:
         lib_err = float((lib().float() - want.float()).abs().max())
         b_ms, b_by = flash_bound_ms(b, sq, skv, hq, hkv, d, causal, off, dv)
         plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
+        timed_fns = {"ms": (kern, 10), "plain_ms": (plain, 2),
+                     "library_ms": (lib, 10)}
+        # the wgmma instance beside the parent's mma.sync one
+        if (d, dv) in WIDE_PAIRS and plan.form == "prefill":
+            timed_fns["parent_ms"] = (parent_flash(torch, q, k, v, d ** -0.5,
+                                                   causal, off), 10)
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
                "hkv": hkv, "d": d, "dv": dv, "causal": causal,
                "kv_offset": off,
                "form": plan.form, "grid": list(plan.grid),
-               "smem": plan.smem,
+               "smem": plan.smem, "threads": plan.threads,
                "max_abs_err": err, "tol": tol, "row_err": row_err,
                "sdpa_err": lib_err,
-               **device_times(torch, {"ms": (kern, 10),
-                                      "plain_ms": (plain, 2),
-                                      "library_ms": (lib, 10)}),
+               **device_times(torch, timed_fns),
                "bound_ms": b_ms,
                "bound_by": b_by, "events_ms": cuda_ms(torch, kern),
                "events_plain_ms": cuda_ms(torch, plain, iters=5),
                "events_library_ms": cuda_ms(torch, lib)}
         rows.append(row)
+        parent = f"parent {row['parent_ms']:.4f}, " \
+            if "parent_ms" in row else ""
         print(f"flash {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
               f"D={d} DV={dv} causal={causal} kv_offset={off}, "
               f"{plan.form} form, smem {plan.smem} B, "
-              f"grid {plan.grid}: max |err| {err:.3g} "
+              f"grid {plan.grid} x {plan.threads}: max |err| {err:.3g} "
               f"(tol {tol:.3g}; sdpa {lib_err:.3g}), row error "
               f"{row_err:.3g} (tol {FLASH_ROW_TOL}); device {row['ms']:.4f} "
-              f"ms (plain {row['plain_ms']:.4f}, sdpa "
+              f"ms ({parent}plain {row['plain_ms']:.4f}, sdpa "
               f"{row['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); "
               f"events {row['events_ms']:.4f} ms (plain "
               f"{row['events_plain_ms']:.4f}, sdpa "
@@ -3699,8 +3799,10 @@ BWD_SHAPES = [
 ]
 #: BWD_SHAPES rows whose forward is also timed (the forward launch a
 #: training step makes, with its log-sum-exp): the wide pairs' training
-#: shapes, which FLASH_SHAPES (serving) does not have
-FWD_TIMED = ("mla_train", "d256_train")
+#: shapes, which FLASH_SHAPES (serving) does not have, their ragged
+#: shapes and MLA's short tail
+FWD_TIMED = ("mla_train", "mla_ragged", "mla_tail", "d256_train",
+             "d256_ragged")
 #: kernel vs plain backward, bf16: each of dq, dk, dv within 4 bf16 steps
 #: (2^-8 relative) of the gradient's max |.|. The two differ in where they
 #: round: the kernel rounds p and ds to bf16 before its products (half a
@@ -3864,7 +3966,8 @@ def fwd_row(torch, name: str, q, k, v, out_k, scale: float, causal: bool,
     """The forward launch a training step makes (with the log-sum-exp) at
     a backward shape: its output ``out_k`` against the plain version
     (:func:`flash_tol`, :data:`FLASH_ROW_TOL`), its device time beside
-    the plain version's, SDPA's and the bound."""
+    the parent's instance's (:func:`parent_flash`), the plain version's,
+    SDPA's and the bound."""
     from repro_torch.kernels.flash_attention import _forward_kernel, \
         flash_attention_plain
     b, sq, hq, d = q.shape
@@ -3884,6 +3987,9 @@ def fwd_row(torch, name: str, q, k, v, out_k, scale: float, causal: bool,
                                 dv)
     row = {"max_abs_err": err, "tol": tol, "row_err": row_err,
            **device_times(torch, {"ms": (kern, 10),
+                                  "parent_ms": (parent_flash(
+                                      torch, q, k, v, scale, causal,
+                                      kv_offset, with_lse=True), 10),
                                   "library_ms": (sdpa_fn(torch, q, k, v,
                                                          causal, kv_offset),
                                                  10)}),
@@ -3893,9 +3999,9 @@ def fwd_row(torch, name: str, q, k, v, out_k, scale: float, causal: bool,
     print(f"train fwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
           f"D={d} DV={dv} causal={causal}, with the log-sum-exp: max |err| "
           f"{err:.3g} (tol {tol:.3g}), row error {row_err:.3g} (tol "
-          f"{FLASH_ROW_TOL}); device {row['ms']:.4f} ms (plain "
-          f"{row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
-          f"{b_ms:.4f} by {b_by})")
+          f"{FLASH_ROW_TOL}); device {row['ms']:.4f} ms (parent "
+          f"{row['parent_ms']:.4f}, plain {row['plain_ms']:.4f}, sdpa "
+          f"{row['library_ms']:.4f}, bound {b_ms:.4f} by {b_by})")
     return row
 
 

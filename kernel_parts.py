@@ -2,16 +2,19 @@
 """Where a kernel launch spends its device time, on one NVIDIA card.
 
     python3 kernel_parts.py [--out PATH] [--only {split,flash,bwd}]
+                            [--parent-flash PATH] [--parent-bwd PATH]
 
 Builds variants of the kernel sources into ``build/kernel_parts/``, each
 with parts of the main loop taken out, and times them: the split-GEMM
 kernels at resnet18's distinct layer shapes, each launch under
-``fused_hetero_gemm.split_plan``'s tile and K split, and the flash kernel
-at the serving prefill, S=2048, decode, decode4 and the three D=256
-shapes (:data:`FLASH_SHAPES`), each under ``flash_attention.flash_plan``,
+``fused_hetero_gemm.split_plan``'s tile and K split, the flash kernel at
+the serving prefill, S=2048, decode, decode4, the three D=256 shapes and
+the wide pairs' prefill, ragged and offset shapes (:data:`FLASH_SHAPES`)
+and, with the log-sum-exp, their training shapes
+(:data:`FLASH_TRAIN_SHAPES`), each under ``flash_attention.flash_plan``,
 and the flash backward's two entry points (:data:`BWD_SHAPES`). Each
-variant's ptxas report (registers, spills) is printed as it is
-built.
+variant's ptxas report (registers, spills, and any warning, a wgmma
+serialised among them) is printed as it is built.
 
 ``src/repro_torch/kernels/csrc/fused_split_gemm.cu``, its
 ``fused_hetero_gemm`` on both sides of the split (:data:`VARIANTS`):
@@ -36,20 +39,31 @@ its one-sided shape (:data:`SPLIT_VARIANTS`):
     empty        no copies either
 
 ``src/repro_torch/kernels/csrc/flash_attention.cu``, its
-``flash_attention`` (:data:`FLASH_VARIANTS`):
+``flash_attention`` (:data:`FLASH_VARIANTS`; the first four edit the
+mma.sync kernel and the wide pairs' wgmma instance alike):
 
     full         the kernel as it is
     no_mma       each mma replaced by one add of its operands (a LOP3
                  and an FADD on the FP32 pipe, as split_gemm's no_mma),
                  so the ldmatrix fragments, the softmax and the P
-                 packing stay
-    copies_only  only the cp.async copies of Q, K and V and the epilogue
-                 (no fragments, no mma, no softmax)
+                 packing stay; the wgmma instructions commented out
+                 (their accumulators left as they are)
+    copies_only  only the copies of Q, K and V (cp.async; TMA, each
+                 stage released as it lands) and the epilogue (no
+                 fragments, no mma, no softmax)
     empty        no copies either: launch, the KV loop's barriers and the
                  epilogue
-    one_pass     DV=256 in one pass over the KV tiles, acc for all 256
-                 output columns in registers (the kernel takes two passes
-                 of 128 columns, which spill nothing)
+    mma_sync     the wide pairs' prefill form on the mma.sync kernel, as
+                 the parent launched it (chip_smoke.PARENT_FLASH_EDITS)
+    head_major   the wgmma instance's blocks a KV head's query heads at
+                 a time (a head's query tiles, the heaviest first), not
+                 heaviest first over a group of heads (as many as a wave
+                 of blocks covers, whose K and V fit in 24 MiB)
+    no_store     the wgmma instance without its output's TMA store
+    q_smem       the wgmma instance's q . k with Q from shared memory at
+                 (192, 128) too (QA off)
+    wgmma_short  (192, 128) over at most 64 queries on the wgmma instance,
+                 which the launch leaves to the mma.sync kernel
 
 and, at a shape ``flash_plan`` gives the decode form, ``prefill_form``:
 the full kernel launched in the prefill form instead (one 64-row block
@@ -86,7 +100,12 @@ have, whether the two compile to the same SASS (``cuobjdump``), and
 times that source's pair
 beside this one's at the same shapes, in turns (``turns/parent_1``,
 ``this_1``, ``this_2``, ``parent_2``), so that a change to the source is
-weighed on one card in one call.
+weighed on one card in one call. ``--parent-flash PATH`` does the same
+for an earlier ``flash_attention.cu`` (e.g. ``git show
+c0c2c54:src/repro_torch/kernels/csrc/flash_attention.cu``, the wide
+pairs' prefill form on ``mma.sync``), against the full source and
+against the ``mma_sync`` variant, whose kernels should all be the
+parent's.
 
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
@@ -108,6 +127,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "src/repro_torch/kernels/csrc"
 OUT_DIR = ROOT / "build" / "kernel_parts"
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+from chip_smoke import PARENT_FLASH_EDITS  # noqa: E402
 
 _NO_MMA = ("    if (!mma_warp) continue;\n", "    continue;\n")
 _NO_TRANSPOSE = ("    t.transpose_stage(st % NST);\n", "")
@@ -165,15 +187,40 @@ _FLASH_NO_COPIES = [
      "tid);\n"
      "    load_tile<DV, BKV>(ks + KTILE, vg + k0 * a.v_ss, a.v_ss, a.Skv - k0, "
      "tid);\n", "")]
-#: flash_attention.cu: variant -> (statement, replacement) edits
+#: the same edits of the wide pairs' wgmma instance: (statement,
+#: replacement[, occurrences])
+_WIDE_NO_MMA = ('"wgmma.mma_async', '"// wgmma.mma_async', 3)
+_WIDE_NO_COMPUTE = ("      if (t < mine) {\n", "      if (false) {\n")
+_WIDE_NO_COPIES = [
+    ('"cp.async.bulk.tensor.4d.shared::cluster',
+     '"// cp.async.bulk.tensor.4d.shared::cluster'),
+    ('"mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;',
+     '"mbarrier.arrive.shared::cta.b64 _, [%0];')]
+#: the wgmma instance's group of heads, and (192, 128)'s launch of it
+_GROUP = ("  const int group = min(B * Hq, max(1, min(by_l2, by_wave)) * "
+          "a.rep);\n")
+_SHORT = ("      if (a.Sq > BQ) return launch_wide<DQK, DV>(a, grid, "
+          "stream);\n")
+#: flash_attention.cu: variant -> (statement, replacement[, n]) edits
 FLASH_VARIANTS = {
     "full": [],
-    "no_mma": [_FLASH_NO_MMA],
-    "copies_only": [_FLASH_NO_COMPUTE],
-    "empty": [_FLASH_NO_COMPUTE, *_FLASH_NO_COPIES],
-    "one_pass": [("  constexpr int NPASS = DV >= 256 ? 2 : 1;\n",
-                  "  constexpr int NPASS = 1;\n")],
+    "no_mma": [_FLASH_NO_MMA, _WIDE_NO_MMA],
+    "copies_only": [_FLASH_NO_COMPUTE, _WIDE_NO_COMPUTE],
+    "empty": [_FLASH_NO_COMPUTE, *_FLASH_NO_COPIES, _WIDE_NO_COMPUTE,
+              *_WIDE_NO_COPIES],
+    "mma_sync": PARENT_FLASH_EDITS,
+    "head_major": [(_GROUP, "  const int group = a.rep;\n")],
+    "no_store": [('"cp.async.bulk.tensor.4d.global',
+                  '"// cp.async.bulk.tensor.4d.global')],
+    "q_smem": [("  static constexpr bool QA = DV / 2 + DQK / 4 <= 128;\n",
+                "  static constexpr bool QA = false;\n")],
+    "wgmma_short": [(_SHORT, _SHORT.replace("a.Sq > BQ", "true"))],
 }
+#: the flash variants that differ from "full" only where the wgmma
+#: instance runs (q_smem only at (192, 128)), or, wgmma_short, where
+#: (192, 128)'s prefill form does not take it; timed only there
+FLASH_WIDE_VARIANTS = ("mma_sync", "head_major", "no_store", "q_smem",
+                       "wgmma_short")
 #: (statement, replacement, occurrences): the wgmma helpers, one per shape
 #: and operand form
 _BWD_NO_MMA = ('"wgmma.mma_async', '"// wgmma.mma_async', 4)
@@ -206,10 +253,16 @@ WIDE_VARIANTS = ("no_stagger",)
 BWD_SHAPES = ("seamless_enc", "llama_s2048", "qwen2vl_d128", "gqa_d128",
               "mla_train", "d256_train")
 #: chip_smoke.FLASH_SHAPES rows timed here: the serving prefill, S=2048,
-#: the two decode-form shapes, the three at D=256 and deepseek-v2's MLA
-#: prefill (keys 192 wide, values 128)
+#: the two decode-form shapes, the three at D=256, deepseek-v2's MLA
+#: prefill (keys 192 wide, values 128) and ragged shape, and both wide
+#: pairs' 300 queries offset into 1000 keys
 FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4", "d256_prefill",
-                "d256_ragged", "d256_decode4", "mla_prefill")
+                "d256_ragged", "d256_decode4", "mla_prefill", "mla_ragged",
+                "d256_offset", "mla_offset")
+#: chip_smoke.BWD_SHAPES rows whose forward (with the log-sum-exp, as a
+#: training step launches it) is timed too: the wide pairs' training
+#: shapes
+FLASH_TRAIN_SHAPES = ("mla_train", "d256_train")
 #: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
@@ -217,6 +270,20 @@ SHAPES = {
     "conv12": (196, 2304, 192, 64), "conv17": (49, 4608, 432, 80),
     "conv18_ds": (49, 256, 416, 96), "fc": (1, 512, 680, 320),
 }
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """nvcc's ``-Xptxas -v`` report cut to each kernel's name, its
+    registers and spills, and any warning (a wgmma serialised)."""
+    lines = []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?(\w+?_kernel\w*?)E",
+                      ln)
+        if m:
+            lines.append(m.group(1))
+        elif any(w in ln for w in ("Used", "spill", "arning", "Loss")):
+            lines.append(ln.split(":", 1)[-1].strip())
+    return lines
 
 
 def build_variants(source: str, variants: dict) -> dict[str, ctypes.CDLL]:
@@ -251,10 +318,8 @@ def build_variants(source: str, variants: dict) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise SystemExit(f"error: nvcc failed on {source} variant "
                              f"{name}:\n{err}")
-        usage = [ln.split(":", 1)[-1].strip()
-                 for ln in (out + err).splitlines()
-                 if "Used" in ln or "spill" in ln]
-        print(f"build: {source} {name}: ptxas: {'; '.join(usage)}")
+        print(f"build: {source} {name}: ptxas: "
+              f"{'; '.join(ptxas_lines(out + err))}")
         libs[name] = ctypes.CDLL(str(lib))
         for entry, argtypes in build.SOURCES[source].items():
             fn = getattr(libs[name], entry)
@@ -273,6 +338,8 @@ def main(argv=None) -> int:
                     help="also time the flash_attention_bwd.cu at PATH (an "
                          "earlier version with the same entry points) beside "
                          "this one's, in turns")
+    ap.add_argument("--parent-flash", default=None, metavar="PATH",
+                    help="the same for the flash_attention.cu at PATH")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -286,27 +353,40 @@ def main(argv=None) -> int:
     for family, fn in (("split", time_split), ("flash", time_flash),
                        ("bwd", time_bwd)):
         if args.only in (None, family):
-            rows += fn(torch, device_times, *(
-                [args.parent_bwd] if family == "bwd" else []))
+            rows += fn(torch, device_times, {
+                "bwd": args.parent_bwd, "flash": args.parent_flash,
+                "split": None}[family])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
     return 0
 
 
-def time_flash(torch, device_times) -> list[dict]:
-    """The flash variants at :data:`FLASH_SHAPES`, each under its plan,
-    and the full kernel in the prefill form where the plan is the decode
-    form."""
-    from chip_smoke import FLASH_SHAPES as SMOKE_SHAPES
-    from repro_torch.kernels.flash_attention import flash_plan, kernel_args
+def time_flash(torch, device_times, parent: str | None = None
+               ) -> list[dict]:
+    """The flash variants at :data:`FLASH_SHAPES` and, with the
+    log-sum-exp, :data:`FLASH_TRAIN_SHAPES`, each under its plan, and
+    the full kernel in the prefill form where the plan is the decode
+    form; the wide variants (:data:`FLASH_WIDE_VARIANTS`) only where they
+    differ from "full". With ``parent``, that source beside this one's,
+    in turns (parent, this, this, parent)."""
+    from chip_smoke import BWD_SHAPES, FLASH_SHAPES as SMOKE_SHAPES
+    from repro_torch.kernels.flash_attention import WIDE_THREADS, \
+        flash_plan, kernel_args
     libs = build_variants("flash_attention", FLASH_VARIANTS)
+    old = build_parent("flash_attention", parent) if parent else None
+    if old is not None:
+        for vname in ("full", "mma_sync"):
+            print(f"sass: this source's {vname} variant against the parent:")
+            same_sass(OUT_DIR / f"flash_attention-{vname}.so",
+                      OUT_DIR / "flash_attention-parent.so")
     gen = torch.Generator(device="cuda").manual_seed(11)
+    stream = torch.cuda.current_stream().cuda_stream
     rows = []
-    for shape in SMOKE_SHAPES:
+    shapes = [s for s in SMOKE_SHAPES if s.name in FLASH_SHAPES] + \
+        [s for s in BWD_SHAPES if s.name in FLASH_TRAIN_SHAPES]
+    for shape in shapes:
         name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
-        if name not in FLASH_SHAPES:
-            continue
         dv = shape.v_dim
         q, k, v = (torch.randn((b, s, h, e), generator=gen, device="cuda",
                                dtype=torch.bfloat16)
@@ -314,50 +394,62 @@ def time_flash(torch, device_times) -> list[dict]:
                                    (skv, hkv, dv)))
         out = torch.empty((b, sq, hq, dv), device="cuda",
                           dtype=torch.bfloat16)
+        lse = torch.empty((b, hq, sq), device="cuda") \
+            if name in FLASH_TRAIN_SHAPES else None
         plan = flash_plan(b, sq, skv, hq, hkv, d, dv)
         cargs = {form: kernel_args(q, k, v, out, d ** -0.5, causal, off,
-                                   plan._replace(form=form))
+                                   plan._replace(form=form), lse)
                  for form in {plan.form, "prefill"}}
-        stream = torch.cuda.current_stream().cuda_stream
 
         def run(lib, form=plan.form):
             rc = lib.flash_attention(*cargs[form], stream)
             if rc:
                 raise RuntimeError(f"launch failed with error {rc}")
+        wgmma = plan.threads == WIDE_THREADS  # the wgmma instance runs
+        mla = plan.form == "prefill" and (d, dv) == (192, 128)
+        differs = {**{v: wgmma for v in FLASH_WIDE_VARIANTS},
+                   "q_smem": wgmma and mla, "wgmma_short": mla and not wgmma}
         fns = {vname: (lambda lib=lib: run(lib), 20)
-               for vname, lib in libs.items()}
+               for vname, lib in libs.items() if differs.get(vname, True)}
         if plan.form == "decode":
             fns["prefill_form"] = (lambda: run(libs["full"], "prefill"), 20)
+        if old is not None:
+            for key, lib in (("turns/parent_1", old),
+                             ("turns/this_1", libs["full"]),
+                             ("turns/this_2", libs["full"]),
+                             ("turns/parent_2", old)):
+                fns[key] = (lambda lib=lib: run(lib), 20)
         us = {vname: 1e3 * t
               for vname, t in device_times(torch, fns).items()}
         rows.append({"kernel": "flash_attention", "shape": name, "b": b,
                      "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d,
                      "dv": dv, "form": plan.form, "grid": list(plan.grid),
+                     "threads": plan.threads, "lse": lse is not None,
                      "us": us})
         print(f"flash_attention {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
-              f"Hkv={hkv} D={d} DV={dv} {plan.form} grid {plan.grid}: "
+              f"Hkv={hkv} D={d} DV={dv} {plan.form} grid {plan.grid} x "
+              f"{plan.threads}{' with lse' if lse is not None else ''}: "
               + "; ".join(
                   f"{vname} {t:.2f} us" for vname, t in us.items()))
+        del q, k, v, out, lse
     return rows
 
 
-def build_parent(path: str) -> ctypes.CDLL:
-    """``path``, an earlier flash_attention_bwd.cu with this one's entry
-    points (the value head size after D), built as the variants are."""
+def build_parent(source: str, path: str) -> ctypes.CDLL:
+    """``path``, an earlier ``csrc/<source>.cu`` with this one's entry
+    points, built as the variants are."""
     from repro_torch.kernels import build
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = OUT_DIR / "flash_attention_bwd-parent.so"
+    lib_path = OUT_DIR / f"{source}-parent.so"
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
                            str(lib_path), path], capture_output=True,
                           text=True)
     if proc.returncode:
         raise SystemExit(f"error: nvcc failed on {path}:\n{proc.stderr}")
-    usage = [ln.split(":", 1)[-1].strip()
-             for ln in (proc.stdout + proc.stderr).splitlines()
-             if "Used" in ln or "spill" in ln]
-    print(f"build: flash_attention_bwd parent: ptxas: {'; '.join(usage)}")
+    print(f"build: {source} parent: ptxas: "
+          f"{'; '.join(ptxas_lines(proc.stdout + proc.stderr))}")
     lib = ctypes.CDLL(str(lib_path))
-    for entry, argtypes in build.SOURCES["flash_attention_bwd"].items():
+    for entry, argtypes in build.SOURCES[source].items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -397,7 +489,7 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
     from chip_smoke import BWD_SHAPES as SMOKE_SHAPES
     from repro_torch.kernels import flash_attention_bwd as fab
     libs = build_variants("flash_attention_bwd", BWD_VARIANTS)
-    old = build_parent(parent) if parent else None
+    old = build_parent("flash_attention_bwd", parent) if parent else None
     if old is not None:
         same_sass(OUT_DIR / "flash_attention_bwd-full.so",
                   OUT_DIR / "flash_attention_bwd-parent.so")
@@ -467,7 +559,7 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
     return rows
 
 
-def time_split(torch, device_times) -> list[dict]:
+def time_split(torch, device_times, parent: None = None) -> list[dict]:
     """The split-GEMM variants at resnet18's :data:`SHAPES`."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_hetero_gemm import split_plan

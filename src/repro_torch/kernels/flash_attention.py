@@ -9,16 +9,20 @@ sequence lengths masked in the kernel, and grouped-query attention by
 mapping query head ``h`` to KV head ``h // (Hq // Hkv)`` (no repeated
 K or V). The value head size may differ from the key's: MLA's 192-wide
 keys (128 + 64 rotary columns) over 128-wide values. Both products are
-bf16 tensor-core ``mma.sync`` with fp32 accumulators; K and V tiles
-stream through a ``cp.async`` ring.
+bf16 tensor-core products with fp32 accumulators: ``mma.sync`` on K and
+V tiles streamed through a ``cp.async`` ring, except in the prefill form
+at the wide pairs :data:`WIDE_PAIRS` (:func:`wide_prefill`), which is
+``wgmma`` on tiles a producer warp streams by TMA.
 
 :func:`flash_plan` picks the launch. The prefill form runs one block per
 (64-row query tile, query head, batch) and walks the KV tiles in a loop,
-skipping those wholly above the causal diagonal. The decode form, taken
-when ``Sq * Hq / Hkv <= 16``, runs one block per (KV head, batch) that
-packs the query heads sharing the KV head, times the ``Sq`` positions,
-into the 16 rows of one tensor-core tile, so each K and V tile is read
-once for all of them.
+skipping those wholly above the causal diagonal; the wgmma instance one
+block of two consumer warpgroups per (128 query rows, query head,
+batch), each warpgroup keeping its 64 rows' whole output in registers.
+The decode form, taken when ``Sq * Hq / Hkv <= 16``, runs one block per
+(KV head, batch) that packs the query heads sharing the KV head, times
+the ``Sq`` positions, into the 16 rows of one tensor-core tile, so each
+K and V tile is read once for all of them.
 
 :func:`flash_attention` launches the kernel on CUDA tensors and counts
 the launch, or raises; on CPU tensors, or with ``mode="ref"``, it
@@ -70,24 +74,54 @@ FORMS = ("prefill", "decode")
 BLOCK_Q = 64                # prefill: query rows per block (4 warps x 16)
 BLOCK_KV = 64               # keys per staged K or V tile
 DECODE_ROWS = 16            # decode: packed (position, head) rows a block
+#: the (key, value) head sizes whose prefill form is the wgmma instance
+#: (``flash_wide_kernel``) where :func:`wide_prefill`: gemma's and
+#: DeepSeek-V2's MLA's
+WIDE_PAIRS = ((256, 256), (192, 128))
+WIDE_BLOCK_Q = 128          # its query rows a block (2 warpgroups x 64)
+WIDE_THREADS = 384          # 2 consumer warpgroups and a producer's
+SMEM_BLOCK = 232_448        # dynamic shared memory an H100 block may take
 
 
 def stages(form: str, d: int, dv: int | None = None) -> int:
-    """K / V ring stages of ``form`` at key head size ``d`` and value
-    head size ``dv`` (default ``d``), as the kernel's ``stages<DQK, DV,
-    DEC>()``: 2 in the prefill form, 4 in the decode form but 3 where
-    ``d + dv`` exceeds 384 (at (256, 256) 4 stages and the Q tile would
-    need 264 KiB of shared memory)."""
+    """K / V ring stages of the ``mma.sync`` kernel's ``form`` at key head
+    size ``d`` and value head size ``dv`` (default ``d``), as its
+    ``stages<DQK, DV, DEC>()``: 2 in the prefill form, 4 in the decode
+    form but 3 where ``d + dv`` exceeds 384 (at (256, 256) 4 stages and
+    the Q tile would need 264 KiB of shared memory)."""
     dv = d if dv is None else dv
     return {"prefill": 2, "decode": 3 if d + dv > 384 else 4}[form]
 
 
+def wide_stages(d: int, dv: int) -> int:
+    """K / V ring stages of the wgmma instance (``WideSmem<DQK, DV>::ST``):
+    as many as fit beside its two 64-row Q tiles, 1 KiB for alignment and
+    1 for the barriers, at most 4: 2 at (256, 256), 4 at (192, 128)."""
+    free = SMEM_BLOCK - 2048 - 2 * WIDE_BLOCK_Q * d
+    return min(4, free // (2 * BLOCK_KV * (d + dv)))
+
+
+def wide_prefill(sq: int, d: int, dv: int) -> bool:
+    """Whether the prefill form at ``Sq`` queries and head sizes (d, dv)
+    runs the wgmma instance: at (256, 256), and at (192, 128) past one
+    64-row query tile. Over at most 64 queries (192, 128) keeps the
+    ``mma.sync`` kernel, whose 104 KiB of shared memory fit two blocks an
+    SM where the wgmma block's second warpgroup would idle: it was the
+    faster of the two at DeepSeek-V2's serving prefill (0.042 ms against
+    0.051-0.056 at B 8, S 64, 128 heads; NVIDIA H100 80GB HBM3, 700 W;
+    ``kernel_parts.py``'s ``wgmma_short``). At (256, 256) the wgmma
+    instance is the faster there too (gemma-7b's: 0.012 against 0.016)."""
+    return (d, dv) == (256, 256) or ((d, dv) == (192, 128)
+                                     and sq > BLOCK_Q)
+
+
 class FlashPlan(NamedTuple):
-    """How one call launches (128 threads a block): the form, its grid
-    (x, y, z) and its dynamic shared-memory bytes."""
+    """How one call launches: the form, its grid (x, y, z), its
+    dynamic shared-memory bytes and its threads a block."""
     form: str
     grid: tuple[int, int, int]
     smem: int
+    threads: int = 128
 
 
 def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
@@ -98,14 +132,28 @@ def flash_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
     16-row tile (grid (Hkv, B, 1)), else the prefill form (grid (Hq, B,
     ceil(Sq / 64)), the query tile slowest). Shared memory holds the bf16
     Q tile [rows, d] and the ring of :func:`stages` stages of a K tile
-    [64, d] and a V tile [64, dv]. The wrapper passes only the form; the
-    C entry point works out the same grid and shared memory itself."""
+    [64, d] and a V tile [64, dv]. Where :func:`wide_prefill`, the prefill
+    form is the wgmma instance: a one-dimensional grid of ceil(Sq / 128)
+    · Hq · B blocks of 384 threads (in groups of heads, as many as a wave
+    of blocks covers and whose K and V fit a share of L2, each group's
+    heaviest query tiles first); its shared memory holds two Q tiles
+    [64, d] and the ring of
+    :func:`wide_stages` stages, plus 8 bytes a barrier (one for Q, two a
+    stage) and 1024 for aligning the tiles to the 128-byte swizzle's
+    period. The wrapper passes only the form; the C entry point works
+    out the same grid and shared memory itself."""
     dv = d if dv is None else dv
     if min(b, sq, skv, hq, hkv, d, dv) <= 0 or hq % hkv:
         raise ValueError(f"flash_plan: no launch for B={b} Sq={sq} "
                          f"Skv={skv} Hq={hq} Hkv={hkv} D={d} DV={dv}")
     if sq * (hq // hkv) <= DECODE_ROWS:
         form, grid, rows = "decode", (hkv, b, 1), DECODE_ROWS
+    elif wide_prefill(sq, d, dv):
+        st = wide_stages(d, dv)
+        smem = (2 * (WIDE_BLOCK_Q * d + st * BLOCK_KV * (d + dv))
+                + 8 * (1 + 2 * st) + 1024)
+        return FlashPlan("prefill", (-(-sq // WIDE_BLOCK_Q) * hq * b, 1, 1),
+                         smem, WIDE_THREADS)
     else:
         form, grid, rows = "prefill", (hq, b, -(-sq // BLOCK_Q)), BLOCK_Q
     smem = 2 * (rows * d + stages(form, d, dv) * BLOCK_KV * (d + dv))

@@ -28,11 +28,13 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.models import layers as jlayers
+from jax.scipy.special import logsumexp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import build
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.flash_attention import KERNEL_HEAD_DIMS, \
-    flash_attention, flash_attention_plain, flash_plan, kernel_args
+    flash_attention, flash_attention_plain, flash_plan, kernel_args, \
+    wide_prefill, wide_stages
 from repro_torch.kernels.flash_attention import stages as flash_stages
 from repro_torch.models import layers
 
@@ -254,6 +256,43 @@ def test_cache_write_matches_reference(s_new, idx):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# (b, sq, skv, hq, hkv, d, dv, kv_offset): both wide pairs over 150
+# queries (past one 128-row tile of the wgmma instance) at offset 50 into
+# 200 keys (tiles across the causal diagonal), with GQA at (256, 256)
+WIDE_PLAIN = [(1, 150, 200, 2, 1, 256, 256, 50),
+              (1, 150, 200, 2, 2, 192, 128, 50)]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,off", WIDE_PLAIN)
+def test_plain_with_lse_matches_jax_at_wide_pairs(b, sq, skv, hq, hkv, d,
+                                                  dv, off):
+    """What the wide pairs' kernels compute, in the plain version with
+    its log-sum-exp, against the reference: the output against
+    ``blockwise_attention`` and the lse against ``logsumexp`` of the
+    reference's masked fp32 scores, on the same numpy inputs, in fp32
+    (tolerance 3e-5, as above), the queries split into 64-row chunks as
+    the kernel's warpgroups split them and the keys into 64-key tiles."""
+    rng = np.random.default_rng(sq + d)
+    q = (rng.standard_normal((b, sq, hq, d)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((b, skv, hkv, d)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, dv)).astype(np.float32)
+    scale = d ** -0.5
+    want = jlayers.blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_chunk=64, kv_chunk=64, kv_offset=off, softmax_scale=scale)
+    kr = jnp.repeat(jnp.asarray(k), hq // hkv, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kr) * scale
+    masked = jnp.arange(skv)[None, :] > jnp.arange(sq)[:, None] + off
+    want_lse = logsumexp(jnp.where(masked, -1e30, s), axis=-1)
+    got, lse = flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, kv_offset=off, scale=scale, q_chunk=64, kv_chunk=64,
+        return_lse=True)
+    assert got.shape == (b, sq, hq, dv) and lse.shape == (b, hq, sq)
+    _close(got, want)
+    _close(lse, want_lse)
+
+
 # ---------------------------------------------------------------------------
 # The kernel's launch plan
 # ---------------------------------------------------------------------------
@@ -274,7 +313,9 @@ def test_flash_plan_picks_the_form(sq, hq, hkv, form):
         assert plan.grid == (hq, 3, -(-sq // 64))
 
 
-# chip_smoke.py's flash shapes: (name, form, grid)
+# chip_smoke.py's flash shapes: (name, form, grid); the wide pairs'
+# prefill form (but (192, 128) over at most 64 queries) on the wgmma
+# instance's one-dimensional grid of ceil(Sq / 128) * Hq * B blocks
 CHIP_PLANS = [
     ("prefill", "prefill", (32, 8, 1)),
     ("s2048", "prefill", (32, 1, 32)),
@@ -284,15 +325,17 @@ CHIP_PLANS = [
     ("decode", "decode", (8, 8, 1)),
     ("d128_mha", "prefill", (16, 2, 8)),
     ("decode4", "decode", (8, 8, 1)),
-    ("d256_prefill", "prefill", (16, 8, 1)),
-    ("d256_ragged", "prefill", (16, 2, 16)),
+    ("d256_prefill", "prefill", (128, 1, 1)),
+    ("d256_ragged", "prefill", (256, 1, 1)),
     ("d256_decode4", "decode", (16, 8, 1)),
     ("gqa7", "prefill", (56, 8, 1)),
     ("qwen3_prefill", "prefill", (32, 8, 1)),
     ("moe_prefill", "prefill", (64, 8, 1)),
     ("mla_prefill", "prefill", (128, 8, 1)),
-    ("mla_ragged", "prefill", (16, 2, 16)),
+    ("mla_ragged", "prefill", (256, 1, 1)),
     ("mla_decode4", "decode", (4, 8, 1)),
+    ("d256_offset", "prefill", (96, 1, 1)),
+    ("mla_offset", "prefill", (96, 1, 1)),
     ("cross_prefill", "prefill", (16, 8, 1)),
     ("cross_decode", "decode", (16, 8, 1)),
     ("tp_prefill", "prefill", (16, 8, 1)),
@@ -316,6 +359,10 @@ def test_flash_plan_at_chip_shapes(name, form, grid):
                       row.v_dim)
     assert (plan.form, plan.grid) == (form, grid)
     assert (row.d, row.v_dim) in KERNEL_HEAD_DIMS
+    wide = form == "prefill" and wide_prefill(row.sq, row.d, row.v_dim)
+    assert plan.threads == (384 if wide else 128)
+    if wide:
+        assert grid[0] == -(-row.sq // 128) * row.hq * row.b
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -323,14 +370,23 @@ def test_flash_plan_at_chip_shapes(name, form, grid):
                                        (2048, 32, 32)])
 def test_flash_plan_shared_memory_fits(sq, hq, hkv, d):
     plan = flash_plan(2, sq, 4096, hq, hkv, d)
-    rows = 16 if plan.form == "decode" else 64
     # the decode form's 4 stages at D=256 would take 264 KiB: it has 3
     stages = {"prefill": 2, "decode": 3 if d == 256 else 4}[plan.form]
     assert stages == flash_stages(plan.form, d) == \
         flash_stages(plan.form, d, d)
-    # the bf16 Q tile and the ring of [K, V] 64-key tile stages, within
-    # the 227 KB of dynamic shared memory an H100 block may take
-    assert plan.smem == 2 * d * (rows + stages * 2 * 64)
+    if plan.form == "prefill" and d == 256:
+        # the wgmma instance: two 64-row Q tiles, 2 stages of [K, V] (3
+        # would not fit), 8 bytes a barrier (Q's, a full and an empty
+        # one a stage) and 1 KiB to align the tiles to 1024 bytes
+        assert wide_stages(d, d) == 2
+        assert plan.smem == 2 * d * (128 + 2 * 2 * 64) + 8 * 5 + 1024
+        assert plan.threads == 384
+    else:
+        # the bf16 Q tile and the ring of [K, V] 64-key tile stages
+        rows = 16 if plan.form == "decode" else 64
+        assert plan.smem == 2 * d * (rows + stages * 2 * 64)
+        assert plan.threads == 128
+    # within the 227 KB of dynamic shared memory an H100 block may take
     assert plan.smem <= 227 * 1024
     assert plan == flash_plan(2, sq, 4096, hq, hkv, d, d)
 
@@ -368,16 +424,37 @@ def test_kernel_args_match_the_entry_point(name):
 
 
 def test_kernel_parts_flash_variants_edit_the_source():
-    """Each statement a ``kernel_parts.py`` flash variant takes out is in
-    the source exactly once (the script fails loudly otherwise)."""
+    """Each statement a ``kernel_parts.py`` flash variant edits is in the
+    source as many times as the edit says (the script fails loudly
+    otherwise), and the variants of both kernels reach the wgmma
+    instance: no_mma takes out every wgmma, copies_only every tile's
+    products, empty its TMA loads too (but not the output's store), and
+    mma_sync (chip_smoke.py's parent launch) leaves no launch of it."""
     parts = _load("kernel_parts")
     text = (parts.CSRC / "flash_attention.cu").read_text()
-    assert set(parts.FLASH_VARIANTS) == {"full", "no_mma", "copies_only",
-                                         "empty", "one_pass"}
-    for edits in parts.FLASH_VARIANTS.values():
-        for old, new in edits:
-            assert text.count(old) == 1, old
+    assert set(parts.FLASH_VARIANTS) == {
+        "full", "no_mma", "copies_only", "empty", "mma_sync", "head_major",
+        "no_store", "q_smem", "wgmma_short"}
+    assert set(parts.FLASH_WIDE_VARIANTS) < set(parts.FLASH_VARIANTS)
+    assert parts.FLASH_VARIANTS["mma_sync"] == \
+        _load("chip_smoke").PARENT_FLASH_EDITS
+    for name, edits in parts.FLASH_VARIANTS.items():
+        src = text
+        for old, new, *n in edits:
+            assert src.count(old) == (n[0] if n else 1), (name, old)
             assert old != new
+            src = src.replace(old, new)
+        if name == "no_mma":
+            assert "wgmma.mma_async" not in src.replace("// wgmma", "")
+        if name in ("copies_only", "empty"):
+            assert "      if (false) {\n" in src
+        if name == "empty":
+            assert '"cp.async.bulk.tensor.4d.shared' not in src
+            assert '"cp.async.bulk.tensor.4d.global' in src
+        if name == "mma_sync":  # both launches of the instance dead
+            assert src.count("return launch_wide") == 2
+            assert "  if constexpr (false) {\n    return launch_wide" in src
+            assert "if (false) return launch_wide" in src
 
 
 @pytest.mark.parametrize("name", ["offset", "decode", "decode4",

@@ -37,7 +37,7 @@ from repro.serve import engine as jengine
 from repro_torch.configs import registry
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.flash_attention import flash_attention_plain, \
-    flash_plan, stages
+    flash_plan, stages, wide_stages
 from repro_torch.launch import serve
 from repro_torch.models import layers, lm
 from repro_torch.serve import engine
@@ -196,20 +196,30 @@ def test_plain_flash_at_unequal_head_sizes(b, sq, skv, hq, hkv, d, dv, qc,
 
 
 @pytest.mark.parametrize("sq,form,smem", [(64, "prefill", 106_496),
-                                          (1, "decode", 169_984)])
+                                          (1, "decode", 169_984),
+                                          (65, "prefill", 214_088)])
 def test_flash_plan_shared_memory_at_mla(sq, form, smem):
-    """At (192, 128): the bf16 Q tile [rows, 192] and the ring of
-    [K [64, 192], V [64, 128]] stages, 2 in the prefill form (two blocks
-    fit an SM's 228 KB) and 4 in the decode form, within the 227 KB a
-    block may take."""
+    """At (192, 128): over at most 64 queries the mma.sync kernel, its
+    bf16 Q tile [rows, 192] and the ring of [K [64, 192], V [64, 128]]
+    stages, 2 in the prefill form (two blocks fit an SM's 228 KB) and 4
+    in the decode form; past 64 queries the wgmma instance, two 64-row Q
+    tiles, 4 stages, 8 bytes a barrier and 1 KiB of alignment, one block
+    an SM; each within the 227 KB a block may take."""
     plan = flash_plan(8, sq, 64, 128, 128, 192, 128)
     assert (plan.form, plan.smem) == (form, smem)
-    rows = {"prefill": 64, "decode": 16}[form]
-    assert stages(form, 192, 128) == {"prefill": 2, "decode": 4}[form]
-    assert plan.smem == 2 * (rows * 192 + stages(form, 192, 128) * 64 * 320)
-    assert plan.smem <= 227 * 1024
-    if form == "prefill":
+    if sq > 64:
+        assert wide_stages(192, 128) == 4
+        assert plan.smem == 2 * (128 * 192 + 4 * 64 * 320) + 8 * 9 + 1024
+        assert (plan.grid, plan.threads) == ((128 * 8, 1, 1), 384)
+    else:
+        rows = {"prefill": 64, "decode": 16}[form]
+        assert stages(form, 192, 128) == {"prefill": 2, "decode": 4}[form]
+        assert plan.smem == 2 * (rows * 192 +
+                                 stages(form, 192, 128) * 64 * 320)
+        assert plan.threads == 128
+    if form == "prefill" and sq <= 64:
         assert 2 * plan.smem <= 228 * 1024
+    assert plan.smem <= 227 * 1024
 
 
 # ---------------------------------------------------------------------------

@@ -364,10 +364,13 @@ Phases, each printing its lines before the last:
    log-sum-exp, dq with delta, dkdv) at :data:`F32_SHAPES` (each smoke
    pair, GQA, ragged causal tiles, ``kv_offset`` > 0, the decode form,
    non-causal cross-attention over a bf16 cache, an LM smoke config's
-   training at S 8448) against its plain version and float64
-   (:data:`F32_FACTOR`, :data:`F32_FLOOR`), the backward bitwise
-   repeatable, timed beside SDPA (and its backward) in fp32 and the fp32
-   bound. Then, through ``launch.train.main`` at published widths cut in
+   training at S 8448, and dkdv's cluster ranks with an empty share, a
+   share of one partial tile and a causal first row inside a tile, on
+   the compiled and the run-time head sizes) against its plain version
+   and float64 (:data:`F32_FACTOR`, :data:`F32_FLOOR`), the backward
+   bitwise repeatable, timed beside SDPA (and its backward) in fp32 and
+   the fp32 bound, each backward row with its launch plan
+   (``flash_attention_bwd.f32_bwd_plan``). Then, through ``launch.train.main`` at published widths cut in
    depth (:func:`cut_arch`): deepseek-v2-236b's dense first layer
    (:data:`TRAIN_DEEPSEEK`: MLA at (192, 128) on the bf16 kernels' wide
    backward) and gemma-7b's first 2 layers at S 8448
@@ -5500,7 +5503,12 @@ def phase_tensor(torch, details: dict, ref: dict | None = None,
 #: diagonal (S 100); the LMs' prefill at 16 (4/2), gemma's 32, yi's 8 at 7
 #: query heads over 1, qwen2-vl's 16 at 3/1; kv_offset > 0 over a longer
 #: key range; the decode form (Sq 1); an LM smoke config's training above
-#: 8192 tokens. The first is the kernels line's row
+#: 8192 tokens; then two rows for dkdv's cluster split: f32_ranks (one
+#: key tile over 3 row tiles, S 4: rank 0's share empty, rank 3's the
+#: partial last tile) and f32_first at (20, 20), the instance that reads
+#: its head sizes at run time (the second key tile's first row inside a
+#: row tile, the third's one partial tile over 4 ranks). The first is the
+#: kernels line's row
 F32_SHAPES = [
     FlashShape("f32_seamless_enc", 8, 128, 128, 4, 2, 12, False, 0,
                backward=True),
@@ -5520,6 +5528,9 @@ F32_SHAPES = [
                backward=True),
     FlashShape("f32_decode", 8, 1, 64, 4, 2, 16, True, 63),
     FlashShape("f32_lm_s8448", 1, 8448, 8448, 4, 2, 16, True, 0,
+               backward=True),
+    FlashShape("f32_ranks", 1, 40, 40, 2, 1, 16, True, 0, backward=True),
+    FlashShape("f32_first", 2, 100, 130, 4, 4, 20, True, 30,
                backward=True),
 ]
 #: fp32 kernel vs the exact function. The kernel and its plain version
@@ -5738,7 +5749,7 @@ def f32_backward(torch, shape, q, k, v, gen) -> dict:
     from repro_torch.kernels.flash_attention import _forward_kernel, \
         flash_attention
     from repro_torch.kernels.flash_attention_bwd import F32_ENTRY_POINTS, \
-        bwd_prep_plain, entry_args, flash_attention_bwd_plain
+        bwd_prep_plain, entry_args, f32_bwd_plan, flash_attention_bwd_plain
     entry_names = F32_ENTRY_POINTS
     name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
     dv = shape.v_dim
@@ -5801,7 +5812,15 @@ def f32_backward(torch, shape, q, k, v, gen) -> dict:
     times["plain_bwd"] = cuda_ms(torch, lambda: flash_attention_bwd_plain(
         q, k, v, dout, **kw), iters=3, warmup=1)
     bound = (b, sq, skv, hq, hkv, d, causal, off)
-    return {"bwd_checks": checks, "bitwise_repeat": bitwise,
+    plan = f32_bwd_plan(b, sq, skv, hq, hkv, d, dv, causal, off)
+    print(f"f32 {name} plan: dq {plan.dq_blocks} blocks, "
+          f"{plan.dq_smem} B shared ({plan.key_slices} key slices); dkdv "
+          f"{plan.dkdv_blocks} blocks in clusters of {plan.split}, "
+          f"{plan.dkdv_smem} B shared; instance {plan.instance}; the first "
+          f"key tile's ranks {list(plan.ranges[0])}, the last's "
+          f"{list(plan.ranges[-1])}")
+    return {"plan": plan._asdict(), "bwd_checks": checks,
+            "bitwise_repeat": bitwise,
             "delta_err": delta_err, "times_ms": times,
             "bwd_bound": bwd_bound_ms(*bound, dv=dv, elem=4,
                                       rate=FP32_FLOP_PER_S),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel launch spends its device time, on one NVIDIA card.
 
-    python3 kernel_parts.py [--out PATH] [--only {split,flash,bwd}]
+    python3 kernel_parts.py [--out PATH] [--only {split,flash,bwd,f32}]
                             [--parent-flash PATH] [--parent-bwd PATH]
+                            [--parent-f32 PATH]
 
 Builds variants of the kernel sources into ``build/kernel_parts/``, each
 with parts of the main loop taken out, and times them: the split-GEMM
@@ -106,6 +107,30 @@ c0c2c54:src/repro_torch/kernels/csrc/flash_attention.cu``, the wide
 pairs' prefill form on ``mma.sync``), against the full source and
 against the ``mma_sync`` variant, whose kernels should all be the
 parent's.
+
+``src/repro_torch/kernels/csrc/flash_attention_f32.cu``'s backward (``--only
+f32``), dq, dkdv and the two back to back at ``chip_smoke.F32_SHAPES``'
+rows with a backward, beside SDPA's fp32 backward, as variants
+(:data:`F32_VARIANTS`):
+
+    full          the kernels as they are
+    copies_only   only the streamed tiles' copies, the delta, dkdv's
+                  cluster reduction and the stores (no products)
+    no_reduce     dkdv's ranks store their own partials: no reads of
+                  another rank's shared memory (wrong sums at S > 1)
+    no_split      dkdv launched with S = 1 (one block a key tile)
+    generic       every pair on the (0, 0) instance, the head sizes read
+                  at run time
+    no_overlap    each streamed tile waited for before the tile before it
+                  is computed, so no copy overlaps a product
+
+With ``--parent-f32 PATH`` (an earlier ``flash_attention_f32.cu`` with
+the same entry points, e.g. ``git show
+a8d1c26:src/repro_torch/kernels/csrc/flash_attention_f32.cu``, the
+backward before its redesign) it prints whether ``fwd_kernel`` compiles
+to the parent's SASS
+and times the parent's dq, dkdv and pair beside this one's, the pairs in
+turns (parent, this, this, parent).
 
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
@@ -263,6 +288,27 @@ FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4", "d256_prefill",
 #: training step launches it) is timed too: the wide pairs' training
 #: shapes
 FLASH_TRAIN_SHAPES = ("mla_train", "d256_train")
+_F32_NO_COMPUTE = [("dq_tile<D_, DV_>(", "if (false) dq_tile<D_, DV_>("),
+                   ("dkdv_tile<D_, DV_>(", "if (false) dkdv_tile<D_, DV_>(")]
+_F32_SYNC = "    cp_commit();\n    {tile}<D_, DV_>("
+#: flash_attention_f32.cu's backward: variant -> (statement, replacement)
+#: edits
+F32_VARIANTS = {
+    "full": [],
+    "copies_only": _F32_NO_COMPUTE,
+    "no_reduce": [("    float4 sum = part4_of(e, 0);\n",
+                   "    float4 sum = part4[e];\n"),
+                  ("    for (int src = 1; src < S; ++src) {\n",
+                   "    for (int src = S; src < S; ++src) {\n")],
+    "no_split": [("  a.split = dkdv_split(a);\n", "  a.split = 1;\n")],
+    "generic": [("int with_pair(int D, int DV, F f) {\n",
+                 "int with_pair(int D, int DV, F f) {\n"
+                 "  if (true) return f(Pair<0, 0>{});\n")],
+    "no_overlap": [(_F32_SYNC.format(tile=t), _F32_SYNC.format(tile=t).replace(
+        "    cp_commit();\n", "    cp_commit();\n    cp_wait<0>();\n"
+        "    __syncthreads();\n")) for t in ("dq_tile", "dkdv_tile")],
+}
+
 #: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
@@ -332,7 +378,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the times as "
                     "JSON here")
-    ap.add_argument("--only", choices=("split", "flash", "bwd"),
+    ap.add_argument("--only", choices=("split", "flash", "bwd", "f32"),
                     default=None, help="time one kernel family only")
     ap.add_argument("--parent-bwd", default=None, metavar="PATH",
                     help="also time the flash_attention_bwd.cu at PATH (an "
@@ -340,6 +386,9 @@ def main(argv=None) -> int:
                          "this one's, in turns")
     ap.add_argument("--parent-flash", default=None, metavar="PATH",
                     help="the same for the flash_attention.cu at PATH")
+    ap.add_argument("--parent-f32", default=None, metavar="PATH",
+                    help="the same for the flash_attention_f32.cu at PATH "
+                         "(its backward)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -351,11 +400,11 @@ def main(argv=None) -> int:
     print(f"card: {nvidia_smi()}")
     rows = []
     for family, fn in (("split", time_split), ("flash", time_flash),
-                       ("bwd", time_bwd)):
+                       ("bwd", time_bwd), ("f32", time_f32)):
         if args.only in (None, family):
             rows += fn(torch, device_times, {
                 "bwd": args.parent_bwd, "flash": args.parent_flash,
-                "split": None}[family])
+                "f32": args.parent_f32, "split": None}[family])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
@@ -459,7 +508,7 @@ def build_parent(source: str, path: str) -> ctypes.CDLL:
 def sass_of(lib: Path) -> dict[str, str]:
     """Each kernel's SASS in ``lib`` (``cuobjdump -sass``, beside nvcc), by
     its name less the source's anonymous namespace, with the instruction
-    addresses' comments taken out."""
+    addresses' comments taken out, up to the line of dots that ends it."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -468,7 +517,8 @@ def sass_of(lib: Path) -> dict[str, str]:
     for block in text.split("Function : ")[1:]:
         name, _, body = block.partition("\n")
         name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", name.strip())
-        out[name] = re.sub(r"/\*[0-9a-f]{4,}\*/", "", body)
+        out[name] = re.sub(r"/\*[0-9a-f]{4,}\*/", "",
+                           body.split("..........")[0])
     return out
 
 
@@ -477,9 +527,15 @@ def same_sass(this: Path, parent: Path) -> None:
     has, whether the two compiled to the same SASS."""
     mine, theirs = sass_of(this), sass_of(parent)
     for name in sorted(set(mine) & set(theirs)):
+        same = mine[name] == theirs[name]
         print(f"sass {name[:48]}: "
-              + ("the parent's" if mine[name] == theirs[name]
-                 else "differs from the parent's"))
+              + ("the parent's" if same else "differs from the parent's"))
+        if not same:
+            pairs = [(a, b) for a, b in zip(theirs[name].splitlines(),
+                                            mine[name].splitlines())
+                     if a != b]
+            print("\n".join(f"  parent: {a.strip()}\n  this:   {b.strip()}"
+                            for a, b in pairs[:4]))
 
 
 def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
@@ -554,6 +610,81 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
                      "dv": dv, "causal": causal, "kv_offset": off, "us": us})
         print(f"flash_attention_bwd {name}: B={b} Sq={sq} Skv={skv} Hq={hq} "
               f"Hkv={hkv} D={d} DV={dv} causal={causal}: " + "; ".join(
+                  f"{key} {t:.2f} us" for key, t in us.items()))
+        del q, k, v, out, dout, lse, delta, grads
+    return rows
+
+
+def time_f32(torch, device_times, parent: str | None = None) -> list[dict]:
+    """The fp32 backward's variants at ``chip_smoke.F32_SHAPES``' rows with
+    a backward: dq, dkdv and the pair, beside SDPA's fp32 backward; with
+    ``parent``, that source's dq, dkdv and pair, the pairs in turns."""
+    from chip_smoke import F32_SHAPES, sdpa_bwd_fn
+    from repro_torch.kernels import flash_attention_bwd as fab
+    libs = build_variants("flash_attention_f32", F32_VARIANTS)
+    old = build_parent("flash_attention_f32", parent) if parent else None
+    if old is not None:
+        same_sass(OUT_DIR / "flash_attention_f32-full.so",
+                  OUT_DIR / "flash_attention_f32-parent.so")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = fab.F32_ENTRY_POINTS
+    rows = []
+    for shape in F32_SHAPES:
+        if not shape.backward:
+            continue
+        name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
+        dv = shape.v_dim
+        q, k, v, out, dout = (
+            torch.randn(sh, generator=gen, device="cuda")
+            for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                       (b, sq, hq, dv), (b, sq, hq, dv)))
+        lse = torch.full((b, hq, sq), math.log(skv), device="cuda")
+        delta = torch.empty((b, hq, sq), device="cuda")
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        args = fab.entry_args(q, k, v, out, dout, lse, delta, *grads,
+                              d ** -0.5, causal, off)
+
+        def run(lib, entry, who="this"):
+            rc = getattr(lib, entry)(*args[entry], stream)
+            if rc:
+                raise RuntimeError(f"{who} {entry} failed with error {rc}")
+
+        def pair(lib, who="this"):
+            for entry in names:
+                run(lib, entry, who)
+        fns = {}
+        for vname, lib in libs.items():
+            for entry in names:
+                short = entry.replace("flash_attention_f32_bwd_", "")
+                fns[f"{vname}/{short}"] = (
+                    lambda lib=lib, entry=entry: run(lib, entry), 20)
+            fns[f"{vname}/pair"] = (lambda lib=lib: pair(lib), 20)
+        if old is not None:
+            for entry in names:
+                short = entry.replace("flash_attention_f32_bwd_", "")
+                fns[f"parent/{short}"] = (
+                    lambda entry=entry: run(old, entry, "parent"), 20)
+            for key, fn in (
+                    ("turns/parent_1", lambda: pair(old, "parent")),
+                    ("turns/this_1", lambda: pair(libs["full"])),
+                    ("turns/this_2", lambda: pair(libs["full"])),
+                    ("turns/parent_2", lambda: pair(old, "parent"))):
+                fns[key] = (fn, 20)
+        lib_bwd = sdpa_bwd_fn(torch, q, k, v, dout, causal, off)
+        if lib_bwd is not None:
+            fns["sdpa_bwd"] = (lib_bwd, 20)
+        # dkdv alone reads the delta dq writes
+        run(libs["full"], names[0])
+        us = {key: 1e3 * t for key, t in device_times(torch, fns).items()}
+        plan = fab.f32_bwd_plan(b, sq, skv, hq, hkv, d, dv, causal, off)
+        rows.append({"kernel": "flash_attention_f32_bwd", "shape": name,
+                     "b": b, "sq": sq, "skv": skv, "hq": hq, "hkv": hkv,
+                     "d": d, "dv": dv, "causal": causal, "kv_offset": off,
+                     "split": plan.split, "us": us})
+        print(f"flash_attention_f32_bwd {name}: B={b} Sq={sq} Skv={skv} "
+              f"Hq={hq} Hkv={hkv} D={d} DV={dv} causal={causal} "
+              f"kv_offset={off} S={plan.split}: " + "; ".join(
                   f"{key} {t:.2f} us" for key, t in us.items()))
         del q, k, v, out, dout, lse, delta, grads
     return rows

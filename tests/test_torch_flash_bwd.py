@@ -60,7 +60,8 @@ SHAPES = [
 # gemma-7b's training, each also with tiles across the diagonal, and MLA's
 # with a dq block's second warpgroup past the last row) and its
 # fp32 rows (F32_SHAPES with a backward: the smoke configs' pairs, GQA,
-# ragged causal tiles, kv_offset > 0, non-causal)
+# ragged causal tiles, kv_offset > 0, non-causal, and the two rows of
+# dkdv's cluster ranks, the second at a run-time pair)
 PAIR_SHAPES = [
     (2, 1024, 1024, 128, 128, 192, 128, True, 0, "bf16"),
     (2, 1000, 1000, 16, 16, 192, 128, True, 0, "bf16"),
@@ -75,6 +76,8 @@ PAIR_SHAPES = [
     (8, 64, 64, 7, 1, 8, 8, True, 0, "fp32"),
     (2, 130, 200, 4, 1, 32, 32, True, 70, "fp32"),
     (1, 8448, 8448, 4, 2, 16, 16, True, 0, "fp32"),
+    (1, 40, 40, 2, 1, 16, 16, True, 0, "fp32"),
+    (2, 100, 130, 4, 4, 20, 20, True, 30, "fp32"),
 ]
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -273,6 +276,37 @@ def test_kernel_parts_bwd_variants_edit_the_source(variant):
     if variant == "no_pdl":
         assert "m, a, true);" not in src
         assert src.count("m, a, false);") == 8  # every launch, dq's too
+
+
+@pytest.mark.parametrize("variant", ["full", "copies_only", "no_reduce",
+                                     "no_split", "generic", "no_overlap"])
+def test_kernel_parts_f32_variants_edit_the_source(variant):
+    """Each statement a ``kernel_parts.py`` fp32 backward variant edits is
+    in ``flash_attention_f32.cu`` once, and each variant reaches what it
+    says: copies_only skips both tile functions, no_reduce reads no other
+    rank's partials, no_split launches S = 1, generic sends every pair to
+    the (0, 0) instance, no_overlap waits for every streamed tile before
+    the tile before it is computed."""
+    parts = _load("kernel_parts")
+    src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_f32.cu"
+           ).read_text()
+    assert set(parts.F32_VARIANTS) == {"full", "copies_only", "no_reduce",
+                                       "no_split", "generic", "no_overlap"}
+    for old, new, *n in parts.F32_VARIANTS[variant]:
+        assert src.count(old) == (n[0] if n else 1)
+        src = src.replace(old, new)
+    if variant == "copies_only":
+        for call in ("dq_tile<D_, DV_>(", "dkdv_tile<D_, DV_>("):
+            assert src.count(call) == src.count(f"if (false) {call}") == 1
+    if variant == "no_reduce":
+        assert "part4_of(e, 0)" not in src and "src = 1; src < S" not in src
+    if variant == "no_split":
+        assert "dkdv_split(a);" not in src
+    if variant == "generic":
+        assert "if (true) return f(Pair<0, 0>{});" in src
+    if variant == "no_overlap":
+        assert src.count("    cp_wait<0>();\n    __syncthreads();\n"
+                         "    d") == 2
 
 
 @pytest.fixture

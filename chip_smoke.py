@@ -53,8 +53,13 @@ Phases, each printing its lines before the last:
 4. mobilenet_v2: compile it (224, width 1.0, -O 0), bind synthetic
    weights, and hold the depthwise kernel (``depthwise_conv_gemm`` on
    the spatial block, ``grouped_gemm`` on the staged stack, each side
-   alone) bitwise to its plain version at the 17 depthwise layers and at
-   :data:`DW_CORNERS`; hold the split-GEMM kernels bitwise at the 21
+   alone) bitwise to its plain version at the 17 depthwise layers, at
+   the harness's reduced net's 17 (``cnn.reduced_config``: in_hw 16 to
+   1, 8-240 channels; timed the same way, per image, as a record of
+   launch overhead) and at :data:`DW_CORNERS` and
+   :data:`DW_NEW_CORNERS` (the channel vectors and pixel tiles of
+   ``depthwise_gemm.depthwise_plan``, which each layer's row prints);
+   hold the split-GEMM kernels bitwise at the 21
    distinct dense shapes (spatial, staged and single-path forms). Then
    every path as in phase 3, with ``depthwise_conv_gemm`` once per
    depthwise layer on the fused path, ``grouped_gemm`` once per
@@ -367,10 +372,11 @@ Phases, each printing its lines before the last:
    training at S 8448, and dkdv's cluster ranks with an empty share, a
    share of one partial tile and a causal first row inside a tile, on
    the compiled and the run-time head sizes) against its plain version
-   and float64 (:data:`F32_FACTOR`, :data:`F32_FLOOR`), the backward
-   bitwise repeatable, timed beside SDPA (and its backward) in fp32 and
-   the fp32 bound, each backward row with its launch plan
-   (``flash_attention_bwd.f32_bwd_plan``). Then, through ``launch.train.main`` at published widths cut in
+   and float64 (:data:`F32_FACTOR`, :data:`F32_FLOOR`), the forward
+   and the backward bitwise repeatable, timed beside SDPA (and its
+   backward) in fp32 and the fp32 bound, each row with its launch plans
+   (``flash_attention_bwd.f32_fwd_plan``, ``f32_bwd_plan``). Then,
+   through ``launch.train.main`` at published widths cut in
    depth (:func:`cut_arch`): deepseek-v2-236b's dense first layer
    (:data:`TRAIN_DEEPSEEK`: MLA at (192, 128) on the bf16 kernels' wide
    backward) and gemma-7b's first 2 layers at S 8448
@@ -476,6 +482,18 @@ DW_CORNERS = [(15, 33, 3, 2, 1, 3, 11), (7, 17, 3, 1, 1, 4, 0),
               (9, 40, 3, 2, 1, 8, 40), (13, 1, 3, 2, 1, 1, 1),
               (10, 24, 5, 2, 2, 5, 7), (57, 65, 3, 2, 1, 4, 0),
               (112, 32, 3, 1, 1, 2, 32)]
+#: the corners of the kernel's channel vectors and blocks
+#: (``depthwise_gemm.depthwise_plan``), in the same form: C = 8 and 24
+#: (two and six vectors of 4), stride 2 at odd in_hw (223, 113; odd
+#: out_hw 57), C = 144 and 96 with ragged pixel tiles, each
+#: with the split boundary inside a vector; out_hw 1 (one channel a
+#: thread) and 2; stride 3 (the compiled 3x3 at a stride no
+#: mobilenet_v2 layer has)
+DW_NEW_CORNERS = [(112, 8, 3, 1, 1, 4, 3), (56, 24, 3, 1, 1, 4, 10),
+                  (223, 24, 3, 2, 1, 5, 13), (56, 144, 3, 1, 1, 4, 50),
+                  (113, 96, 3, 2, 1, 4, 37), (1, 64, 3, 1, 1, 4, 20),
+                  (3, 40, 3, 2, 1, 4, 13), (2, 16, 3, 1, 1, 8, 16),
+                  (10, 12, 3, 3, 1, 4, 5)]
 #: fused-kernel corners, (M, K, bits, n_lut, n_dsp) dense and (H=W, C,
 #: kernel, stride, pad, bits, n_lut, n_dsp) conv: M = 1, 13 and 49, K
 #: not a multiple of S·BK, the split boundary inside a tile, one-sided
@@ -1308,20 +1326,23 @@ def dw_conv2d_fn(torch, x_sp, codes, scale, conv):
                             groups=c) * s
 
 
-def depthwise_layers(torch, prog, ex, details: dict) -> dict:
+def depthwise_layers(torch, prog, ex, details: dict,
+                     key: str = "depthwise") -> dict:
     """The depthwise kernel at each depthwise layer of ``prog`` (its
     bound weights, random int8 input): both entry points and each side
     alone bitwise equal to the plain version, and the spatial form timed
     per image beside the staged form, the plain version and
-    ``F.conv2d(groups=C)``; returns the per-image totals."""
+    ``F.conv2d(groups=C)``, each layer with its launch plan; rows under
+    ``details[key]``; returns the per-image totals."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.depthwise_gemm import depthwise_conv_gemm, \
-        depthwise_conv_gemm_plain, grouped_gemm, grouped_gemm_plain
+        depthwise_conv_gemm_plain, depthwise_plan, grouped_gemm, \
+        grouped_gemm_plain
     gen = torch.Generator(device="cpu").manual_seed(19)
     times = ("ms", "grouped_ms", "plain_ms", "library_ms")
     tot = {**dict.fromkeys(times, 0.0), "bound_ms": 0.0, "bytes": 0.0,
            "operations": 0.0, "max_abs_err": 0.0, "library_err": 0.0}
-    rows = details.setdefault("depthwise", [])
+    rows = details.setdefault(key, [])
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1361,8 +1382,11 @@ def depthwise_layers(torch, prog, ex, details: dict) -> dict:
             lib_err = float((lib().reshape(n, m).t() - want).abs().max())
             b_ms, b_by = bound_ms(x_sp.numel(), m, k, bits, sw.n_lut,
                                   sw.n_dsp)
+            plan = depthwise_plan(m, k, n, True, g.kernel, g.stride,
+                                  g.out_hw, x_sp.data_ptr(), want.data_ptr())
             row = {"layer": lp.name, "m": m, "k": k, "n": n,
                    "n_lut": sw.n_lut, "in_hw": g.in_hw, "stride": g.stride,
+                   "plan": plan._asdict(),
                    **device_times(torch, {"ms": (kern, 10),
                                           "grouped_ms": (staged, 10),
                                           "plain_ms": (plain, 3),
@@ -1370,21 +1394,24 @@ def depthwise_layers(torch, prog, ex, details: dict) -> dict:
                    "bound_ms": b_ms, "bound_by": b_by,
                    "library_err": lib_err}
             rows.append(row)
-            for key in (*times, "bound_ms"):
-                tot[key] += row[key]
+            for name in (*times, "bound_ms"):
+                tot[name] += row[name]
             tot[b_by] += b_ms
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["library_err"] = max(tot["library_err"], lib_err)
-            print(f"depthwise {lp.name}: {g.in_hw}x{g.in_hw}x{n} stride "
-                  f"{g.stride} (M={m} N={n} n_lut={sw.n_lut}): device "
+            print(f"{key} {lp.name}: {g.in_hw}x{g.in_hw}x{n} stride "
+                  f"{g.stride} (M={m} N={n} n_lut={sw.n_lut}; V={plan.v}, "
+                  f"block {plan.block}, grid "
+                  f"{plan.grid}): device "
                   f"{row['ms']:.4f} ms (staged form "
                   f"{row['grouped_ms']:.4f}, plain {row['plain_ms']:.4f}, "
                   f"conv2d {row['library_ms']:.4f} with max |err| "
                   f"{lib_err:.3g}, bound {b_ms:.4f} by {b_by})")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    print(f"kernel depthwise_gemm: {len(rows)} mobilenet_v2 depthwise layers "
-          f"bitwise equal to plain (spatial, staged and one-side forms); "
+    print(f"kernel depthwise_gemm ({key}): {len(rows)} mobilenet_v2 "
+          f"depthwise layers bitwise equal to plain (spatial, staged and "
+          f"one-side forms); "
           f"per image device {tot['ms']:.4f} ms (staged form "
           f"{tot['grouped_ms']:.4f}, plain {tot['plain_ms']:.4f}, conv2d "
           f"groups=C {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f})")
@@ -1392,13 +1419,16 @@ def depthwise_layers(torch, prog, ex, details: dict) -> dict:
 
 
 def depthwise_corners(torch, details: dict) -> None:
-    """The depthwise kernel's two entry points at :data:`DW_CORNERS`,
-    each bitwise equal to the plain version."""
+    """The depthwise kernel's two entry points at :data:`DW_CORNERS` and
+    :data:`DW_NEW_CORNERS`, each bitwise equal to the plain version, and
+    each side alone (``fused=False``'s launches) too."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.depthwise_gemm import depthwise_conv_gemm, \
-        depthwise_conv_gemm_plain, grouped_gemm, grouped_gemm_plain
+        depthwise_conv_gemm_plain, depthwise_plan, grouped_gemm, \
+        grouped_gemm_plain
     gen = torch.Generator(device="cpu").manual_seed(29)
-    for hw, c, ks, st, pad, bits, n_lut in DW_CORNERS:
+    corners = DW_CORNERS + DW_NEW_CORNERS
+    for hw, c, ks, st, pad, bits, n_lut in corners:
         out_hw = (hw + 2 * pad - ks) // st + 1
         conv, k = (ks, st, pad, out_hw), ks * ks
         lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
@@ -1411,15 +1441,30 @@ def depthwise_corners(torch, details: dict) -> None:
                              dtype=torch.int8).cuda()
         x_col = ref.conv_patches_ref(x_sp, *conv).contiguous()
         args = (sw.planes, sw.packed, sw.scale, bits, n_lut, c - n_lut)
-        tag = f"{hw}x{hw}x{c} k{ks}s{st}p{pad} bits={bits} {n_lut}/{c - n_lut}"
+        out = torch.empty(out_hw * out_hw, c, device="cuda")
+        plans = [depthwise_plan(out_hw * out_hw, k, c, True, ks, st, out_hw,
+                                x_sp.data_ptr(), out.data_ptr()),
+                 depthwise_plan(out_hw * out_hw, k, c, False,
+                                x_ptr=x_col.data_ptr(),
+                                out_ptr=out.data_ptr())]
+        tag = (f"{hw}x{hw}x{c} k{ks}s{st}p{pad} bits={bits} "
+               f"{n_lut}/{c - n_lut} V {[p.v for p in plans]}")
         require_equal(torch, f"depthwise_conv_gemm {tag}",
                       depthwise_conv_gemm(x_sp, *args, *conv),
                       depthwise_conv_gemm_plain(x_sp, *args, *conv))
         require_equal(torch, f"grouped_gemm {tag}", grouped_gemm(x_col, *args),
                       grouped_gemm_plain(x_col, *args))
-    details["depthwise_corners"] = DW_CORNERS
+        for side, n_side, fn, cols in (
+                ("lut", n_lut, ops.lut_grouped_matmul, slice(0, n_lut)),
+                ("dsp", c - n_lut, ops.dsp_grouped_matmul, slice(n_lut, c))):
+            if n_side:
+                xs = x_col[:, :, cols].contiguous()
+                require_equal(torch, f"grouped_gemm {tag} {side} side",
+                              fn(xs, sw), fn(xs, sw, mode="ref"))
+        print(f"depthwise corner {tag}: bitwise equal")
+    details["depthwise_corners"] = corners
     print(f"kernels: depthwise corners bitwise equal to plain: "
-          f"{len(DW_CORNERS)} shapes x 2 entry points")
+          f"{len(corners)} shapes x 2 entry points and each side alone")
 
 
 def dense_shapes(torch, prog, ex, details: dict) -> dict:
@@ -1512,6 +1557,16 @@ def phase_mobilenet(torch, details: dict):
     for lp in prog.layers:
         bind_synthetic(ex, lp, seed=lp.index)
     row = depthwise_layers(torch, prog, ex, details)
+    # the harness's reduced net (cnn.reduced_config: in_hw 16 -> 1, 8-240
+    # channels), whose launches are most of a run's: launch overhead,
+    # recorded beside the full width
+    small = compile_network("mobilenet_v2", in_hw=32, width=0.25)
+    ex_small = CudaExecutor(small)
+    for lp in small.layers:
+        bind_synthetic(ex_small, lp, seed=lp.index)
+    details["depthwise_reduced_per_image"] = depthwise_layers(
+        torch, small, ex_small, details, key="depthwise_reduced")
+    del ex_small
     depthwise_corners(torch, details)
     dense_shapes(torch, prog, ex, details)
     counts = path_launches(phase_slice(torch, prog, ex, details,
@@ -5626,7 +5681,8 @@ def f32_shapes(torch, details: dict) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import _forward_kernel, \
         flash_attention, flash_attention_plain
-    from repro_torch.kernels.flash_attention_bwd import F32_ENTRY_POINTS
+    from repro_torch.kernels.flash_attention_bwd import F32_ENTRY_POINTS, \
+        f32_fwd_plan
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = details.setdefault("f32", [])
     for shape in F32_SHAPES:
@@ -5646,6 +5702,12 @@ def f32_shapes(torch, details: dict) -> dict:
         torch.cuda.synchronize()
         read_window(build.LAUNCHES, {"flash_attention_f32": 1},
                     f"f32 {name} forward")
+        fwd_repeat = torch.equal(got, kern())
+        if not fwd_repeat:
+            raise AssertionError(f"f32 {name}: a second forward is not "
+                                 f"bitwise equal to the first")
+        fplan = f32_fwd_plan(b, sq, skv, hq, hkv, d, dv, causal, off,
+                             shape.kv_bf16)
         want = plain()
         if got.shape != want.shape or got.dtype != v.dtype or \
                 not torch.isfinite(got).all():
@@ -5681,7 +5743,8 @@ def f32_shapes(torch, details: dict) -> dict:
         row = {"shape": name, "b": b, "sq": sq, "skv": skv, "hq": hq,
                "hkv": hkv, "d": d, "dv": dv, "causal": causal,
                "kv_offset": off, "kv_dtype": str(kv_dt), "checks": checks,
-               "row_err": row_err,
+               "row_err": row_err, "fwd_repeat": fwd_repeat,
+               "fwd_plan": fplan._asdict(),
                **device_times(torch, {"ms": (kern, 10),
                                       "library_ms": (lib, 10)}),
                # the plain version's thousands of small launches at S
@@ -5694,8 +5757,10 @@ def f32_shapes(torch, details: dict) -> dict:
         rows.append(row)
         print(f"f32 {name}: B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
               f"D={d} DV={dv} causal={causal} kv_offset={off} K/V "
-              f"{str(kv_dt).split('.')[-1]}: forward (max |err|, tol, "
-              f"plain's) {fmt_checks(checks)}, row error {row_err:.3g}; "
+              f"{str(kv_dt).split('.')[-1]}: forward ({fplan.blocks} "
+              f"blocks, instance {fplan.instance}, {fplan.key_slices} key "
+              f"slices; max |err|, tol, plain's) {fmt_checks(checks)}, row "
+              f"error {row_err:.3g}, second call bitwise equal; "
               f"device {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
               f"sdpa {row['library_ms']:.4f}, bound {fb_ms:.4f} by "
               f"{fb_by})" + (f"; backward {fmt_checks(row['bwd_checks'])}, "

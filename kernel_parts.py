@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a kernel launch spends its device time, on one NVIDIA card.
 
-    python3 kernel_parts.py [--out PATH] [--only {split,flash,bwd,f32}]
+    python3 kernel_parts.py [--out PATH]
+                            [--only {split,flash,bwd,f32,depthwise}]
                             [--parent-flash PATH] [--parent-bwd PATH]
-                            [--parent-f32 PATH]
+                            [--parent-f32 PATH] [--parent-depthwise PATH]
 
 Builds variants of the kernel sources into ``build/kernel_parts/``, each
 with parts of the main loop taken out, and times them: the split-GEMM
@@ -108,29 +109,63 @@ pairs' prefill form on ``mma.sync``), against the full source and
 against the ``mma_sync`` variant, whose kernels should all be the
 parent's.
 
-``src/repro_torch/kernels/csrc/flash_attention_f32.cu``'s backward (``--only
-f32``), dq, dkdv and the two back to back at ``chip_smoke.F32_SHAPES``'
-rows with a backward, beside SDPA's fp32 backward, as variants
-(:data:`F32_VARIANTS`):
+``src/repro_torch/kernels/csrc/flash_attention_f32.cu`` (``--only f32``):
+its forward at every ``chip_smoke.F32_SHAPES`` row beside SDPA in fp32,
+and its backward, dq, dkdv and the two back to back at the rows with a
+backward, beside SDPA's fp32 backward, as variants (:data:`F32_VARIANTS`;
+the ``fwd_`` ones timed on the forward, the others on the backward):
 
-    full          the kernels as they are
-    copies_only   only the streamed tiles' copies, the delta, dkdv's
-                  cluster reduction and the stores (no products)
-    no_reduce     dkdv's ranks store their own partials: no reads of
-                  another rank's shared memory (wrong sums at S > 1)
-    no_split      dkdv launched with S = 1 (one block a key tile)
-    generic       every pair on the (0, 0) instance, the head sizes read
-                  at run time
-    no_overlap    each streamed tile waited for before the tile before it
-                  is computed, so no copy overlaps a product
+    full             the kernels as they are
+    copies_only      the backward with only the streamed tiles' copies,
+                     the delta, dkdv's cluster reduction and the stores (no
+                     products)
+    no_reduce        dkdv's ranks store their own partials: no reads of
+                     another rank's shared memory (wrong sums at S > 1)
+    no_split         dkdv launched with S = 1 (one block a key tile)
+    generic          every backward pair on the (0, 0) instance, the head
+                     sizes read at run time
+    no_overlap       each streamed tile of the backward waited for before
+                     the tile before it is computed, so no copy overlaps a
+                     product
+    fwd_copies_only  the forward with only its K / V ring's copies, Q's and
+                     the epilogue (no products, no softmax)
+    fwd_generic      every forward pair on the (0, 0) instance
+    fwd_no_overlap   each K / V tile of the forward waited for before it is
+                     computed
 
 With ``--parent-f32 PATH`` (an earlier ``flash_attention_f32.cu`` with
 the same entry points, e.g. ``git show
-a8d1c26:src/repro_torch/kernels/csrc/flash_attention_f32.cu``, the
-backward before its redesign) it prints whether ``fwd_kernel`` compiles
-to the parent's SASS
-and times the parent's dq, dkdv and pair beside this one's, the pairs in
-turns (parent, this, this, parent).
+3178a1d:src/repro_torch/kernels/csrc/flash_attention_f32.cu``, the
+forward before its redesign) it prints whether ``dq_kernel`` and
+``dkdv_kernel`` compile to the parent's SASS, and times the parent's
+forward, dq, dkdv and pair beside this one's, the forward and the pairs
+in turns (parent, this, this, parent).
+
+``src/repro_torch/kernels/csrc/depthwise_gemm.cu`` (``--only
+depthwise``), ``depthwise_conv_gemm`` at full-width mobilenet_v2's 17
+depthwise layers (the fused path's launches, on random codes at each
+layer's split and bits) and at each layer's two shards of its
+``filter`` x 2 bundle (two launches), summed per image, as variants
+(:data:`DW_VARIANTS`), each with its launch plan
+(``depthwise_gemm.depthwise_plan``):
+
+    full         the kernel as it is
+    empty        nothing loaded, computed or stored: the launch floor
+    loads_only   the multiply-adds taken out (an XOR of the operands in
+                 place of each __dp4a)
+    scalar       one channel a thread everywhere (V = 1)
+    no_decode    the block's weights all 0, no plane read
+    no_x         no input read (every tap 0)
+    no_store     the products kept, the stores taken out
+    no_reuse     the input's loads past L1 (``__ldcg``): each pixel's
+                 taps come from L2, not from the lines its neighbours'
+                 threads brought in (the design's only reuse of input)
+
+With ``--parent-depthwise PATH`` (an earlier ``depthwise_gemm.cu`` with
+the same entry points, e.g. ``git show
+3178a1d:src/repro_torch/kernels/csrc/depthwise_gemm.cu``, the kernel
+before its redesign) it times that source beside this one at each layer
+and over the shards, in turns (parent, this, this, parent).
 
 Device time per launch is ``chip_smoke.device_times``': CUDA events
 around 20 launches, enqueued in full behind a spin kernel. A part's cost
@@ -288,6 +323,8 @@ FLASH_SHAPES = ("prefill", "s2048", "decode", "decode4", "d256_prefill",
 #: training step launches it) is timed too: the wide pairs' training
 #: shapes
 FLASH_TRAIN_SHAPES = ("mla_train", "d256_train")
+_FWD_TILE = "    cp_commit();\n    const int k0 = it * BK;\n"
+_FWD_PAIR = "    using P = decltype(p);\n    return kv_bf16"
 _F32_NO_COMPUTE = [("dq_tile<D_, DV_>(", "if (false) dq_tile<D_, DV_>("),
                    ("dkdv_tile<D_, DV_>(", "if (false) dkdv_tile<D_, DV_>(")]
 _F32_SYNC = "    cp_commit();\n    {tile}<D_, DV_>("
@@ -307,6 +344,43 @@ F32_VARIANTS = {
     "no_overlap": [(_F32_SYNC.format(tile=t), _F32_SYNC.format(tile=t).replace(
         "    cp_commit();\n", "    cp_commit();\n    cp_wait<0>();\n"
         "    __syncthreads();\n")) for t in ("dq_tile", "dkdv_tile")],
+    "fwd_copies_only": [(_FWD_TILE, _FWD_TILE.replace(
+        "    const int k0", "    continue;\n    const int k0"))],
+    "fwd_generic": [(_FWD_PAIR, _FWD_PAIR.replace("decltype(p)",
+                                                  "Pair<0, 0>"))],
+    "fwd_no_overlap": [(_FWD_TILE, _FWD_TILE.replace(
+        "    const int k0", "    cp_wait<0>();\n    __syncthreads();\n"
+        "    const int k0"))],
+}
+#: the F32_VARIANTS that differ from "full" only in the forward, timed
+#: there; the others differ only in the backward
+F32_FWD_VARIANTS = ("fwd_copies_only", "fwd_generic", "fwd_no_overlap")
+_DW_START = ("  const int KH = KT ? KT : (SPATIAL ? p.ks : p.K), "
+             "KW = SPATIAL ? KH : 1;\n")
+_DW_OUT = "  float* o = p.out + (size_t)m * p.N + c;\n"
+#: depthwise_gemm.cu: variant -> (statement, replacement) edits
+DW_VARIANTS = {
+    "full": [],
+    "empty": [(_DW_START, "  return;\n" + _DW_START)],
+    "loads_only": [("  return __dp4a((int)x, (int)w, acc);\n",
+                    "  return acc ^ (int)(x ^ w);\n")],
+    "scalar": [("  pl.v = (fast || SPATIAL) && fits(VEC) && VEC <= p.M ? VEC "
+                ": 1;\n", "  pl.v = 1;\n")],
+    "no_decode": [("*reinterpret_cast<uint32_t*>(wb + k * CB + 4 * q) = "
+                   "tap4(p, k, c0 + 4 * q);",
+                   "*reinterpret_cast<uint32_t*>(wb + k * CB + 4 * q) = 0u;"),
+                  ("wb[k * CB + q] = c0 + q < p.N ? (uint8_t)tap1(",
+                   "wb[k * CB + q] = false ? (uint8_t)tap1(")],
+    "no_x": [("        const bool ok = active && (KT || (kh < KH",
+              "        const bool ok = false && (KT || (kh < KH"),
+             ("      const bool ok = active && (KT || kh < KH);",
+              "      const bool ok = false && (KT || kh < KH);")],
+    "no_store": [(_DW_OUT, "  if (acc[0] != 0x7654321) return;\n"
+                  + _DW_OUT)],
+    "no_reuse": [("__ldg(reinterpret_cast<const unsigned*>(p)) : 0u",
+                  "__ldcg(reinterpret_cast<const unsigned*>(p)) : 0u"),
+                 ("(uint32_t)(uint8_t)__ldg(p) : 0u",
+                  "(uint32_t)(uint8_t)__ldcg(p) : 0u")],
 }
 
 #: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
@@ -378,7 +452,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the times as "
                     "JSON here")
-    ap.add_argument("--only", choices=("split", "flash", "bwd", "f32"),
+    ap.add_argument("--only", choices=("split", "flash", "bwd", "f32",
+                                       "depthwise"),
                     default=None, help="time one kernel family only")
     ap.add_argument("--parent-bwd", default=None, metavar="PATH",
                     help="also time the flash_attention_bwd.cu at PATH (an "
@@ -387,8 +462,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-flash", default=None, metavar="PATH",
                     help="the same for the flash_attention.cu at PATH")
     ap.add_argument("--parent-f32", default=None, metavar="PATH",
-                    help="the same for the flash_attention_f32.cu at PATH "
-                         "(its backward)")
+                    help="the same for the flash_attention_f32.cu at PATH")
+    ap.add_argument("--parent-depthwise", default=None, metavar="PATH",
+                    help="the same for the depthwise_gemm.cu at PATH")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -400,11 +476,13 @@ def main(argv=None) -> int:
     print(f"card: {nvidia_smi()}")
     rows = []
     for family, fn in (("split", time_split), ("flash", time_flash),
-                       ("bwd", time_bwd), ("f32", time_f32)):
+                       ("bwd", time_bwd), ("f32", time_f32),
+                       ("depthwise", time_depthwise)):
         if args.only in (None, family):
             rows += fn(torch, device_times, {
                 "bwd": args.parent_bwd, "flash": args.parent_flash,
-                "f32": args.parent_f32, "split": None}[family])
+                "f32": args.parent_f32, "split": None,
+                "depthwise": args.parent_depthwise}[family])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
@@ -616,77 +694,202 @@ def time_bwd(torch, device_times, parent: str | None = None) -> list[dict]:
 
 
 def time_f32(torch, device_times, parent: str | None = None) -> list[dict]:
-    """The fp32 backward's variants at ``chip_smoke.F32_SHAPES``' rows with
-    a backward: dq, dkdv and the pair, beside SDPA's fp32 backward; with
-    ``parent``, that source's dq, dkdv and pair, the pairs in turns."""
-    from chip_smoke import F32_SHAPES, sdpa_bwd_fn
+    """The fp32 kernel's variants: the forward at every
+    ``chip_smoke.F32_SHAPES`` row beside SDPA in fp32, and at the rows
+    with a backward dq, dkdv and the pair beside SDPA's fp32 backward;
+    with ``parent``, that source's forward, dq, dkdv and pair, the
+    forward and the pairs in turns."""
+    from chip_smoke import F32_SHAPES, sdpa_bwd_fn, sdpa_fn
     from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention import f32_kernel_args
     libs = build_variants("flash_attention_f32", F32_VARIANTS)
     old = build_parent("flash_attention_f32", parent) if parent else None
     if old is not None:
+        print("sass: the backward's kernels against the parent's (the "
+              "forward's instances are new):")
         same_sass(OUT_DIR / "flash_attention_f32-full.so",
                   OUT_DIR / "flash_attention_f32-parent.so")
     gen = torch.Generator(device="cuda").manual_seed(14)
     stream = torch.cuda.current_stream().cuda_stream
     names = fab.F32_ENTRY_POINTS
+    bwd_libs = {n: lib for n, lib in libs.items()
+                if n not in F32_FWD_VARIANTS}
+    fwd_libs = {n: lib for n, lib in libs.items()
+                if n == "full" or n in F32_FWD_VARIANTS}
     rows = []
     for shape in F32_SHAPES:
-        if not shape.backward:
-            continue
         name, b, sq, skv, hq, hkv, d, causal, off = shape[:9]
         dv = shape.v_dim
+        kv_dt = torch.bfloat16 if shape.kv_bf16 else torch.float32
         q, k, v, out, dout = (
-            torch.randn(sh, generator=gen, device="cuda")
-            for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv),
-                       (b, sq, hq, dv), (b, sq, hq, dv)))
-        lse = torch.full((b, hq, sq), math.log(skv), device="cuda")
-        delta = torch.empty((b, hq, sq), device="cuda")
-        grads = [torch.empty_like(t) for t in (q, k, v)]
-        args = fab.entry_args(q, k, v, out, dout, lse, delta, *grads,
-                              d ** -0.5, causal, off)
+            torch.randn(sh, generator=gen, device="cuda").to(dt)
+            for sh, dt in (((b, sq, hq, d), torch.float32),
+                           ((b, skv, hkv, d), kv_dt),
+                           ((b, skv, hkv, dv), kv_dt),
+                           ((b, sq, hq, dv), kv_dt),
+                           ((b, sq, hq, dv), torch.float32)))
+        fargs = f32_kernel_args(q, k, v, out, d ** -0.5, causal, off)
 
-        def run(lib, entry, who="this"):
-            rc = getattr(lib, entry)(*args[entry], stream)
+        def fwd(lib, who="this"):
+            rc = lib.flash_attention_f32(*fargs, stream)
             if rc:
-                raise RuntimeError(f"{who} {entry} failed with error {rc}")
-
-        def pair(lib, who="this"):
-            for entry in names:
-                run(lib, entry, who)
-        fns = {}
-        for vname, lib in libs.items():
-            for entry in names:
-                short = entry.replace("flash_attention_f32_bwd_", "")
-                fns[f"{vname}/{short}"] = (
-                    lambda lib=lib, entry=entry: run(lib, entry), 20)
-            fns[f"{vname}/pair"] = (lambda lib=lib: pair(lib), 20)
+                raise RuntimeError(f"{who} flash_attention_f32 failed with "
+                                   f"error {rc}")
+        fns = {f"{vname}/fwd": (lambda lib=lib: fwd(lib), 20)
+               for vname, lib in fwd_libs.items()}
         if old is not None:
-            for entry in names:
-                short = entry.replace("flash_attention_f32_bwd_", "")
-                fns[f"parent/{short}"] = (
-                    lambda entry=entry: run(old, entry, "parent"), 20)
-            for key, fn in (
-                    ("turns/parent_1", lambda: pair(old, "parent")),
-                    ("turns/this_1", lambda: pair(libs["full"])),
-                    ("turns/this_2", lambda: pair(libs["full"])),
-                    ("turns/parent_2", lambda: pair(old, "parent"))):
-                fns[key] = (fn, 20)
-        lib_bwd = sdpa_bwd_fn(torch, q, k, v, dout, causal, off)
-        if lib_bwd is not None:
-            fns["sdpa_bwd"] = (lib_bwd, 20)
-        # dkdv alone reads the delta dq writes
-        run(libs["full"], names[0])
+            for key, lib, who in (("fwd_turns/parent_1", old, "parent"),
+                                  ("fwd_turns/this_1", libs["full"], "this"),
+                                  ("fwd_turns/this_2", libs["full"], "this"),
+                                  ("fwd_turns/parent_2", old, "parent")):
+                fns[key] = (lambda lib=lib, who=who: fwd(lib, who), 20)
+        fns["sdpa"] = (sdpa_fn(torch, q, k.float(), v.float(), causal, off),
+                       20)
+        if shape.backward:
+            lse = torch.full((b, hq, sq), math.log(skv), device="cuda")
+            delta = torch.empty((b, hq, sq), device="cuda")
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            args = fab.entry_args(q, k, v, out, dout, lse, delta, *grads,
+                                  d ** -0.5, causal, off)
+
+            def run(lib, entry, who="this"):
+                rc = getattr(lib, entry)(*args[entry], stream)
+                if rc:
+                    raise RuntimeError(f"{who} {entry} failed with error "
+                                       f"{rc}")
+
+            def pair(lib, who="this"):
+                for entry in names:
+                    run(lib, entry, who)
+            for vname, lib in bwd_libs.items():
+                for entry in names:
+                    short = entry.replace("flash_attention_f32_bwd_", "")
+                    fns[f"{vname}/{short}"] = (
+                        lambda lib=lib, entry=entry: run(lib, entry), 20)
+                fns[f"{vname}/pair"] = (lambda lib=lib: pair(lib), 20)
+            if old is not None:
+                for entry in names:
+                    short = entry.replace("flash_attention_f32_bwd_", "")
+                    fns[f"parent/{short}"] = (
+                        lambda entry=entry: run(old, entry, "parent"), 20)
+                for key, fn in (
+                        ("turns/parent_1", lambda: pair(old, "parent")),
+                        ("turns/this_1", lambda: pair(libs["full"])),
+                        ("turns/this_2", lambda: pair(libs["full"])),
+                        ("turns/parent_2", lambda: pair(old, "parent"))):
+                    fns[key] = (fn, 20)
+            lib_bwd = sdpa_bwd_fn(torch, q, k, v, dout, causal, off)
+            if lib_bwd is not None:
+                fns["sdpa_bwd"] = (lib_bwd, 20)
+            # dkdv alone reads the delta dq writes
+            run(libs["full"], names[0])
         us = {key: 1e3 * t for key, t in device_times(torch, fns).items()}
-        plan = fab.f32_bwd_plan(b, sq, skv, hq, hkv, d, dv, causal, off)
-        rows.append({"kernel": "flash_attention_f32_bwd", "shape": name,
-                     "b": b, "sq": sq, "skv": skv, "hq": hq, "hkv": hkv,
-                     "d": d, "dv": dv, "causal": causal, "kv_offset": off,
-                     "split": plan.split, "us": us})
-        print(f"flash_attention_f32_bwd {name}: B={b} Sq={sq} Skv={skv} "
+        fplan = fab.f32_fwd_plan(b, sq, skv, hq, hkv, d, dv, causal, off,
+                                 shape.kv_bf16)
+        row = {"kernel": "flash_attention_f32", "shape": name, "b": b,
+               "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d, "dv": dv,
+               "causal": causal, "kv_offset": off,
+               "kv_bf16": shape.kv_bf16, "fwd_blocks": fplan.blocks,
+               "fwd_instance": fplan.instance, "us": us}
+        if shape.backward:
+            row["split"] = fab.f32_bwd_plan(b, sq, skv, hq, hkv, d, dv,
+                                            causal, off).split
+        rows.append(row)
+        print(f"flash_attention_f32 {name}: B={b} Sq={sq} Skv={skv} "
               f"Hq={hq} Hkv={hkv} D={d} DV={dv} causal={causal} "
-              f"kv_offset={off} S={plan.split}: " + "; ".join(
-                  f"{key} {t:.2f} us" for key, t in us.items()))
-        del q, k, v, out, dout, lse, delta, grads
+              f"kv_offset={off} K/V {str(kv_dt).split('.')[-1]}, forward "
+              f"{fplan.blocks} blocks, instance {fplan.instance}, "
+              f"{fplan.key_slices} key slices, {fplan.smem} B shared"
+              + (f", backward S={row['split']}" if shape.backward else "")
+              + ": " + "; ".join(f"{key} {t:.2f} us"
+                                 for key, t in us.items()))
+        del q, k, v, out, dout
+    return rows
+
+
+def time_depthwise(torch, device_times, parent: str | None = None
+                   ) -> list[dict]:
+    """``depthwise_conv_gemm``'s variants at full-width mobilenet_v2's
+    depthwise layers and at their ``filter`` x 2 shards, each layer's
+    plan printed; with ``parent``, that source beside this one in
+    turns. Per-image sums last."""
+    import collections
+
+    from repro_torch.compiler import compile_network
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.depthwise_gemm import depthwise_plan
+    libs = build_variants("depthwise_gemm", DW_VARIANTS)
+    old = build_parent("depthwise_gemm", parent) if parent else None
+    prog = compile_network("mobilenet_v2")
+    shards = [dev.layers for dev in compile_network(
+        "mobilenet_v2", devices=2, partition="filter").devices]
+    gen = torch.Generator().manual_seed(31)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def case(lp):
+        """One launch's arguments at ``lp``'s shape and split, random
+        codes and input, and its plan."""
+        g, n = lp.geometry, lp.dims.n
+        bits, n_lut = lp.bits_w_lut, lp.n_lut
+        k = g.kernel * g.kernel
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+        sw = ops.prepare_split(
+            k, torch.randint(lo, hi, (k, n_lut), generator=gen),
+            torch.rand(n_lut, generator=gen) + 0.5, bits,
+            torch.randint(-8, 8, (k, n - n_lut), generator=gen),
+            torch.rand(n - n_lut, generator=gen) + 0.5,
+            torch.device("cuda"))
+        x = torch.randint(-128, 128, (g.in_hw, g.in_hw, n), generator=gen,
+                          dtype=torch.int8).cuda()
+        out = torch.empty((g.out_hw ** 2, n), device="cuda")
+        args = (x.data_ptr(), g.in_hw, g.in_hw, n, g.kernel, g.stride, g.pad,
+                g.out_hw, sw.planes.data_ptr(), bits, n_lut,
+                sw.packed.data_ptr(), n - n_lut, sw.scale.data_ptr(),
+                out.data_ptr())
+        plan = depthwise_plan(g.out_hw ** 2, k, n, True, g.kernel, g.stride,
+                              g.out_hw, x.data_ptr(), out.data_ptr())
+        return (args, (sw, x, out)), plan
+
+    def run(lib, calls, who="this"):
+        for args, _ in calls:
+            rc = lib.depthwise_conv_gemm(*args, stream)
+            if rc:
+                raise RuntimeError(f"{who} depthwise_conv_gemm failed with "
+                                   f"error {rc}")
+    rows, total = [], collections.Counter()
+    for lp in prog.layers:
+        if not lp.depthwise:
+            continue
+        one, plan = case(lp)
+        two = [case(sh[lp.index])[0] for sh in shards]
+        fns = {}
+        for form, calls in (("layer", [one]), ("shards", two)):
+            for vname, lib in libs.items():
+                fns[f"{form}/{vname}"] = (
+                    lambda lib=lib, calls=calls: run(lib, calls), 20)
+            if old is not None:
+                for key, lib, who in (("parent_1", old, "parent"),
+                                      ("this_1", libs["full"], "this"),
+                                      ("this_2", libs["full"], "this"),
+                                      ("parent_2", old, "parent")):
+                    fns[f"{form}/turns/{key}"] = (
+                        lambda lib=lib, calls=calls, who=who:
+                        run(lib, calls, who), 20)
+        us = {key: 1e3 * t for key, t in device_times(torch, fns).items()}
+        total.update(us)
+        g = lp.geometry
+        rows.append({"kernel": "depthwise_conv_gemm", "layer": lp.name,
+                     "in_hw": g.in_hw, "c": lp.dims.n, "stride": g.stride,
+                     "n_lut": lp.n_lut, "plan": plan._asdict(), "us": us})
+        print(f"depthwise {lp.name}: {g.in_hw}x{g.in_hw}x{lp.dims.n} stride "
+              f"{g.stride} n_lut {lp.n_lut}, plan V={plan.v} "
+              f"block {plan.block} grid {plan.grid}: " + "; ".join(
+                  f"{key} {t:.2f} us"
+                                           for key, t in us.items()))
+    rows.append({"kernel": "depthwise_conv_gemm", "layer": "per_image",
+                 "us": dict(total)})
+    print("depthwise per image (17 layers): " + "; ".join(
+        f"{key} {t:.2f} us" for key, t in total.items()))
     return rows
 
 

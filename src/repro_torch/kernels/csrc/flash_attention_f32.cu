@@ -53,30 +53,42 @@
 //     hk * rep + j, BR = 32 of them (a row tile); so the query heads that
 //     share a KV head read each K and V tile once, and the decode form
 //     (Sq = 1) packs its rep heads into one block;
-//   * forward: one block per (row tile, KV head, batch) walks the 64-key
-//     tiles up to the last key its rows may see. Thread (ty, tx) of 8 x
-//     16 holds rows 4 ty + i and keys tx + 16 j (i, j < 4) of the score
-//     tile, and rows 4 ty + i, columns tx + 16 c of the output: a row's
-//     max and sum reduce over its 16 lanes by shuffles; p goes through
-//     shared memory (rows padded to an odd stride, D + 1) to p . v;
-//   * backward, two launches: dq (with delta), then dkdv. Both are
-//     templated on (D, DV): the smoke configs' pairs (8, 8), (12, 12),
-//     (16, 16), (24, 16) and (32, 32), whose columns a thread and product
-//     loops are fixed at compile time, and (0, 0), which reads any other
-//     pair at run time. 128 threads a block; launch bounds of 4 blocks an
-//     SM (128 registers a thread), 3 for dkdv where a thread holds two dv
-//     / dk tasks, none at (0, 0): no instance spills;
-//   * the score products (s = q . k and dp = dout . v, 64 keys x 32
-//     rows): thread (lane, warp) holds keys kb + 8 i and rows rb + 4 j
+//   * every launch is templated on (D, DV): the smoke configs' pairs (8,
+//     8), (12, 12), (16, 16), (24, 16) and (32, 32), whose product loops
+//     are fixed at compile time, and (0, 0), which reads any other pair
+//     at run time; the forward's instances for fp32 and for bf16 K / V
+//     alike. 128 threads a block; launch bounds of 4 blocks an SM (128
+//     registers a thread), 3 for dkdv where a thread holds two dv / dk
+//     tasks, none at (0, 0): no instance spills;
+//   * forward: one block per (row tile, KV head, batch), the row tile the
+//     slowest grid index and, under a causal mask, the last (heaviest)
+//     first; it walks the 64-key tiles up to the last key its rows may
+//     see, K and V by a 2-stage cp.async ring (bf16 K / V copied as bf16,
+//     8 bytes a copy, and widened at use), so that tile t + 1's copy runs
+//     under tile t's products. Thread (ty, tx) of 8 x 16 holds rows 4 ty
+//     + i and keys tx + 16 j (i, j < 4) of the score tile and takes 4
+//     columns a step by 16-byte loads of Q and K (8 loads for 64 FMA);
+//     each row's last visible key is found once, so a score's mask is
+//     one compare (the general test took 5% more at f32_lm_s8448); a
+//     row's max and sum reduce over its 16 lanes by shuffles; p^T goes
+//     through shared memory ([BK][PT], 4 rows a 16-byte store) to p . v,
+//     where the 16 lanes of a row group are NQ = DV / 4 column quads x KS
+//     key slices (keys ks, ks + KS, ...): one 16-byte load of 4 rows' p
+//     and one of 4 columns of v for 16 FMA. The slices' sums are added in
+//     slice order at the end, and out = acc / max(l, 1e-30);
+//   * backward, two launches: dq (with delta), then dkdv;
+//   * the backward's score products (s = q . k and dp = dout . v, 64 keys
+//     x 32 rows): thread (lane, warp) holds keys kb + 8 i and rows rb + 4 j
 //     (i, j < 4) and takes 4 columns a step by 16-byte loads of the K and
 //     Q (V and dO) rows: 8 loads for 64 FMA, one step at a time (dkdv
 //     writes p to shared memory before dp, so s and dp are never live
 //     together, and reads it back for ds). Shared rows have a stride of
 //     D or D + 4 floats, whichever is an odd number of 16-byte units, so
 //     the 8 rows a quarter warp reads lie in 8 bank groups;
-//   * the tiles a block streams (dq: K and V; dkdv: Q, dO, lse, delta)
-//     come by cp.async (16 bytes; 4 for lse and delta, whose rows are not
-//     contiguous) into a ring of NST = 2 stages, zero-filled past the end:
+//   * the tiles a backward block streams (dq: K and V; dkdv: Q, dO, lse,
+//     delta) come by cp.async (16 bytes; 4 for lse and delta, whose rows
+//     are not contiguous) into a ring of NST = 2 stages, zero-filled past
+//     the end:
 //     one barrier a tile for the ring, one between the scores and the
 //     products that read them;
 //   * dq: one block per (row tile, KV head, batch), the row tile the
@@ -96,14 +108,20 @@
 //     columns over the tile's 32 rows (p and ds from shared memory).
 //     After a cluster barrier rank r sums a disjoint 1/S of the 64 x (D +
 //     DV) partials of every rank's shared memory (PTX mapa and
-//     ld.shared::cluster; no cooperative_groups header, which changes the
-//     forward's SASS), in rank order, scales
+//     ld.shared::cluster; no cooperative_groups header, which changed
+//     the other kernels' SASS), in rank order, scales
 //     dk and stores, so no two blocks add into one row and no float
 //     atomic is used. S is the smallest power of two with heavy / S <=
 //     total / SLOTS (heavy: the row tiles of the most-seen key tile;
 //     total: all (key tile, row tile) pairs; SLOTS = 132 SMs x 8 blocks),
 //     at most 8 and at most heavy rounded up to a power of two.
 //     kernels/flash_attention_bwd.py::f32_bwd_plan mirrors the choice.
+//
+// Times (kernel_parts.py --only f32 on an NVIDIA H100 80GB HBM3 at 700
+// W): the forward 0.493 ms at 1 x 8448 tokens, 4/2 heads of 16, causal
+// (1.300 in its first design, timed in turns; SDPA in fp32 1.576); 4.9-
+// 7.8 us at the smoke configs' shapes, launch-bound. PERF.md has every
+// row.
 //
 // Launches go on the caller's stream, allocate nothing and do not
 // synchronise; each entry point returns cudaGetLastError(); the dkdv
@@ -122,7 +140,6 @@ constexpr int TX = 16;          // lanes along keys or columns
 constexpr int BR = 32;          // query rows of a block or a row tile
 constexpr int BK = 64;          // keys of a tile
 constexpr int MAXD = 64;        // largest D and DV
-constexpr int CD = MAXD / TX;   // output columns a thread, at most
 constexpr float NEG_INF = -1e30f;
 
 using bf16 = __nv_bfloat16;
@@ -156,25 +173,6 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   const float2 b = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// rows [0, n) of an R x W tile (row i at g + i * ld) into shared memory
-// with row stride W + 1, zeros past n; row i of the tile comes from
-// `src(i)`, 4 elements at a time
-template <typename T, typename F>
-__device__ __forceinline__ void load_rows(float* s, int R, int W, int n,
-                                          F src) {
-  const int per = W / 4;
-  for (int e = threadIdx.x; e < R * per; e += THREADS) {
-    const int i = e / per, c = 4 * (e % per);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < n) x = load4(static_cast<const T*>(src(i)) + c);
-    float* d = s + i * (W + 1) + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
 }
 
 // the sum (or max) of a value over a half warp's 16 lanes, in a fixed
@@ -214,128 +212,11 @@ __device__ __forceinline__ bool masked(const Args& a, int pos, int key) {
   return key >= a.Skv || (a.causal && key > pos + a.kv_offset);
 }
 
-// ------------------------------------------------------------ forward ---
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) fwd_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const int D = a.D, DV = a.DV;
-  float* Qs = smem;                    // [BR][D + 1]
-  float* Ks = Qs + BR * (D + 1);       // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);       // [BK][DV + 1]
-  float* Ps = Vs + BK * (DV + 1);      // [BR][BK + 1]
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int hk = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * BR;
-  const int nrows = a.Sq * a.rep;
-  const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-
-  load_rows<float>(Qs, BR, D, nrows - r0,
-                   [&](int i) { return q_row(a, b, hk, r0 + i); });
-  float m[4], l[4], acc[4][CD];
-  int pos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-    pos[i] = row_pos(a, min(r0 + 4 * ty + i, nrows - 1));
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-  const int kv_end = kv_end_of(a, r0, nrows);
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the last tile's K, V and P read by all
-    load_rows<T>(Ks, BK, D, a.Skv - k0,
-                 [&](int i) { return kg + (k0 + i) * a.k_ss; });
-    load_rows<T>(Vs, BK, DV, a.Skv - k0,
-                 [&](int i) { return vg + (k0 + i) * a.v_ss; });
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + TX * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked(a, pos[i], k0 + tx + TX * j) ? NEG_INF
-                                                       : s[i][j] * a.scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] == NEG_INF ? 0.f : expf(s[i][j] - m_new);
-        sum += p;
-        // p . v takes p in v's dtype
-        Ps[(4 * ty + i) * (BK + 1) + tx + TX * j] =
-            sizeof(T) == 2 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + half_sum(sum);
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-    const int n = min(BK, kv_end - k0);
-    for (int j = 0; j < n; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * (BK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const int col = tx + TX * c;
-        if (col < DV) {
-          const float vv = Vs[j * (DV + 1) + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * ty + i;
-    if (r >= nrows) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-    const long long orow =
-        (((long long)b * a.Sq + row_pos(a, r)) * a.Hq + hk * a.rep +
-         r % a.rep) * DV;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      const int col = tx + TX * c;
-      if (col >= DV) continue;
-      const float o = acc[i][c] / lc;
-      if (sizeof(T) == 2)
-        static_cast<bf16*>(a.o)[orow + col] = __float2bfloat16_rn(o);
-      else
-        static_cast<float*>(a.o)[orow + col] = o;
-    }
-    if (a.lse != nullptr && tx == 0)
-      a.lse[stat_row(a, b, hk, r)] = m[i] + logf(lc);
-  }
-}
-
 // ------------------------------------------------------------ backward ---
 
 constexpr int NST = 2;          // ring stages of the streamed tiles
 constexpr int PS = BK + 8;      // dkdv: row stride of p and ds, [BR][BK]
-constexpr int PT = BR + 4;      // dq: row stride of ds^T, [BK][BR]
+constexpr int PT = BR + 4;      // dq, forward: row stride of ds^T, p^T
 constexpr int MAX_SPLIT = 8;    // dkdv: blocks of one cluster, at most
 constexpr int SLOTS = 132 * 8;  // dkdv's split: 132 SMs x 8 blocks
 
@@ -833,6 +714,218 @@ __global__ void __launch_bounds__(THREADS, Dims<D_, DV_>::DKDV_BLOCKS)
   cluster_sync();  // no block leaves while another still reads its partials
 }
 
+// ------------------------------------------------------------ forward ---
+
+// p . v's key slices: the largest power of two up to 16 with nq column
+// quads x slices <= TX lanes
+__host__ __device__ constexpr int fwd_slices(int nq) {
+  int ks = TX;
+  while (ks > 1 && nq * ks > TX) ks /= 2;
+  return ks;
+}
+
+// cp.async of 8 bytes (4 bf16), zero-filled when !ok
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
+// rows [0, R) of an R x W tile of T (row i at src(i)) into shared rows of
+// stride SW by cp.async, 4 elements a copy (16 bytes of fp32, 8 of bf16),
+// zeros from row n on
+template <typename T, typename F>
+__device__ __forceinline__ void copy_rows_of(T* s, int R, int W, int SW,
+                                             int n, F src) {
+  const int per = W / 4;
+  for (int e = threadIdx.x; e < R * per; e += THREADS) {
+    const int i = e / per, c = 4 * (e % per);
+    const T* g = src(min(i, n - 1)) + c;
+    if constexpr (sizeof(T) == 4)
+      cp16(reinterpret_cast<float*>(s + i * SW + c),
+           reinterpret_cast<const float*>(g), i < n);
+    else
+      cp8(s + i * SW + c, g, i < n);
+  }
+}
+
+// The forward's arguments: Args and its grid
+struct Fwd : Args {
+  int B;  // batch
+};
+
+// One block per (row tile, KV head, batch): the row tile slowest and,
+// under a causal mask, the last (heaviest) first. Thread (ty, tx) holds
+// the scores of rows 4 ty + i and keys tx + 16 j (i, j < 4) of a tile,
+// and, in p . v, rows 4 ty + i and columns 4 cq + c of the keys
+// ks, ks + KS, ... of each tile (tx = cq + NQ ks, NQ = DV / 4 column
+// quads, KS key slices), whose partial sums are added in slice order at
+// the end.
+template <typename T, int D_, int DV_>
+__global__ void __launch_bounds__(THREADS, D_ ? 4 : 1) fwd_kernel(const Fwd a) {
+  constexpr bool GEN = D_ == 0;
+  const int D = GEN ? a.D : D_, DV = GEN ? a.DV : DV_;
+  const int SD = pad4(D), SDV = pad4(DV);
+  const int NQ = DV / 4, KS = fwd_slices(NQ);
+  extern __shared__ float4 fwd_smem[];
+  float* Qs = reinterpret_cast<float*>(fwd_smem);  // [BR][SD]
+  float* Pt = Qs + BR * SD;                        // [BK][PT]: p^T
+  float* Ms = Pt + BK * PT;                        // [BR]: each row's max
+  float* Ls = Ms + BR;                             // [BR]: and its sum
+  T* ring = reinterpret_cast<T*>(Ls + BR);  // NST x {K [BK][SD], V [BK][SDV]}
+  const int stage = BK * (SD + SDV);
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int cq = tx % NQ, ks = tx / NQ;
+  const int nrows = a.Sq * a.rep, nrt = (nrows + BR - 1) / BR;
+  const int bh = blockIdx.x % (a.B * a.Hkv), order = blockIdx.x / (a.B * a.Hkv);
+  const int hk = bh % a.Hkv, b = bh / a.Hkv;
+  const int r0 = (a.causal ? nrt - 1 - order : order) * BR;
+  const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  auto load_kv = [&](int k0, int st) {
+    T* Ks = ring + st * stage;
+    copy_rows_of(Ks, BK, D, SD, a.Skv - k0,
+                 [&](int i) { return kg + (k0 + i) * a.k_ss; });
+    copy_rows_of(Ks + BK * SD, BK, DV, SDV, a.Skv - k0,
+                 [&](int i) { return vg + (k0 + i) * a.v_ss; });
+  };
+  copy_rows_of(Qs, BR, D, SD, nrows - r0,
+               [&](int i) { return q_row(a, b, hk, r0 + i); });
+  cp_commit();
+  const int kv_end = kv_end_of(a, r0, nrows);
+  const int nk = (kv_end + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nk) load_kv(s * BK, s);
+    cp_commit();
+  }
+  // each row's last visible key: a score is masked past it
+  float m[4], l[4], acc[4][4] = {};
+  int last[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    const int pos = row_pos(a, min(r0 + 4 * ty + i, nrows - 1));
+    last[i] = a.causal ? min(a.Skv - 1, pos + a.kv_offset) : a.Skv - 1;
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_wait<NST - 2>();
+    __syncthreads();  // tile it landed; tile it - 1 and its p^T are read
+    const T* Ks = ring + (it % NST) * stage;
+    const T* Vs = Ks + BK * SD;
+    if (it + NST - 1 < nk) load_kv((it + NST - 1) * BK, (it + NST - 1) % NST);
+    cp_commit();
+    const int k0 = it * BK;
+    // s = q . k, 4 columns a step in column order
+    float s[4][4] = {};
+#pragma unroll 1
+    for (int d = 0; d < D; d += 4) {
+      float4 x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * SD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = load4(Ks + (tx + TX * j) * SD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+          s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+          s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+          s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+        }
+    }
+    // the online softmax of each row over its 16 lanes; p^T to shared
+    // memory, in v's dtype for p . v
+    float pt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = k0 + tx + TX * j > last[i] ? NEG_INF : s[i][j] * a.scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] == NEG_INF ? 0.f : expf(s[i][j] - m_new);
+        sum += p;
+        pt[j][i] = sizeof(T) == 2 ? __bfloat162float(__float2bfloat16_rn(p)) : p;
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + half_sum(sum);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(Pt + (tx + TX * j) * PT + 4 * ty) =
+          make_float4(pt[j][0], pt[j][1], pt[j][2], pt[j][3]);
+    __syncthreads();  // p^T in place
+    // acc += p . v over this lane's key slice, in key order
+    if (ks < KS) {
+      const float* pp = Pt + ks * PT + 4 * ty;
+      const T* vp = Vs + ks * SDV + 4 * cq;
+#pragma unroll 8
+      for (int key = 0; key < BK / KS; ++key)
+        outer4(acc, *reinterpret_cast<const float4*>(pp + key * KS * PT),
+               load4(vp + key * KS * SDV));
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: the slices' sums go there
+  float* part = reinterpret_cast<float*>(ring);  // [KS][BR][DV]
+  if (ks < KS) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(part + (ks * BR + 4 * ty + i) * DV + 4 * cq) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      Ms[4 * ty + i] = m[i];
+      Ls[4 * ty + i] = l[i];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < BR * NQ; e += THREADS) {
+    const int rr = e / NQ, c = 4 * (e % NQ), r = r0 + rr;
+    if (r >= nrows) continue;
+    float4 o = *reinterpret_cast<const float4*>(part + rr * DV + c);
+    for (int k = 1; k < KS; ++k) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(part + (k * BR + rr) * DV + c);
+      o.x += x.x;
+      o.y += x.y;
+      o.z += x.z;
+      o.w += x.w;
+    }
+    const float lc = fmaxf(Ls[rr], 1e-30f);
+    o = make_float4(o.x / lc, o.y / lc, o.z / lc, o.w / lc);
+    const long long orow =
+        (((long long)b * a.Sq + row_pos(a, r)) * a.Hq + hk * a.rep +
+         r % a.rep) * DV + c;
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(o.x, o.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(o.z, o.w);
+      uint2 u;
+      u.x = *reinterpret_cast<const unsigned*>(&lo);
+      u.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(a.o) + orow) = u;
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(a.o) + orow) = o;
+    }
+    if (a.lse != nullptr && c == 0)
+      a.lse[stat_row(a, b, hk, r)] = Ms[rr] + logf(lc);
+  }
+}
+
 // ------------------------------------------------------------- host ---
 
 bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D, int DV) {
@@ -882,10 +975,6 @@ int launch(K kernel, dim3 grid, int smem_floats, const A& a, void* stream) {
   return cudaGetLastError();
 }
 
-dim3 row_grid(int B, int Sq, int Hq, int Hkv) {
-  return dim3((Sq * (Hq / Hkv) + BR - 1) / BR, Hkv, B);
-}
-
 // The backward's instances: the smoke configs' (D, DV) pairs, and (0, 0)
 // for every other one
 template <int D_, int DV_>
@@ -902,9 +991,16 @@ int with_pair(int D, int DV, F f) {
   return f(Pair<0, 0>{});
 }
 
-// shared memory, in floats: dq's Q, dO, lse, delta, ds^T and K / V ring
+// shared memory, in floats: the forward's Q, p^T, the rows' max and sum
+// and its K / V ring in T (whose room takes the slices' sums at the end);
+// dq's Q, dO, lse, delta, ds^T and K / V ring
 // (whose room takes the KS slices' sums at the end); dkdv's K, V, Q / dO
 // / lse / delta ring and p, ds (whose room takes the partials)
+int fwd_smem_floats(int D, int DV, int elem) {
+  const int ring = NST * BK * (pad4(D) + pad4(DV)) * elem / 4;
+  const int part = fwd_slices(DV / 4) * BR * DV;
+  return BR * pad4(D) + BK * PT + 2 * BR + (ring > part ? ring : part);
+}
 int dq_smem_floats(int D, int DV, int ks) {
   const int ring = NST * BK * (pad4(D) + pad4(DV));
   return BR * (pad4(D) + pad4(DV)) + 2 * BR + BK * PT +
@@ -940,7 +1036,7 @@ extern "C" {
 // out [B, Sq, Hq, DV] (v's dtype, contiguous) from q [B, Sq, Hq, D] fp32
 // and k, v [B, Skv, Hkv, D / DV] (fp32, or bf16 when kv_bf16), element
 // strides; lse [B, Hq, Sq] (fp32, contiguous) when not null. Grid
-// (ceil(Sq Hq / Hkv / 32), Hkv, B).
+// ceil(Sq Hq / Hkv / 32) x Hkv x B, one dimension.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int B, int Sq, int Skv, int Hq, int Hkv,
                         int D, int DV, long long q_sb, long long q_ss,
@@ -953,13 +1049,20 @@ int flash_attention_f32(const void* q, const void* k, const void* v,
   Args a = make_args(q, k, v, Sq, Skv, Hq, Hkv, D, DV, q_sb, q_ss, q_sh,
                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
                      kv_offset);
-  a.o = out;
-  a.lse = static_cast<float*>(lse);
-  const int smem =
-      BR * (D + 1) + BK * (D + 1) + BK * (DV + 1) + BR * (BK + 1);
-  const dim3 grid = row_grid(B, Sq, Hq, Hkv);
-  return kv_bf16 ? launch(fwd_kernel<bf16>, grid, smem, a, stream)
-                 : launch(fwd_kernel<float>, grid, smem, a, stream);
+  Fwd f;
+  static_cast<Args&>(f) = a;
+  f.B = B;
+  f.o = out;
+  f.lse = static_cast<float*>(lse);
+  const dim3 grid((Sq * (Hq / Hkv) + BR - 1) / BR * Hkv * B);
+  return with_pair(D, DV, [&](auto p) {
+    using P = decltype(p);
+    return kv_bf16
+               ? launch(fwd_kernel<bf16, P::D, P::DV>, grid,
+                        fwd_smem_floats(D, DV, 2), f, stream)
+               : launch(fwd_kernel<float, P::D, P::DV>, grid,
+                        fwd_smem_floats(D, DV, 4), f, stream);
+  });
 }
 
 // dq [B, Sq, Hq, D] and delta [B, Hq, Sq] = rowsum(dout * out) (fp32,

@@ -20,9 +20,15 @@ Both launch the kernel on CUDA tensors and compute their plain PyTorch
 version (``*_plain``, the ``ref`` oracles on the same prepared
 operands) on CPU tensors; nothing else chooses between the two. The
 weights are ``ops.SplitWeights``' planes and packed bytes, the layout
-the fused dense kernels read.
+the fused dense kernels read. :func:`depthwise_plan` mirrors the launch
+the C entry points choose (channels a thread, the block and the
+grid), and :func:`folded_taps` the kernel's fold of a
+LUT channel's planes into its signed taps; the tests hold both on the
+CPU.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +38,80 @@ from repro_torch.kernels.fused_hetero_gemm import _check_split
 
 #: the most taps a channel's registers hold in the kernel (``MAX_K``)
 MAX_TAPS = 32
+#: the launch plan's constants, the source's (``csrc/depthwise_gemm.cu``)
+DW_MAX_KSIZE = 5            # spatial kernel size, at most
+DW_VEC = 4                  # channels a thread, where they fit
+DW_MAX_THREADS = 128        # threads a block, at most
+DW_SLOTS = 132              # blocks the grid aims at: one an SM
+DW_TILE_PIX = 32            # pixels a block, preferred
+
+
+class DepthwisePlan(NamedTuple):
+    """One launch of ``csrc/depthwise_gemm.cu``: ``v`` channels a thread
+    (one output pixel each), a block of (tv channel vectors, tw pixels of
+    an output row, th rows; staged: the pixels one row), the grid over
+    them, the block's dynamic shared memory in bytes, and the kernel
+    instance (spatial, compiled taps (0: read at run time), v)."""
+    v: int
+    block: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    smem: int
+    instance: tuple[bool, int, int]
+
+
+def depthwise_plan(m: int, k: int, n: int, spatial: bool, ksize: int = 0,
+                   stride: int = 1, out_hw: int = 0, x_ptr: int = 0,
+                   out_ptr: int = 0) -> DepthwisePlan:
+    """What the C entry points launch for ``m`` outputs of ``k`` taps
+    over ``n`` channels (the source's header says why): the spatial form
+    (``depthwise_conv_gemm``: ``ksize`` x ``ksize`` at ``stride``,
+    ``out_hw`` x ``out_hw`` outputs) or the staged one (``grouped_gemm``);
+    ``x_ptr`` and ``out_ptr`` the input's and the output's addresses
+    (their alignment bounds the vector width)."""
+    fast = ksize == 3 if spatial else k == 9
+
+    fits = n % DW_VEC == 0 and x_ptr % DW_VEC == 0 and out_ptr % 16 == 0
+    v = DW_VEC if (fast or spatial) and fits and DW_VEC <= m else 1
+    nv = n // v
+    cols, rows = (out_hw, out_hw) if spatial else (m, 1)
+    pix = cols * rows
+    bt = DW_MAX_THREADS
+    while True:
+        cap = bt // min(pix, DW_TILE_PIX)
+        tv = max([d for d in range(2, min(cap, nv) + 1) if nv % d == 0],
+                 default=1)
+        tp = min(bt // tv, pix)
+        tw = min(tp, cols)
+        th = min(tp // tw, rows)
+        grid = (-(-nv // tv), -(-cols // tw), -(-rows // th))
+        if grid[0] * grid[1] * grid[2] >= DW_SLOTS or bt == 32:
+            break
+        bt //= 2
+    kh, kw = (ksize, ksize) if spatial else (k, 1)
+    taps = (3 if spatial else 9) if fast else 0
+    return DepthwisePlan(v, (tv, tw, th), grid,
+                         -(-kh * kw * tv * v // 16) * 16, (spatial, taps, v))
+
+
+def folded_taps(planes: torch.Tensor, packed: torch.Tensor, bits: int,
+                n_lut: int, n_dsp: int) -> torch.Tensor:
+    """The kernel's weights, int32 [K, N] in split order: a LUT channel's
+    planes folded into its signed taps, sum_b s_b * plane_b (s_b = 2^b,
+    the MSB plane -2^(bits-1)), then each DSP channel's sign-extended
+    int4 code. The kernel's one sum of K products over these is the
+    plain version's plane-by-plane sum, bit for bit: every term is an
+    integer and |sum| < 2^31."""
+    k = planes.shape[1]
+    cols = []
+    if n_lut:
+        pl = (planes.to(torch.int32) & 1)
+        s = torch.tensor([-(1 << b) if b == bits - 1 else 1 << b
+                          for b in range(bits)], dtype=torch.int32)
+        cols.append((pl * s[:, None, None]).sum(0, dtype=torch.int32))
+    if n_dsp:
+        cols.append(ref.unpack_int4(packed)[:, :n_dsp].to(torch.int32))
+    return torch.cat(cols, dim=1) if cols else torch.zeros((k, 0),
+                                                           dtype=torch.int32)
 
 
 def _check_weights(kernel, x, k, planes, packed, w_scale, bits, n_lut,

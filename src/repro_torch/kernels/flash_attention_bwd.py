@@ -40,7 +40,8 @@ plain version, autograd through ``flash_attention_plain``,
 :func:`bwd_prep_plain` the plain version of delta, and
 :func:`f32_dkdv_ranked_plain` dk and dv summed by the plan's ranks; the
 tests and ``chip_smoke.py`` compare the kernel with them, and no path of
-the port takes them on the card.
+the port takes them on the card. :func:`f32_fwd_plan` mirrors the same
+source's forward launch, which shares these constants.
 """
 from __future__ import annotations
 
@@ -131,6 +132,54 @@ def f32_bwd_plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
         2 * F32_ROWS * (F32_KEYS + 8), F32_KEYS * (d + dv))
     return F32BwdPlan(nrt * hkv * b, len(tiles) * hkv * b * s, s, ranges,
                       dq_smem, dkdv_smem, inst, ks)
+
+
+def f32_fwd_slices(dv: int) -> int:
+    """p . v's key slices in the fp32 forward: the largest power of two
+    up to 16 with DV / 4 column quads x slices <= 16 lanes."""
+    ks = 16
+    while ks > 1 and (dv // 4) * ks > 16:
+        ks //= 2
+    return ks
+
+
+class F32FwdPlan(NamedTuple):
+    """The fp32 forward's launch (``flash_attention_f32``): its blocks; for
+    each position in the row-tile order (blocks i * Hkv * B to (i + 1) *
+    Hkv * B - 1 take the i-th), the row tile and the 64-key tiles its rows
+    see; the compiled (D, DV) instance ((0, 0): head sizes read at run
+    time), p . v's key slices and the dynamic shared memory in bytes."""
+    blocks: int
+    row_tiles: tuple[int, ...]
+    key_tiles: tuple[int, ...]
+    instance: tuple[int, int]
+    key_slices: int
+    smem: int
+
+
+def f32_fwd_plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                 dv: int, causal: bool, kv_offset: int,
+                 kv_bf16: bool = False) -> F32FwdPlan:
+    """What the fp32 forward's C entry point launches for this call (the
+    source's header says why): one block per (row tile, KV head, batch),
+    the row tile slowest and, under a causal mask, the last first; each
+    row tile walks the key tiles up to the last key its last row sees."""
+    rep = hq // hkv
+    nrows = sq * rep
+    nrt = -(-nrows // F32_ROWS)
+    tiles = tuple(nrt - 1 - o if causal else o for o in range(nrt))
+    keys = []
+    for t in tiles:
+        last = (min((t + 1) * F32_ROWS, nrows) - 1) // rep
+        end = min(skv, last + kv_offset + 1) if causal else skv
+        keys.append(-(-end // F32_KEYS))
+    inst = (d, dv) if (d, dv) in F32_BWD_PAIRS else (0, 0)
+    ks = f32_fwd_slices(dv)
+    ring = F32_STAGES * F32_KEYS * (_pad4(d) + _pad4(dv)) * \
+        (2 if kv_bf16 else 4) // 4
+    smem = 4 * (F32_ROWS * _pad4(d) + F32_KEYS * (F32_ROWS + 4) +
+                2 * F32_ROWS + max(ring, ks * F32_ROWS * dv))
+    return F32FwdPlan(nrt * hkv * b, tiles, tuple(keys), inst, ks, smem)
 
 
 def entry_points(dtype: torch.dtype) -> tuple[str, str]:

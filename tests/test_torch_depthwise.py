@@ -51,6 +51,14 @@ REDUCED = {"in_hw": 32, "width": 0.25}
 DW_SPECS = [("dw3s1", 20, 3, 1, 8), ("dw3s2", 24, 3, 2, 9)]
 #: odd channel counts beside the specs' even ones
 DW_CASES = [(*s, n) for s in DW_SPECS for n in (s[1], s[1] - 1)]
+#: the kernel's vector and block corners (``depthwise_plan``), on the
+#: card only: C = 8, 24, 144 and 96 (vectors of 4 channels, ragged pixel
+#: tiles), stride 2 at an odd in_hw (223, 113) and odd out_hw, out_hw 1
+#: (one channel a thread) and 2; n // 3 LUT channels puts the split
+#: boundary inside a vector
+DW_CARD_CORNERS = [("c8", 8, 3, 1, 112, 8), ("c24s2", 24, 3, 2, 223, 24),
+                   ("c144", 144, 3, 1, 56, 144), ("c96s2", 96, 3, 2, 113, 96),
+                   ("hw1", 64, 3, 1, 1, 64), ("hw2", 40, 3, 2, 3, 40)]
 
 
 def _bits(a) -> np.ndarray:
@@ -504,10 +512,12 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [1, 4, 8])
 @pytest.mark.parametrize("lut_share", [0, 3, 1], ids=["dsp", "split", "lut"])
-@pytest.mark.parametrize("case", DW_CASES, ids=lambda c: f"{c[0]}n{c[-1]}")
+@pytest.mark.parametrize("case", DW_CASES + DW_CARD_CORNERS,
+                         ids=lambda c: f"{c[0]}n{c[-1]}")
 def test_kernel_matches_plain_on_card(cuda, case, lut_share, bits):
     """Both entry points at the reference's specs, odd N and one-sided
-    splits, against the plain version on the same card tensors."""
+    splits, and at the kernel's vector and block corners, against the
+    plain version on the same card tensors."""
     name, c, kernel, stride, in_hw, n = case
     n_lut = {0: 0, 3: n // 3, 1: n}[lut_share]
     rng = np.random.default_rng(bits + n)

@@ -193,3 +193,94 @@ def test_ranked_plain_matches_plain_and_jax(shape):
         np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
                                    atol=tol)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# The forward's launch (``flash_attention_f32``): the same constants, one
+# block per (row tile, KV head, batch), the compiled pairs
+# ---------------------------------------------------------------------------
+
+FWD_SHAPES = [(*s[1:7], s.v_dim, *s[7:9], s.kv_bf16) for s in SMOKE.F32_SHAPES] \
+    + [(2, 30, 500, 4, 2, 16, 16, True, 100, False),
+       (3, 17, 17, 5, 5, 12, 12, True, 0, True),
+       (1, 64, 64, 1, 1, 64, 64, False, 0, False)]
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fwd_plan_takes_the_heaviest_row_tiles_first(shape):
+    """Each row tile is launched once (for every KV head and batch), and
+    under a causal mask in order of the key tiles its rows see, the most
+    first; without one in row order, all seeing every key tile."""
+    b, sq, skv, hq, hkv, d, dv, causal, off, kv_bf16 = shape
+    plan = fab.f32_fwd_plan(*shape)
+    nrt = -(-sq * (hq // hkv) // fab.F32_ROWS)
+    assert plan.blocks == nrt * hkv * b
+    assert sorted(plan.row_tiles) == list(range(nrt))
+    if causal:
+        assert list(plan.key_tiles) == sorted(plan.key_tiles, reverse=True)
+        assert plan.row_tiles[0] == nrt - 1
+    else:
+        assert plan.row_tiles == tuple(range(nrt))
+        assert set(plan.key_tiles) == {-(-skv // fab.F32_KEYS)}
+
+
+def _arch_heads():
+    """(arch id, how, (key, value) head sizes) of every flash launch the
+    smoke configs make: served (``flash_heads``) and trained at 8448
+    tokens (``train_flash_heads``, above every dense_attn_max)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import flash_heads
+    from repro_torch.launch.train import train_flash_heads
+    out = []
+    for arch_id in registry.list_archs():
+        arch = registry.get(arch_id)
+        if arch.smoke is None:
+            continue
+        smoke = dataclasses.replace(arch, model=arch.smoke)
+        for how, heads in (("serve", flash_heads(smoke)),
+                           ("train", train_flash_heads(smoke, 8448))):
+            if heads is not None:
+                out.append((arch_id, how, tuple(heads)))
+    return out
+
+
+def test_compiled_pairs_cover_every_smoke_config():
+    """Every attention arch's smoke config, served or trained, runs a
+    compiled (D, DV) instance of the fp32 forward and backward, not the
+    one that reads its head sizes at run time."""
+    heads = _arch_heads()
+    assert {a for a, _, _ in heads} >= {"llama3.2-1b", "seamless-m4t-large-v2",
+                                        "deepseek-v2-236b", "gemma-7b",
+                                        "yi-34b", "jamba-v0.1-52b"}
+    for arch_id, how, pair in heads:
+        assert pair in fab.F32_BWD_PAIRS, (arch_id, how, pair)
+        plan = fab.f32_fwd_plan(2, 64, 64, 4, 2, *pair, True, 0)
+        assert plan.instance == pair
+
+
+def test_fwd_plan_mirrors_the_source():
+    """The forward's key slices are the source's fwd_slices, over its 16
+    lanes, and the forward launches the backward's compiled pairs."""
+    text = SOURCE.read_text()
+    assert "int ks = TX;\n  while (ks > 1 && nq * ks > TX) ks /= 2;" in text
+    assert re.search(r"constexpr int TX = (\d+);", text).group(1) == "16"
+    assert [fab.f32_fwd_slices(4 * nq) for nq in (1, 2, 3, 4, 5, 6, 8, 16)] \
+        == [16, 8, 4, 4, 2, 2, 2, 1]
+    fwd = text[text.index("int flash_attention_f32("):]
+    assert "return with_pair(D, DV, [&](auto p) {" in \
+        fwd[:fwd.index("int flash_attention_f32_bwd_dq(")]
+
+
+@settings(max_examples=40, deadline=None)
+@given(d4=st.integers(1, 16), dv4=st.integers(1, 16), kv_bf16=st.booleans())
+def test_fwd_shared_memory_fits(d4, dv4, kv_bf16):
+    """The forward's shared memory fits an H100 block at every fp32 pair,
+    and four blocks an SM (its launch bounds) at the compiled pairs."""
+    d, dv = 4 * d4, 4 * dv4
+    plan = fab.f32_fwd_plan(1, 100, 100, 2, 1, d, dv, True, 0, kv_bf16)
+    assert plan.smem <= SMEM_BLOCK
+    for pair in fab.F32_BWD_PAIRS:
+        p = fab.f32_fwd_plan(1, 100, 100, 2, 1, *pair, True, 0, kv_bf16)
+        assert 4 * p.smem <= SMEM_BLOCK

@@ -279,19 +279,27 @@ def test_kernel_parts_bwd_variants_edit_the_source(variant):
 
 
 @pytest.mark.parametrize("variant", ["full", "copies_only", "no_reduce",
-                                     "no_split", "generic", "no_overlap"])
+                                     "no_split", "generic", "no_overlap",
+                                     "fwd_copies_only", "fwd_generic",
+                                     "fwd_no_overlap"])
 def test_kernel_parts_f32_variants_edit_the_source(variant):
-    """Each statement a ``kernel_parts.py`` fp32 backward variant edits is
-    in ``flash_attention_f32.cu`` once, and each variant reaches what it
-    says: copies_only skips both tile functions, no_reduce reads no other
-    rank's partials, no_split launches S = 1, generic sends every pair to
-    the (0, 0) instance, no_overlap waits for every streamed tile before
-    the tile before it is computed."""
+    """Each statement a ``kernel_parts.py`` fp32 variant edits is in
+    ``flash_attention_f32.cu`` once, and each variant reaches what it
+    says: copies_only skips both backward tile functions, no_reduce reads
+    no other rank's partials, no_split launches S = 1, generic sends
+    every backward pair to the (0, 0) instance, no_overlap waits for
+    every streamed tile before the tile before it is computed; the
+    forward's fwd_copies_only skips each tile's products after its copy
+    is issued, fwd_generic launches the (0, 0) instance, fwd_no_overlap
+    waits for each K / V tile before computing it."""
     parts = _load("kernel_parts")
     src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_f32.cu"
            ).read_text()
     assert set(parts.F32_VARIANTS) == {"full", "copies_only", "no_reduce",
-                                       "no_split", "generic", "no_overlap"}
+                                       "no_split", "generic", "no_overlap",
+                                       *parts.F32_FWD_VARIANTS}
+    assert set(parts.F32_FWD_VARIANTS) == {"fwd_copies_only", "fwd_generic",
+                                           "fwd_no_overlap"}
     for old, new, *n in parts.F32_VARIANTS[variant]:
         assert src.count(old) == (n[0] if n else 1)
         src = src.replace(old, new)
@@ -307,6 +315,13 @@ def test_kernel_parts_f32_variants_edit_the_source(variant):
     if variant == "no_overlap":
         assert src.count("    cp_wait<0>();\n    __syncthreads();\n"
                          "    d") == 2
+    if variant == "fwd_copies_only":
+        assert "    cp_commit();\n    continue;\n    const int k0" in src
+    if variant == "fwd_generic":
+        assert "    using P = Pair<0, 0>;\n    return kv_bf16" in src
+    if variant == "fwd_no_overlap":
+        assert ("    cp_commit();\n    cp_wait<0>();\n    __syncthreads();\n"
+                "    const int k0") in src
 
 
 @pytest.fixture

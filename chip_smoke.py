@@ -17,15 +17,21 @@ Phases, each printing its lines before the last:
 2. kernels: every split-GEMM kernel against its plain PyTorch version,
    on the card, at each of full-width resnet18's 21 layer shapes (the
    shapes the main path gives it), plus bit widths 2/4/8 and one-sided
-   splits, with each launch's tile and K split
-   (``fused_hetero_gemm.split_plan``; the single-path kernels on their
-   one-sided shape) printed per layer and kernel. The fused kernels are
-   also held at corners (M = 1, 13, 49; K not a multiple of S·BK; C = 3,
-   24, 48, 64; the split boundary inside a tile; one-sided splits), and
-   the single-path kernels on their K-major words at M = 1, 13, 49 and
-   K = 31, 33, 147, 4608 (``bitserial_gemm`` at bits 1-8, ``int4_gemm``
-   at odd column counts), each under the chooser's plan and under every
-   compiled tile and cluster size into a NaN-filled output. Required:
+   splits, with each launch's plan printed per layer and kernel (the
+   fused kernels' ``fused_hetero_gemm.fused_plan``: token tile t,
+   warpgroups along the columns wc, K split S, ring stages, shared
+   memory, blocks, and the bytes of weight words it reads; the
+   single-path kernels' ``split_plan`` tile and K split on their
+   one-sided shape). The fused kernels are also held at corners (M = 1,
+   8, 13, 49, 4096; K not a multiple of S·BK; C = 3, 24, 48, 64; the
+   split boundary inside a tile; one-sided splits; shard widths 21, 22
+   and 171, not multiples of 4), each under the chooser's plan and under
+   every compiled regime (token tile, warpgroups, cluster size, at the
+   stages ``fused_stages`` gives), and the single-path kernels on their
+   K-major words at M = 1, 13, 49 and K = 31, 33, 147, 4608
+   (``bitserial_gemm`` at bits 1-8, ``int4_gemm`` at odd column counts)
+   under the chooser's plan and every compiled tile and cluster size,
+   each into a NaN-filled output. Required:
    bitwise equality. Times: the kernel, the
    plain version and ``torch._int_mm`` on the reconstructed int8
    weights (the library yardstick), each as device time per call
@@ -172,7 +178,7 @@ Phases, each printing its lines before the last:
    every distinct full-width layer shape (M = 8) and timed: device ms
    per step of the kernel, its plain version and ``torch._int_mm`` with
    M padded to 32, beside the code-width bound and, for
-   ``fused_hetero_gemm``, the bytes of the int8 planes it reads. Times:
+   ``fused_hetero_gemm``, the bytes of the weight words it reads. Times:
    host ms per warm-up and per steady step (median), device ms per
    steady step (profiler) and its busy share; rows with non-zero logits
    per step (the synthetic models' glue sends rows to 0). Last, golden
@@ -495,16 +501,20 @@ DW_NEW_CORNERS = [(112, 8, 3, 1, 1, 4, 3), (56, 24, 3, 1, 1, 4, 10),
                   (3, 40, 3, 2, 1, 4, 13), (2, 16, 3, 1, 1, 8, 16),
                   (10, 12, 3, 3, 1, 4, 5)]
 #: fused-kernel corners, (M, K, bits, n_lut, n_dsp) dense and (H=W, C,
-#: kernel, stride, pad, bits, n_lut, n_dsp) conv: M = 1, 13 and 49, K
-#: not a multiple of S·BK, the split boundary inside a tile, one-sided
-#: splits, and C = 3 (scalar gather), 24 (8-byte copies), 48 and 64
-#: (16-byte copies)
-DENSE_CORNERS = [(1, 512, 4, 680, 320), (13, 72, 3, 2, 62),
+#: kernel, stride, pad, bits, n_lut, n_dsp) conv: M = 1, 8 (decode's
+#: batch), 13, 49 and 4096 (the co-design loop's), K not a multiple of
+#: S·BK, the split boundary inside a tile, one-sided splits, shard widths
+#: that are not multiples of 4 (21 / 22, conv1's 5 / 16, 171, conv17's
+#: 22 / 21), and C = 3 (byte gather), 24 (8-byte copies), 48, 64, 256 and
+#: 512 (16-byte copies)
+DENSE_CORNERS = [(1, 512, 4, 680, 320), (8, 2048, 4, 1024, 1024),
+                 (8, 300, 1, 21, 22), (13, 72, 3, 2, 62),
                  (49, 4608, 4, 432, 80), (49, 1000, 8, 100, 0),
-                 (49, 1000, 4, 0, 100)]
+                 (49, 1000, 4, 0, 100), (4096, 256, 4, 200, 56)]
 CONV_CORNERS = [(15, 3, 7, 2, 3, 4, 48, 16), (14, 48, 3, 2, 1, 5, 30, 50),
                 (7, 64, 3, 1, 1, 4, 40, 24), (9, 64, 1, 2, 0, 4, 64, 0),
-                (9, 24, 3, 1, 1, 4, 0, 33)]
+                (9, 24, 3, 1, 1, 4, 0, 33), (224, 3, 7, 2, 3, 4, 5, 16),
+                (7, 512, 3, 1, 1, 8, 171, 0), (14, 256, 3, 1, 1, 4, 22, 21)]
 #: single-path kernel corners (M, K): M = 1, 13 and 49; K = 31 and 33
 #: (a word boundary, K not a multiple of 4), 147 (byte-gathered A, as
 #: conv1) and 4608 (conv17, split eight ways); each at bits 1-8 on the
@@ -707,9 +717,9 @@ def bound_ms(x_bytes: int, m: int, k: int, bits: int, n_lut: int,
     """Least time for one split GEMM: the activations, each weight at its
     code width (``bits`` per LUT weight, 4 per DSP weight) and the fp32
     scales read once and the fp32 output written once, vs the 2·m·k·n
-    operations of the integer product at the int8 rate. The int8 bit
-    planes the fused kernels read hold each LUT weight in 8x its bits;
-    the single-path kernels' K-major words hold it at its code width."""
+    operations of the integer product at the int8 rate. The kernels
+    read the K-major words, each weight at its code width (rows padded
+    to 16 bytes)."""
     n = n_lut + n_dsp
     nbytes = (x_bytes + -(-(bits * n_lut + 4 * n_dsp) * k // 8) + 4 * n
               + 4 * m * n)
@@ -872,7 +882,7 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
         bitserial_gemm_plain
     from repro_torch.kernels.fused_hetero_gemm import fused_conv_gemm, \
         fused_conv_gemm_plain, fused_hetero_gemm, fused_hetero_gemm_plain, \
-        split_plan
+        fused_plan, split_plan, weight_bytes
     from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
 
     names = ("fused_conv_gemm", "fused_hetero_gemm", "bitserial_gemm",
@@ -891,21 +901,17 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
         codes = torch.cat([c for c in (wts.w_lut, wts.w_dsp)
                            if c is not None], dim=1)
         conv = (g.kernel, g.stride, g.pad, g.out_hw)
-        plan = split_plan(m, k, n_lut, n_dsp)
+        plan = fused_plan(m, k, n_lut, n_dsp, bits)
+        words = (sw.lut_words, sw.dsp_words, sw.scale, bits, n_lut, n_dsp)
         cases = {
             "fused_conv_gemm": (
-                lambda: fused_conv_gemm(x_sp, sw.planes, sw.packed, sw.scale,
-                                        bits, n_lut, n_dsp, *conv),
-                lambda: fused_conv_gemm_plain(x_sp, sw.planes, sw.packed,
-                                              sw.scale, bits, n_lut, n_dsp,
-                                              *conv),
+                lambda: fused_conv_gemm(x_sp, *words, *conv),
+                lambda: fused_conv_gemm_plain(x_sp, *words, *conv),
                 int_mm_fn(torch, x_col, codes, sw.scale),
                 bound_ms(x_sp.numel(), m, k, bits, n_lut, n_dsp)),
             "fused_hetero_gemm": (
-                lambda: fused_hetero_gemm(x_col, sw.planes, sw.packed,
-                                          sw.scale, bits, n_lut, n_dsp),
-                lambda: fused_hetero_gemm_plain(x_col, sw.planes, sw.packed,
-                                                sw.scale, bits, n_lut, n_dsp),
+                lambda: fused_hetero_gemm(x_col, *words),
+                lambda: fused_hetero_gemm_plain(x_col, *words),
                 int_mm_fn(torch, x_col, codes, sw.scale),
                 bound_ms(x_col.numel(), m, k, bits, n_lut, n_dsp)),
             "bitserial_gemm": (
@@ -938,6 +944,8 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
                    "events_library_ms": cuda_ms(torch, lib),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "plan": list(plans[name])}
+            if name in ("fused_conv_gemm", "fused_hetero_gemm"):
+                row["weight_bytes"] = weight_bytes(k, bits, n_lut, n_dsp)
             rows.append(row)
             t = tot[name]
             for key in (*times, "bound_ms"):
@@ -946,9 +954,15 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
             t["max_abs_err"] = max(t["max_abs_err"], err)
         ms = {r["kernel"]: r["ms"] for r in rows[-len(cases):]}
         print(f"plan {lp.name}: M={m} K={k} n_lut={n_lut} n_dsp={n_dsp}; "
+              f"fused (t={plan.t} wc={plan.wc} S={plan.split} stages="
+              f"{plan.stages} smem={plan.smem} blocks={plan.blocks}, "
+              f"{weight_bytes(k, bits, n_lut, n_dsp)} weight bytes): "
+              f"fused_conv_gemm {ms['fused_conv_gemm']:.4f} ms, "
+              f"fused_hetero_gemm {ms['fused_hetero_gemm']:.4f} ms; "
               + "; ".join(f"{name} (BM={pl.bm} BN={pl.bn} S={pl.split} "
                           f"blocks={pl.blocks}) {ms[name]:.4f} ms"
-                          for name, pl in plans.items()))
+                          for name, pl in plans.items()
+                          if name in ("bitserial_gemm", "int4_gemm")))
     for name in names:
         t = tot[name]
         print(f"kernel {name}: 21 resnet18 shapes bitwise equal to plain; "
@@ -1004,10 +1018,11 @@ def phase_kernels(torch, prog, ex, details: dict) -> dict:
 
 
 def launch_planned(torch, name, x, sw, geom, plan):
-    """The split-GEMM kernel ``name`` under a given (BM, BN, S) ``plan``
-    rather than the chooser's, into a NaN-filled output (a block that
-    writes nothing shows); ``geom`` is the conv's (kernel, stride, pad,
-    out_hw), None for the dense kernels."""
+    """The split-GEMM kernel ``name`` under a given plan rather than the
+    chooser's ((BM, BN, S) for the single-path kernels, (t, wc, S, stages)
+    for the fused ones), into a NaN-filled output (a block that writes
+    nothing shows); ``geom`` is the conv's (kernel, stride, pad, out_hw),
+    None for the dense kernels."""
     from repro_torch.kernels.build import launch
     if name == "bitserial_gemm":
         n, args = sw.n_lut, (*x.shape, sw.lut_words.data_ptr(), sw.bits,
@@ -1018,8 +1033,8 @@ def launch_planned(torch, name, x, sw, geom, plan):
     else:
         n = sw.n_lut + sw.n_dsp
         lead = tuple(x.shape) if geom is None else (*x.shape, *geom)
-        args = (*lead, sw.planes.data_ptr(), sw.bits, sw.n_lut,
-                sw.packed.data_ptr(), sw.n_dsp, sw.scale.data_ptr())
+        args = (*lead, sw.lut_words.data_ptr(), sw.bits, sw.n_lut,
+                sw.dsp_words.data_ptr(), sw.n_dsp, sw.scale.data_ptr())
     m = x.shape[0] if geom is None else geom[3] ** 2
     out = torch.full((m, n), float("nan"), device=x.device)
     launch(name, x, x.data_ptr(), *args, out.data_ptr(), *plan)
@@ -1029,12 +1044,13 @@ def launch_planned(torch, name, x, sw, geom, plan):
 def fused_corners(torch, details: dict) -> None:
     """The fused kernels at :data:`DENSE_CORNERS` and
     :data:`CONV_CORNERS`, under the chooser's plan and under every
-    compiled (BM, BN) tile and cluster size S, each bitwise equal to the
-    plain version."""
+    compiled regime (token tile t, warpgroups along the columns wc, K
+    split S; the ring ``fused_stages`` gives it), each bitwise equal to
+    the plain version."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_hetero_gemm import SPLITS, TILES, \
+    from repro_torch.kernels.fused_hetero_gemm import SPLITS, TOKEN_TILES, \
         fused_conv_gemm, fused_conv_gemm_plain, fused_hetero_gemm, \
-        fused_hetero_gemm_plain, split_plan
+        fused_hetero_gemm_plain, fused_plan, fused_stages
     gen = torch.Generator(device="cpu").manual_seed(13)
 
     def weights(k, bits, n_lut, n_dsp):
@@ -1050,10 +1066,10 @@ def fused_corners(torch, details: dict) -> None:
         x = torch.randint(-128, 128, (m, k), generator=gen,
                           dtype=torch.int8).cuda()
         sw = weights(k, bits, n_lut, n_dsp)
-        args = (sw.planes, sw.packed, sw.scale, bits, n_lut, n_dsp)
+        args = (sw.lut_words, sw.dsp_words, sw.scale, bits, n_lut, n_dsp)
         cases.append((f"dense M={m} K={k} bits={bits} {n_lut}/{n_dsp}",
-                      "fused_hetero_gemm", x, sw, None,
-                      split_plan(m, k, n_lut, n_dsp),
+                      "fused_hetero_gemm", x, sw, None, m, k,
+                      fused_plan(m, k, n_lut, n_dsp, bits),
                       fused_hetero_gemm(x, *args),
                       fused_hetero_gemm_plain(x, *args)))
     for hw, c, ks, st, pad, bits, n_lut, n_dsp in CONV_CORNERS:
@@ -1063,25 +1079,33 @@ def fused_corners(torch, details: dict) -> None:
                           dtype=torch.int8).cuda()
         sw = weights(k, bits, n_lut, n_dsp)
         geom = (ks, st, pad, out_hw)
-        args = (sw.planes, sw.packed, sw.scale, bits, n_lut, n_dsp, *geom)
+        args = (sw.lut_words, sw.dsp_words, sw.scale, bits, n_lut, n_dsp,
+                *geom)
         cases.append((f"conv {hw}x{hw}x{c} k{ks}s{st}p{pad} bits={bits} "
                       f"{n_lut}/{n_dsp}", "fused_conv_gemm", x, sw, geom,
-                      split_plan(out_hw ** 2, k, n_lut, n_dsp),
+                      out_hw ** 2, k,
+                      fused_plan(out_hw ** 2, k, n_lut, n_dsp, bits),
                       fused_conv_gemm(x, *args),
                       fused_conv_gemm_plain(x, *args)))
     n_checked = 0
-    for tag, name, x, sw, geom, plan, got, want in cases:
+    for tag, name, x, sw, geom, m, k, plan, got, want in cases:
         require_equal(torch, f"{name} {tag} {tuple(plan)}", got, want)
-        for (bm, bn), split in itertools.product(TILES, SPLITS):
-            require_equal(torch, f"{name} {tag} BM={bm} BN={bn} S={split}",
+        n_checked += 1
+        for t, wc, split in itertools.product(TOKEN_TILES, (2, 1), SPLITS):
+            stages = fused_stages(t, wc, split, k, sw.bits, sw.n_lut,
+                                  sw.n_dsp)
+            require_equal(torch, f"{name} {tag} t={t} wc={wc} S={split} "
+                          f"stages={stages}",
                           launch_planned(torch, name, x, sw, geom,
-                                         (bm, bn, split)), want)
-        n_checked += 1 + len(TILES) * len(SPLITS)
+                                         (t, wc, split, stages)), want)
+            n_checked += 1
     details["fused_corners"] = [(tag, list(plan))
-                                for tag, _, _, _, _, plan, _, _ in cases]
+                                for tag, *_, plan, _, _ in cases]
     print(f"kernels: fused corners bitwise equal to plain: {len(cases)} "
-          f"shapes x (chooser's plan + {len(TILES)} tiles x {len(SPLITS)} "
-          f"cluster sizes) = {n_checked} launches")
+          f"shapes x (chooser's plan + {len(TOKEN_TILES)} token tiles x 2 "
+          f"warpgroup arrangements x {len(SPLITS)} cluster sizes) = "
+          f"{n_checked} launches; plans " + "; ".join(
+              f"{tag}: {tuple(plan)}" for tag, *_, plan, _, _ in cases))
 
 
 def single_corners(torch, details: dict) -> None:
@@ -1477,7 +1501,7 @@ def dense_shapes(torch, prog, ex, details: dict) -> dict:
     times its layers) beside its plain version, ``_int_mm`` and the
     bound."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.fused_hetero_gemm import split_plan
+    from repro_torch.kernels.fused_hetero_gemm import fused_plan, weight_bytes
     gen = torch.Generator(device="cpu").manual_seed(23)
     groups: dict = {}
     for lp in prog.layers:
@@ -1514,7 +1538,8 @@ def dense_shapes(torch, prog, ex, details: dict) -> dict:
                            if c is not None], dim=1)
         row = {"layers": [lp.name for lp in lps], "m": m, "k": k,
                "n_lut": sw.n_lut, "n_dsp": sw.n_dsp,
-               "plan": list(split_plan(m, k, sw.n_lut, sw.n_dsp)),
+               "plan": list(fused_plan(m, k, sw.n_lut, sw.n_dsp, sw.bits)),
+               "weight_bytes": weight_bytes(k, sw.bits, sw.n_lut, sw.n_dsp),
                **device_times(torch, {
                    "ms": (kern, 10), "plain_ms": (plain, 3),
                    "library_ms": (int_mm_fn(torch, x_col, codes, sw.scale),
@@ -1525,7 +1550,8 @@ def dense_shapes(torch, prog, ex, details: dict) -> dict:
         for key in tot:
             tot[key] += len(lps) * row[key]
         print(f"dense {lp.name} (x{len(lps)}): M={m} K={k} n_lut={sw.n_lut} "
-              f"n_dsp={sw.n_dsp} plan {tuple(row['plan'])}: bitwise equal; "
+              f"n_dsp={sw.n_dsp} plan {tuple(row['plan'])}, "
+              f"{row['weight_bytes']} weight bytes: bitwise equal; "
               f"fused_conv_gemm {row['ms']:.4f} ms (plain "
               f"{row['plain_ms']:.4f}, _int_mm {row['library_ms']:.4f}, "
               f"bound {row['bound_ms']:.4f})")
@@ -2511,12 +2537,13 @@ def decode_kernel_times(torch, prog, ex, gen) -> dict:
     device ms per launch of the kernel, its plain version and
     ``torch._int_mm`` with M padded to 32, times the layers of that
     shape; per path and kernel, the sums over one step with the code-
-    width bound and, for ``fused_hetero_gemm``, the bytes of the layout
-    it reads (int8 bit planes + packed int4) over the HBM rate."""
+    width bound and, for ``fused_hetero_gemm``, the bytes it reads (the
+    K-major weight words, ``fused_hetero_gemm.weight_bytes``, the input,
+    the scales and the output) over the HBM rate."""
     from repro_torch.kernels.bitserial_gemm import bitserial_gemm, \
         bitserial_gemm_plain
     from repro_torch.kernels.fused_hetero_gemm import fused_hetero_gemm, \
-        fused_hetero_gemm_plain
+        fused_hetero_gemm_plain, fused_plan, weight_bytes
     from repro_torch.kernels.int4_gemm import int4_gemm, int4_gemm_plain
     shapes = collections.OrderedDict()
     for lp in prog.layers:
@@ -2534,15 +2561,14 @@ def decode_kernel_times(torch, prog, ex, gen) -> dict:
         cases = {}
         if n_lut and n_dsp:
             codes = torch.cat([wts.w_lut, wts.w_dsp], dim=1)
+            words = (sw.lut_words, sw.dsp_words, sw.scale, bits, n_lut,
+                     n_dsp)
             cases[("fused", "fused_hetero_gemm")] = (
-                lambda: fused_hetero_gemm(x, sw.planes, sw.packed, sw.scale,
-                                          bits, n_lut, n_dsp),
-                lambda: fused_hetero_gemm_plain(x, sw.planes, sw.packed,
-                                                sw.scale, bits, n_lut,
-                                                n_dsp),
+                lambda: fused_hetero_gemm(x, *words),
+                lambda: fused_hetero_gemm_plain(x, *words),
                 int_mm_fn(torch, x, codes, sw.scale, min_m=32),
                 bound_ms(x.numel(), m, k, bits, n_lut, n_dsp),
-                (m * k + bits * k * n_lut + k * ((n_dsp + 1) // 2)
+                (m * k + weight_bytes(k, bits, n_lut, n_dsp)
                  + 4 * (n_lut + n_dsp) * (m + 1)) / HBM_BYTES_PER_S * 1e3)
         sides = []
         if n_lut:
@@ -2574,6 +2600,11 @@ def decode_kernel_times(torch, prog, ex, gen) -> dict:
                 "max_abs_err": 0.0, "shapes": []})
             row["shapes"].append({"k": k, "n_lut": n_lut, "n_dsp": n_dsp,
                                   "layers": count, **t, "bound_ms": b_ms})
+            if name == "fused_hetero_gemm":
+                row["shapes"][-1]["plan"] = list(fused_plan(m, k, n_lut,
+                                                            n_dsp, bits))
+                row["shapes"][-1]["weight_bytes"] = weight_bytes(
+                    k, bits, n_lut, n_dsp)
             for key in ("ms", "plain_ms", "library_ms"):
                 row[key] += count * t[key]
             row["bound_ms"] += count * b_ms
@@ -2585,6 +2616,29 @@ def decode_kernel_times(torch, prog, ex, gen) -> dict:
         row["bound_by"] = "bytes" if row["bytes"] >= row["operations"] \
             else "operations"
     return tot
+
+
+def published_shapes(name: str) -> collections.Counter:
+    """(K, N) -> layers of one decode step of ``name`` at its published
+    depth (the sessions run :data:`DECODE_LAYERS` of its blocks)."""
+    from repro_torch.compiler.networks import decode_step_layers
+    layers, _ = decode_step_layers(name, batch=DECODE["batch"],
+                                   max_seq=DECODE["max_seq"], smoke=False)
+    return collections.Counter((lp.dims.k, lp.dims.n) for lp in layers)
+
+
+def at_depth(row: dict, full: collections.Counter) -> dict:
+    """A decode kernel row's launches and device ms (its own and
+    ``_int_mm``'s) per step at the published depth: each timed shape's
+    ms per launch times the published step's layers of its (K, N)."""
+    out = {"published_launches": 0, "published_ms": 0.0,
+           "published_library_ms": 0.0}
+    for r in row["shapes"]:
+        n = full[(r["k"], r["n_lut"] + r["n_dsp"])]
+        out["published_launches"] += n
+        out["published_ms"] += n * r["ms"]
+        out["published_library_ms"] += n * r["library_ms"]
+    return out
 
 
 def decode_sessions(torch, name: str, prog, steps: int, out: dict):
@@ -2769,12 +2823,15 @@ def phase_decode(torch, details: dict):
         launches.update(counts)
         if not smoke:
             tot = decode_kernel_times(torch, prog, sess._warm_ex, gen)
+            full = published_shapes(name)
             per_step = {key: {"launches": row["launches"],
-                              "ms": row["ms"], "bound_ms": row["bound_ms"]}
+                              "ms": row["ms"], "bound_ms": row["bound_ms"],
+                              **at_depth(row, full)}
                         for key, row in tot.items()}
             want = decode_launches(prog)
             for key, row in tot.items():
                 path, kname = key.split(" ")
+                deep = per_step[key]
                 if row["launches"] != want[path][kname]:
                     raise AssertionError(f"{name} {key}: {row['launches']} "
                                          f"layers timed, program launches "
@@ -2784,10 +2841,18 @@ def phase_decode(torch, details: dict):
                       f"{row['plain_ms']:.4f}, _int_mm at M=32 "
                       f"{row['library_ms']:.4f}), bound {row['bound_ms']:.4f}"
                       f" ms ({row['bound_by']}; "
-                      f"{row['ms'] / row['bound_ms']:.1f}x), the bytes of "
-                      f"the layout it reads {row['layout_ms']:.4f} ms "
+                      f"{row['ms'] / row['bound_ms']:.1f}x), the bytes "
+                      f"it reads {row['layout_ms']:.4f} ms "
                       f"({row['ms'] / row['layout_ms']:.1f}x); "
-                      f"bitwise at {len(row['shapes'])} shapes")
+                      f"bitwise at {len(row['shapes'])} shapes; at the "
+                      f"published depth {deep['published_launches']} "
+                      f"launches, {deep['published_ms']:.4f} ms (_int_mm "
+                      f"{deep['published_library_ms']:.4f})" + "".join(
+                          f"; K={r['k']} {r['n_lut']}/{r['n_dsp']} x"
+                          f"{r['layers']} plan {tuple(r['plan'])} "
+                          f"{r['weight_bytes']} weight bytes "
+                          f"{1e3 * r['ms']:.2f} us"
+                          for r in row["shapes"] if "plan" in r))
             out[name]["kernels"] = tot
             out[name]["kernels_per_step"] = per_step
         del sess
@@ -2921,13 +2986,17 @@ def shard_kernels(torch, executors, shards, what: str) -> dict:
 
 
 def shard_shape(ex, li: int) -> str:
-    """A shard's GEMM extents, split and the fused kernels' plan."""
-    from repro_torch.kernels.fused_hetero_gemm import split_plan
+    """A shard's GEMM extents, split and the fused kernels' plan (t, wc,
+    S, stages, shared memory, blocks) and weight bytes."""
+    from repro_torch.kernels.fused_hetero_gemm import fused_plan, \
+        weight_bytes
     lp = ex.program.layers[li]
     n_dsp = lp.dims.n - lp.n_lut
-    return (f"(M={lp.dims.m} K={lp.dims.k} n_lut={lp.n_lut} n_dsp={n_dsp}"
+    m, k, bits = lp.dims.m, lp.dims.k, ex._split[li].bits
+    return (f"(M={m} K={k} n_lut={lp.n_lut} n_dsp={n_dsp}"
             f"{' depthwise' if lp.depthwise else ''}, plan "
-            f"{tuple(split_plan(lp.dims.m, lp.dims.k, lp.n_lut, n_dsp))})")
+            f"{tuple(fused_plan(m, k, lp.n_lut, n_dsp, bits))}, "
+            f"{weight_bytes(k, bits, lp.n_lut, n_dsp)} weight bytes)")
 
 
 def conv_kernel(lp) -> str:
@@ -3553,7 +3622,7 @@ def deployed_program(torch, d, x_q, name, bits_a, out: dict) -> dict:
     from repro_torch.kernels import hetero_matmul
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.kernels.fused_hetero_gemm import fused_hetero_gemm, \
-        fused_hetero_gemm_plain
+        fused_hetero_gemm_plain, fused_plan, weight_bytes
     m, k = x_q.shape
     n_lut = d.wq_serial.shape[1]
     n = n_lut + d.wq_parallel.shape[1]
@@ -3575,14 +3644,18 @@ def deployed_program(torch, d, x_q, name, bits_a, out: dict) -> dict:
     err = require_equal(torch, f"bind_deployed {name} vs hetero_matmul",
                         got, want)
     sw, wts = ex._split[0], ex._weights[0]
-    args = (x_q, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut, sw.n_dsp)
+    args = (x_q, sw.lut_words, sw.dsp_words, sw.scale, sw.bits, sw.n_lut,
+            sw.n_dsp)
     require_equal(torch, f"fused_hetero_gemm {name}",
                   fused_hetero_gemm(*args), fused_hetero_gemm_plain(*args))
     b_ms, b_by = bound_ms(x_q.numel(), m, k, sw.bits, sw.n_lut, sw.n_dsp)
     codes = torch.cat([wts.w_lut, wts.w_dsp], dim=1)
+    plan = fused_plan(m, k, sw.n_lut, sw.n_dsp, sw.bits)
     row = {"m": m, "k": k, "n_lut": n_lut, "n": n, "lower_s": lower_s,
            "n_instructions": prog.n_instructions, "launches": launches,
            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "plan": list(plan),
+           "weight_bytes": weight_bytes(k, sw.bits, sw.n_lut, sw.n_dsp),
            **device_times(torch, {
                "ms": (lambda: fused_hetero_gemm(*args), 5),
                "plain_ms": (lambda: fused_hetero_gemm_plain(*args), 2),
@@ -3591,7 +3664,8 @@ def deployed_program(torch, d, x_q, name, bits_a, out: dict) -> dict:
     print(f"codesign: bind_deployed {name}: one-layer FC program "
           f"({prog.n_instructions} instructions, lowered in {lower_s:.2f} s) "
           f"launches {launches}, bitwise equal to hetero_matmul; "
-          f"fused_hetero_gemm {row['ms']:.4f} ms (plain "
+          f"fused_hetero_gemm (plan {tuple(plan)}, {row['weight_bytes']} "
+          f"weight bytes) {row['ms']:.4f} ms (plain "
           f"{row['plain_ms']:.4f}, _int_mm {row['library_ms']:.4f}, bound "
           f"{b_ms:.4f} by {b_by})")
     return launches

@@ -2,14 +2,18 @@
 """Where a kernel launch spends its device time, on one NVIDIA card.
 
     python3 kernel_parts.py [--out PATH]
-                            [--only {split,flash,bwd,f32,depthwise}]
+                            [--only {split,flash,bwd,f32,depthwise,plans}]
                             [--parent-flash PATH] [--parent-bwd PATH]
                             [--parent-f32 PATH] [--parent-depthwise PATH]
+                            [--parent-split PATH] [--fit-from JSON]
 
 Builds variants of the kernel sources into ``build/kernel_parts/``, each
 with parts of the main loop taken out, and times them: the split-GEMM
-kernels at resnet18's distinct layer shapes, each launch under
-``fused_hetero_gemm.split_plan``'s tile and K split, the flash kernel at
+kernels at resnet18's distinct layer shapes, llama3.2-1b's decode
+layers, the co-design loop's HeteroLinear shapes and resnet18's ``filter``
+x 3 shards (:data:`SHAPES`), the fused kernel under
+``fused_hetero_gemm.fused_plan``'s launch and the single-path ones under
+``split_plan``'s tile and K split, the flash kernel at
 the serving prefill, S=2048, decode, decode4, the three D=256 shapes and
 the wide pairs' prefill, ragged and offset shapes (:data:`FLASH_SHAPES`)
 and, with the log-sum-exp, their training shapes
@@ -21,12 +25,34 @@ serialised among them) is printed as it is built.
 ``src/repro_torch/kernels/csrc/fused_split_gemm.cu``, its
 ``fused_hetero_gemm`` on both sides of the split (:data:`VARIANTS`):
 
-    full         the kernel as it is
-    no_mma       without the tensor-core passes
-    no_transpose without the transpose of the raw B tiles
-    copies_only  only the cp.async copies (no transpose, no mma)
-    empty        no copies either: launch, pipeline skeleton, split-K
-                 reduction and stores
+    full          the kernel as it is
+    no_mma        the wgmma and mma.sync instructions commented out
+                  (their accumulators left as they are), so the
+                  fragments are still built from the words
+    copies_only   only the producer's copies and the ring's barriers (no
+                  fragments, no products)
+    empty         no copies either: launch, the ring's barriers, the
+                  split-K reduction
+    plane_passes  one tensor pass per LUT bit plane (the folded fragment
+                  issued ``bits`` times), the tensor-core cost of the
+                  earlier design's plane loop without its plane bytes:
+                  the fold's gain is ``plane_passes`` less ``full``
+
+``--only plans`` times the fused kernels (the conv form where the layer
+is a conv) under every launch plan ``fused_hetero_gemm.fused_candidates``
+allows at :data:`PLAN_SHAPES` and prints, per shape, the chooser's plan
+and time beside the five fastest; ``--fit-from JSON``, with no card,
+fits ``fused_hetero_gemm.PLAN_COST`` to the rows such a run wrote with
+``--out JSON`` (least squares, then a random search on the sum over
+shapes of the chosen plan's time over the fastest plan's) and prints the
+coefficients and that sum.
+
+With ``--parent-split PATH`` (an earlier ``fused_split_gemm.cu``, e.g.
+``git show dd26106:src/repro_torch/kernels/csrc/fused_split_gemm.cu``, the
+``mma.sync`` kernel on int8 planes and packed bytes with
+``split_plan``'s tiles) it times that source's ``fused_hetero_gemm`` on
+``planes`` / ``packed`` beside this one's at every shape, in turns
+(parent, this, this, parent).
 
 ``src/repro_torch/kernels/csrc/split_gemm.cu``, its ``bitserial_gemm`` on
 the LUT side and ``int4_gemm`` on the DSP side, each under the plan of
@@ -191,21 +217,26 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 from chip_smoke import PARENT_FLASH_EDITS  # noqa: E402
 
+#: split_gemm.cu's mma warps skip their fragments and mma
 _NO_MMA = ("    if (!mma_warp) continue;\n", "    continue;\n")
-_NO_TRANSPOSE = ("    t.transpose_stage(st % NST);\n", "")
-_NO_COPIES = [
-    ("    if (lut)\n      load_raw<BN>(", "    if (false)\n      load_raw<BN>("),
-    ("    else\n      load_raw<BN / 2>(",
-     "    else if (false)\n      load_raw<BN / 2>("),
-    ("    if (p.a_vec == 16)\n      load_a_vec<16>(as, k0);",
-     "    if (true) {}")]
-#: fused_split_gemm.cu: variant -> (statement, replacement) edits
+_FUSED_NO_MMA = [('"wgmma.mma_async', '"// wgmma.mma_async', 3),
+                 ('"mma.sync.aligned', '"// mma.sync.aligned')]
+_FUSED_NO_COMPUTE = (
+    "  const bool active = blk.j0 + cb < n_region && blk.m0 + tb < p.M;\n",
+    "  const bool active = false;\n")
+_FUSED_NO_COPIES = (
+    "      blk.load_stage(smem + s * L.stage, s_begin + i, ptid);\n", "")
+_FUSED_PLANE_PASSES = (
+    "      products(cur, xs);\n",
+    "      for (int b = 0; b < (blk.lut ? p.bits : 1); ++b) products(cur, xs);"
+    "\n")
+#: fused_split_gemm.cu: variant -> (statement, replacement[, n]) edits
 VARIANTS = {
     "full": [],
-    "no_mma": [_NO_MMA],
-    "no_transpose": [_NO_TRANSPOSE],
-    "copies_only": [_NO_MMA, _NO_TRANSPOSE],
-    "empty": [_NO_MMA, _NO_TRANSPOSE, *_NO_COPIES],
+    "no_mma": _FUSED_NO_MMA,
+    "copies_only": [_FUSED_NO_COMPUTE],
+    "empty": [_FUSED_NO_COMPUTE, _FUSED_NO_COPIES],
+    "plane_passes": [_FUSED_PLANE_PASSES],
 }
 _SPLIT_NO_MMA = (
     "for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[kk][i], bf[kk][j][0], "
@@ -383,12 +414,27 @@ DW_VARIANTS = {
                   "(uint32_t)(uint8_t)__ldcg(p) : 0u")],
 }
 
-#: resnet18's distinct split-GEMM shapes (M, K, n_lut, n_dsp), bits 4
+#: the split-GEMM shapes (M, K, n_lut, n_dsp), bits 4: resnet18's
+#: distinct layers; llama3.2-1b's decode layers at batch 8 (q / o, k / v,
+#: gate / up, down, the padded vocabulary's head), half their columns on
+#: each side; the co-design loop's HeteroLinear shapes (chip_smoke.HETERO:
+#: the quickstart's, the llama MLP at ratio 0.5 and at its solved ratio,
+#: 1,632 serial columns); resnet18's ``filter`` x 3 shards whose widths are
+#: not multiples of 4 (conv1's all-LUT 21 columns and mixed 5 / 16, conv17's
+#: 80 / 91, fc's 333)
 SHAPES = {
     "conv1": (12544, 147, 48, 16), "conv2": (3136, 576, 48, 16),
     "conv7": (784, 1152, 96, 32), "conv8_ds": (784, 64, 64, 64),
     "conv12": (196, 2304, 192, 64), "conv17": (49, 4608, 432, 80),
     "conv18_ds": (49, 256, 416, 96), "fc": (1, 512, 680, 320),
+    "dec_q": (8, 2048, 1024, 1024), "dec_kv": (8, 2048, 256, 256),
+    "dec_up": (8, 2048, 4096, 4096), "dec_down": (8, 8192, 1024, 1024),
+    "dec_head": (8, 2048, 64128, 64128),
+    "hetero_quickstart": (16, 256, 77, 115),
+    "hetero_mlp": (4096, 2048, 4096, 4096),
+    "hetero_mlp_solved": (4096, 2048, 1632, 6560),
+    "x3_conv1": (12544, 147, 21, 0), "x3_conv1_mixed": (12544, 147, 5, 16),
+    "x3_conv17": (49, 4608, 80, 91), "x3_fc": (1, 512, 333, 0),
 }
 
 
@@ -453,8 +499,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the times as "
                     "JSON here")
     ap.add_argument("--only", choices=("split", "flash", "bwd", "f32",
-                                       "depthwise"),
-                    default=None, help="time one kernel family only")
+                                       "depthwise", "plans"),
+                    default=None, help="time one kernel family only "
+                    "(plans: the fused kernel under every launch plan, run "
+                    "only when asked for)")
+    ap.add_argument("--fit-from", default=None, metavar="JSON",
+                    help="fit fused_plan's cost coefficients to the rows an "
+                         "--only plans run wrote with --out (no card "
+                         "needed)")
     ap.add_argument("--parent-bwd", default=None, metavar="PATH",
                     help="also time the flash_attention_bwd.cu at PATH (an "
                          "earlier version with the same entry points) beside "
@@ -465,7 +517,14 @@ def main(argv=None) -> int:
                     help="the same for the flash_attention_f32.cu at PATH")
     ap.add_argument("--parent-depthwise", default=None, metavar="PATH",
                     help="the same for the depthwise_gemm.cu at PATH")
+    ap.add_argument("--parent-split", default=None, metavar="PATH",
+                    help="the same for the fused_split_gemm.cu at PATH (the "
+                         "earlier entry point on planes and packed bytes)")
     args = ap.parse_args(argv)
+    if args.fit_from:
+        sys.path.insert(0, str(ROOT / "src"))
+        fit_plan_cost(json.loads(Path(args.fit_from).read_text()))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
@@ -481,8 +540,10 @@ def main(argv=None) -> int:
         if args.only in (None, family):
             rows += fn(torch, device_times, {
                 "bwd": args.parent_bwd, "flash": args.parent_flash,
-                "f32": args.parent_f32, "split": None,
+                "f32": args.parent_f32, "split": args.parent_split,
                 "depthwise": args.parent_depthwise}[family])
+    if args.only == "plans":
+        rows += time_plans(torch, device_times)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(rows, indent=1))
@@ -893,12 +954,24 @@ def time_depthwise(torch, device_times, parent: str | None = None
     return rows
 
 
-def time_split(torch, device_times, parent: None = None) -> list[dict]:
-    """The split-GEMM variants at resnet18's :data:`SHAPES`."""
+def time_split(torch, device_times, parent: str | None = None
+               ) -> list[dict]:
+    """The split-GEMM variants at :data:`SHAPES`: the fused kernel's
+    under ``fused_plan``, the single-path kernels' under ``split_plan`` on
+    their one-sided shapes. With ``parent``, that ``fused_split_gemm.cu``
+    (the earlier entry point on ``planes`` / ``packed`` and
+    ``split_plan``'s tiles) beside this one's, in turns (parent, this,
+    this, parent)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_hetero_gemm import split_plan
+    from repro_torch.kernels.fused_hetero_gemm import fused_plan, \
+        split_plan, weight_bytes
     fused_libs = build_variants("fused_split_gemm", VARIANTS)
     split_libs = build_variants("split_gemm", SPLIT_VARIANTS)
+    old = build_parent("fused_split_gemm", parent) if parent else None
+    if old is not None:  # the earlier signature: planes, packed, (bm, bn, S)
+        p_, i_ = ctypes.c_void_p, ctypes.c_int
+        old.fused_hetero_gemm.argtypes = [p_, i_, i_, p_, i_, i_, p_, i_, p_,
+                                          p_, i_, i_, i_, p_]
     gen = torch.Generator().manual_seed(0)
     rows = []
     for layer, (m, k, n_lut, n_dsp) in SHAPES.items():
@@ -912,45 +985,213 @@ def time_split(torch, device_times, parent: None = None) -> list[dict]:
         out = torch.empty((m, n_lut + n_dsp), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
         # (kernel, its plan, the call of one variant's library)
-        calls = {
-            "fused_hetero_gemm": (
-                split_plan(m, k, n_lut, n_dsp),
-                lambda lib, pl: lib.fused_hetero_gemm(
-                    x.data_ptr(), m, k, sw.planes.data_ptr(), 4, n_lut,
-                    sw.packed.data_ptr(), n_dsp, sw.scale.data_ptr(),
-                    out.data_ptr(), pl.bm, pl.bn, pl.split, stream)),
-            "bitserial_gemm": (
+        calls = {"fused_hetero_gemm": (
+            fused_plan(m, k, n_lut, n_dsp, 4),
+            lambda lib, pl: lib.fused_hetero_gemm(
+                x.data_ptr(), m, k, sw.lut_words.data_ptr(), 4, n_lut,
+                sw.dsp_words.data_ptr(), n_dsp, sw.scale.data_ptr(),
+                out.data_ptr(), pl.t, pl.wc, pl.split, pl.stages, stream))}
+        if n_lut:
+            calls["bitserial_gemm"] = (
                 split_plan(m, k, n_lut, 0),
                 lambda lib, pl: lib.bitserial_gemm(
                     x.data_ptr(), m, k, sw.lut_words.data_ptr(), 4, n_lut,
                     sw.s_lut.data_ptr(), out.data_ptr(), pl.bm, pl.bn,
-                    pl.split, stream)),
-            "int4_gemm": (
+                    pl.split, stream))
+        if n_dsp:
+            calls["int4_gemm"] = (
                 split_plan(m, k, 0, n_dsp),
                 lambda lib, pl: lib.int4_gemm(
                     x.data_ptr(), m, k, sw.dsp_words.data_ptr(), n_dsp,
                     sw.s_dsp.data_ptr(), out.data_ptr(), pl.bm, pl.bn,
-                    pl.split, stream)),
-        }
+                    pl.split, stream))
         for kernel, (plan, call) in calls.items():
             libs = fused_libs if kernel == "fused_hetero_gemm" else \
                 split_libs
 
-            def run(lib, call=call, plan=plan):
+            def run(lib, call=call, plan=plan, who="this"):
                 rc = call(lib, plan)
                 if rc:
-                    raise RuntimeError(f"launch failed with error {rc}")
-            us = {name: 1e3 * t for name, t in device_times(
-                torch, {name: (lambda lib=lib: run(lib), 20)
-                        for name, lib in libs.items()}).items()}
-            rows.append({"kernel": kernel, "layer": layer, "m": m, "k": k,
-                         "n_lut": n_lut, "n_dsp": n_dsp, "plan": list(plan),
-                         "us": us})
-            print(f"{kernel} {layer}: M={m} K={k} {n_lut}/{n_dsp} "
-                  f"BM={plan.bm} BN={plan.bn} S={plan.split} blocks="
-                  f"{plan.blocks}: " + "; ".join(
-                      f"{name} {t:.2f} us" for name, t in us.items()))
+                    raise RuntimeError(f"{who} launch failed with error "
+                                       f"{rc}")
+            fns = {name: (lambda lib=lib: run(lib), 20)
+                   for name, lib in libs.items()}
+            if kernel == "fused_hetero_gemm" and old is not None:
+                pp = split_plan(m, k, n_lut, n_dsp)
+
+                def run_parent(pp=pp):
+                    rc = old.fused_hetero_gemm(
+                        x.data_ptr(), m, k, sw.planes.data_ptr(), 4, n_lut,
+                        sw.packed.data_ptr(), n_dsp, sw.scale.data_ptr(),
+                        out.data_ptr(), pp.bm, pp.bn, pp.split, stream)
+                    if rc:
+                        raise RuntimeError(f"parent launch failed with "
+                                           f"error {rc}")
+                for key, fn in (("turns/parent_1", run_parent),
+                                ("turns/this_1", fns["full"][0]),
+                                ("turns/this_2", fns["full"][0]),
+                                ("turns/parent_2", run_parent)):
+                    fns[key] = (fn, 20)
+            us = {name: 1e3 * t for name, t in device_times(torch,
+                                                            fns).items()}
+            row = {"kernel": kernel, "layer": layer, "m": m, "k": k,
+                   "n_lut": n_lut, "n_dsp": n_dsp, "plan": list(plan),
+                   "us": us}
+            if kernel == "fused_hetero_gemm":
+                row["weight_bytes"] = weight_bytes(k, 4, n_lut, n_dsp)
+                desc = (f"t={plan.t} wc={plan.wc} S={plan.split} "
+                        f"stages={plan.stages} smem={plan.smem} "
+                        f"blocks={plan.blocks}, "
+                        f"{row['weight_bytes']} weight bytes")
+            else:
+                desc = (f"BM={plan.bm} BN={plan.bn} S={plan.split} "
+                        f"blocks={plan.blocks}")
+            rows.append(row)
+            print(f"{kernel} {layer}: M={m} K={k} {n_lut}/{n_dsp} {desc}: "
+                  + "; ".join(f"{name} {t:.2f} us"
+                              for name, t in us.items()))
+        del x, sw, out
     return rows
+
+
+#: the shapes ``--only plans`` times, bits 4: (name, conv (H=W, C,
+#: kernel, stride, pad) or None, M, K, n_lut, n_dsp): resnet18's distinct
+#: layers in the conv form, three of its ``filter`` x 3 shards, the decode
+#: layers of :data:`SHAPES`, the llama MLP and the quickstart layer
+PLAN_SHAPES = [
+    ("conv1", (224, 3, 7, 2, 3), 48, 16), ("conv2", (56, 64, 3, 1, 1), 48, 16),
+    ("conv6", (56, 64, 3, 2, 1), 96, 32),
+    ("conv7", (28, 128, 3, 1, 1), 96, 32),
+    ("conv8_ds", (56, 64, 1, 2, 0), 64, 64),
+    ("conv11", (28, 128, 3, 2, 1), 224, 32),
+    ("conv12", (14, 256, 3, 1, 1), 192, 64),
+    ("conv13_ds", (28, 128, 1, 2, 0), 192, 64),
+    ("conv16", (14, 256, 3, 2, 1), 432, 80),
+    ("conv17", (7, 512, 3, 1, 1), 432, 80),
+    ("conv18_ds", (14, 256, 1, 2, 0), 416, 96),
+    ("fc", (1, 512, 1, 1, 0), 680, 320),
+    ("x3_conv1", (224, 3, 7, 2, 3), 21, 0),
+    ("x3_conv1_mixed", (224, 3, 7, 2, 3), 5, 16),
+    ("x3_conv17", (7, 512, 3, 1, 1), 80, 91),
+    *[(name, None, *SHAPES[name][2:]) for name in (
+        "dec_q", "dec_kv", "dec_up", "dec_down", "dec_head")],
+    ("hetero_mlp", None, 4096, 4096), ("hetero_quickstart", None, 77, 115),
+]
+
+
+def plan_shape(name, conv, n_lut, n_dsp) -> tuple[int, int]:
+    """(M, K) of a :data:`PLAN_SHAPES` row."""
+    if conv is None:
+        return tuple(SHAPES[name][:2])
+    hw, c, ks, st, pad = conv
+    return ((hw + 2 * pad - ks) // st + 1) ** 2, ks * ks * c
+
+
+def time_plans(torch, device_times) -> list[dict]:
+    """The fused kernel at :data:`PLAN_SHAPES` under every candidate
+    plan (each with ``fused_stages``' ring), the chooser's marked."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.fused_hetero_gemm import fused_candidates, \
+        fused_plan, fused_stages
+    build.build_all(("fused_split_gemm",))
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for name, conv, n_lut, n_dsp in PLAN_SHAPES:
+        m, k = plan_shape(name, conv, n_lut, n_dsp)
+        if conv is None:
+            x = torch.randint(-8, 8, (m, k), generator=gen,
+                              dtype=torch.int8).cuda()
+            entry, lead = "fused_hetero_gemm", (m, k)
+        else:
+            hw, c, ks, st, pad = conv
+            x = torch.randint(-8, 8, (hw, hw, c), generator=gen,
+                              dtype=torch.int8).cuda()
+            entry = "fused_conv_gemm"
+            lead = (hw, hw, c, ks, st, pad, math.isqrt(m))
+        sw = ops.prepare_split(
+            k, torch.randint(-8, 8, (k, n_lut), generator=gen),
+            torch.ones(n_lut), 4,
+            torch.randint(-8, 8, (k, n_dsp), generator=gen),
+            torch.ones(n_dsp), torch.device("cuda"))
+        out = torch.empty((m, n_lut + n_dsp), device="cuda")
+        fns = {}
+        for t, wc, split in fused_candidates(m, k):
+            plan = (t, wc, split,
+                    fused_stages(t, wc, split, k, 4, n_lut, n_dsp))
+            fns[plan] = (lambda plan=plan: build.launch(
+                entry, x, x.data_ptr(), *lead, sw.lut_words.data_ptr(), 4,
+                n_lut, sw.dsp_words.data_ptr(), n_dsp, sw.scale.data_ptr(),
+                out.data_ptr(), *plan), 10)
+        us = {plan: 1e3 * t for plan, t in device_times(torch, fns).items()}
+        chosen = tuple(fused_plan(m, k, n_lut, n_dsp, 4)[:4])
+        best = sorted(us.items(), key=lambda kv: kv[1])
+        rows.append({"kernel": entry, "layer": name, "m": m, "k": k,
+                     "n_lut": n_lut, "n_dsp": n_dsp, "chosen": list(chosen),
+                     "plans": [[*plan, t] for plan, t in us.items()]})
+        print(f"plans {name} M={m} K={k} {n_lut}/{n_dsp}: chosen "
+              f"(t, wc, S, stages) {chosen} {us[chosen]:.2f} us; fastest "
+              + "; ".join(f"{plan} {t:.2f}" for plan, t in best[:5]))
+        del x, sw, out
+    return rows
+
+
+def fit_plan_cost(rows: list[dict], iters: int = 8000) -> dict:
+    """``fused_hetero_gemm.PLAN_COST`` fitted to :func:`time_plans`' rows:
+    for each weight of a wave when two blocks share an SM in (1, 1.2, 1.5,
+    2), least squares on the times (each shape's rows weighted by one over
+    its fastest time); then, from the best of those and the current
+    coefficients, a random search that keeps a change unless it raises
+    the sum over shapes of the chosen plan's time over the fastest plan's.
+    Prints and returns the fit."""
+    import numpy as np
+    from repro_torch.kernels.fused_hetero_gemm import PLAN_COST, _fused_cost
+    keys = [k for k in PLAN_COST if k != "two_per_sm"]
+    cases = [(r, tuple(p[:3]), p[4]) for r in rows for p in r["plans"]]
+    fastest = {r["layer"]: min(p[4] for p in r["plans"]) for r in rows}
+
+    def features(two):  # each coefficient's term, by a unit coefficient
+        unit = {k: 0.0 for k in keys}
+        cols = []
+        for k in keys:
+            c = {**unit, k: 1.0, "two_per_sm": two}
+            cols.append([_fused_cost(r["m"], r["k"], r["n_lut"], r["n_dsp"],
+                                     4, *plan, c) for r, plan, _ in cases])
+        return np.array(cols).T
+
+    times = np.array([t for _, _, t in cases])
+    layers = [r["layer"] for r, _, _ in cases]
+    index = {name: [i for i, n in enumerate(layers) if n == name]
+             for name in fastest}
+
+    def regret(x, coef):
+        pred = x @ coef
+        return sum(times[min(ix, key=lambda i: pred[i])] / fastest[name]
+                   for name, ix in index.items())
+
+    now = np.array([PLAN_COST[k] for k in keys])
+    x_now = features(PLAN_COST["two_per_sm"])
+    best = (regret(x_now, now), PLAN_COST["two_per_sm"], x_now, now)
+    start = best[0]
+    for two in (1.0, 1.2, 1.5, 2.0):
+        x = features(two)
+        w = np.array([1 / fastest[n] for n in layers])
+        coef = np.maximum(np.linalg.lstsq(x * w[:, None], times * w,
+                                          rcond=None)[0], 0)
+        if regret(x, coef) < best[0]:
+            best = (regret(x, coef), two, x, coef)
+    cur, two, x, coef = best
+    rng = np.random.default_rng(0)
+    for _ in range(iters):
+        cand = np.maximum(coef * np.exp(rng.normal(0, 0.3, coef.shape)), 0)
+        r = regret(x, cand)
+        if r < cur or (r == cur and rng.random() < 0.3):
+            coef, cur = cand, r
+    fit = {**{k: round(float(v), 4) for k, v in zip(keys, coef)},
+           "two_per_sm": two}
+    print(f"fit: PLAN_COST = {fit}; sum of chosen over fastest "
+          f"{cur:.2f} at {len(fastest)} shapes (the current coefficients "
+          f"{start:.2f})")
+    return fit
 
 
 if __name__ == "__main__":

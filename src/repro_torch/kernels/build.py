@@ -39,9 +39,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 SOURCES = {
     "fused_split_gemm": {
         "fused_hetero_gemm": [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P,
-                              _I, _I, _I, _P],
+                              _I, _I, _I, _I, _P],
         "fused_conv_gemm": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
-                            _I, _P, _P, _I, _I, _I, _P],
+                            _I, _P, _P, _I, _I, _I, _I, _P],
     },
     "split_gemm": {
         "bitserial_gemm": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],

@@ -58,12 +58,13 @@ def _pick(kernel, plain, mode: str):
 class SplitWeights:
     """One layer's split weights in the kernels' layouts, on one device.
 
-    What the fused kernels read:
+    What the depthwise kernel reads:
       planes: [bits, K, n_lut] int8 bit planes of the LUT columns;
       packed: [K, ceil(n_dsp/2)] int8 int4 pairs of the DSP columns.
-    What the single-path kernels read, K-major (``ref.pack_*_kmajor``),
-    each row zero-padded to a multiple of 16 bytes so that it starts
-    16-byte aligned (a zero bit or code adds 0 to every plane):
+    What the fused and the single-path split-GEMM kernels read, K-major
+    (``ref.pack_*_kmajor``), each row zero-padded to a multiple of 16
+    bytes so that it starts 16-byte aligned at any column count (a zero
+    bit or code adds 0 to every plane):
       lut_words: [bits, n_lut, ceil(K/128)*4] int32, bit k % 32 of word
         k // 32 of row (b, n) is plane b's bit of weight (k, n);
       dsp_words: [n_dsp, ceil(K/32)*4] int32, nibble k % 8 of word k // 8
@@ -142,7 +143,7 @@ def split_matmul(x_q: torch.Tensor, sw: SplitWeights, *,
     if sw.n_dsp == 0:
         return lut_matmul(x_q, sw, mode=mode)
     fn = _pick(fused_hetero_gemm, fused_hetero_gemm_plain, mode)
-    return fn(x_q, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut,
+    return fn(x_q, sw.lut_words, sw.dsp_words, sw.scale, sw.bits, sw.n_lut,
               sw.n_dsp)
 
 
@@ -152,7 +153,7 @@ def split_conv_matmul(x_sp: torch.Tensor, kernel: int, stride: int, pad: int,
     """Im2col-free conv GEMM from the unpadded [H, W, C] int8 block in
     one launch, one-sided splits included: fp32 [out_hw**2, n]."""
     fn = _pick(fused_conv_gemm, fused_conv_gemm_plain, mode)
-    return fn(x_sp, sw.planes, sw.packed, sw.scale, sw.bits, sw.n_lut,
+    return fn(x_sp, sw.lut_words, sw.dsp_words, sw.scale, sw.bits, sw.n_lut,
               sw.n_dsp, kernel, stride, pad, out_hw)
 
 

@@ -322,11 +322,25 @@ def test_wrappers_reject_bad_operands():
     sw = _prepared()
     x = torch.zeros((5, 24), dtype=torch.int8)
     with pytest.raises(ValueError, match="int8"):
-        fused_hetero_gemm(x.to(torch.int32), sw.planes, sw.packed, sw.scale,
-                          4, 10, 7)
-    with pytest.raises(ValueError, match="shape"):
-        fused_hetero_gemm(x[:, :20].contiguous(), sw.planes, sw.packed,
+        fused_hetero_gemm(x.to(torch.int32), sw.lut_words, sw.dsp_words,
                           sw.scale, 4, 10, 7)
+    with pytest.raises(ValueError, match="shape"):   # K = 200: longer rows
+        fused_hetero_gemm(torch.zeros((5, 200), dtype=torch.int8),
+                          sw.lut_words, sw.dsp_words, sw.scale, 4, 10, 7)
+    # the fused kernels take the K-major words, not the planes / packed
+    with pytest.raises(ValueError, match="int32"):
+        fused_hetero_gemm(x, sw.planes, sw.dsp_words, sw.scale, 4, 10, 7)
+    with pytest.raises(ValueError, match="int32"):
+        fused_hetero_gemm(x, sw.lut_words, sw.packed, sw.scale, 4, 10, 7)
+    with pytest.raises(ValueError, match="shape"):      # bits 3 of 4 planes
+        fused_hetero_gemm(x, sw.lut_words, sw.dsp_words, sw.scale, 3, 10, 7)
+    with pytest.raises(ValueError, match="shape"):      # words of K = 200
+        fused_hetero_gemm(x, sw.lut_words,
+                          torch.zeros((7, 28), dtype=torch.int32), sw.scale,
+                          4, 10, 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_hetero_gemm(x, sw.lut_words.transpose(1, 2).contiguous()
+                          .transpose(1, 2), sw.dsp_words, sw.scale, 4, 10, 7)
     with pytest.raises(ValueError, match="contiguous"):
         bitserial_gemm(x, sw.lut_words.transpose(1, 2).contiguous()
                        .transpose(1, 2), sw.s_lut, 4, 10)
@@ -349,8 +363,7 @@ def test_wrappers_reject_bad_operands():
                 bitserial_gemm(x, swb.lut_words, swb.s_lut, wrong, 10)
     with pytest.raises(ValueError, match="does not give"):
         fused_conv_gemm(torch.zeros((4, 4, 1), dtype=torch.int8),
-                        sw.planes[:, :9].contiguous(),
-                        sw.packed[:9].contiguous(), sw.scale, 4, 10, 7,
+                        sw.lut_words, sw.dsp_words, sw.scale, 4, 10, 7,
                         3, 1, 1, 5)
     with pytest.raises(ValueError, match="mode"):
         ops.split_matmul(x, sw, mode="kernel")
@@ -443,7 +456,7 @@ def test_dense_kernels_match_plain_on_card(cuda, bits, n_lut, n_dsp, m, k):
                            *[_t(a) for a in w[2:]], cuda)
     xc = x.to(cuda)
     if n_lut and n_dsp:
-        args = (sw.planes, sw.packed, sw.scale, bits, n_lut, n_dsp)
+        args = (sw.lut_words, sw.dsp_words, sw.scale, bits, n_lut, n_dsp)
         assert torch.equal(fused_hetero_gemm(xc, *args),
                            fused_hetero_gemm_plain(xc, *args))
     if n_lut:
@@ -479,7 +492,7 @@ def test_single_path_kernels_every_bits_on_card(cuda, bits, m, k):
 @pytest.mark.parametrize("c_in", [3, 48, 64])
 @pytest.mark.parametrize("kernel,stride,pad", CONV_GEOMS)
 def test_conv_kernel_matches_plain_on_card(cuda, kernel, stride, pad, c_in):
-    """C=3 takes the kernel's scalar gather; C=48 and C=64 (C % 16 == 0)
+    """C=3 takes the kernel's byte gather; C=48 and C=64 (C % 16 == 0)
     its 16-byte cp.async gather with zero fill at the padding."""
     in_hw, bits = 11, 5
     out_hw = (in_hw + 2 * pad - kernel) // stride + 1
@@ -489,7 +502,7 @@ def test_conv_kernel_matches_plain_on_card(cuda, kernel, stride, pad, c_in):
     w = _split_weights(rng, kernel * kernel * c_in, 16, 23, bits)
     sw = ops.prepare_split(kernel * kernel * c_in, *[_t(a) for a in w[:2]],
                            bits, *[_t(a) for a in w[2:]], cuda)
-    args = (sw.planes, sw.packed, sw.scale, bits, 16, 23, kernel, stride,
-            pad, out_hw)
+    args = (sw.lut_words, sw.dsp_words, sw.scale, bits, 16, 23, kernel,
+            stride, pad, out_hw)
     assert torch.equal(fused_conv_gemm(x, *args),
                        fused_conv_gemm_plain(x, *args))
